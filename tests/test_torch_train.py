@@ -1,0 +1,173 @@
+"""Port: one train step against the JAX step from copied parameters, a tiny
+train() on the CPU, the unported configurations, and the import rule (the
+port never imports JAX or the JAX package)."""
+
+import ast
+import dataclasses
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_for_angiography_tpu.data import DatagenConfig as DatagenConfigJ
+from nerf_for_angiography_tpu.data import generate_dataset as generate_dataset_j
+from nerf_for_angiography_tpu.data import make_sphere_volume as make_sphere_volume_j
+from nerf_for_angiography_tpu.ops.sampling import RayDataset as RayDatasetJ
+from nerf_for_angiography_tpu.training import TrainConfig as TrainConfigJ
+from nerf_for_angiography_tpu.training import TrainResult as TrainResultJ
+from nerf_for_angiography_tpu.training import create_train_state as create_train_state_j
+from nerf_for_angiography_tpu.training import make_train_step as make_train_step_j
+from nerf_for_angiography_tpu.training import render_rays as render_rays_j
+from nerf_for_angiography_tpu_torch.convert import cppn_params_from_jax
+from nerf_for_angiography_tpu_torch.data import DatagenConfig, generate_dataset, make_vessel_volume
+from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
+from nerf_for_angiography_tpu_torch.ops.sampling import RayDataset
+from nerf_for_angiography_tpu_torch.training import (
+    TrainConfig,
+    TrainResult,
+    create_train_state,
+    make_train_step,
+    train,
+)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+NEAR, FAR = 1400.0, 1600.0
+SMALL = dict(
+    compact_samples=0, sample_size=8, depth_samples_per_ray=32, grid_resolution=16,
+    num_layers=2, num_hidden_units=32, sampling_strategy="random", coarse_lr=1e-3,
+)
+
+
+@pytest.fixture(scope="module")
+def rays64():
+    ds = generate_dataset_j(
+        make_sphere_volume_j(res=32, extent=75.0, radius=30.0),
+        DatagenConfigJ(limited_size=90.0, number_angles=1.0, img_width=8, img_height=8,
+                       sample_outside=100.0, stratified_depths=False),
+    )
+    # one 64-ray view: with sample_size 8 the batch is the whole dataset
+    r = jax.tree.map(lambda a: np.asarray(a)[:64], ds.rays._replace(sampling_table=None))
+    return r
+
+
+def _to_torch(r) -> RayDataset:
+    return RayDataset(*(None if a is None else torch.from_numpy(np.array(a)) for a in r))
+
+
+def test_train_step_matches_jax(rays64):
+    cfg_j = TrainConfigJ(**SMALL, mlp_backend="xla", compute_dtype="bfloat16")
+    model_j, state_j = create_train_state_j(cfg_j, jax.random.PRNGKey(0))
+    params0 = jax.tree.map(np.asarray, state_j.params)
+    rays_j = RayDatasetJ(*(None if a is None else jnp.asarray(a) for a in rays64))
+    step_j = make_train_step_j(model_j, cfg_j, NEAR, FAR)
+    state_j1, metrics_j, _, _ = step_j(state_j, rays_j)
+
+    # the JAX step's gradient, on the grid that step used (updated at step 0)
+    def loss_fn(params):
+        pix, _, _ = render_rays_j(model_j, params, state_j1.grid, rays_j.origins,
+                                  rays_j.directions, cfg_j, NEAR, FAR)
+        return jnp.mean((pix - rays_j.pixel_values) ** 2)
+
+    loss_j, grads_j = jax.value_and_grad(loss_fn)(jax.tree.map(jnp.asarray, params0))
+
+    cfg_t = TrainConfig(**SMALL)  # mlp_backend 'auto': the fused path's plain version
+    model_t, state_t = create_train_state(cfg_t, device="cpu")
+    model_t.load_state_dict(cppn_params_from_jax(params0))
+    step_t = make_train_step(model_t, cfg_t, NEAR, FAR)
+    state_t, metrics_t, _, _ = step_t(state_t, _to_torch(rays64))
+
+    loss_t = float(metrics_t["loss/train-pixel-coarse"])
+    assert loss_t == pytest.approx(float(metrics_j["loss/train-pixel-coarse"]), rel=2e-2)
+    assert loss_t == pytest.approx(float(loss_j), rel=2e-2)
+    np.testing.assert_array_equal(state_t.grid.binary.numpy(), np.asarray(state_j1.grid.binary))
+    np.testing.assert_array_equal(state_t.vessel_grid.binary.numpy(),
+                                  np.asarray(state_j1.vessel_grid.binary))
+    assert state_t.step == int(state_j1.step) == 1
+
+    new_j = cppn_params_from_jax(jax.tree.map(np.asarray, state_j1.params))
+    grads_t = {n: p.grad for n, p in model_t.named_parameters()}
+    for name, g_j in cppn_params_from_jax(jax.tree.map(np.asarray, grads_j)).items():
+        if name in ("img1", "img2"):
+            assert grads_t[name] is None  # unused by the forward, as in flax
+            continue
+        want = g_j.numpy()
+        scale = max(np.abs(want).max(), 1e-12)
+        np.testing.assert_allclose(grads_t[name].numpy() / scale, want / scale, atol=3e-2)
+    for name, p in model_t.state_dict().items():
+        # the first Adam step moves each weight by about +-lr
+        np.testing.assert_allclose(p.numpy(), new_j[name].numpy(), atol=2 * cfg_t.coarse_lr)
+
+
+def test_tiny_train_runs_on_cpu():
+    ds = generate_dataset(
+        make_vessel_volume(res=24),
+        DatagenConfig(limited_size=90.0, number_angles=1.0, img_width=12, img_height=12,
+                      sample_outside=100.0, stratified_depths=False),
+        device="cpu",
+    )
+    cfg = TrainConfig(**{**SMALL, "sampling_strategy": "frangi"}, n_iters=12, display_every=6)
+    fm.reset_counts()
+    res = train(cfg, ds.rays, src_pt_z=1500.0, verbose=False, device="cpu")
+    assert fm.fwd_launches == 0 and fm.bwd_launches == 0
+    assert [f.name for f in dataclasses.fields(TrainResult)] == [
+        f.name for f in dataclasses.fields(TrainResultJ)
+    ]
+    assert set(res.timing) == {
+        "step_dense", "step_compact", "compile", "eval", "choose", "log", "export", "total",
+        "other", "dense_rays", "pressure_fired", "pressure_muted", "decay_bounces",
+        "steady_rays_per_sec", "tuning_final", "steady_phases",
+    }
+    assert res.iters_run == 12 and res.state.step == 13
+    assert np.isfinite(res.best_heldout_psnr) and np.isfinite(res.last_psnr)
+    assert res.timing["dense_rays"] == 13 * cfg.img_sample_size
+
+
+@pytest.mark.parametrize("kw", [
+    dict(compact_samples=16), dict(pos_enc="fourier"), dict(pos_enc="barf"),
+    dict(fused_train_step="on"), dict(fused_train_step="auto"), dict(march_fka="pallas"),
+    dict(pose_refine=True), dict(feature_major_mlp=True),
+])
+def test_unported_train_configs_raise(kw):
+    cfg = TrainConfig(**{**SMALL, **kw})
+    with pytest.raises(NotImplementedError):
+        create_train_state(cfg, device="cpu")
+
+
+def test_log_dir_raises(tmp_path):
+    rays = _to_torch(jax.tree.map(np.asarray, RayDatasetJ(
+        *(np.zeros((4, 3), np.float32),) * 2, *(np.ones(4, np.float32),) * 2,
+        *(np.zeros(4, np.int32),) * 3,
+    )))
+    with pytest.raises(NotImplementedError):
+        train(TrainConfig(**SMALL), rays, 1500.0, log_dir=str(tmp_path), device="cpu")
+
+
+def test_cuda_default_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(TrainConfig(**SMALL))
+
+
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "nerf_for_angiography_tpu")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    [*(ROOT / "nerf_for_angiography_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
