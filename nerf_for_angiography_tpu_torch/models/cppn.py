@@ -47,24 +47,6 @@ class CPPNConfig:
     def use_viewdirs(self) -> bool:
         return self.num_input_channels_views > 0
 
-    def to_model_definition(self) -> dict:
-        return {
-            "num_early_layers": self.num_early_layers,
-            "num_late_layers": self.num_late_layers,
-            "num_filters": self.num_filters,
-            "num_input_channels": self.num_input_channels,
-            "num_input_channels_views": self.num_input_channels_views,
-            "num_output_channels": self.num_output_channels,
-            "use_bias": self.use_bias,
-            "pos_enc": self.pos_enc,
-            "pos_enc_basis": self.pos_enc_basis,
-            "pos_enc_basis_views": self.pos_enc_basis_views,
-            "act_func": self.act_func,
-            "sine_weights": self.sine_w0,
-            "fourier_sigma": self.fourier_sigma,
-            "num_img": self.num_img,
-        }
-
 
 def _check_ported(cfg: CPPNConfig) -> None:
     if cfg.pos_enc != "none":

@@ -98,14 +98,13 @@ def overdraw_select(
 
 
 def overdraw_sample_indices(
-    generator: torch.Generator, table: torch.Tensor, n: int, oversample: float = 1.125,
-    n_values: int | None = None,
+    generator: torch.Generator, table: torch.Tensor, n: int, n_values: int,
+    oversample: float = 1.125,
 ) -> torch.Tensor:
     """Fast approximate weighted sample without replacement of size n:
-    overdraw with replacement through the inverse-CDF table, then dedupe."""
+    overdraw with replacement through the inverse-CDF table, then dedupe
+    (``n_values`` = the number of rays the table maps into)."""
     draws = overdraw_draws(generator, table.shape[0], n, oversample, table.device)
-    if n_values is None:
-        n_values = int(table.max()) + 1
     return overdraw_select(table, draws, n, n_values)
 
 

@@ -32,7 +32,7 @@ class TrainConfig:
     n_iters: int = 500_000
     early_stop_iters: int = 50_000
     display_every: int = 500
-    save_every_factor: int = 100  # save_every = display_every * 100
+    save_every_factor: int = 100  # checkpoint cadence factor (checkpoints slice)
     depth_samples_per_ray: int = 300
     coarse_lr: float = 1e-4
     decay_rate: float = 0.1
@@ -121,10 +121,6 @@ class TrainConfig:
     def img_sample_size(self) -> int:
         return self.sample_size**2
 
-    @property
-    def save_every(self) -> int:
-        return self.display_every * self.save_every_factor
-
     def model_config(self) -> CPPNConfig:
         """The reference's model params dict (run_nerf_acc.py:168-183)."""
         return CPPNConfig(
@@ -144,11 +140,6 @@ class TrainConfig:
             dtype=torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32,
             input_scale=1.0 / self.outside,
         )
-
-    @property
-    def file_name(self) -> str:
-        """Experiment file naming (run_nerf_acc.py:72-79, cathlab branch)."""
-        return "clinical-angles"
 
 
 # the reference-parity protocol knobs the production defaults flip on; one

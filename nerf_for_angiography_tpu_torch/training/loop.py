@@ -88,17 +88,15 @@ def train(
     test_view_index: int | None = None,
     rays_per_view: int | None = None,
     verbose: bool = True,
-    checkpoint_every: int | None = None,
-    initial_state=None,
     device: str | torch.device = "cuda",
 ) -> TrainResult:
     """Train one reconstruction. ``rays`` holds every view's pixels; the
     test view (default: the last) is held out (run_nerf_acc.py:84-86).
     near/far = src_pt_z -+ outside (run_nerf_acc.py:131-134)."""
     check_ported(cfg)
-    if log_dir is not None or checkpoint_every:
+    if log_dir is not None:
         raise NotImplementedError(
-            "log_dir / checkpoints (and VTK export) arrive with the checkpoints/logging slice"
+            "log_dir (checkpoints, logging, VTK export) arrives with the checkpoints/logging slice"
         )
     device = resolve_device(device)
     rays = rays.to(device)
@@ -129,10 +127,7 @@ def train(
         train_rays = train_rays._replace(sampling_table=build_sampling_table(train_rays.weights))
 
     model, state = create_train_state(cfg, num_views=n_views, device=device)
-    if initial_state is not None:
-        state = initial_state
-        model = state.model
-    elif cfg.carve_init:
+    if cfg.carve_init:
         # space-carving grid init from the TRAIN rays only (no test leakage)
         feas = carve_feasible(
             train_rays.origins, train_rays.directions, train_rays.pixel_values,

@@ -107,8 +107,8 @@ def test_every_n_step_pair_exact():
     res = 16
     gj, vj = oj.create_grid(jnp.asarray(AABB), res), oj.create_grid(jnp.asarray(AABB), res)
     gt, vt = ot.create_grid(AABB, res), ot.create_grid(AABB, res)
-    for step in range(14):
-        kw = dict(n=2, ema_decay=0.9, slabs=4, warmup_steps=5)
+    for step in range(10):
+        kw = dict(n=2, ema_decay=0.9, slabs=4, warmup_steps=4)
         gj, vj = oj.every_n_step_pair(gj, vj, jnp.asarray(step), _sigma_j(3.0 * step),
                                       1e-4, 5e-2, **kw)
         gt, vt = ot.every_n_step_pair(gt, vt, step, _sigma_t(3.0 * step), 1e-4, 5e-2, **kw)
