@@ -10,13 +10,15 @@ Phases:
      training path gives it, and timed (CUDA events);
   3. training: 60 dense-lattice steps at full width (4x128 CPPN, 75^2 rays x
      300 samples, two 128^3 grids, carve_init) on the vessel phantom, with
-     the kernels' launch counters read around the run;
+     the kernels' launch counters read around the run, then 16 more steps
+     timed and traced with ``torch.profiler`` (device time by kernel, the
+     device's busy share);
   4. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
 without the package beside this file, it exits non-zero and prints no
-result. Details also go to ``chiprun_out/chip_smoke.json``.
+result. Details also go to ``smoke_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -38,6 +41,9 @@ FWD_SHAPES = (1_687_500, 2_097_152, 524_288, 3_000_000)  # train, grid warmup, g
 TRAIN_P = 1_687_500  # 5625 rays x 300 samples
 FWD_MAX_ABS, FWD_MEDIAN_ABS, GRAD_NORM_MAX = 2e-2, 1e-3, 3e-2
 DX_BAD_SHARE = 1e-5  # at most ~17 of 1,687,500 points
+# a relu pre-activation this close to 0 can change sign between two f32 sum
+# orders once an upstream activation rounds to a neighbouring bf16 value
+RELU_TIE = 1e-3
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -84,6 +90,41 @@ def mlp_flops(p: int, f: int, nh: int) -> tuple[float, float]:
     return fwd, fwd + dw + dh
 
 
+def min_abs_preact(torch, packed, x):
+    """Per point, the smallest |pre-activation| over every relu of the plain
+    forward (same cast points as the kernels)."""
+    h = x.to(torch.bfloat16).float()
+    weights = [packed.w_in[:, :3]] + list(packed.w_hid)
+    dist = torch.full((x.shape[0],), float("inf"), device=x.device)
+    for w, b in zip(weights, packed.bias):
+        z = h @ w.float().T + b
+        dist = torch.minimum(dist, z.abs().amin(dim=1))
+        h = torch.relu(z).to(torch.bfloat16).float()
+    return dist
+
+
+def ptxas_summary(log: str, width: int) -> str:
+    """Registers of each kernel at this width (and of the width-free ones),
+    and any kernel that spills, from nvcc's -Xptxas -v report."""
+    if not log:
+        return "(built earlier in this process)"
+    regs, spills, cur = {}, [], None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            mangled = ln.split("'")[1]
+            short = re.search(r"(fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials)", mangled)
+            width_arg = re.search(r"ILi(\d+)E", mangled)
+            cur = (short.group(1) if short else mangled) + (
+                f"<{width_arg.group(1)}>" if width_arg else "")
+        elif cur and "Used" in ln and "registers" in ln:
+            regs[cur] = ln.split("Used")[1].split("registers")[0].strip()
+        elif cur and "bytes spill stores" in ln:
+            if int(ln.split("bytes spill stores")[0].split(",")[-1]) > 0:
+                spills.append(cur)
+    keep = [f"{k} {v} registers" for k, v in regs.items() if f"<{width}>" in k or "<" not in k]
+    return "; ".join(keep) + f"; spills: {', '.join(spills) or 'none'}"
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -106,9 +147,10 @@ def kernel_phase(torch, fm, report: dict) -> list[dict]:
     f, nh = packed.width, packed.n_hidden
     pbytes = sum(t.numel() * t.element_size() for t in packed)
 
+    t0 = time.perf_counter()
     fm._load_lib()
-    ptx = [ln.strip() for ln in fm.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    print("nvcc ptxas:", " | ".join(ptx))
+    print(f"kernel build {time.perf_counter() - t0:.1f} s; nvcc ptxas:",
+          ptxas_summary(fm.build_log, f))
 
     rows = []
     fwd_row = None
@@ -156,11 +198,16 @@ def kernel_phase(torch, fm, report: dict) -> list[dict]:
         norm_errs.append(d / max(float(b.abs().max()), 1e-30))
     # dx is per point: a relu mask that flips between the two versions (an
     # f32 sum taken in another order rounds to another bf16 activation)
-    # moves that one point's dx, so dx is held by its relative L2 error and
-    # the share of points beyond the limit, not by the single worst point
+    # moves that one point's dx. dx is held to the limit at every point
+    # except such relu ties: a point beyond it must have a pre-activation
+    # within RELU_TIE of 0 in the plain forward, and such points must stay
+    # below DX_BAD_SHARE of all
     ddx = (dx_k - dx_p).abs()
     dx_rel_l2 = float(torch.linalg.norm(dx_k - dx_p) / torch.linalg.norm(dx_p))
-    dx_bad_share = float((ddx > GRAD_NORM_MAX * dx_p.abs().max()).float().mean())
+    bad = (ddx > GRAD_NORM_MAX * dx_p.abs().max()).any(dim=1)
+    dx_bad_share = float(bad.float().mean())
+    tie_dist = min_abs_preact(torch, packed, x[bad])
+    dx_bad_are_ties = bool((tie_dist < RELU_TIE).all())
     deterministic = all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2))
     finite = all(bool(torch.isfinite(t).all()) for t in flat_k)
     k_ms = time_ms(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
@@ -169,18 +216,20 @@ def kernel_phase(torch, fm, report: dict) -> list[dict]:
     b_ms, b_by = bound_ms(mlp_flops(p, f, nh)[1], p * 3 * 4 + p * 4 + p * 3 * 4 + pbytes + grad_bytes)
     print(
         f"fused_mlp_bwd P={p}: max normalised grad err {max(norm_errs[:-1]):.3e} "
-        f"(limit {GRAD_NORM_MAX}); dx max normalised {norm_errs[-1]:.3e}, relative L2 "
-        f"{dx_rel_l2:.3e} (limit {GRAD_NORM_MAX}), share of points beyond the limit "
-        f"{dx_bad_share:.2e} (limit {DX_BAD_SHARE:.0e}); max_abs_err {max(abs_errs):.3e} "
+        f"(limit {GRAD_NORM_MAX}); dx max normalised {norm_errs[-1]:.3e} (limit "
+        f"{GRAD_NORM_MAX} except at relu ties), relative L2 {dx_rel_l2:.3e}, points beyond "
+        f"the limit {int(bad.sum())} = {dx_bad_share:.2e} of all (limit {DX_BAD_SHARE:.0e}), "
+        f"each with a |pre-activation| <= {float(tie_dist.max()) if len(tie_dist) else 0.0:.3e} "
+        f"(a relu tie if < {RELU_TIE}); max_abs_err {max(abs_errs):.3e} "
         f"bit-deterministic {deterministic} kernel_ms {k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
         f"plain_ms {p_ms:.4f} library_ms null (no single PyTorch call computes the MLP chain)"
     )
     report["bwd"] = dict(
         P=p, norm_errs=norm_errs, abs_errs=abs_errs, deterministic=deterministic,
-        dx_rel_l2=dx_rel_l2, dx_bad_share=dx_bad_share,
+        dx_rel_l2=dx_rel_l2, dx_bad_share=dx_bad_share, dx_bad_tie_dist=tie_dist.tolist(),
         kernel_ms=k_ms, bound_ms=b_ms, plain_ms=p_ms,
     )
-    check(finite and max(norm_errs[:-1]) <= GRAD_NORM_MAX and dx_rel_l2 <= GRAD_NORM_MAX
+    check(finite and max(norm_errs[:-1]) <= GRAD_NORM_MAX and dx_bad_are_ties
           and dx_bad_share <= DX_BAD_SHARE,
           "fused_mlp_bwd disagrees with its plain version")
     check(deterministic, "fused_mlp_bwd is not bit-deterministic across two runs")
@@ -255,6 +304,56 @@ def training_phase(torch, fm, report: dict) -> dict:
     check(bwd_n == steps, f"bwd launches {bwd_n} != steps {steps}")
     check(fwd_n >= steps + grid_updates + evals,
           f"fwd launches {fwd_n} < steps + grid updates + evals")
+    out["profile"] = step_profile(torch, res.state, ds.rays, cfg)
+    return out
+
+
+def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
+    """Where a training step's time goes: ``n_steps`` more steps of the
+    trained state (one grid update among them, as in the run), timed on the
+    host clock without the profiler, then traced with ``torch.profiler``
+    for device time by kernel and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
+    from nerf_for_angiography_tpu_torch.training import make_train_step
+
+    rays = rays._replace(sampling_table=build_sampling_table(rays.weights))
+    step = make_train_step(state.model, cfg, 1500.0 - cfg.outside, 1500.0 + cfg.outside)
+
+    def run():
+        for _ in range(n_steps):
+            step(state, rays)
+        torch.cuda.synchronize()
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # kernels and copies only, not the ops above them
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / n_steps, ev.count / n_steps, ev.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    out = dict(wall_ms_per_step=wall_ms, device_ms_per_step=device_ms,
+               busy_share=device_ms / wall_ms if rows else None,
+               top=[dict(ms_per_step=m, calls_per_step=c, name=k[:120]) for m, c, k in rows[:15]])
+    if not rows:
+        print("step profile: the profiler saw no device time (not measured)")
+        return out
+    print(f"step profile ({n_steps} steps): wall {wall_ms:.3f} ms/step without the profiler, "
+          f"device {device_ms:.3f} ms/step, busy share {device_ms / wall_ms:.3f}")
+    for m, c, k in rows[:15]:
+        print(f"  {m:9.4f} ms/step  {c:6.2f} calls/step  {k[:100]}")
     return out
 
 
@@ -288,8 +387,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
+        os.makedirs(os.path.join(HERE, "smoke_out"), exist_ok=True)
+        with open(os.path.join(HERE, "smoke_out", "chip_smoke.json"), "w") as fh:
             json.dump(report, fh, indent=1, default=str)
     rows[0]["launches"] = tr["fwd_launches"]
     rows[1]["launches"] = tr["bwd_launches"]

@@ -16,86 +16,80 @@
 // input/output per point, so every call is compute-bound on the tensor cores
 // (989 TFLOP/s bf16 dense).
 //
-// Design, first version (right before fast):
-//  * point-major tiles of TILE = 64 points x F features, activations held in
-//    shared memory as bf16; each layer is a (64 x K) @ (K x F) product on
-//    nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulators.  Weights are
-//    staged through shared memory one layer at a time (L2-resident).
-//  * The input layer has K = 3: x is padded to 16 columns in shared memory
-//    and W_in arrives padded to 16 rows of which 3..15 are zero, so the
-//    padding contributes exact zeros.
-//  * The ragged edge is masked in the kernel: rows >= P load x = 0 and g = 0
-//    (which makes every gradient contribution of such a row exactly zero) and
-//    are never stored.
-//  * Cross-tile dW reduction without float atomics: a fixed grid of
-//    persistent blocks walks the tiles in a fixed stride; each block owns one
-//    f32 partial slice in global memory and accumulates into it tile by
-//    tile; a second kernel sums the partials in block order.  Results are
-//    bit-deterministic for a given card (the grid follows the SM count).
-//  * Backward holds n_hidden + 1 activation tiles, one dz tile, one staged
-//    weight and an f32 scratch tile: ~178 KB at F = 128, n_hidden = 4, so it
-//    runs on dynamic shared memory above the 48 KB default.
-//  * wgmma, TMA and weight residency across tiles are later work.
+// Design:
+//  * Every weight of the MLP is staged once per block into shared memory in
+//    (out, in) orientation (148 KB at F = 128, n_hidden = 4) and stays there;
+//    one persistent block per SM, 16 warps forward, 8 in the backward chain.
+//  * Each warp owns 16-point tiles and runs the whole layer chain in
+//    registers with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The f32
+//    accumulator of one layer has the register layout of the next layer's
+//    A operand, so bias + relu + bf16 rounding happen in registers and no
+//    activation touches shared memory; B operands come from shared memory by
+//    ldmatrix.  No block-level barrier after the weights are staged.
+//  * The input layer has K = 3: x is placed in a 16-wide A fragment whose
+//    columns 3..15 are zero, and W_in arrives padded to 16 inputs of which
+//    3..15 are zero, so the padding adds exact zeros.
+//  * The ragged edge is masked in the kernel: rows >= P read x = 0 and g = 0
+//    and are never stored.
+//  * Backward (three launches): (1) per tile, recompute the forward, store
+//    each layer's bf16 activation, backpropagate dz through the chain in
+//    registers (the relu mask read back from the activation words this
+//    thread stored), store each layer's bf16 dz and the f32 dx; (2) the
+//    weight gradients dW_l = a_{l-1}^T dz_l as products over the points, one
+//    block per (chunk of points, layer), ldmatrix.trans operands streamed
+//    through a two-stage cp.async ring, db_l from the same product with an
+//    all-ones A operand, dw_out/db_out on the CUDA cores in f32; each block
+//    writes its own f32 partial slice; (3) a kernel sums the partials in
+//    chunk order.
+//    No float atomics: the result is bit-deterministic for a given card (the
+//    chunking follows the SM count).  The activations and dz cost
+//    2 x (n_hidden + 1) x P x F bf16 of device scratch (4.3 GB at the
+//    training shape), allocated by the caller.
+//  * wgmma, TMA and a warp-specialised pipeline are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <algorithm>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TILE = 64;     // points per tile
-constexpr int THREADS = 256; // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int KIN = 16;      // input features (3 coords) padded to one k-step
-constexpr int MAX_F = 128;
+constexpr int KIN = 16;          // input features (3 coords) padded to one k-step
+constexpr int LDIN = KIN + 8;    // shared row stride (bf16) of the staged input weight
+constexpr int FWD_WARPS = 16;    // forward: warps per block (at most 128 registers a thread)
+constexpr int BWD_WARPS = 8;     // backward chain: warps per block (at most 255)
+constexpr int TILE = 16;         // points per warp tile
+constexpr int KB = 64;           // weight gradients: points per pipeline stage
 
-struct Dims {
-  int F, nh;
-  int lda;  // activation tile row stride (bf16 elements)
-  int ldw;  // staged weight row stride (bf16 elements)
-  int lds;  // f32 scratch row stride
+__host__ __device__ constexpr int ldw(int F) { return F + 8; }  // conflict-free ldmatrix rows
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// shared-memory carve-up of the staged weights (forward and backward)
+struct WLayout {
+  size_t w_in, w_hid, bias, w_out, total;
 };
 
-__host__ __device__ inline Dims make_dims(int F, int nh) {
-  Dims d;
-  d.F = F;
-  d.nh = nh;
-  d.lda = F + 8;
-  d.ldw = F + 8;
-  d.lds = F + 4;
-  return d;
-}
-
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-
-// shared-memory carve-up; the same function sizes the launch and indexes it
-struct Smem {
-  size_t xs, acts, dz, w, scratch, bias, wout, g, total;
-};
-
-__host__ __device__ inline Smem smem_layout(const Dims& d, bool bwd) {
-  Smem s;
+__host__ __device__ inline WLayout weight_layout(int F, int nh) {
+  WLayout l;
   size_t off = 0;
-  s.xs = off;      off = align128(off + size_t(TILE) * KIN * sizeof(bf16));
-  s.acts = off;    off = align128(off + size_t(bwd ? d.nh + 1 : 2) * TILE * d.lda * sizeof(bf16));
-  s.dz = off;      off = align128(off + (bwd ? size_t(TILE) * d.lda * sizeof(bf16) : 0));
-  s.w = off;       off = align128(off + size_t(d.F > KIN ? d.F : KIN) * d.ldw * sizeof(bf16));
-  s.scratch = off; off = align128(off + size_t(TILE) * d.lds * sizeof(float));
-  s.bias = off;    off = align128(off + size_t(d.nh + 1) * d.F * sizeof(float));
-  s.wout = off;    off = align128(off + size_t(d.F) * sizeof(float));
-  s.g = off;       off = align128(off + size_t(TILE) * sizeof(float));
-  s.total = off;
-  return s;
+  l.w_in = off;  off = align16(off + size_t(F) * LDIN * sizeof(bf16));
+  l.w_hid = off; off = align16(off + size_t(nh) * F * ldw(F) * sizeof(bf16));
+  l.bias = off;  off = align16(off + size_t(nh + 1) * F * sizeof(float));
+  l.w_out = off; off = align16(off + size_t(F) * sizeof(float));
+  l.total = off;
+  return l;
 }
 
-// flat gradient layout, shared by the per-block partials and the result:
+__host__ __device__ inline size_t wgrad_smem(int F) {
+  return 2 * 2 * size_t(KB) * ldw(F) * sizeof(bf16) + 2 * size_t(KB) * sizeof(float);
+}
+
+// flat gradient layout, shared by the per-chunk partials and the result:
 // [dW_in (KIN x F)][dW_hidden (nh x F x F)][db (nh+1 x F)][dw_out (F)][db_out]
+// with every weight gradient in (in, out) orientation
 struct GradLayout {
   size_t w_in, w_hid, b, w_out, b_out, n, stride;
 };
@@ -108,112 +102,12 @@ __host__ __device__ inline GradLayout grad_layout(int F, int nh) {
   l.w_out = l.b + size_t(nh + 1) * F;
   l.b_out = l.w_out + F;
   l.n = l.b_out + 1;
-  l.stride = (l.n + 63) & ~size_t(63);  // keeps every block's slice 256-byte aligned
+  l.stride = (l.n + 63) & ~size_t(63);  // keeps every chunk's slice 256-byte aligned
   return l;
 }
 
-// copy a (rows x F) bf16 row-major matrix from global into shared memory
-__device__ void stage_weight(bf16* dst, int ldw, const bf16* src, int rows, int F) {
-  const int vec = F / 8;  // 8 bf16 per 16-byte vector
-  for (int i = threadIdx.x; i < rows * vec; i += THREADS) {
-    int r = i / vec, c = i % vec;
-    *reinterpret_cast<uint4*>(dst + r * ldw + c * 8) =
-        *reinterpret_cast<const uint4*>(src + size_t(r) * F + c * 8);
-  }
-}
-
-// x rows [p0, p0 + TILE) -> bf16 (TILE x KIN), zero-padded columns and rows
-__device__ void load_x(bf16* xs, const float* x, long long p0, long long P) {
-  for (int i = threadIdx.x; i < TILE * KIN; i += THREADS) {
-    int p = i / KIN, c = i % KIN;
-    long long gp = p0 + p;
-    float v = (c < 3 && gp < P) ? x[gp * 3 + c] : 0.0f;
-    xs[i] = __float2bfloat16_rn(v);
-  }
-}
-
-// S (TILE x N, f32) = A (TILE x K, bf16 row-major) @ B (K x N, bf16).
-// B is row-major (B[k][n] at k*ldb + n) or, with BLayout = col_major, the
-// transpose of a row-major (N x K) matrix (B[k][n] at n*ldb + k).
-// Warp w owns row block w % 4 and column blocks w / 4, w / 4 + 2, ...
-template <typename BLayout>
-__device__ void mm_tile(const bf16* A, int lda, const bf16* B, int ldb, int K, int N,
-                        float* S, int lds) {
-  const int warp = threadIdx.x / 32;
-  const int rb = warp & 3;
-  const int nb = N / 16;
-  const int c0 = warp >> 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAX_F / 32];
-#pragma unroll
-  for (int j = 0; j < MAX_F / 32; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + rb * 16 * lda + k, lda);
-#pragma unroll
-    for (int j = 0; j < MAX_F / 32; ++j) {
-      const int cb = c0 + 2 * j;
-      if (cb < nb) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        const bf16* pb = std::is_same<BLayout, wmma::row_major>::value
-                             ? B + k * ldb + cb * 16
-                             : B + cb * 16 * ldb + k;
-        wmma::load_matrix_sync(b, pb, ldb);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < MAX_F / 32; ++j) {
-    const int cb = c0 + 2 * j;
-    if (cb < nb)
-      wmma::store_matrix_sync(S + rb * 16 * lds + cb * 16, acc[j], lds, wmma::mem_row_major);
-  }
-}
-
-// G (M x N, f32, global row-major) += A^T @ B over the tile's points, with
-// A (TILE x M) and B (TILE x N) bf16 row-major in shared memory.
-__device__ void wgrad_acc(const bf16* A, int lda, int M, const bf16* B, int ldb, int N,
-                          float* G) {
-  const int warp = threadIdx.x / 32;
-  const int mb = M / 16, nb = N / 16;
-  for (int f = warp; f < mb * nb; f += WARPS) {
-    const int i = f / nb, j = f % nb;
-    float* pg = G + size_t(i) * 16 * N + j * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, pg, N, wmma::mem_row_major);
-#pragma unroll
-    for (int k = 0; k < TILE; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, A + k * lda + i * 16, lda);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, B + k * ldb + j * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(pg, acc, N, wmma::mem_row_major);
-  }
-}
-
-// act = bf16(relu(S + bias)), f32 epilogue
-__device__ void bias_relu(bf16* act, int lda, const float* S, int lds, const float* bias, int F) {
-  for (int i = threadIdx.x; i < TILE * F; i += THREADS) {
-    int p = i / F, f = i % F;
-    act[p * lda + f] = __float2bfloat16_rn(fmaxf(S[p * lds + f] + bias[f], 0.0f));
-  }
-}
-
-// one layer: out = bf16(relu(in @ W + b)), W (K x F) staged from global
-__device__ void layer(bf16* out, const bf16* in, int ldin, int K, const bf16* Wg, const float* bias,
-                      bf16* wsm, float* scratch, const Dims& d) {
-  __syncthreads();  // previous readers of wsm / scratch are done
-  stage_weight(wsm, d.ldw, Wg, K, d.F);
-  __syncthreads();
-  mm_tile<wmma::row_major>(in, ldin, wsm, d.ldw, K, d.F, scratch, d.lds);
-  __syncthreads();
-  bias_relu(out, d.lda, scratch, d.lds, bias, d.F);
-}
-
-// params shared by both kernels; w_in is (KIN x F) with rows 3..15 zero,
-// w_hid is (nh x F x F) in (in, out) orientation, bias is (nh+1 x F)
+// w_in (F, KIN) with inputs 3..15 zero and w_hid (nh, F, F), both bf16 in
+// (out, in) orientation; bias (nh+1, F), w_out (F,), b_out (1,) f32
 struct Params {
   const bf16* w_in;
   const bf16* w_hid;
@@ -222,214 +116,547 @@ struct Params {
   const float* b_out;
 };
 
-__device__ void load_small(float* bias_s, float* wout_s, const Params& prm, const Dims& d) {
-  for (int i = threadIdx.x; i < (d.nh + 1) * d.F; i += THREADS) bias_s[i] = prm.bias[i];
-  for (int i = threadIdx.x; i < d.F; i += THREADS) wout_s[i] = prm.w_out[i];
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ x, long long P, Params prm, int F, int nh,
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) @ b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// two floats -> one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// ---------------------------------------------------------------------------
+// warp-level pieces.  Fragment layouts of m16n8k16 (g = lane / 4,
+// t = lane % 4): A register q holds row g + 8 * (q & 1), columns
+// 8 * (q >> 1) + 2t, +1; C register pair (0,1) holds row g, (2,3) row g + 8,
+// columns 2t, 2t+1.  So C n-tiles 2j, 2j+1 are the A fragment of k-step j.
+// ---------------------------------------------------------------------------
+
+// acc (16 x 8NT) = A (16 x 16KT, fragments) @ W^T, W (rows = out, cols = in)
+// in shared memory with row stride ld
+template <int KT, int NT>
+__device__ __forceinline__ void warp_mm(float (&acc)[NT][4], const uint32_t (&a)[KT][4],
+                                        const bf16* w, int ld) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, w + (np * 16 + (mi >> 1) * 8 + r) * ld + kt * 16 + (mi & 1) * 8);
+      mma(acc[2 * np], a[kt], b[0], b[1]);
+      mma(acc[2 * np + 1], a[kt], b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 8NT) = A (16 x 16KT, fragments) @ W, W as in warp_mm (the
+// backward product through a layer: K runs over W's rows)
+template <int KT, int NT>
+__device__ __forceinline__ void warp_mm_t(float (&acc)[NT][4], const uint32_t (&a)[KT][4],
+                                          const bf16* w, int ld) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, w + (kt * 16 + (mi & 1) * 8 + r) * ld + np * 16 + (mi >> 1) * 8);
+      mma(acc[2 * np], a[kt], b[0], b[1]);
+      mma(acc[2 * np + 1], a[kt], b[2], b[3]);
+    }
+  }
+}
+
+// a = bf16(relu(acc + bias)), f32 epilogue, into A-fragment registers
+template <int F>
+__device__ __forceinline__ void bias_relu_pack(uint32_t (&a)[F / 16][4],
+                                               const float (&acc)[F / 8][4],
+                                               const float* bias) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < F / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    const float b0 = bias[c], b1 = bias[c + 1];
+    a[nt >> 1][(nt & 1) * 2] = pack2(fmaxf(acc[nt][0] + b0, 0.0f), fmaxf(acc[nt][1] + b1, 0.0f));
+    a[nt >> 1][(nt & 1) * 2 + 1] =
+        pack2(fmaxf(acc[nt][2] + b0, 0.0f), fmaxf(acc[nt][3] + b1, 0.0f));
+  }
+}
+
+// store a tile's A fragments to a (P x F) bf16 row-major array, rows < P
+template <int F>
+__device__ __forceinline__ void store_frag(bf16* dst, const uint32_t (&a)[F / 16][4],
+                                           long long p0, long long P) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long r0 = p0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int kt = 0; kt < F / 16; ++kt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = kt * 16 + h * 8 + 2 * t;
+      if (r0 < P) *reinterpret_cast<uint32_t*>(dst + r0 * F + c) = a[kt][h * 2];
+      if (r1 < P) *reinterpret_cast<uint32_t*>(dst + r1 * F + c) = a[kt][h * 2 + 1];
+    }
+  }
+}
+
+__device__ void stage_weights(unsigned char* smem, const WLayout& L, const Params& prm, int F,
+                              int nh) {
+  bf16* win = reinterpret_cast<bf16*>(smem + L.w_in);
+  for (int i = threadIdx.x; i < F * 2; i += blockDim.x) {
+    const int r = i >> 1, c = (i & 1) * 8;
+    *reinterpret_cast<uint4*>(win + r * LDIN + c) =
+        *reinterpret_cast<const uint4*>(prm.w_in + r * KIN + c);
+  }
+  bf16* wh = reinterpret_cast<bf16*>(smem + L.w_hid);
+  const int vec = F / 8;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < nh * F * vec; i += blockDim.x) {
+    const int r = i / vec, c = (i % vec) * 8;
+    *reinterpret_cast<uint4*>(wh + size_t(r) * ldw(F) + c) =
+        *reinterpret_cast<const uint4*>(prm.w_hid + size_t(r) * F + c);
+  }
+  float* b = reinterpret_cast<float*>(smem + L.bias);
+  for (int i = threadIdx.x; i < (nh + 1) * F; i += blockDim.x) b[i] = prm.bias[i];
+  float* wo = reinterpret_cast<float*>(smem + L.w_out);
+  for (int i = threadIdx.x; i < F; i += blockDim.x) wo[i] = prm.w_out[i];
+}
+
+// the forward chain of one 16-point tile; a ends as the last activation.
+// With acts != nullptr every layer's activation is stored to acts[l]
+// (P x F bf16).
+template <int F>
+__device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const float* x,
+                                             long long p0, long long P,
+                                             const unsigned char* smem, const WLayout& L,
+                                             int nh, bf16* acts) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long r0 = p0 + g, r1 = r0 + 8;
+  // A fragment of x: thread t = 0 holds columns 0, 1; t = 1 holds 2 (and a zero 3)
+  float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f, v3 = 0.0f;
+  if (t < 2) {
+    if (r0 < P) {
+      v0 = x[r0 * 3 + 2 * t];
+      if (t == 0) v1 = x[r0 * 3 + 1];
+    }
+    if (r1 < P) {
+      v2 = x[r1 * 3 + 2 * t];
+      if (t == 0) v3 = x[r1 * 3 + 1];
+    }
+  }
+  uint32_t ax[1][4] = {{pack2(v0, v1), pack2(v2, v3), 0u, 0u}};
+  const float* bias = reinterpret_cast<const float*>(smem + L.bias);
+  float acc[F / 8][4];
+  warp_mm<1, F / 8>(acc, ax, reinterpret_cast<const bf16*>(smem + L.w_in), LDIN);
+  bias_relu_pack<F>(a, acc, bias);
+  if (acts) store_frag<F>(acts, a, p0, P);
+  const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
+  for (int l = 0; l < nh; ++l) {
+    warp_mm<F / 16, F / 8>(acc, a, wh + size_t(l) * F * ldw(F), ldw(F));
+    bias_relu_pack<F>(a, acc, bias + (l + 1) * F);
+    if (acts) store_frag<F>(acts + size_t(l + 1) * P * F, a, p0, P);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernels
+// ---------------------------------------------------------------------------
+
+template <int F>
+__global__ void __launch_bounds__(FWD_WARPS * 32, 1)
+fwd_kernel(const float* __restrict__ x, long long P, Params prm, int nh,
            float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims d = make_dims(F, nh);
-  const Smem L = smem_layout(d, false);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* act0 = reinterpret_cast<bf16*>(smem + L.acts);
-  bf16* act1 = act0 + TILE * d.lda;
-  bf16* wsm = reinterpret_cast<bf16*>(smem + L.w);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
-  float* wout_s = reinterpret_cast<float*>(smem + L.wout);
-  load_small(bias_s, wout_s, prm, d);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WLayout L = weight_layout(F, nh);
+  stage_weights(smem, L, prm, F, nh);
+  __syncthreads();
   const float b_out = prm.b_out[0];
-
+  const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long n_tiles = (P + TILE - 1) / TILE;
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long p0 = t * TILE;
-    __syncthreads();  // previous tile's head has read act
-    load_x(xs, x, p0, P);
-    layer(act0, xs, KIN, KIN, prm.w_in, bias_s, wsm, scratch, d);
-    bf16* h = act0;
-    bf16* h_next = act1;
-    for (int l = 0; l < nh; ++l) {
-      __syncthreads();
-      layer(h_next, h, d.lda, F, prm.w_hid + size_t(l) * F * F, bias_s + (l + 1) * F, wsm,
-            scratch, d);
-      bf16* tmp = h; h = h_next; h_next = tmp;
+  for (long long tile = (long long)blockIdx.x * FWD_WARPS + warp; tile < n_tiles;
+       tile += (long long)gridDim.x * FWD_WARPS) {
+    const long long p0 = tile * TILE;
+    uint32_t a[F / 16][4];
+    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr);
+    // head: f32 products of the bf16 activation with w_out, summed over
+    // this thread's columns and then across the four threads of a row
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < F / 16; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = kt * 16 + h * 8 + 2 * t;
+        const float2 u0 = unpack2(a[kt][h * 2]), u1 = unpack2(a[kt][h * 2 + 1]);
+        s0 += u0.x * wo[c] + u0.y * wo[c + 1];
+        s1 += u1.x * wo[c] + u1.y * wo[c + 1];
+      }
     }
-    __syncthreads();
-    // head: 4 threads per point, f32 products of the bf16 activations
-    const int p = threadIdx.x >> 2, part = threadIdx.x & 3;
-    float s = 0.0f;
-    for (int f = part; f < F; f += 4) s += __bfloat162float(h[p * d.lda + f]) * wout_s[f];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0 && p0 + p < P) out[p0 + p] = s + b_out;
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (t == 0) {
+      if (p0 + g < P) out[p0 + g] = s0 + b_out;
+      if (p0 + g + 8 < P) out[p0 + g + 8] = s1 + b_out;
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, long long P, Params prm,
-           int F, int nh, float* __restrict__ partials, float* __restrict__ dx) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims d = make_dims(F, nh);
-  const Smem L = smem_layout(d, true);
-  const GradLayout GL = grad_layout(F, nh);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* acts = reinterpret_cast<bf16*>(smem + L.acts);
-  bf16* dz = reinterpret_cast<bf16*>(smem + L.dz);
-  bf16* wsm = reinterpret_cast<bf16*>(smem + L.w);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
-  float* wout_s = reinterpret_cast<float*>(smem + L.wout);
-  float* g_s = reinterpret_cast<float*>(smem + L.g);
-  float* part = partials + size_t(blockIdx.x) * GL.stride;
-  const int tile_elems = TILE * d.lda;
-
-  load_small(bias_s, wout_s, prm, d);
-  for (size_t i = threadIdx.x; i < GL.stride; i += THREADS) part[i] = 0.0f;
-
+// backward, part 1: recompute, store activations, backpropagate dz, dx
+template <int F>
+__global__ void __launch_bounds__(BWD_WARPS * 32, 1)
+bwd_chain_kernel(const float* __restrict__ x, const float* __restrict__ gr, long long P,
+                 Params prm, int nh, bf16* __restrict__ acts, bf16* __restrict__ dzs,
+                 float* __restrict__ dx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WLayout L = weight_layout(F, nh);
+  stage_weights(smem, L, prm, F, nh);
+  __syncthreads();
+  const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
+  const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long n_tiles = (P + TILE - 1) / TILE;
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long p0 = t * TILE;
-    __syncthreads();
-    load_x(xs, x, p0, P);
-    for (int i = threadIdx.x; i < TILE; i += THREADS)
-      g_s[i] = (p0 + i < P) ? g[p0 + i] : 0.0f;
+  for (long long tile = (long long)blockIdx.x * BWD_WARPS + warp; tile < n_tiles;
+       tile += (long long)gridDim.x * BWD_WARPS) {
+    const long long p0 = tile * TILE;
+    const long long r0 = p0 + g, r1 = r0 + 8;
+    uint32_t a[F / 16][4];
+    warp_forward<F>(a, x, p0, P, smem, L, nh, acts);
 
-    // recompute the forward: acts[0] .. acts[nh], same device code as fwd
-    layer(acts, xs, KIN, KIN, prm.w_in, bias_s, wsm, scratch, d);
-    for (int l = 0; l < nh; ++l) {
-      __syncthreads();
-      layer(acts + (l + 1) * tile_elems, acts + l * tile_elems, d.lda, F,
-            prm.w_hid + size_t(l) * F * F, bias_s + (l + 1) * F, wsm, scratch, d);
-    }
-    __syncthreads();
-
-    // head: dw_out += act_L^T g, db_out += sum g, dh = bf16(w_out * g)
-    const bf16* act_last = acts + nh * tile_elems;
-    if (threadIdx.x < F) {
-      const int f = threadIdx.x;
-      float s = 0.0f;
-      for (int p = 0; p < TILE; ++p) s += __bfloat162float(act_last[p * d.lda + f]) * g_s[p];
-      part[GL.w_out + f] += s;
-    } else if (threadIdx.x == F) {
-      float s = 0.0f;
-      for (int p = 0; p < TILE; ++p) s += g_s[p];
-      part[GL.b_out] += s;
-    }
-    for (int i = threadIdx.x; i < TILE * F; i += THREADS) {
-      int p = i / F, f = i % F;
-      dz[p * d.lda + f] = __float2bfloat16_rn(wout_s[f] * g_s[p]);
-    }
-
-    // hidden layers in reverse; layer li maps acts[li] -> acts[li + 1]
-    for (int li = nh; li >= 0; --li) {
-      const bf16* a_out = acts + li * tile_elems;  // this layer's output
-      __syncthreads();
-      // dz = dh * [a_out > 0], the mask from the recomputed bf16 activation
-      for (int i = threadIdx.x; i < TILE * F; i += THREADS) {
-        int p = i / F, f = i % F;
-        if (!(__bfloat162float(a_out[p * d.lda + f]) > 0.0f))
-          dz[p * d.lda + f] = __float2bfloat16_rn(0.0f);
+    // head: dz = bf16(w_out * g) where the last activation is > 0
+    const float g0 = r0 < P ? gr[r0] : 0.0f, g1 = r1 < P ? gr[r1] : 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < F / 16; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = kt * 16 + h * 8 + 2 * t;
+        const float2 u0 = unpack2(a[kt][h * 2]), u1 = unpack2(a[kt][h * 2 + 1]);
+        a[kt][h * 2] = pack2(u0.x > 0.0f ? wo[c] * g0 : 0.0f, u0.y > 0.0f ? wo[c + 1] * g0 : 0.0f);
+        a[kt][h * 2 + 1] =
+            pack2(u1.x > 0.0f ? wo[c] * g1 : 0.0f, u1.y > 0.0f ? wo[c + 1] * g1 : 0.0f);
       }
-      const bool input_layer = li == 0;
-      const bf16* w_g = input_layer ? prm.w_in : prm.w_hid + size_t(li - 1) * F * F;
-      const int k_in = input_layer ? KIN : F;
-      stage_weight(wsm, d.ldw, w_g, k_in, F);
-      __syncthreads();
-      // db over the tile's points
+    }
+    store_frag<F>(dzs + size_t(nh) * P * F, a, p0, P);
+
+    // hidden layers in reverse: dz_{l-1} = bf16(dz_l @ W_l) where a_{l-1} > 0
+    for (int l = nh; l >= 1; --l) {
+      float acc[F / 8][4];
+      warp_mm_t<F / 16, F / 8>(acc, a, wh + size_t(l - 1) * F * ldw(F), ldw(F));
+      const bf16* al = acts + size_t(l - 1) * P * F;
+#pragma unroll
+      for (int nt = 0; nt < F / 8; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        const float2 m0 = unpack2(r0 < P ? *reinterpret_cast<const uint32_t*>(al + r0 * F + c) : 0u);
+        const float2 m1 = unpack2(r1 < P ? *reinterpret_cast<const uint32_t*>(al + r1 * F + c) : 0u);
+        a[nt >> 1][(nt & 1) * 2] =
+            pack2(m0.x > 0.0f ? acc[nt][0] : 0.0f, m0.y > 0.0f ? acc[nt][1] : 0.0f);
+        a[nt >> 1][(nt & 1) * 2 + 1] =
+            pack2(m1.x > 0.0f ? acc[nt][2] : 0.0f, m1.y > 0.0f ? acc[nt][3] : 0.0f);
+      }
+      store_frag<F>(dzs + size_t(l - 1) * P * F, a, p0, P);
+    }
+
+    // dx = dz_0 @ W_in (f32); columns 0..2 are the coordinates
+    float accx[2][4];
+    warp_mm_t<F / 16, 2>(accx, a, reinterpret_cast<const bf16*>(smem + L.w_in), LDIN);
+    if (t < 2) {
+      if (r0 < P) {
+        dx[r0 * 3 + 2 * t] = accx[0][0];
+        if (t == 0) dx[r0 * 3 + 1] = accx[0][1];
+      }
+      if (r1 < P) {
+        dx[r1 * 3 + 2 * t] = accx[0][2];
+        if (t == 0) dx[r1 * 3 + 1] = accx[0][3];
+      }
+    }
+  }
+}
+
+// backward, part 2: one block per (chunk of points, job).  Job l <= nh:
+// dW_l = A_l^T dz_l (A_0 = bf16(x) padded to 16 columns, A_l = a_{l-1}) and
+// db_l = 1^T dz_l; job nh + 1: dw_out = a_nh^T g, db_out = sum g in f32.
+// Warp w < M/16 owns rows 16w.. of dW_l; the last warp computes db_l.
+template <int F>
+__global__ void __launch_bounds__(32 * (F / 16 + 1))
+wgrad_kernel(const float* __restrict__ x, const float* __restrict__ gr,
+             const bf16* __restrict__ acts, const bf16* __restrict__ dzs, long long P, int nh,
+             long long chunk, float* __restrict__ partials, long long stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int LD = F + 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + 2 * KB * LD;
+  float* gs = reinterpret_cast<float*>(Bs + 2 * KB * LD);
+  const int job = blockIdx.y;
+  const bool head = job == nh + 1;
+  const long long p_lo = (long long)blockIdx.x * chunk;
+  const long long p_hi = p_lo + chunk < P ? p_lo + chunk : P;
+  const int n_k = p_hi > p_lo ? (int)((p_hi - p_lo + KB - 1) / KB) : 0;
+  const bf16* bsrc = head ? acts + size_t(nh) * P * F : dzs + size_t(job) * P * F;
+  const bf16* asrc = (!head && job >= 1) ? acts + size_t(job - 1) * P * F : nullptr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, r = lane & 7;
+  const int m_tiles = job == 0 ? 1 : F / 16;
+  const bool ones_warp = warp == F / 16;
+
+  auto load = [&](int s, long long kb) {
+    constexpr int VEC = F / 8;
+    for (int i = threadIdx.x; i < KB * VEC; i += blockDim.x) {
+      const int row = i / VEC, c = (i % VEC) * 8;
+      const long long p = kb + row;
+      const bool in = p < p_hi;
+      const size_t off = size_t(in ? p : p_lo) * F + c;
+      cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
+      if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
+    }
+    if (!head && job == 0) {
+      for (int i = threadIdx.x; i < KB * KIN; i += blockDim.x) {
+        const int row = i / KIN, c = i % KIN;
+        const long long p = kb + row;
+        As[(s * KB + row) * LD + c] = __float2bfloat16_rn(c < 3 && p < p_hi ? x[p * 3 + c] : 0.0f);
+      }
+    }
+    if (head) {
+      for (int i = threadIdx.x; i < KB; i += blockDim.x) {
+        const long long p = kb + i;
+        gs[s * KB + i] = p < p_hi ? gr[p] : 0.0f;
+      }
+    }
+  };
+
+  float acc[F / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < F / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  float hs = 0.0f;
+
+  if (n_k > 0) load(0, p_lo);
+  cp_async_commit();
+  for (int k = 0; k < n_k; ++k) {
+    const int s = k & 1;
+    if (k + 1 < n_k) load(s ^ 1, p_lo + (long long)(k + 1) * KB);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const bf16* A = As + s * KB * LD;
+    const bf16* B = Bs + s * KB * LD;
+    if (head) {
       if (threadIdx.x < F) {
-        const int f = threadIdx.x;
-        float s = 0.0f;
-        for (int p = 0; p < TILE; ++p) s += __bfloat162float(dz[p * d.lda + f]);
-        part[GL.b + size_t(li) * F + f] += s;
+        for (int p = 0; p < KB; ++p)
+          hs += __bfloat162float(B[p * LD + threadIdx.x]) * gs[s * KB + p];
+      } else if (threadIdx.x == F) {
+        for (int p = 0; p < KB; ++p) hs += gs[s * KB + p];
       }
-      if (input_layer) {
-        wgrad_acc(xs, KIN, KIN, dz, d.lda, F, part + GL.w_in);
-        // dx = dz @ W_in^T (f32), only the 3 coordinate columns are real
-        mm_tile<wmma::col_major>(dz, d.lda, wsm, d.ldw, F, KIN, scratch, d.lds);
-        __syncthreads();
-        for (int i = threadIdx.x; i < TILE * 3; i += THREADS) {
-          int p = i / 3, c = i % 3;
-          if (p0 + p < P) dx[(p0 + p) * 3 + c] = scratch[p * d.lds + c];
+    } else if (warp < m_tiles || ones_warp) {
+#pragma unroll
+      for (int kt = 0; kt < KB / 16; ++kt) {
+        uint32_t af[4];
+        if (ones_warp) {
+          af[0] = af[1] = af[2] = af[3] = 0x3F803F80u;  // bf16 1.0 pairs
+        } else {
+          ldsm_x4_t(af, A + (kt * 16 + (mi >> 1) * 8 + r) * LD + warp * 16 + (mi & 1) * 8);
         }
-      } else {
-        const bf16* a_in = acts + (li - 1) * tile_elems;
-        wgrad_acc(a_in, d.lda, F, dz, d.lda, F, part + GL.w_hid + size_t(li - 1) * F * F);
-        // dh_prev = bf16(dz @ W^T)
-        mm_tile<wmma::col_major>(dz, d.lda, wsm, d.ldw, F, F, scratch, d.lds);
-        __syncthreads();
-        for (int i = threadIdx.x; i < TILE * F; i += THREADS) {
-          int p = i / F, f = i % F;
-          dz[p * d.lda + f] = __float2bfloat16_rn(scratch[p * d.lds + f]);
+#pragma unroll
+        for (int np = 0; np < F / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4_t(b, B + (kt * 16 + (mi & 1) * 8 + r) * LD + np * 16 + (mi >> 1) * 8);
+          mma(acc[2 * np], af, b[0], b[1]);
+          mma(acc[2 * np + 1], af, b[2], b[3]);
         }
       }
+    }
+    __syncthreads();
+  }
+
+  const GradLayout GL = grad_layout(F, nh);
+  float* part = partials + size_t(blockIdx.x) * stride;
+  if (head) {
+    if (threadIdx.x < F) part[GL.w_out + threadIdx.x] = hs;
+    else if (threadIdx.x == F) part[GL.b_out] = hs;
+  } else if (warp < m_tiles) {
+    float* G = part + (job == 0 ? GL.w_in : GL.w_hid + size_t(job - 1) * F * F);
+#pragma unroll
+    for (int nt = 0; nt < F / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      G[(warp * 16 + g) * F + c] = acc[nt][0];
+      G[(warp * 16 + g) * F + c + 1] = acc[nt][1];
+      G[(warp * 16 + g + 8) * F + c] = acc[nt][2];
+      G[(warp * 16 + g + 8) * F + c + 1] = acc[nt][3];
+    }
+  } else if (ones_warp && g == 0) {
+    float* db = part + GL.b + size_t(job) * F;
+#pragma unroll
+    for (int nt = 0; nt < F / 8; ++nt) {
+      db[nt * 8 + 2 * t] = acc[nt][0];
+      db[nt * 8 + 2 * t + 1] = acc[nt][1];
     }
   }
 }
 
-// out[i] = sum over blocks, in block order (deterministic)
-__global__ void reduce_partials(const float* __restrict__ partials, int n_blocks, long long stride,
+// backward, part 3: out[i] = sum over chunks, in chunk order (deterministic)
+__global__ void reduce_partials(const float* __restrict__ partials, int n_chunks, long long stride,
                                 long long n, float* __restrict__ out) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[b * stride + i];
+  for (int b = 0; b < n_chunks; ++b) s += partials[b * stride + i];
   out[i] = s;
 }
 
-bool dims_ok(int F, int nh) { return F >= 16 && F <= MAX_F && F % 16 == 0 && nh >= 0; }
+bool dims_ok(int F, int nh) { return F >= 16 && F <= 128 && F % 16 == 0 && nh >= 0; }
+
+template <int F>
+int launch_fwd(const float* x, long long P, const Params& prm, int nh, float* out, int n_sms,
+               cudaStream_t st) {
+  const long long tiles = (P + TILE - 1) / TILE;
+  const int grid = (int)std::min<long long>((tiles + FWD_WARPS - 1) / FWD_WARPS, n_sms);
+  const size_t smem = weight_layout(F, nh).total;
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fwd_kernel<F><<<grid, FWD_WARPS * 32, smem, st>>>(x, P, prm, nh, out);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch_bwd(const float* x, const float* g, long long P, const Params& prm, int nh, bf16* acts,
+               bf16* dzs, float* dx, int n_sms, float* partials, int n_chunks, long long chunk,
+               float* grads, cudaStream_t st) {
+  const GradLayout GL = grad_layout(F, nh);
+  if (P > 0) {
+    const long long tiles = (P + TILE - 1) / TILE;
+    const int grid = (int)std::min<long long>((tiles + BWD_WARPS - 1) / BWD_WARPS, n_sms);
+    const size_t smem = weight_layout(F, nh).total;
+    cudaError_t e = cudaFuncSetAttribute(bwd_chain_kernel<F>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    bwd_chain_kernel<F><<<grid, BWD_WARPS * 32, smem, st>>>(x, g, P, prm, nh, acts, dzs, dx);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const size_t wsmem = wgrad_smem(F);
+    e = cudaFuncSetAttribute(wgrad_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wsmem);
+    if (e != cudaSuccess) return (int)e;
+    wgrad_kernel<F><<<dim3(n_chunks, nh + 2), 32 * (F / 16 + 1), wsmem, st>>>(
+        x, g, acts, dzs, P, nh, chunk, partials, (long long)GL.stride);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int rt = 256;
+  reduce_partials<<<(unsigned)((GL.n + rt - 1) / rt), rt, 0, st>>>(
+      partials, P > 0 ? n_chunks : 0, (long long)GL.stride, (long long)GL.n, grads);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// dynamic shared memory a launch needs (bytes); 0 for unsupported widths
-long long fused_mlp_smem_bytes(int F, int nh, int bwd) {
+// dynamic shared memory of a forward or backward-chain launch (bytes); 0
+// for unsupported widths
+long long fused_mlp_smem_bytes(int F, int nh) {
   if (!dims_ok(F, nh)) return 0;
-  return (long long)smem_layout(make_dims(F, nh), bwd != 0).total;
+  return (long long)weight_layout(F, nh).total;
 }
 
-// floats per block partial (the partials buffer holds n_blocks of these)
+// floats per chunk partial (the partials buffer holds n_chunks of these)
 long long fused_mlp_partial_stride(int F, int nh) { return (long long)grad_layout(F, nh).stride; }
 
 // floats in the flat gradient
 long long fused_mlp_grad_size(int F, int nh) { return (long long)grad_layout(F, nh).n; }
 
+// points per weight-gradient pipeline stage (chunks are multiples of it)
+int fused_mlp_chunk_quantum(void) { return KB; }
+
 int fused_mlp_fwd(const float* x, long long P, const void* w_in, const void* w_hid,
                   const float* bias, const float* w_out, const float* b_out, int F, int nh,
-                  float* out, int grid, void* stream) {
-  if (!dims_ok(F, nh) || grid <= 0) return (int)cudaErrorInvalidValue;
-  size_t smem = smem_layout(make_dims(F, nh), false).total;
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  Params prm{static_cast<const bf16*>(w_in), static_cast<const bf16*>(w_hid), bias, w_out, b_out};
-  fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(x, P, prm, F, nh, out);
-  return (int)cudaGetLastError();
+                  float* out, int n_sms, void* stream) {
+  if (!dims_ok(F, nh) || n_sms <= 0) return (int)cudaErrorInvalidValue;
+  const Params prm{static_cast<const bf16*>(w_in), static_cast<const bf16*>(w_hid), bias, w_out,
+                   b_out};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 16: return launch_fwd<16>(x, P, prm, nh, out, n_sms, st);
+    case 32: return launch_fwd<32>(x, P, prm, nh, out, n_sms, st);
+    case 48: return launch_fwd<48>(x, P, prm, nh, out, n_sms, st);
+    case 64: return launch_fwd<64>(x, P, prm, nh, out, n_sms, st);
+    case 80: return launch_fwd<80>(x, P, prm, nh, out, n_sms, st);
+    case 96: return launch_fwd<96>(x, P, prm, nh, out, n_sms, st);
+    case 112: return launch_fwd<112>(x, P, prm, nh, out, n_sms, st);
+    case 128: return launch_fwd<128>(x, P, prm, nh, out, n_sms, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
+// acts, dzs: (nh + 1, P, F) bf16 scratch; partials: n_chunks x stride f32;
+// grads: the flat gradient (grad_size floats); dx: (P, 3) f32
 int fused_mlp_bwd(const float* x, const float* g, long long P, const void* w_in,
                   const void* w_hid, const float* bias, const float* w_out, const float* b_out,
-                  int F, int nh, float* partials, int grid, float* grads, float* dx,
-                  void* stream) {
-  if (!dims_ok(F, nh) || grid <= 0) return (int)cudaErrorInvalidValue;
+                  int F, int nh, void* acts, void* dzs, float* partials, int n_chunks,
+                  long long chunk, int n_sms, float* grads, float* dx, void* stream) {
+  if (!dims_ok(F, nh) || (P > 0 && (n_sms <= 0 || n_chunks <= 0 || chunk <= 0 ||
+                                    chunk % KB != 0 || (long long)n_chunks * chunk < P)))
+    return (int)cudaErrorInvalidValue;
+  const Params prm{static_cast<const bf16*>(w_in), static_cast<const bf16*>(w_hid), bias, w_out,
+                   b_out};
+  bf16* a = static_cast<bf16*>(acts);
+  bf16* d = static_cast<bf16*>(dzs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  size_t smem = smem_layout(make_dims(F, nh), true).total;
-  cudaError_t e = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  Params prm{static_cast<const bf16*>(w_in), static_cast<const bf16*>(w_hid), bias, w_out, b_out};
-  bwd_kernel<<<grid, THREADS, smem, st>>>(x, g, P, prm, F, nh, partials, dx);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const GradLayout GL = grad_layout(F, nh);
-  const int rt = 256;
-  reduce_partials<<<(unsigned)((GL.n + rt - 1) / rt), rt, 0, st>>>(partials, grid,
-                                                                   (long long)GL.stride,
-                                                                   (long long)GL.n, grads);
-  return (int)cudaGetLastError();
+#define FUSED_MLP_BWD(FF) \
+  launch_bwd<FF>(x, g, P, prm, nh, a, d, dx, n_sms, partials, n_chunks, chunk, grads, st)
+  switch (F) {
+    case 16: return FUSED_MLP_BWD(16);
+    case 32: return FUSED_MLP_BWD(32);
+    case 48: return FUSED_MLP_BWD(48);
+    case 64: return FUSED_MLP_BWD(64);
+    case 80: return FUSED_MLP_BWD(80);
+    case 96: return FUSED_MLP_BWD(96);
+    case 112: return FUSED_MLP_BWD(112);
+    case 128: return FUSED_MLP_BWD(128);
+  }
+#undef FUSED_MLP_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

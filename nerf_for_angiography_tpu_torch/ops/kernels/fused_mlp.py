@@ -3,8 +3,10 @@ plain PyTorch versions.
 
 Replaces the TPU kernels ``nerf_for_angiography_tpu/ops/pallas/fused_mlp.py``
 ``_fwd_kernel`` (line 142) and ``_bwd_kernel`` (line 160). The CUDA C++
-source is ``csrc/fused_mlp.cu`` (sm_90a, nvcuda::wmma bf16 fragments with
-f32 accumulators); its header states the bound and the design.
+source is ``csrc/fused_mlp.cu`` (sm_90a, mma.sync bf16 with f32
+accumulators, the layer chain in registers); its header states the bound
+and the design. The backward takes 2 x (n_hidden + 1) x P x F bf16 of
+scratch for the activations and dz.
 
 Bound at the flagship shapes (F = 128, n_hidden = 4): 132,096 FLOP per point
 forward and about three times that backward, against 16 bytes of point
@@ -39,7 +41,7 @@ import torch
 fwd_launches = 0
 bwd_launches = 0
 
-_KIN = 16  # input features (3 coords) padded to one wmma k-step
+_KIN = 16  # input features (3 coords) padded to one mma k-step
 _SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_mlp.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _lib = None
@@ -55,9 +57,9 @@ def reset_counts() -> None:
 
 
 class PackedMLP(NamedTuple):
-    """Kernel-side parameter layout (point-major products x @ W):
-    w_in (16, F) bf16 with rows 3..15 zero, w_hid (n_hidden, F, F) bf16 in
-    (in, out) orientation, bias (n_hidden + 1, F) f32, w_out (F,) f32,
+    """Kernel-side parameter layout, weights in (out, in) orientation as
+    nn.Linear holds them: w_in (F, 16) bf16 with inputs 3..15 zero, w_hid
+    (n_hidden, F, F) bf16, bias (n_hidden + 1, F) f32, w_out (F,) f32,
     b_out (1,) f32."""
 
     w_in: torch.Tensor
@@ -68,7 +70,7 @@ class PackedMLP(NamedTuple):
 
     @property
     def width(self) -> int:
-        return self.w_in.shape[1]
+        return self.w_in.shape[0]
 
     @property
     def n_hidden(self) -> int:
@@ -81,10 +83,10 @@ def pack_params(plist) -> PackedMLP:
     (w_in, b_in), *hidden, (w_out, b_out) = plist
     f = w_in.shape[1]
     dev = w_in.device
-    w_in_p = torch.zeros((_KIN, f), dtype=torch.bfloat16, device=dev)
-    w_in_p[:3] = w_in.detach().to(torch.bfloat16)
+    w_in_p = torch.zeros((f, _KIN), dtype=torch.bfloat16, device=dev)
+    w_in_p[:, :3] = w_in.detach().T.to(torch.bfloat16)
     if hidden:
-        w_hid = torch.stack([w.detach() for w, _ in hidden]).to(torch.bfloat16)
+        w_hid = torch.stack([w.detach().T for w, _ in hidden]).to(torch.bfloat16)
     else:
         w_hid = torch.zeros((0, f, f), dtype=torch.bfloat16, device=dev)
     bias = torch.stack(
@@ -111,10 +113,10 @@ def _bf(t: torch.Tensor) -> torch.Tensor:
 def _forward_acts(packed: PackedMLP, x: torch.Tensor):
     """bf16-rounded input (P, 3) and the bf16 activations of every layer."""
     xb = _bf(x)
-    h = torch.relu(xb @ packed.w_in[:3].float() + packed.bias[0])
+    h = torch.relu(xb @ packed.w_in[:, :3].float().T + packed.bias[0])
     acts = [h.to(torch.bfloat16)]
     for li in range(packed.n_hidden):
-        z = acts[-1].float() @ packed.w_hid[li].float() + packed.bias[li + 1]
+        z = acts[-1].float() @ packed.w_hid[li].float().T + packed.bias[li + 1]
         acts.append(torch.relu(z).to(torch.bfloat16))
     return xb, acts
 
@@ -141,11 +143,11 @@ def fused_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor)
         dz = dh * (acts[li + 1].float() > 0).to(torch.bfloat16)
         dzf = dz.float()
         hidden[li] = (acts[li].float().T @ dzf, dzf.sum(0))
-        dh = (dzf @ packed.w_hid[li].float().T).to(torch.bfloat16)
+        dh = (dzf @ packed.w_hid[li].float()).to(torch.bfloat16)
     dzf = (dh * (acts[0].float() > 0).to(torch.bfloat16)).float()
     grads = [(xb.T @ dzf, dzf.sum(0))] + hidden
     grads.append((dw_out.reshape(f, 1), db_out))
-    dx = dzf @ packed.w_in[:3].float().T
+    dx = dzf @ packed.w_in[:, :3].float()
     return grads, dx
 
 
@@ -189,16 +191,15 @@ def _load_lib() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("fused_mlp_smem_bytes",):
-            getattr(lib, name).argtypes = [i32, i32, i32]
-            getattr(lib, name).restype = ll
-        for name in ("fused_mlp_partial_stride", "fused_mlp_grad_size"):
+        for name in ("fused_mlp_smem_bytes", "fused_mlp_partial_stride", "fused_mlp_grad_size"):
             getattr(lib, name).argtypes = [i32, i32]
             getattr(lib, name).restype = ll
         lib.fused_mlp_fwd.argtypes = [vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp]
         lib.fused_mlp_fwd.restype = i32
+        lib.fused_mlp_chunk_quantum.argtypes = []
+        lib.fused_mlp_chunk_quantum.restype = i32
         lib.fused_mlp_bwd.argtypes = [
-            vp, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp, vp, vp,
+            vp, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, i32, ll, i32, vp, vp, vp,
         ]
         lib.fused_mlp_bwd.restype = i32
         _lib = lib
@@ -209,20 +210,20 @@ def _load_lib() -> ctypes.CDLL:
 _MAX_SMEM = 232_448
 
 
-def _check_kernel_inputs(packed: PackedMLP, x: torch.Tensor, lib, bwd: bool) -> None:
+def _check_kernel_inputs(packed: PackedMLP, x: torch.Tensor, lib) -> None:
     f, nh = packed.width, packed.n_hidden
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous (P, 3) float32, got {tuple(x.shape)} {x.dtype}")
     for t in packed:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("packed parameters must be contiguous on x's device")
-    smem = lib.fused_mlp_smem_bytes(f, nh, int(bwd))
+    smem = lib.fused_mlp_smem_bytes(f, nh)
     if smem == 0:
         raise ValueError(f"fused-MLP kernel needs 16 <= F <= 128, F % 16 == 0; got F={f}")
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"fused-MLP {'backward' if bwd else 'forward'} needs {smem} B of shared "
-            f"memory at F={f}, n_hidden={nh} (Hopper allows {_MAX_SMEM})"
+            f"fused-MLP kernels keep every weight in shared memory: {smem} B at F={f}, "
+            f"n_hidden={nh} (Hopper allows {_MAX_SMEM})"
         )
 
 
@@ -239,18 +240,16 @@ def fused_mlp_fwd_cuda(packed: PackedMLP, x: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: x (P, 3) f32 on the card -> (P,) f32."""
     global fwd_launches
     lib = _load_lib()
-    _check_kernel_inputs(packed, x, lib, bwd=False)
+    _check_kernel_inputs(packed, x, lib)
     p = x.shape[0]
     out = torch.empty((p,), dtype=torch.float32, device=x.device)
     if p == 0:
         return out
-    tiles = -(-p // 64)
-    grid = min(tiles, 2 * _num_sms(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.fused_mlp_fwd(
         x.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        packed.width, packed.n_hidden, out.data_ptr(), grid, stream,
+        packed.width, packed.n_hidden, out.data_ptr(), _num_sms(x.device), stream,
     )
     _raise_on(code, "fused_mlp forward")
     fwd_launches += 1
@@ -261,23 +260,31 @@ def fused_mlp_bwd_cuda(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
     """Launch the backward kernel (+ its fixed-order partial reduction)."""
     global bwd_launches
     lib = _load_lib()
-    _check_kernel_inputs(packed, x, lib, bwd=True)
+    _check_kernel_inputs(packed, x, lib)
     p = x.shape[0]
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError("g must be contiguous (P,) float32")
     f, nh = packed.width, packed.n_hidden
+    dev = x.device
     n = lib.fused_mlp_grad_size(f, nh)
     stride = lib.fused_mlp_partial_stride(f, nh)
-    tiles = max(1, -(-p // 64))
-    grid = min(tiles, _num_sms(x.device))
-    partials = torch.empty((grid * stride,), dtype=torch.float32, device=x.device)
-    flat = torch.empty((n,), dtype=torch.float32, device=x.device)
-    dx = torch.empty((p, 3), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # weight-gradient chunks: about one per SM, each a multiple of the
+    # kernel's pipeline stage
+    quantum = lib.fused_mlp_chunk_quantum()
+    chunk = max(1, -(-p // (_num_sms(dev) * quantum))) * quantum
+    n_chunks = -(-p // chunk)
+    # scratch: every layer's bf16 activation and dz, and the chunk partials
+    acts = torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev)
+    dzs = torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev)
+    partials = torch.empty((max(n_chunks, 1) * stride,), dtype=torch.float32, device=dev)
+    flat = torch.empty((n,), dtype=torch.float32, device=dev)
+    dx = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fused_mlp_bwd(
         x.data_ptr(), g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        f, nh, partials.data_ptr(), grid, flat.data_ptr(), dx.data_ptr(), stream,
+        f, nh, acts.data_ptr(), dzs.data_ptr(), partials.data_ptr(), n_chunks, chunk,
+        _num_sms(dev), flat.data_ptr(), dx.data_ptr(), stream,
     )
     _raise_on(code, "fused_mlp backward")
     bwd_launches += 1

@@ -80,6 +80,13 @@ def test_unsupported_width_raises(dev):
         fm.fused_mlp_fwd_cuda(packed, torch.zeros((10, 3), device=dev))
 
 
+def test_weights_beyond_shared_memory_raise(dev):
+    # every weight stays in shared memory: 7 hidden 128-wide layers do not fit
+    _, packed = _packed(7, 128, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mlp_fwd_cuda(packed, torch.zeros((10, 3), device=dev))
+
+
 def test_train_step_on_card(dev):
     from nerf_for_angiography_tpu_torch.data import (
         DatagenConfig, generate_dataset, make_sphere_volume,

@@ -10,6 +10,7 @@ from nerf_for_angiography_tpu.data import DatagenConfig as DatagenConfigJ
 from nerf_for_angiography_tpu.data import generate_dataset as generate_dataset_j
 from nerf_for_angiography_tpu.data import make_vessel_volume as make_vessel_volume_j
 from nerf_for_angiography_tpu.data.drr import render_drr as render_drr_j
+from nerf_for_angiography_tpu.data.drr import render_view as render_view_j
 from nerf_for_angiography_tpu.data.weights import get_weighted_img as weighted_j
 from nerf_for_angiography_tpu.geometry import get_ray_values as get_ray_values_j
 from nerf_for_angiography_tpu.geometry import linspace_depths as linspace_j
@@ -21,6 +22,7 @@ from nerf_for_angiography_tpu_torch.data import (
     make_sphere_volume,
     make_vessel_volume,
     render_drr,
+    render_view,
 )
 from nerf_for_angiography_tpu_torch.geometry import get_ray_values, linspace_depths
 
@@ -49,6 +51,18 @@ def test_render_drr_close():
     got = render_drr(vol_t, ot, dt, zt).numpy()
     assert got.min() < 0.99  # the vessels attenuate
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_render_view_close():
+    vol_j = make_vessel_volume_j(res=32)
+    vol_t = make_vessel_volume(res=32)
+    zj = linspace_j(1400.0, 1600.0, 100)
+    zt = linspace_depths(1400.0, 1600.0, 100)
+    args = (120.0, 20.0, 5.0, SRC, 16, 12, 1300.0)
+    want = render_view_j(vol_j, *args, zj, translation=(2.0, -1.0, 0.5))
+    got = render_view(vol_t, *args, zt, translation=(2.0, -1.0, 0.5))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("strategy", ["frangi", "segmentation"])
