@@ -33,8 +33,9 @@
 //    and are never stored.
 //  * Backward (three launches): (1) per tile, recompute the forward, store
 //    each layer's bf16 activation, backpropagate dz through the chain in
-//    registers (the relu mask read back from the activation words this
-//    thread stored), store each layer's bf16 dz and the f32 dx; (2) the
+//    registers (each lane keeps its relu masks as 64 bits a layer in its
+//    warp's slot of device scratch, which stays in cache), store each
+//    layer's bf16 dz and the f32 dx; (2) the
 //    weight gradients dW_l = a_{l-1}^T dz_l as products over the points, one
 //    block per (chunk of points, layer), ldmatrix.trans operands streamed
 //    through a two-stage cp.async ring, db_l from the same product with an
@@ -264,14 +265,34 @@ __device__ void stage_weights(unsigned char* smem, const WLayout& L, const Param
   for (int i = threadIdx.x; i < F; i += blockDim.x) wo[i] = prm.w_out[i];
 }
 
+// this lane's relu mask of a layer: bit 4 nt + e is set where element e of
+// C n-tile nt (e = 0, 1: row g, columns 2t, 2t+1; e = 2, 3: row g + 8) of
+// the bf16 activation is > 0
+template <int F>
+__device__ __forceinline__ uint2 relu_mask(const uint32_t (&a)[F / 16][4]) {
+  uint32_t w0 = 0u, w1 = 0u;
+#pragma unroll
+  for (int nt = 0; nt < F / 8; ++nt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 v = unpack2(a[nt >> 1][(nt & 1) * 2 + half]);
+      const uint32_t bits = (v.x > 0.0f ? 1u : 0u) | (v.y > 0.0f ? 2u : 0u);
+      const int b = 4 * nt + 2 * half;
+      if (b < 32) w0 |= bits << b;
+      else w1 |= bits << (b - 32);
+    }
+  }
+  return make_uint2(w0, w1);
+}
+
 // the forward chain of one 16-point tile; a ends as the last activation.
 // With acts != nullptr every layer's activation is stored to acts[l]
-// (P x F bf16).
+// (P x F bf16) and this lane's relu mask of it to masks[32 l].
 template <int F>
 __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const float* x,
                                              long long p0, long long P,
                                              const unsigned char* smem, const WLayout& L,
-                                             int nh, bf16* acts) {
+                                             int nh, bf16* acts, uint2* masks) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long r0 = p0 + g, r1 = r0 + 8;
   // A fragment of x: thread t = 0 holds columns 0, 1; t = 1 holds 2 (and a zero 3)
@@ -291,12 +312,18 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const flo
   float acc[F / 8][4];
   warp_mm<1, F / 8>(acc, ax, reinterpret_cast<const bf16*>(smem + L.w_in), LDIN);
   bias_relu_pack<F>(a, acc, bias);
-  if (acts) store_frag<F>(acts, a, p0, P);
+  if (acts) {
+    store_frag<F>(acts, a, p0, P);
+    masks[0] = relu_mask<F>(a);
+  }
   const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
   for (int l = 0; l < nh; ++l) {
     warp_mm<F / 16, F / 8>(acc, a, wh + size_t(l) * F * ldw(F), ldw(F));
     bias_relu_pack<F>(a, acc, bias + (l + 1) * F);
-    if (acts) store_frag<F>(acts + size_t(l + 1) * P * F, a, p0, P);
+    if (acts) {
+      store_frag<F>(acts + size_t(l + 1) * P * F, a, p0, P);
+      masks[32 * (l + 1)] = relu_mask<F>(a);
+    }
   }
 }
 
@@ -320,7 +347,7 @@ fwd_kernel(const float* __restrict__ x, long long P, Params prm, int nh,
        tile += (long long)gridDim.x * FWD_WARPS) {
     const long long p0 = tile * TILE;
     uint32_t a[F / 16][4];
-    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr);
+    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr, nullptr);
     // head: f32 products of the bf16 activation with w_out, summed over
     // this thread's columns and then across the four threads of a row
     float s0 = 0.0f, s1 = 0.0f;
@@ -350,7 +377,7 @@ template <int F>
 __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 bwd_chain_kernel(const float* __restrict__ x, const float* __restrict__ gr, long long P,
                  Params prm, int nh, bf16* __restrict__ acts, bf16* __restrict__ dzs,
-                 float* __restrict__ dx) {
+                 float* __restrict__ dx, uint2* __restrict__ mask_slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WLayout L = weight_layout(F, nh);
   stage_weights(smem, L, prm, F, nh);
@@ -358,13 +385,14 @@ bwd_chain_kernel(const float* __restrict__ x, const float* __restrict__ gr, long
   const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
   const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint2* masks = mask_slots + (size_t(blockIdx.x) * BWD_WARPS + warp) * (nh + 1) * 32 + lane;
   const long long n_tiles = (P + TILE - 1) / TILE;
   for (long long tile = (long long)blockIdx.x * BWD_WARPS + warp; tile < n_tiles;
        tile += (long long)gridDim.x * BWD_WARPS) {
     const long long p0 = tile * TILE;
     const long long r0 = p0 + g, r1 = r0 + 8;
     uint32_t a[F / 16][4];
-    warp_forward<F>(a, x, p0, P, smem, L, nh, acts);
+    warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks);
 
     // head: dz = bf16(w_out * g) where the last activation is > 0
     const float g0 = r0 < P ? gr[r0] : 0.0f, g1 = r1 < P ? gr[r1] : 0.0f;
@@ -385,16 +413,14 @@ bwd_chain_kernel(const float* __restrict__ x, const float* __restrict__ gr, long
     for (int l = nh; l >= 1; --l) {
       float acc[F / 8][4];
       warp_mm_t<F / 16, F / 8>(acc, a, wh + size_t(l - 1) * F * ldw(F), ldw(F));
-      const bf16* al = acts + size_t(l - 1) * P * F;
+      const uint2 m = masks[32 * (l - 1)];  // relu mask of a_{l-1}
 #pragma unroll
       for (int nt = 0; nt < F / 8; ++nt) {
-        const int c = nt * 8 + 2 * t;
-        const float2 m0 = unpack2(r0 < P ? *reinterpret_cast<const uint32_t*>(al + r0 * F + c) : 0u);
-        const float2 m1 = unpack2(r1 < P ? *reinterpret_cast<const uint32_t*>(al + r1 * F + c) : 0u);
+        const uint32_t bits = (4 * nt < 32 ? m.x : m.y) >> ((4 * nt) & 31);
         a[nt >> 1][(nt & 1) * 2] =
-            pack2(m0.x > 0.0f ? acc[nt][0] : 0.0f, m0.y > 0.0f ? acc[nt][1] : 0.0f);
+            pack2((bits & 1u) ? acc[nt][0] : 0.0f, (bits & 2u) ? acc[nt][1] : 0.0f);
         a[nt >> 1][(nt & 1) * 2 + 1] =
-            pack2(m1.x > 0.0f ? acc[nt][2] : 0.0f, m1.y > 0.0f ? acc[nt][3] : 0.0f);
+            pack2((bits & 4u) ? acc[nt][2] : 0.0f, (bits & 8u) ? acc[nt][3] : 0.0f);
       }
       store_frag<F>(dzs + size_t(l - 1) * P * F, a, p0, P);
     }
@@ -561,8 +587,8 @@ int launch_fwd(const float* x, long long P, const Params& prm, int nh, float* ou
 
 template <int F>
 int launch_bwd(const float* x, const float* g, long long P, const Params& prm, int nh, bf16* acts,
-               bf16* dzs, float* dx, int n_sms, float* partials, int n_chunks, long long chunk,
-               float* grads, cudaStream_t st) {
+               bf16* dzs, float* dx, uint2* masks, int n_sms, float* partials, int n_chunks,
+               long long chunk, float* grads, cudaStream_t st) {
   const GradLayout GL = grad_layout(F, nh);
   if (P > 0) {
     const long long tiles = (P + TILE - 1) / TILE;
@@ -571,7 +597,8 @@ int launch_bwd(const float* x, const float* g, long long P, const Params& prm, i
     cudaError_t e = cudaFuncSetAttribute(bwd_chain_kernel<F>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    bwd_chain_kernel<F><<<grid, BWD_WARPS * 32, smem, st>>>(x, g, P, prm, nh, acts, dzs, dx);
+    bwd_chain_kernel<F><<<grid, BWD_WARPS * 32, smem, st>>>(x, g, P, prm, nh, acts, dzs, dx,
+                                                            masks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const size_t wsmem = wgrad_smem(F);
@@ -606,6 +633,12 @@ long long fused_mlp_partial_stride(int F, int nh) { return (long long)grad_layou
 // floats in the flat gradient
 long long fused_mlp_grad_size(int F, int nh) { return (long long)grad_layout(F, nh).n; }
 
+// 8-byte relu-mask slots the backward chain needs (one per lane, warp and
+// layer of at most n_sms blocks)
+long long fused_mlp_mask_slots(int n_sms, int nh) {
+  return (long long)n_sms * BWD_WARPS * (nh + 1) * 32;
+}
+
 // points per weight-gradient pipeline stage (chunks are multiples of it)
 int fused_mlp_chunk_quantum(void) { return KB; }
 
@@ -629,11 +662,12 @@ int fused_mlp_fwd(const float* x, long long P, const void* w_in, const void* w_h
   return (int)cudaErrorInvalidValue;
 }
 
-// acts, dzs: (nh + 1, P, F) bf16 scratch; partials: n_chunks x stride f32;
+// acts, dzs: (nh + 1, P, F) bf16 scratch; masks: fused_mlp_mask_slots
+// 8-byte slots; partials: n_chunks x stride f32;
 // grads: the flat gradient (grad_size floats); dx: (P, 3) f32
 int fused_mlp_bwd(const float* x, const float* g, long long P, const void* w_in,
                   const void* w_hid, const float* bias, const float* w_out, const float* b_out,
-                  int F, int nh, void* acts, void* dzs, float* partials, int n_chunks,
+                  int F, int nh, void* acts, void* dzs, void* masks, float* partials, int n_chunks,
                   long long chunk, int n_sms, float* grads, float* dx, void* stream) {
   if (!dims_ok(F, nh) || (P > 0 && (n_sms <= 0 || n_chunks <= 0 || chunk <= 0 ||
                                     chunk % KB != 0 || (long long)n_chunks * chunk < P)))
@@ -644,7 +678,8 @@ int fused_mlp_bwd(const float* x, const float* g, long long P, const void* w_in,
   bf16* d = static_cast<bf16*>(dzs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FUSED_MLP_BWD(FF) \
-  launch_bwd<FF>(x, g, P, prm, nh, a, d, dx, n_sms, partials, n_chunks, chunk, grads, st)
+  launch_bwd<FF>(x, g, P, prm, nh, a, d, dx, static_cast<uint2*>(masks), n_sms, partials, \
+                 n_chunks, chunk, grads, st)
   switch (F) {
     case 16: return FUSED_MLP_BWD(16);
     case 32: return FUSED_MLP_BWD(32);

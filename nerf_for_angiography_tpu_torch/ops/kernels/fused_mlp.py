@@ -191,7 +191,8 @@ def _load_lib() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("fused_mlp_smem_bytes", "fused_mlp_partial_stride", "fused_mlp_grad_size"):
+        for name in ("fused_mlp_smem_bytes", "fused_mlp_partial_stride", "fused_mlp_grad_size",
+                     "fused_mlp_mask_slots"):
             getattr(lib, name).argtypes = [i32, i32]
             getattr(lib, name).restype = ll
         lib.fused_mlp_fwd.argtypes = [vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp]
@@ -199,7 +200,7 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_chunk_quantum.argtypes = []
         lib.fused_mlp_chunk_quantum.restype = i32
         lib.fused_mlp_bwd.argtypes = [
-            vp, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, i32, ll, i32, vp, vp, vp,
+            vp, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll, i32, vp, vp, vp,
         ]
         lib.fused_mlp_bwd.restype = i32
         _lib = lib
@@ -270,12 +271,15 @@ def fused_mlp_bwd_cuda(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
     stride = lib.fused_mlp_partial_stride(f, nh)
     # weight-gradient chunks: about one per SM, each a multiple of the
     # kernel's pipeline stage
+    n_sms = _num_sms(dev)
     quantum = lib.fused_mlp_chunk_quantum()
-    chunk = max(1, -(-p // (_num_sms(dev) * quantum))) * quantum
+    chunk = max(1, -(-p // (n_sms * quantum))) * quantum
     n_chunks = -(-p // chunk)
-    # scratch: every layer's bf16 activation and dz, and the chunk partials
+    # scratch: every layer's bf16 activation and dz, the relu-mask slots
+    # (8 bytes each) and the chunk partials
     acts = torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev)
     dzs = torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev)
+    masks = torch.empty((lib.fused_mlp_mask_slots(n_sms, nh),), dtype=torch.int64, device=dev)
     partials = torch.empty((max(n_chunks, 1) * stride,), dtype=torch.float32, device=dev)
     flat = torch.empty((n,), dtype=torch.float32, device=dev)
     dx = torch.empty((p, 3), dtype=torch.float32, device=dev)
@@ -283,8 +287,8 @@ def fused_mlp_bwd_cuda(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
     code = lib.fused_mlp_bwd(
         x.data_ptr(), g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        f, nh, acts.data_ptr(), dzs.data_ptr(), partials.data_ptr(), n_chunks, chunk,
-        _num_sms(dev), flat.data_ptr(), dx.data_ptr(), stream,
+        f, nh, acts.data_ptr(), dzs.data_ptr(), masks.data_ptr(), partials.data_ptr(), n_chunks,
+        chunk, n_sms, flat.data_ptr(), dx.data_ptr(), stream,
     )
     _raise_on(code, "fused_mlp backward")
     bwd_launches += 1
