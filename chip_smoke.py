@@ -311,7 +311,8 @@ def training_phase(torch, fm, report: dict) -> dict:
 def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
     """Where a training step's time goes: ``n_steps`` more steps of the
     trained state (one grid update among them, as in the run), timed on the
-    host clock without the profiler, then traced with ``torch.profiler``
+    host clock without the profiler (also the time the host takes to issue
+    them, up to the final synchronize), then traced with ``torch.profiler``
     for device time by kernel and the device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -322,19 +323,27 @@ def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
     rays = rays._replace(sampling_table=build_sampling_table(rays.weights))
     step = make_train_step(state.model, cfg, 1500.0 - cfg.outside, 1500.0 + cfg.outside)
 
-    def run():
+    def run() -> float:
+        t0 = time.perf_counter()
         for _ in range(n_steps):
             step(state, rays)
+        issued = time.perf_counter()
         torch.cuda.synchronize()
+        return issued - t0
 
     run()  # warm
     t0 = time.perf_counter()
-    run()
+    issue_ms = 1e3 * run() / n_steps
     wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    rows = []
+    rows, host_rows, host_waits = [], [], 0
     for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0:
+            host_rows.append((ev.self_cpu_time_total / 1e3 / n_steps, ev.count / n_steps, ev.key))
+        # the host waits for the device: stream syncs, device-to-host copies
+        if ev.key == "cudaStreamSynchronize" or "DtoH" in ev.key:
+            host_waits += ev.count
         if ev.device_type != DeviceType.CUDA:  # kernels and copies only, not the ops above them
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -344,16 +353,26 @@ def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
             rows.append((dev_us / 1e3 / n_steps, ev.count / n_steps, ev.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    out = dict(wall_ms_per_step=wall_ms, device_ms_per_step=device_ms,
+    out = dict(wall_ms_per_step=wall_ms, host_issue_ms_per_step=issue_ms,
+               host_waits_per_step=host_waits / n_steps,
+               device_ms_per_step=device_ms,
                busy_share=device_ms / wall_ms if rows else None,
-               top=[dict(ms_per_step=m, calls_per_step=c, name=k[:120]) for m, c, k in rows[:15]])
+               top=[dict(ms_per_step=m, calls_per_step=c, name=k[:120]) for m, c, k in rows[:15]],
+               host_top=[dict(ms_per_step=m, calls_per_step=c, name=k[:120])
+                         for m, c, k in sorted(host_rows, reverse=True)[:10]])
     if not rows:
         print("step profile: the profiler saw no device time (not measured)")
         return out
-    print(f"step profile ({n_steps} steps): wall {wall_ms:.3f} ms/step without the profiler, "
+    print(f"step profile ({n_steps} steps): wall {wall_ms:.3f} ms/step without the profiler "
+          f"(host done issuing after {issue_ms:.3f} ms/step, {host_waits / n_steps:.2f} waits "
+          f"for the device per step), "
           f"device {device_ms:.3f} ms/step, busy share {device_ms / wall_ms:.3f}")
     for m, c, k in rows[:15]:
         print(f"  {m:9.4f} ms/step  {c:6.2f} calls/step  {k[:100]}")
+    print("host time by op (profiled, self CPU time):")
+    for r in out["host_top"]:
+        print(f"  {r['ms_per_step']:9.4f} ms/step  {r['calls_per_step']:6.2f} calls/step  "
+              f"{r['name'][:100]}")
     return out
 
 
