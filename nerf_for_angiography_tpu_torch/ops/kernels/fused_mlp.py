@@ -26,15 +26,12 @@ There is no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from .build import load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
 # launch and nowhere else)
@@ -42,8 +39,6 @@ fwd_launches = 0
 bwd_launches = 0
 
 _KIN = 16  # input features (3 coords) padded to one mma k-step
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_mlp.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _lib = None
 _lib_lock = threading.Lock()
 # nvcc's output of the last build (ptxas register/shared-memory report)
@@ -156,40 +151,14 @@ def fused_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor)
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the fused-MLP kernels are built from source")
-
-
 def _load_lib() -> ctypes.CDLL:
-    """Compile csrc/fused_mlp.cu for sm_90a into the package's build
-    directory (keyed by the source hash) and load it."""
+    """Build csrc/fused_mlp.cu on first use (ops/kernels/build.py) and bind
+    its C interface."""
     global _lib, build_log
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = _SOURCE.read_bytes()
-        tag = hashlib.sha1(src).hexdigest()[:12]
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = _BUILD_DIR / f"libfused_mlp_{tag}.so"
-        if not so.exists():
-            tmp = _BUILD_DIR / f".libfused_mlp_{tag}.{os.getpid()}.so"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                "-o", str(tmp), str(_SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib, build_log = load_library("fused_mlp")
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for name in ("fused_mlp_smem_bytes", "fused_mlp_partial_stride", "fused_mlp_grad_size",
                      "fused_mlp_mask_slots"):
@@ -228,11 +197,6 @@ def _check_kernel_inputs(packed: PackedMLP, x: torch.Tensor, lib) -> None:
         )
 
 
-def _raise_on(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {code}")
-
-
 def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -252,7 +216,7 @@ def fused_mlp_fwd_cuda(packed: PackedMLP, x: torch.Tensor) -> torch.Tensor:
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
         packed.width, packed.n_hidden, out.data_ptr(), _num_sms(x.device), stream,
     )
-    _raise_on(code, "fused_mlp forward")
+    raise_on(code, "fused_mlp forward")
     fwd_launches += 1
     return out
 
@@ -290,7 +254,7 @@ def fused_mlp_bwd_cuda(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
         f, nh, acts.data_ptr(), dzs.data_ptr(), masks.data_ptr(), partials.data_ptr(), n_chunks,
         chunk, n_sms, flat.data_ptr(), dx.data_ptr(), stream,
     )
-    _raise_on(code, "fused_mlp backward")
+    raise_on(code, "fused_mlp backward")
     bwd_launches += 1
     return _unflatten_grads(flat, f, nh), dx
 

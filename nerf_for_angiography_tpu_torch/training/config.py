@@ -3,8 +3,8 @@ config.py``): every field and default of ``TrainConfig``, and
 ``REFERENCE_STRICT_OVERRIDES``. ``parse_train_args`` arrives with the CLI
 slice.
 
-Configurations this slice has not ported raise ``NotImplementedError`` at the
-entry points (training/train.py::check_ported).
+Configurations the port has not reached yet raise ``NotImplementedError``
+at the entry points (training/train.py::check_ported).
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ class TrainConfig:
     # full-update warmup
     grid_update_slabs: int = 4
     # 0 = always-dense lattice; k > 0 switches to a compacted march once the
-    # grid has pruned (slice 2 of the port)
+    # grid has pruned (choose_compact_mode); compact_engage_max > k lets it
+    # engage early with an interim k up to that value
     compact_samples: int = 96
     compact_engage_max: int = 192
     # space-carving grid initialization (ops/occupancy.py::carve_feasible)
@@ -67,7 +68,9 @@ class TrainConfig:
     carve_thresh: float = 0.995
     # probe the occupancy grid every n-th sample during marching
     occ_stride: int = 2
-    # compacted-march strategy and its tuning (slice 2 of the port)
+    # compacted-march strategy ('window' | 'hybrid' | 'lattice') and its
+    # tuning; the loop sizes hybrid_w_cap / hybrid_w_lo / hybrid_k_lo and k
+    # from the chooser's probe (training/pressure.py)
     march_mode: str = "window"
     hybrid_w_cap: int = 0
     hybrid_split: float = 0.75
@@ -75,6 +78,10 @@ class TrainConfig:
     hybrid_bucket_k: bool = True
     hybrid_k_lo: int = 0
     compact_k_margin: float = 1.15
+    # first-k-active implementation: the JAX package's 'xla' (compare and
+    # count) and 'pallas' (its TPU kernel) compute the same function; in the
+    # port both mean the CUDA kernel on the card (its plain version on the
+    # CPU)
     march_fka: str = "xla"
     compact_check_every: int = 100
     # write grid VTKs at display cadence (checkpoints/logging slice)
@@ -116,6 +123,10 @@ class TrainConfig:
     fused_train_step: str = "off"
 
     seed: int = 0
+
+    def __post_init__(self):
+        if self.march_fka not in ("xla", "pallas"):
+            raise ValueError(f"march_fka must be 'xla' or 'pallas', got {self.march_fka!r}")
 
     @property
     def img_sample_size(self) -> int:

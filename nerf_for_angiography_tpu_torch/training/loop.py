@@ -1,13 +1,27 @@
-"""Training driver (port of the dense path of
-``nerf_for_angiography_tpu/training/loop.py``; run_nerf_acc.py's experiment
-behavior): held-out test view, periodic eval, best-checkpoint selection on
-vessel PSNR (plain PSNR for binary/random runs, run_nerf_acc.py:376) and
-early stop after ``early_stop_iters`` stale evaluations (:434-440).
+"""Training loop (port of ``nerf_for_angiography_tpu/training/loop.py``;
+run_nerf_acc.py's experiment behavior): held-out test view, periodic eval,
+best-checkpoint selection on vessel PSNR (plain PSNR for binary/random runs,
+run_nerf_acc.py:376) and early stop after ``early_stop_iters`` stale
+evaluations (:434-440).
+
+Adaptive compaction as in the JAX loop: dense steps (``compact_samples=0``)
+until ``choose_compact_mode`` finds a compacted march that renders the
+held-out view losslessly (checked every ``check_every`` iterations,
+iteration 0 included), then the compacted stepper at the ``Tuning`` the
+pressure tuner sizes (training/pressure.py), re-chosen at the re-check
+cadence or when the batch's truncation pressure fires, and a revert to the
+dense stepper if nothing fits any more. Eval always renders the dense
+lattice. One step callable per ``Tuning``, cached.
 
 The JAX loop's ``lax.scan`` chunks become a Python loop of steps between
-the same boundaries; the host waits for the card (``torch.cuda.synchronize``)
-only at those boundaries. Checkpoints, TensorBoard logging and VTK export
-arrive with the checkpoints/logging slice.
+the same boundaries, and the host waits for the card only at those
+boundaries: no step reads the device. The JAX loop also defers reading a
+chunk's pressure until the next chunk is in flight, to hide TPU round
+trips; here each chunk's per-step (5,) pressure vectors stay on the device
+and are reduced and read with one copy at that chunk's own boundary, so the
+tuner reacts one chunk earlier than in the JAX loop, never later.
+Checkpoints, TensorBoard logging and VTK export arrive with the
+checkpoints/logging slice.
 """
 
 from __future__ import annotations
@@ -22,16 +36,25 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.occupancy import carve_feasible
+from ..ops.occupancy import carve_feasible, with_coarse
 from ..ops.sampling import RayDataset, build_sampling_table
 from .config import TrainConfig, categories_for
+from .pressure import PressureTuner, Tuning
 from .train import (
     check_ported,
+    choose_compact_mode,
     create_train_state,
     drop_test_view,
     make_eval_step,
     make_test_view,
     make_train_step,
+)
+
+# truncation-pressure scalars the tuner observes each chunk, in the order
+# PressureTuner.observe takes them
+_PRESSURE_KEYS = (
+    "march/over_k", "march/over_k_lo", "march/edge_rays",
+    "march/ac", "march/ac_lo",
 )
 
 
@@ -73,6 +96,15 @@ def build_page_data(cfg: TrainConfig, exp_name: str) -> dict:
         "Learning rate": cfg.coarse_lr,
         "Centerpoint": f"({cfg.center_point[0]} {cfg.center_point[1]})",
     }
+
+
+def _sizes(choice, tuning: Tuning) -> str:
+    """The verbose lines' sizing, as the JAX loop prints it."""
+    return (
+        f"{choice.width} -> k={tuning.k}, w_cap={tuning.w_cap}"
+        + (f", w_lo={tuning.w_lo}" if tuning.w_lo else "")
+        + (f", k_lo={tuning.k_lo}" if tuning.k_lo else "")
+    )
 
 
 def _sync(device: torch.device) -> None:
@@ -135,16 +167,47 @@ def train(
         )
         if verbose:
             print(f"carve_init: {1.0 - float(feas.float().mean()):.1%} of cells carved")
-        state.grid = state.grid._replace(feasible=feas, binary=state.grid.binary & feas)
+        # the coarse table is rebuilt with the carved binary
+        state.grid = with_coarse(
+            state.grid._replace(feasible=feas, binary=state.grid.binary & feas)
+        )
         vfeas = feas.clone()
-        state.vessel_grid = state.vessel_grid._replace(
-            feasible=vfeas, binary=state.vessel_grid.binary & vfeas
+        state.vessel_grid = with_coarse(
+            state.vessel_grid._replace(feasible=vfeas, binary=state.vessel_grid.binary & vfeas)
         )
 
-    train_step = make_train_step(model, cfg, near, far)
-    eval_step = make_eval_step(model, cfg, near, far)
+    # the dense stepper and eval always march the dense lattice
+    dense_cfg = dataclasses.replace(cfg, compact_samples=0)
+    dense_step = make_train_step(model, dense_cfg, near, far)
+    eval_step = make_eval_step(model, dense_cfg, near, far)
+
+    # adaptive empty-space skipping: once the grid has pruned far enough
+    # that a compacted march renders the held-out view losslessly, switch
+    # to the compacted stepper the chooser picks, sized by the tuner. One
+    # step callable per Tuning, cached (a retune may revisit one).
+    want_compact = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
+    using_compact = False
+    tuning = Tuning()  # the engaged compacted-stepper sizing (cache key)
+    steppers: dict[Tuning, Any] = {}
+
+    def compact_step():
+        step = steppers.get(tuning)
+        if step is None:
+            step_cfg = dataclasses.replace(
+                cfg, march_mode=tuning.mode, compact_samples=tuning.k,
+                hybrid_w_cap=tuning.w_cap, hybrid_w_lo=tuning.w_lo, hybrid_k_lo=tuning.k_lo,
+            )
+            step = steppers[tuning] = make_train_step(model, step_cfg, near, far)
+        return step
+
     # steps between boundaries, as the JAX loop's scan chunks
     chunk_c = math.gcd(100, cfg.display_every)
+    # compaction-readiness cadence, rounded up to a chunk boundary so the
+    # check fires (the loop only observes boundary iterations)
+    if chunk_c > 1:
+        check_every = max(chunk_c, -(-cfg.compact_check_every // chunk_c) * chunk_c)
+    else:
+        check_every = max(1, cfg.compact_check_every)
 
     page_data = build_page_data(cfg, datetime.now().astimezone().strftime("%Y-%m-%d-%H%M"))
     highest_psnr = -np.inf
@@ -152,32 +215,107 @@ def train(
     best_heldout = float("nan")
     last_psnr = float("nan")
     rays_done = 0
-    # "compile" = the first call of each runner (here: kernel builds and
-    # first launches); "step_dense" = later steps, synchronized at
-    # boundaries. The compacted-path keys stay 0 on the dense path.
+    batch = cfg.img_sample_size
+    # "compile" = the first step of each step callable and the first eval
+    # (kernel builds and first launches; the JAX loop charges its first
+    # compiled chunk); "step_dense" / "step_compact" = every other step,
+    # synchronized at the chunk boundaries
     timing = {
         "step_dense": 0.0, "step_compact": 0.0, "compile": 0.0,
         "eval": 0.0, "choose": 0.0, "log": 0.0, "export": 0.0,
     }
-    first_step = True
+    seen_steps: set[int] = set()
     first_eval = True
+    dense_rays = 0  # rays stepped by the dense stepper
+    compact_steady_rays = 0  # compacted rays outside first steps
+    # per-Tuning [steady wall, steady rays, steps (the first one included)]
+    steady_phases: dict[Tuning, list] = {}
+    # truncation-pressure tuner (training/pressure.py)
+    tuner = PressureTuner(display_every=cfg.display_every)
     t_start = time.perf_counter()
 
     n_iter = 0
     metrics: dict = {}
     while n_iter <= cfg.n_iters:
+        # run up to (and including) the next boundary iteration
         m = min(-(-n_iter // chunk_c) * chunk_c, cfg.n_iters)
         count = m - n_iter + 1
+        step = compact_step() if using_compact else dense_step
+        pressure = []  # per-step (5,) int32 pressure vectors, on the device
         t0 = time.perf_counter()
-        for _ in range(count):
-            state, metrics, _, _ = train_step(state, train_rays)
+        first = id(step) not in seen_steps
+        for i in range(count):
+            state, metrics, _, _ = step(state, train_rays)
+            if "march/over_k" in metrics:  # a compacted step (k < depth)
+                pressure.append(torch.stack([metrics[k] for k in _PRESSURE_KEYS]))
+            if first and i == 0:
+                seen_steps.add(id(step))
+                _sync(device)
+                timing["compile"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+        # one reduction and one device-to-host copy per chunk
+        stats = torch.stack(pressure).amax(dim=0).tolist() if pressure else None
         _sync(device)
-        timing["compile" if first_step else "step_dense"] += time.perf_counter() - t0
-        first_step = False
-        rays_done += count * cfg.img_sample_size
+        dt = time.perf_counter() - t0
+        steady = count - 1 if first else count
+        if using_compact:
+            timing["step_compact"] += dt
+            compact_steady_rays += steady * batch
+            ph = steady_phases.setdefault(tuning, [0.0, 0, 0])
+            ph[0] += dt
+            ph[1] += steady * batch
+            ph[2] += count
+            if stats is not None:
+                tuner.observe(m, *stats)
+        else:
+            timing["step_dense"] += dt
+            dense_rays += count * batch
+        rays_done += count * batch
         n_iter = m
 
+        # compaction-readiness check at its own cadence (iteration 0
+        # included: with carve_init the grid can fit at once)
+        if want_compact and not using_compact and n_iter % check_every == 0:
+            t0 = time.perf_counter()
+            choice = choose_compact_mode(cfg, state.grid, test.origins, test.directions, near, far)
+            timing["choose"] += time.perf_counter() - t0
+            if choice is not None:
+                tuning = tuner.engage(choice, cfg)
+                using_compact = True
+                if verbose:
+                    print(f"switching to compacted stepper at iter {n_iter} "
+                          f"(march_mode={tuning.mode}, needed width/ray {_sizes(choice, tuning)})")
+
+        # re-validate / re-tune the engaged compacted stepper: every
+        # check_every while k is on the interim ladder (above
+        # compact_samples), every display_every once settled, and at once
+        # when the batch's pressure fires; revert to the dense stepper if
+        # no compacted mode fits the evolved grid
+        recheck = check_every if tuning.k > cfg.compact_samples else cfg.display_every
+        if want_compact and using_compact and (n_iter % recheck == 0 or tuner.fire):
+            before = (tuning, using_compact)
+            t0 = time.perf_counter()
+            choice = choose_compact_mode(cfg, state.grid, test.origins, test.directions, near, far)
+            timing["choose"] += time.perf_counter() - t0
+            if choice is None:
+                using_compact = False
+                if verbose:
+                    print(
+                        f"reverting to dense stepper at iter {n_iter} "
+                        "(no compacted mode fits the evolved grid)"
+                    )
+            else:
+                tuning2 = tuner.retune(tuning, choice, cfg)
+                if tuning2 != tuning:
+                    tuning = tuning2
+                    if verbose:
+                        print(f"retuning compacted stepper at iter {n_iter} "
+                              f"(march_mode={tuning.mode}, width {_sizes(choice, tuning)})")
+            tuner.resolve(n_iter, changed=(tuning, using_compact) != before, recheck=recheck)
+
         if n_iter % cfg.display_every == 0:
+            if using_compact:
+                tuner.decay_if_quiet(n_iter)
             t0 = time.perf_counter()
             test_metrics, _ = eval_step(state, test)
             psnr = float(test_metrics["psnr/test-coarse"])
@@ -210,13 +348,19 @@ def train(
         timing[k] for k in ("step_dense", "step_compact", "compile", "eval", "choose",
                             "log", "export")
     ))
-    timing["dense_rays"] = rays_done
-    timing["pressure_fired"] = 0
-    timing["pressure_muted"] = 0
-    timing["decay_bounces"] = 0
-    timing["steady_rays_per_sec"] = 0.0  # compacted-phase rate; dense path has none
-    timing["tuning_final"] = None
-    timing["steady_phases"] = []
+    timing["dense_rays"] = dense_rays
+    timing["pressure_fired"] = tuner.fired
+    timing["pressure_muted"] = tuner.muted
+    timing["decay_bounces"] = tuner.decay_bounces
+    timing["steady_rays_per_sec"] = (
+        compact_steady_rays / timing["step_compact"] if timing["step_compact"] > 0 else 0.0
+    )
+    # the stepper sizing the run ended on, and the per-Tuning breakdown
+    timing["tuning_final"] = dataclasses.asdict(tuning) if using_compact else None
+    timing["steady_phases"] = [
+        {**dataclasses.asdict(t), "wall_s": float(w), "rays": int(r), "steps": int(n)}
+        for t, (w, r, n) in steady_phases.items()
+    ]
     if verbose:
         print(
             "timing breakdown (s): "
@@ -225,6 +369,7 @@ def train(
                 for k in ("total", "step_dense", "step_compact", "compile", "eval",
                           "choose", "log", "export", "other")
             )
+            + f"  steady={timing['steady_rays_per_sec']:.0f} rays/s"
         )
     return TrainResult(
         state=state,

@@ -1,21 +1,29 @@
-"""Training step, render and eval in torch (port of the dense-lattice path of
+"""Training step, render and eval in torch (port of
 ``nerf_for_angiography_tpu/training/train.py``; the reference's hot loop,
 nerf/run_nerf_acc.py:263-440).
 
 Per step: sample a ray batch on the device, EMA-update the two occupancy
-grids every ``grid_update_every`` steps from one shared sigma pass, march the
-dense lattice, evaluate the MLP (the fused kernels on the card), composite
-with Beer-Lambert under the early-stop keep mask, take the MSE and apply
-Adam with continuous exponential lr decay.
+grids every ``grid_update_every`` steps from one shared sigma pass, march
+(the dense lattice, or with ``0 < compact_samples < depth_samples_per_ray``
+the compacted march ``march_mode`` names), evaluate the MLP (the fused
+kernels on the card), composite with Beer-Lambert under the early-stop keep
+mask, take the MSE and apply Adam with continuous exponential lr decay. A
+compacted step also reports its truncation pressure (march_pressure).
+
+The compact-mode chooser (choose_compact_mode and its sizers) probes the
+held-out view with one device pass reduced to five int32 values, read with
+one device-to-host copy; the loop calls it at chunk boundaries only.
 
 PyTorch runs eagerly, so there is no jit: ``make_train_step`` returns a
 plain callable. The state keeps its step counter on the host, so the grid
-gate never reads the device.
+gate never reads the device, and no step reads the device at all: every
+shape is fixed by the configuration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -24,11 +32,17 @@ from ..device import resolve_device
 from ..models import CPPN
 from ..ops.kernels.fused_mlp import cppn_params_to_list, fused_mlp_raw
 from ..ops.occupancy import (
+    BucketedRays,
     MarchedRays,
     OccupancyGrid,
+    coarse_window,
     create_grid,
     every_n_step_pair,
     march_rays,
+    march_rays_hybrid,
+    march_rays_hybrid2,
+    march_rays_hybrid2k,
+    march_rays_window,
     prune_mask,
     safe_occ_stride,
 )
@@ -39,13 +53,6 @@ from .config import TrainConfig
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for configurations later slices bring."""
-    if 0 < cfg.compact_samples < cfg.depth_samples_per_ray:
-        raise NotImplementedError(
-            "compacted marching (0 < compact_samples < depth_samples_per_ray) arrives "
-            "with slice 2; use compact_samples=0 (always-dense lattice)"
-        )
-    if cfg.march_fka == "pallas":
-        raise NotImplementedError("march_fka='pallas' (first-k kernel) arrives with slice 2")
     if cfg.pos_enc in ("fourier", "barf"):
         raise NotImplementedError(f"pos_enc={cfg.pos_enc!r} arrives with slice 4")
     if cfg.fused_train_step != "off":
@@ -200,28 +207,277 @@ def _sigma_fn(model: CPPN, backend: str = "auto"):
     return fn
 
 
-def _march_for(cfg, grid, origins, directions, near, far) -> MarchedRays:
-    """The dense-lattice march (the compacted marches come with slice 2)."""
-    check_ported(cfg)
-    return march_rays(
-        grid, origins, directions, cfg.depth_samples_per_ray, near, far,
-        occ_stride=safe_occ_stride(
-            cfg.occ_stride, cfg.depth_samples_per_ray, near, far,
-            2 * cfg.outside, cfg.grid_resolution,
-        ),
+def _stride_for(cfg: TrainConfig, near: float, far: float) -> int:
+    return safe_occ_stride(
+        cfg.occ_stride, cfg.depth_samples_per_ray, near, far,
+        2 * cfg.outside, cfg.grid_resolution,
     )
 
 
-def _flat_positions(m: MarchedRays) -> torch.Tensor:
+def _march_for(cfg, grid, origins, directions, near, far):
+    """Marching strategy dispatch. The dense lattice when compaction is off;
+    with compaction, 'window' (contiguous lattice window via the dilated
+    coarse grid), 'hybrid' (first-k inside a span-sized window; two buckets
+    with hybrid_split and hybrid_w_lo, and a k per bucket with
+    hybrid_bucket_k and hybrid_k_lo) or 'lattice' (first-k of the whole
+    lattice) per cfg.march_mode."""
+    check_ported(cfg)
+    n = cfg.depth_samples_per_ray
+    compacting = 0 < cfg.compact_samples < n
+    if compacting and cfg.march_mode == "window":
+        return march_rays_window(
+            grid, origins, directions, n, near, far,
+            k=cfg.compact_samples, aabb_extent=2 * cfg.outside,
+        )
+    if compacting and cfg.march_mode == "hybrid":
+        kw = dict(
+            w_cap=cfg.hybrid_w_cap or None, aabb_extent=2 * cfg.outside,
+            occ_stride=_stride_for(cfg, near, far), fka=cfg.march_fka,
+        )
+        if cfg.hybrid_split > 0.0 and cfg.hybrid_w_lo > 0:
+            if cfg.hybrid_bucket_k and cfg.hybrid_k_lo > 0:
+                return march_rays_hybrid2k(
+                    grid, origins, directions, n, near, far, k=cfg.compact_samples,
+                    k_lo=cfg.hybrid_k_lo, w_lo=cfg.hybrid_w_lo, split=cfg.hybrid_split, **kw,
+                )
+            return march_rays_hybrid2(
+                grid, origins, directions, n, near, far, k=cfg.compact_samples,
+                w_lo=cfg.hybrid_w_lo, split=cfg.hybrid_split, **kw,
+            )
+        return march_rays_hybrid(
+            grid, origins, directions, n, near, far, k=cfg.compact_samples, **kw
+        )
+    return march_rays(
+        grid, origins, directions, n, near, far,
+        compact_k=cfg.compact_samples if compacting else None,
+        occ_stride=_stride_for(cfg, near, far), fka=cfg.march_fka,
+    )
+
+
+@torch.no_grad()
+def _chooser_stats_device(n, near, far, k, aabb_extent, split, grid, o, d) -> torch.Tensor:
+    """The chooser's probe as ONE device pass reduced to a (5,) int32
+    tensor [ac, span, win_w, span_q, ac_lo]:
+
+      ac     - max per-ray active sample count of the dense lattice
+      span   - max per-ray (last active - coarse-window start + 1), the
+               hybrid candidate-window requirement (from the unclamped
+               start: the march's far-end clamp only moves the window
+               earlier)
+      win_w  - max per-ray (last active - k-window start + 1), the 'window'
+               mode width
+      span_q - with split > 0: the ``split``-quantile of the coarse span
+               over HIT rays (sizes the two-bucket w_lo); 0 otherwise
+      ac_lo  - with split > 0: the max active count among the lo bucket's
+               rays (hit rays with coarse span <= span_q; sizes k_lo); 0
+               otherwise."""
+    dm = march_rays(grid, o, d, n, near, far).mask > 0
+    counts = dm.sum(dim=-1, dtype=torch.int32)
+    ac = counts.amax()
+    has = dm.any(dim=-1)
+    last = (dm.shape[-1] - 1) - torch.argmax(torch.flip(dm, dims=(-1,)).to(torch.uint8), dim=-1)
+    zero = torch.zeros((), dtype=torch.int64, device=o.device)
+    c_start, c_end, c_hit = coarse_window(grid, o, d, n, near, far, aabb_extent=aabb_extent)
+    start = torch.clamp(c_start, min=0)
+    span = torch.where(has, last - start + 1, zero).amax()
+    t0 = march_rays_window(grid, o, d, n, near, far, k=k, aabb_extent=aabb_extent).t_starts[:, 0]
+    step_sz = (far - near) / n
+    w0 = torch.round((t0 - near) / step_sz).to(torch.int32)
+    win_w = torch.where(has, last - w0 + 1, zero).amax()
+    if split > 0.0:
+        # hit-only quantile with static shapes: the coarse spans sorted
+        # descending (misses carry 0 and sort last), indexed at the
+        # split-quantile rank among the n_hit leading entries. The rank is
+        # computed in f32, as the JAX package computes it.
+        cspan = torch.where(c_hit, c_end - c_start + 1, torch.zeros_like(c_end))
+        sq = torch.flip(torch.sort(cspan).values, dims=(0,))
+        n_hit = c_hit.sum(dtype=torch.int32)
+        idx = torch.clamp(
+            n_hit - torch.ceil(n_hit.to(torch.float32) * split).to(torch.int32),
+            0, cspan.shape[0] - 1,
+        )
+        # index_select keeps the index on the device (indexing with a 0-dim
+        # tensor would read it on the host)
+        span_q = sq.index_select(0, idx.reshape(1).to(torch.int64)).reshape(())
+        lo_sel = c_hit & (cspan <= span_q)
+        ac_lo = torch.where(lo_sel, counts, torch.zeros_like(counts)).amax()
+    else:
+        span_q = ac_lo = zero
+    return torch.stack([v.to(torch.int32) for v in (ac, span, win_w, span_q, ac_lo)])
+
+
+def _chooser_stats(cfg, grid, origins, directions, near, far) -> tuple[int, int, int, int, int]:
+    """(ac, span, win_w, span_q, ac_lo) of _chooser_stats_device, read with
+    one device-to-host copy."""
+    t = _chooser_stats_device(
+        cfg.depth_samples_per_ray, near, far, cfg.compact_samples, 2 * cfg.outside,
+        cfg.hybrid_split, grid, origins, directions,
+    )
+    ac, span, win_w, span_q, ac_lo = t.tolist()
+    return ac, span, win_w, span_q, ac_lo
+
+
+def compact_switch_width(cfg, grid, origins, directions, near, far, mode=None) -> int:
+    """Max per-ray sample width the compacted stepper would need to render
+    these rays losslessly in ``mode`` (default cfg.march_mode): 'lattice'
+    the max active count, 'window' the max span from the k-window start,
+    'hybrid' the max active count when the span-derived window stays
+    cheaper than the lattice march, else n_samples (never engages)."""
+    mode = cfg.march_mode if mode is None else mode
+    n = cfg.depth_samples_per_ray
+    ac, span, win_w, _, _ = _chooser_stats(cfg, grid, origins, directions, near, far)
+    if mode == "lattice":
+        return ac
+    if mode == "window":
+        return win_w
+    return ac if hybrid_w_cap_for(span, n) <= _max_hybrid_w_cap(n) else n
+
+
+def hybrid_w_cap_for(span: int, n_samples: int) -> int:
+    """Adaptive hybrid candidate window: the measured worst-ray span,
+    bucketed to 16 (a handful of distinct step shapes per run), floored at
+    160, with no grid-evolution margin (the loop re-measures and grows
+    it)."""
+    return min(n_samples, max(160, -(-int(span) // 16) * 16))
+
+
+def _max_hybrid_w_cap(n_samples: int) -> int:
+    """Beyond ~3/4 of the lattice the hybrid's fine probes approach the
+    lattice march's while it still pays the coarse window: fall through to
+    'lattice' there."""
+    return max(160, (3 * n_samples) // 4)
+
+
+def hybrid_w_lo_for(span_q: int, w_cap: int) -> int:
+    """Two-bucket lo window from the hit-ray span quantile, bucketed to 16
+    plus one bucket of margin, floor 32, capped at w_cap (where the split
+    is pointless and the caller disables it)."""
+    return min(w_cap, max(32, -(-int(span_q) // 16) * 16 + 16))
+
+
+class CompactChoice(NamedTuple):
+    """Compacted-march tuning from the chooser's probe: the mode, the
+    measured lossless active width (sizes k via compact_k_for), for
+    'hybrid' the span-sized candidate window (0 = none), with
+    cfg.hybrid_split > 0 the two-bucket lo window (0 = single bucket), and
+    with cfg.hybrid_bucket_k the measured lo-bucket active width (sizes
+    k_lo via compact_k_lo_for; 0 = single k)."""
+
+    mode: str
+    width: int
+    w_cap: int = 0
+    w_lo: int = 0
+    width_lo: int = 0
+
+
+def choose_compact_mode(cfg, grid, origins, directions, near, far) -> CompactChoice | None:
+    """Pick the cheapest compacted march that renders these rays losslessly
+    at k = cfg.compact_samples (or, with compact_engage_max above it, at
+    the interim cap), or None if none fits yet. The chain is window ->
+    hybrid -> lattice for march_mode 'window', hybrid -> lattice for
+    'hybrid'; the per-bucket-k hybrid is preferred over the window when its
+    effective k undercuts the window's by more than 32."""
+    if not (0 < cfg.compact_samples < cfg.depth_samples_per_ray):
+        return None
+    budget = int(0.9 * cfg.compact_samples)
+    emax = cfg.compact_engage_max
+    if emax > cfg.compact_samples:
+        budget = int(0.9 * min(emax, cfg.depth_samples_per_ray - 1))
+    n = cfg.depth_samples_per_ray
+    chains = {
+        "window": ("window", "hybrid", "lattice"),
+        "hybrid": ("hybrid", "lattice"),
+    }
+    modes = chains.get(cfg.march_mode, (cfg.march_mode,))
+    ac, span, win_w, span_q, ac_lo = _chooser_stats(cfg, grid, origins, directions, near, far)
+
+    def hybrid_candidate() -> CompactChoice | None:
+        wcap = hybrid_w_cap_for(span, n)
+        if ac > budget or wcap > _max_hybrid_w_cap(n):
+            return None
+        w_lo = 0
+        width_lo = 0
+        if cfg.hybrid_split > 0.0:
+            w_lo = hybrid_w_lo_for(span_q, wcap)
+            if w_lo >= wcap:
+                w_lo = 0  # no narrow majority: single bucket
+            elif cfg.hybrid_bucket_k:
+                # the lo bucket's march keeps <= min(ac_lo, w_lo) actives
+                width_lo = min(ac_lo, w_lo)
+        return CompactChoice("hybrid", ac, wcap, w_lo, width_lo)
+
+    for mode in modes:
+        if mode == "window" and win_w <= budget:
+            if cfg.hybrid_bucket_k and cfg.hybrid_split > 0.0:
+                hyb = hybrid_candidate()
+                if hyb is not None and hyb.width_lo:
+                    k_win = compact_k_for(win_w, cfg)
+                    k_h = compact_k_for(hyb.width, cfg)
+                    k_lo = compact_k_lo_for(hyb.width_lo, k_h, cfg)
+                    if k_lo:
+                        s = cfg.hybrid_split
+                        k_eff = s * k_lo + (1.0 - s) * k_h
+                        if k_eff + 32 <= k_win:
+                            return hyb
+            return CompactChoice("window", win_w)
+        if mode == "hybrid":
+            hyb = hybrid_candidate()
+            if hyb is not None:
+                return hyb
+        if mode == "lattice" and ac <= budget:
+            return CompactChoice("lattice", ac)
+    return None
+
+
+def compact_k_for(width: int, cfg: TrainConfig) -> int:
+    """Runtime compaction width: the measured lossless width times the
+    grid-evolution margin (cfg.compact_k_margin), rounded up to a multiple
+    of 8 and capped at cfg.compact_samples; above it (interim engagement,
+    compact_engage_max) bucketed to 32 and capped at the engage max."""
+    margin = cfg.compact_k_margin
+    k = int(math.ceil(width * margin / 8)) * 8
+    if k <= cfg.compact_samples:
+        return max(16, k)
+    emax = cfg.compact_engage_max
+    if emax > cfg.compact_samples:
+        k32 = int(math.ceil(width * margin / 32)) * 32
+        return max(16, min(k32, emax))
+    return max(16, min(k, cfg.compact_samples))
+
+
+def compact_k_lo_for(width_lo: int, k: int, cfg: TrainConfig) -> int:
+    """Runtime lo-bucket compaction width (march_rays_hybrid2k): the
+    measured lo-bucket width with compact_k_for's margin and 8-rounding;
+    0 when it would reach k (the split buys nothing)."""
+    if width_lo <= 0:
+        return 0
+    k_lo = max(16, int(math.ceil(width_lo * cfg.compact_k_margin / 8)) * 8)
+    return 0 if k_lo >= k else k_lo
+
+
+def _flat_positions(m) -> torch.Tensor:
+    """Sample positions of a march result as one (P, 3) point batch; the
+    two buckets of BucketedRays concatenate (lo first) so one MLP call
+    serves both."""
+    if isinstance(m, BucketedRays):
+        return torch.cat([m.lo.positions.reshape(-1, 3), m.hi.positions.reshape(-1, 3)], dim=0)
     return m.positions.reshape(-1, 3)
 
 
-def _bucket_sigmas(m: MarchedRays, raw: torch.Tensor):
-    """[(march, sigma)] for a rectangular march."""
-    return [(m, torch.sigmoid(raw).reshape(m.mask.shape))]
+def _bucket_sigmas(m, raw: torch.Tensor):
+    """The flat MLP output split back into per-bucket (R_b, k_b) sigma
+    blocks: [(march, sigma), ...], one entry for a rectangular march."""
+    sig = torch.sigmoid(raw)
+    if isinstance(m, BucketedRays):
+        n_lo = m.lo.mask.numel()
+        return [
+            (m.lo, sig[:n_lo].reshape(m.lo.mask.shape)),
+            (m.hi, sig[n_lo:].reshape(m.hi.mask.shape)),
+        ]
+    return [(m, sig.reshape(m.mask.shape))]
 
 
-def _raw_for(model, m: MarchedRays, cfg: TrainConfig) -> torch.Tensor:
+def _raw_for(model, m, cfg: TrainConfig) -> torch.Tensor:
     return density_raw(model, _flat_positions(m), cfg.mlp_backend)
 
 
@@ -240,17 +496,65 @@ def _keep_mask(m: MarchedRays, sigma: torch.Tensor, cfg: TrainConfig):
 def render_rays(
     model: CPPN, grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor,
     cfg: TrainConfig, near: float, far: float, binary_thresh: float | None = None,
+    return_march: bool = False,
 ):
     """Grid-pruned masked render of a ray batch, differentiable in the model
-    parameters (run_nerf_acc.py:287-296). Returns (pixels, sigma, keep)."""
+    parameters (run_nerf_acc.py:287-296). Returns (pixels, sigma, keep),
+    plus the march result with ``return_march`` (for march_pressure).
+    pixels are in input ray order; under the per-bucket-k march
+    (BucketedRays) sigma and keep are flat (P,) tensors in bucket order."""
     m = _march_for(cfg, grid, origins, directions, near, far)
     raw = _raw_for(model, m, cfg)
-    ((_, sigma),) = _bucket_sigmas(m, raw)
-    dists, keep = _keep_mask(m, sigma, cfg)
-    if binary_thresh is not None:
-        sigma = torch.where(sigma < binary_thresh, torch.zeros_like(sigma), sigma)
-    pixels = torch.exp(-(sigma * keep * dists).sum(dim=-1))
+    parts, sigmas, keeps = [], [], []
+    for mb, sb in _bucket_sigmas(m, raw):
+        dists, keep = _keep_mask(mb, sb, cfg)
+        if binary_thresh is not None:
+            sb = torch.where(sb < binary_thresh, torch.zeros_like(sb), sb)
+        parts.append(torch.exp(-(sb * keep * dists).sum(dim=-1)))
+        sigmas.append(sb)
+        keeps.append(keep)
+    if isinstance(m, BucketedRays):
+        pixels = torch.cat(parts).index_select(0, m.inv)
+        sigma = torch.cat([s.reshape(-1) for s in sigmas])
+        keep = torch.cat([k.reshape(-1) for k in keeps])
+    else:
+        pixels, sigma, keep = parts[0], sigmas[0], keeps[0]
+    if return_march:
+        return pixels, sigma, keep, m
     return pixels, sigma, keep
+
+
+def march_pressure(m) -> dict[str, torch.Tensor]:
+    """Batch truncation-pressure scalars (0-dim int32) of a compacted march:
+
+    over_k    - max over rays of (pre-compaction actives - emitted k): > 0
+                means first-k compaction dropped active samples this step
+    over_k_lo - the same for the lo bucket of a per-bucket-k march (0 single)
+    edge_rays - rays whose candidate window's far edge is active (the active
+                region may extend past w_cap / w_lo, or the coarse window
+                past the k-window in window mode)
+    ac/ac_lo  - the batch's max active count per ray (hi / lo bucket), the
+                evidence the tuner's floor decay is gated on."""
+    i32 = torch.int32
+    if isinstance(m, BucketedRays):
+        ac = m.hi.active_count.amax()
+        ac_lo = m.lo.active_count.amax()
+        return {
+            "march/over_k": torch.clamp(ac - m.hi.mask.shape[-1], min=0).to(i32),
+            "march/over_k_lo": torch.clamp(ac_lo - m.lo.mask.shape[-1], min=0).to(i32),
+            "march/edge_rays": (m.lo.edge_active.sum() + m.hi.edge_active.sum()).to(i32),
+            "march/ac": ac.to(i32),
+            "march/ac_lo": ac_lo.to(i32),
+        }
+    ac = m.active_count.amax()
+    zero = torch.zeros((), dtype=i32, device=ac.device)
+    return {
+        "march/over_k": torch.clamp(ac - m.mask.shape[-1], min=0).to(i32),
+        "march/over_k_lo": zero,
+        "march/edge_rays": m.edge_active.sum().to(i32),
+        "march/ac": ac.to(i32),
+        "march/ac_lo": zero,
+    }
 
 
 def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
@@ -260,6 +564,7 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     on a given batch. Parameter gradients stay in ``.grad`` after the
     step."""
     check_ported(cfg)
+    compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
 
     def sample_batch(state: TrainState, rays: RayDataset) -> RayBatch:
         return sample_pixel_rays(
@@ -279,9 +584,14 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             slabs=cfg.grid_update_slabs,
         )
         state.optimizer.zero_grad(set_to_none=True)
-        pixels, _, _ = render_rays(
-            model, grid, batch.origins, batch.directions, cfg, near, far
+        out = render_rays(
+            model, grid, batch.origins, batch.directions, cfg, near, far,
+            return_march=compacting,
         )
+        pixels = out[0]
+        # a compacted step reports its truncation pressure; the loop reads
+        # it at the chunk boundary (training/loop.py)
+        pressure = march_pressure(out[3]) if compacting else {}
         loss = torch.mean((pixels - batch.pixel_values) ** 2)
         loss.backward()
         state.optimizer.step()
@@ -294,6 +604,7 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             "mean/train-pred-coarse": pixels.mean(),
             "mean/train": batch.pixel_values.mean(),
             "barf-coarse": torch.zeros((), device=loss.device),
+            **pressure,
         }
         state.grid, state.vessel_grid = grid, vessel_grid
         state.step += 1

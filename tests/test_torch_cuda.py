@@ -1,6 +1,6 @@
 """Port on the card: the CUDA kernels against their plain versions at small
-and ragged shapes, the launch counters, and one train step. Skipped without
-a GPU; on the card run
+and ragged shapes, the launch counters, one dense and one compacted train
+step. Skipped without a GPU; on the card run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (this file imports torch only)."""
 
@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from nerf_for_angiography_tpu_torch.models import CPPN, CPPNConfig
+from nerf_for_angiography_tpu_torch.ops.kernels import first_k as fk
 from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +123,67 @@ def test_train_step_on_card(dev):
     state, metrics, _, _ = step(state, ds.rays)
     assert torch.isfinite(metrics["loss/train-pixel-coarse"])
     assert fm.fwd_launches == 2 and fm.bwd_launches == 1  # grid update + step
+
+
+@pytest.mark.parametrize("rows,w,k,p", [
+    (1, 1, 1, 0.5), (5625, 300, 96, 0.3), (5625, 300, 192, 0.9), (4218, 48, 56, 0.6),
+    (1407, 160, 96, 0.5), (100, 33, 200, 0.9), (77, 1030, 64, 0.05), (64, 64, 64, 1.0),
+    (64, 64, 8, 0.0), (9, 31, 40, 1.0),
+])
+def test_first_k_kernel_matches_plain(dev, rows, w, k, p):
+    gen = torch.Generator().manual_seed(rows + w + k)
+    mask = (torch.rand((rows, w), generator=gen) < p).to(torch.float32).to(dev)
+    fk.reset_counts()
+    sel, mask_k = fk.first_k_active_cuda(mask, k)
+    want_sel, want_mask_k = fk.first_k_active_reference(mask, k)
+    torch.cuda.synchronize()
+    assert sel.dtype == torch.int32 and mask_k.dtype == torch.float32
+    assert torch.equal(sel, want_sel) and torch.equal(mask_k, want_mask_k)
+    assert fk.launches == 1 and fk.shapes == {(rows, w, k)}
+
+
+def test_first_k_batch_shape_and_rules(dev):
+    mask = (torch.rand((3, 5, 40), device=dev) < 0.5).to(torch.float32)
+    sel, mask_k = fk.first_k_active(mask, 16)
+    want_sel, want_mask_k = fk.first_k_active_reference(mask, 16)
+    assert sel.shape == (3, 5, 16) and torch.equal(sel, want_sel)
+    assert torch.equal(mask_k, want_mask_k)
+    with pytest.raises(ValueError):
+        fk.first_k_active(mask.to(torch.float16), 16)
+    with pytest.raises(ValueError):
+        fk.first_k_active(mask.clone().requires_grad_(True), 16)
+
+
+def test_compacted_step_on_card_launches_the_kernel(dev, monkeypatch):
+    """A hybrid2k step on the card reaches the first-k kernel twice (one
+    launch per bucket) and never the plain version."""
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_sphere_volume,
+    )
+    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, create_train_state, make_train_step,
+    )
+    from nerf_for_angiography_tpu_torch.training.train import _march_for
+
+    def plain_refused(*args, **kwargs):
+        raise AssertionError("the plain first-k version ran on the card")
+
+    monkeypatch.setattr(fk, "first_k_active_reference", plain_refused)
+    ds = generate_dataset(
+        make_sphere_volume(res=32), DatagenConfig(limited_size=90.0, number_angles=1.0,
+                                                  img_width=16, img_height=16,
+                                                  sample_outside=100.0), device=dev,
+    )
+    cfg = TrainConfig(sample_size=16, depth_samples_per_ray=64, grid_resolution=32,
+                      march_mode="hybrid", compact_samples=24, hybrid_w_cap=48,
+                      hybrid_w_lo=24, hybrid_k_lo=12)
+    model, state = create_train_state(cfg, device=dev)
+    assert isinstance(_march_for(cfg, state.grid, ds.rays.origins[:256],
+                                 ds.rays.directions[:256], 1400.0, 1600.0), BucketedRays)
+    step = make_train_step(model, cfg, 1400.0, 1600.0)
+    fk.reset_counts()
+    state, metrics, _, _ = step(state, ds.rays)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss/train-pixel-coarse"])
+    assert fk.launches == 2 and int(metrics["march/ac"]) >= 0

@@ -16,6 +16,7 @@ from nerf_for_angiography_tpu.ops.pallas.fused_mlp import fused_mlp_raw as jax_f
 from nerf_for_angiography_tpu_torch.convert import cppn_params_from_jax
 from nerf_for_angiography_tpu_torch.models import CPPN
 from nerf_for_angiography_tpu_torch.models import CPPNConfig as TorchCPPNConfig
+from nerf_for_angiography_tpu_torch.ops.kernels import build
 from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
 
 
@@ -113,8 +114,9 @@ def test_kernel_wrapper_raises_without_a_build(setup, monkeypatch):
     _, model, x = setup
     packed = fm.pack_params(fm.cppn_params_to_list(model))
     monkeypatch.setattr(fm, "_lib", None)
-    monkeypatch.setattr(fm.shutil, "which", lambda name: None)
-    monkeypatch.setattr(fm, "Path", lambda p: type("P", (), {"exists": lambda self: False})())
+    # the nvcc lookup of the shared build helper (ops/kernels/build.py)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "Path", lambda p: type("P", (), {"exists": lambda self: False})())
     with pytest.raises(RuntimeError, match="nvcc"):
         fm.fused_mlp_fwd_cuda(packed, torch.from_numpy(x))
 

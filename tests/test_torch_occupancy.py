@@ -150,10 +150,13 @@ def test_prune_mask_close(alpha_thre, eps):
 
 
 def test_safe_occ_stride_and_compacted_march_raise():
+    """safe_occ_stride's fallback, and compact_k (which raised before the
+    compacted marches were ported) now returns k-wide outputs."""
     with pytest.warns(UserWarning):
         assert ot.safe_occ_stride(2, 32, NEAR, FAR, 200.0, 16) == 1
     assert ot.safe_occ_stride(2, 300, NEAR, FAR, 200.0, 128) == 2
     gj, gt = _grids(8)
     o, d = _rays(4)
-    with pytest.raises(NotImplementedError):
-        ot.march_rays(gt, torch.from_numpy(o), torch.from_numpy(d), 32, NEAR, FAR, compact_k=8)
+    m = ot.march_rays(gt, torch.from_numpy(o), torch.from_numpy(d), 32, NEAR, FAR, compact_k=8)
+    assert m.mask.shape == m.t_starts.shape == (4, 8) and m.positions.shape == (4, 8, 3)
+    assert m.active_count.shape == m.edge_active.shape == (4,)

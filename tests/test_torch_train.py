@@ -126,8 +126,8 @@ def test_tiny_train_runs_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(compact_samples=16), dict(pos_enc="fourier"), dict(pos_enc="barf"),
-    dict(fused_train_step="on"), dict(fused_train_step="auto"), dict(march_fka="pallas"),
+    dict(num_input_channels_views=2), dict(pos_enc="fourier"), dict(pos_enc="barf"),
+    dict(fused_train_step="on"), dict(fused_train_step="auto"), dict(sample_mode="image"),
     dict(pose_refine=True), dict(feature_major_mlp=True),
 ])
 def test_unported_train_configs_raise(kw):
