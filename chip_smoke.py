@@ -10,7 +10,8 @@ Phases:
   2. every kernel library built from ``csrc/`` (one nvcc per source, all
      started together), and the fused-MLP kernels held against their plain
      PyTorch versions on the card at the dense path's shapes and timed
-     (CUDA events);
+     (CUDA events); the feature-major (3, P) launch held equal to the
+     point-major one; the sampling table built 20 times, bit-identical;
   3. dense training: 60 dense-lattice steps at full width (4x128 CPPN, 75^2
      rays x 300 samples, two 128^3 grids, carve_init) on the vessel
      phantom, the launch counters read around the run, then 16 more steps
@@ -26,7 +27,17 @@ Phases:
      the training path's shapes, the fused-MLP kernels re-timed at the
      compacted point count, and 16 compacted steps profiled (no host wait
      for the device inside a step);
-  5. one JSON line with the kernel table, the card's name/power line, and the
+  5. the whole-step kernel (fused_train_step): held against its plain
+     version at the dense, lattice and two bucket shapes on the trained
+     grid's marches with random and trained weights, two launches
+     bit-identical, timed beside its bound and the split pair (MLP forward,
+     PyTorch composite, MLP backward) for the same function; the fused step
+     against the split step at one trained state; 60 dense and 600
+     shipped-default steps with ``fused_train_step='on'`` (one launch per
+     rectangular march, no split backward); the fused step profiled at the
+     lattice and two-bucket Tunings; 60 dense steps with
+     ``feature_major_mlp``;
+  6. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -56,7 +67,22 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FWD_SHAPES = (1_687_500, 2_097_152, 524_288, 3_000_000)  # train, grid warmup, grid slab, eval
 TRAIN_P = 1_687_500  # 5625 rays x 300 samples
-FWD_MAX_ABS, FWD_MEDIAN_ABS, GRAD_NORM_MAX = 2e-2, 1e-3, 3e-2
+# fused-MLP forward limits relative to the output scale max(1, max |raw|):
+# larger raw outputs (trained weights) scale the bf16 tie flips with them
+FWD_MAX_REL, FWD_MEDIAN_REL, GRAD_NORM_MAX = 2e-2, 1e-3, 3e-2
+# whole-step kernel against its plain version, which shares its cast points:
+# pixels (in [0, 1]) max abs and median abs, every gradient normalised by the
+# plain version's max; about 10x the largest reading on the card. A ray beyond
+# FS_PIX_MAX must be an early-stop tie: the plain forward's exclusive
+# transmittance within FS_EPS_TIE of eps (relative) at one of its active
+# samples, where the keep can flip between two sigma roundings; at most
+# max(1, FS_TIE_SHARE x R) such rays
+FS_PIX_MAX, FS_PIX_MEDIAN, FS_GRAD_NORM = 5e-4, 1e-5, 1e-3
+FS_EPS_TIE, FS_TIE_SHARE = 1e-3, 1e-3
+# the fused step against the split step, which forms x and the composite at
+# other cast points (x rounded after scaling, dists = t_ends - t_starts): loss
+# relative, pixels max abs and median abs, gradients normalised
+WIRE_LOSS_REL, WIRE_PIX_MAX, WIRE_PIX_MEDIAN, WIRE_GRAD_NORM = 1e-2, 2e-2, 1e-3, 3e-2
 DX_BAD_SHARE = 1e-5  # at most ~17 of 1,687,500 points
 # a relu pre-activation this close to 0 can change sign between two f32 sum
 # orders once an upstream activation rounds to a neighbouring bf16 value
@@ -68,7 +94,7 @@ RELU_TIE = 1e-3
 FK_SHAPES = ((5625, 300, 96), (5625, 300, 192), (5625, 224, 128), (4218, 48, 56),
              (1407, 160, 96))
 SRC_Z = 1500.0  # the phantom's source distance (bench.py's datagen)
-COMPACT_ITERS, HYBRID_ITERS = 600, 300
+COMPACT_ITERS, HYBRID_ITERS, DENSE_ITERS = 600, 300, 60
 DEVICE = "cuda"
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -131,7 +157,8 @@ def min_abs_preact(torch, packed, x):
 
 def ptxas_summary(log: str, width: int) -> str:
     """Registers of each kernel at this width (and of the width-free ones),
-    and any kernel that spills, from nvcc's -Xptxas -v report."""
+    and any kernel that spills with its spill-store bytes, from nvcc's
+    -Xptxas -v report."""
     if not log:
         return "(built earlier in this process)"
     regs, spills, cur = {}, [], None
@@ -139,15 +166,17 @@ def ptxas_summary(log: str, width: int) -> str:
         if "Compiling entry function '" in ln:
             mangled = ln.split("'")[1]
             short = re.search(
-                r"(fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel)", mangled)
+                r"(fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel"
+                r"|scan_kernel)", mangled)
             width_arg = re.search(r"ILi(\d+)E", mangled)
             cur = (short.group(1) if short else mangled) + (
                 f"<{width_arg.group(1)}>" if width_arg else "")
         elif cur and "Used" in ln and "registers" in ln:
             regs[cur] = ln.split("Used")[1].split("registers")[0].strip()
         elif cur and "bytes spill stores" in ln:
-            if int(ln.split("bytes spill stores")[0].split(",")[-1]) > 0:
-                spills.append(cur)
+            n = int(ln.split("bytes spill stores")[0].split(",")[-1])
+            if n > 0:
+                spills.append(f"{cur} ({n} B of spill stores)")
     keep = [f"{k} {v} registers" for k, v in regs.items() if f"<{width}>" in k or "<" not in k]
     return "; ".join(keep) + f"; spills: {', '.join(spills) or 'none'}"
 
@@ -160,7 +189,7 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 
-def build_kernels(fm, fk) -> None:
+def build_kernels(fm, fk, fs) -> None:
     """Build every kernel library at once: one nvcc per source, started
     together (each library builds under its own lock)."""
     def timed(load):
@@ -169,13 +198,15 @@ def build_kernels(fm, fk) -> None:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        futs = [(mod, ex.submit(timed, mod._load_lib)) for mod in (fm, fk)]
+    mods = (fm, fk, fs)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = [(mod, ex.submit(timed, mod._load_lib)) for mod in mods]
         secs = [(mod, f.result()) for mod, f in futs]
     print(f"kernel builds {time.perf_counter() - t0:.1f} s in parallel ("
           + ", ".join(f"{mod.__name__.rsplit('.', 1)[-1]} {s:.1f} s" for mod, s in secs) + ")")
     print("nvcc ptxas fused_mlp:", ptxas_summary(fm.build_log, 128))
     print("nvcc ptxas first_k:", ptxas_summary(fk.build_log, 0))
+    print("nvcc ptxas fused_step:", ptxas_summary(fs.build_log, 128))
 
 
 def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
@@ -188,19 +219,21 @@ def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
     torch.cuda.synchronize()
     err = (got - want).abs()
     max_err, med_err = float(err.max()), float(err.median())
-    ok = bool(torch.isfinite(got).all()) and max_err <= FWD_MAX_ABS and med_err <= FWD_MEDIAN_ABS
+    scale = max(1.0, float(want.abs().max()))
+    lim_max, lim_med = FWD_MAX_REL * scale, FWD_MEDIAN_REL * scale
+    ok = bool(torch.isfinite(got).all()) and max_err <= lim_max and med_err <= lim_med
     k_ms = time_ms(torch, lambda: fm.fused_mlp_fwd_cuda(packed, x))
     p_ms = time_ms(torch, lambda: fm.fused_mlp_fwd_reference(packed, x), reps=5, warmup=1)
     b_ms, b_by = bound_ms(mlp_flops(p, f, nh)[0], p * 3 * 4 + p * 4 + pbytes)
     print(
-        f"fused_mlp_fwd P={p} ({label}): max_abs_err {max_err:.3e} (limit {FWD_MAX_ABS}) "
-        f"median_abs_err {med_err:.3e} (limit {FWD_MEDIAN_ABS}) kernel_ms {k_ms:.4f} "
+        f"fused_mlp_fwd P={p} ({label}): output scale {scale:.3f}; max_abs_err {max_err:.3e} "
+        f"(limit {lim_max:.3e}) median_abs_err {med_err:.3e} (limit {lim_med:.3e}) kernel_ms {k_ms:.4f} "
         f"bound_ms {b_ms:.4f} ({b_by}) plain_ms {p_ms:.4f} library_ms null "
         "(no single PyTorch call computes the MLP chain)"
     )
     check(ok, f"fused_mlp_fwd disagrees with its plain version at P={p}")
     return dict(P=p, label=label, max_abs_err=max_err, median_abs_err=med_err, ms=k_ms,
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, output_scale=scale, x=x)
 
 
 def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
@@ -260,14 +293,49 @@ def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def check_feature_major(torch, fm, packed, x, gen, pm_ms: float) -> dict:
+    """The (3, P) launch on the same points equals the point-major launch
+    bit for bit (forward and dx), and its time beside the point-major one
+    (the point-major launch must not have become slower: PERF.md keeps its
+    earlier times)."""
+    x_fm = x.T.contiguous()
+    g = (torch.randn((x.shape[0],), generator=gen) / x.shape[0]).to(x.device)
+    same_fwd = torch.equal(fm.fused_mlp_fwd_cuda(packed, x_fm, True),
+                           fm.fused_mlp_fwd_cuda(packed, x))
+    grads_fm, dx_fm = fm.fused_mlp_bwd_cuda(packed, x_fm, g, True)
+    grads_pm, dx_pm = fm.fused_mlp_bwd_cuda(packed, x, g)
+    same_bwd = torch.equal(dx_fm, dx_pm.T) and all(
+        torch.equal(u, v) for a, b in zip(grads_fm, grads_pm) for u, v in zip(a, b))
+    torch.cuda.synchronize()
+    fm_ms = time_ms(torch, lambda: fm.fused_mlp_fwd_cuda(packed, x_fm, True))
+    print(f"feature-major (3, P) launch at P={x.shape[0]}: forward bit-identical to the "
+          f"point-major launch {same_fwd}, backward (grads and dx) {same_bwd}; forward "
+          f"kernel_ms {fm_ms:.4f} (point-major {pm_ms:.4f})")
+    check(same_fwd and same_bwd, "the feature-major launch differs from the point-major one")
+    return dict(same_fwd=same_fwd, same_bwd=same_bwd, ms=fm_ms, point_major_ms=pm_ms)
+
+
+def check_sampling_table(torch, rays, n: int = 20) -> bool:
+    """build_sampling_table over the dataset's ray weights, ``n`` times on
+    the same input: every table bit-identical to the first."""
+    from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
+
+    first = build_sampling_table(rays.weights)
+    same = all(torch.equal(first, build_sampling_table(rays.weights)) for _ in range(n - 1))
+    print(f"build_sampling_table ({rays.num_rays} ray weights): {n} repeats bit-identical {same}")
+    check(same, "the sampling table differs between repeats")
+    return same
+
+
 def packed_of(torch, fm, model):
     packed = fm.pack_params(fm.cppn_params_to_list(model))
     return packed, sum(t.numel() * t.element_size() for t in packed)
 
 
-def random_mlp(torch, fm):
-    """The MLP the kernel checks use: random 4x128 weights with non-zero
-    biases (so the bias path is exercised), the limits above are set for it."""
+def random_cppn(torch):
+    """The CPPN the kernel checks use: random 4x128 weights with non-zero
+    biases (so the bias path is exercised), on the card, and the generator
+    that drew them; the limits above are set for it."""
     from nerf_for_angiography_tpu_torch.models import CPPN, CPPNConfig
 
     gen = torch.Generator().manual_seed(0)
@@ -275,7 +343,13 @@ def random_mlp(torch, fm):
     with torch.no_grad():
         for lin in model.linears():
             lin.bias.normal_(0.0, 0.1, generator=gen)
-    return (*packed_of(torch, fm, model.to(DEVICE)), gen)
+    return model.to(DEVICE), gen
+
+
+def random_mlp(torch, fm):
+    """random_cppn's weights packed for the fused-MLP kernels."""
+    model, gen = random_cppn(torch)
+    return (*packed_of(torch, fm, model), gen)
 
 
 def kernel_phase(torch, fm, report: dict) -> list[dict]:
@@ -285,6 +359,10 @@ def kernel_phase(torch, fm, report: dict) -> list[dict]:
     labels = dict(zip(FWD_SHAPES, ("train", "grid warmup", "grid slab", "eval")))
     fwd = [check_fwd(torch, fm, packed, p, gen, pbytes, labels[p]) for p in FWD_SHAPES]
     bwd = check_bwd(torch, fm, packed, TRAIN_P, gen, pbytes, "train")
+    fwd[0]["feature_major"] = check_feature_major(torch, fm, packed, fwd[0].pop("x"), gen,
+                                                  fwd[0]["ms"])
+    for r in fwd[1:]:
+        r.pop("x")
     report["fwd"], report["bwd"] = fwd, bwd
     src = "nerf_for_angiography_tpu_torch/csrc/fused_mlp.cu"
     rows = []
@@ -335,9 +413,21 @@ def train_loss(torch, state, rays, cfg) -> tuple[float, list]:
     return loss, list(pix.shape)
 
 
-def training_phase(torch, fm, ds, report: dict) -> dict:
+def read_counts(fm, fk, fs) -> dict:
+    """Every kernel's launch count since the last reset_counts()."""
+    return dict(fwd_launches=fm.fwd_launches, bwd_launches=fm.bwd_launches,
+                first_k_launches=fk.launches, fused_step_launches=fs.fused_step_launches)
+
+
+def reset_all(fm, fk, fs) -> None:
+    for mod in (fm, fk, fs):
+        mod.reset_counts()
+
+
+def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     """60 dense-lattice steps (compact_samples=0), launch counts read around
-    the run, then the dense step profile."""
+    the run (no first-k and no whole-step launch on this path), then the
+    dense step profile."""
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
     cfg = TrainConfig(compact_samples=0, n_iters=60, display_every=30)
@@ -345,10 +435,11 @@ def training_phase(torch, fm, ds, report: dict) -> dict:
     grid_updates = sum(1 for s in range(steps) if s % cfg.grid_update_every == 0)
     evals = sum(1 for s in range(steps) if s % cfg.display_every == 0)
 
-    fm.reset_counts()
+    reset_all(fm, fk, fs)
     res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
     torch.cuda.synchronize()
-    fwd_n, bwd_n = fm.fwd_launches, fm.bwd_launches
+    counts = read_counts(fm, fk, fs)
+    fwd_n, bwd_n = counts["fwd_launches"], counts["bwd_launches"]
 
     loss, pix_shape = train_loss(torch, res.state, ds.rays, cfg)
     t = res.timing
@@ -359,7 +450,7 @@ def training_phase(torch, fm, ds, report: dict) -> dict:
         steps=steps, ms_per_step=ms_step, steady_rays_per_s=rays_s,
         rays_per_s_incl_first=res.rays_per_sec, train_loss=loss,
         heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
-        fwd_launches=fwd_n, bwd_launches=bwd_n, grid_updates=grid_updates, evals=evals,
+        **counts, grid_updates=grid_updates, evals=evals,
         timing={k: v for k, v in t.items() if isinstance(v, (int, float))},
         pix_shape=pix_shape,
     )
@@ -367,11 +458,14 @@ def training_phase(torch, fm, ds, report: dict) -> dict:
         f"training: {steps} steps, {ms_step:.3f} ms/step, {rays_s:.0f} rays/s steady, "
         f"train loss {loss:.6f}, held-out PSNR {res.last_psnr:.3f} dB "
         f"(best-checkpoint {res.best_heldout_psnr:.3f}), launches fwd {fwd_n} bwd {bwd_n} "
+        f"first_k {counts['first_k_launches']} fused_step {counts['fused_step_launches']} "
         f"(steps {steps}, grid updates {grid_updates}, evals {evals})"
     )
     report["training"] = out
     check(math.isfinite(loss) and math.isfinite(res.last_psnr), "training loss/PSNR not finite")
     check(bwd_n == steps, f"bwd launches {bwd_n} != steps {steps}")
+    check(counts["first_k_launches"] == 0 and counts["fused_step_launches"] == 0,
+          "the dense split run launched the first-k or the whole-step kernel")
     check(fwd_n >= steps + grid_updates + evals,
           f"fwd launches {fwd_n} < steps + grid updates + evals")
     out["profile"] = step_profile(torch, res.state, ds.rays, cfg)
@@ -469,19 +563,36 @@ def first_k_calls_per_step(fk, cfg, t: dict, grid, batch) -> int:
     return fk.launches
 
 
-def compacted_run(torch, fm, fk, ds, cfg, label: str) -> dict:
+def marches_per_step(cfg, t: dict, grid, batch) -> int:
+    """Rectangular marches one step of Tuning ``t`` runs (2 on a two-bucket
+    march): the fused step's launches per step."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+    from nerf_for_angiography_tpu_torch.training.train import _march_for
+
+    m = _march_for(tuning_cfg(cfg, t), grid, batch.origins, batch.directions,
+                   SRC_Z - cfg.outside, SRC_Z + cfg.outside)
+    return 2 if isinstance(m, BucketedRays) else 1
+
+
+def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
     """One train() run with the launch counters set to 0 just before it and
     read just after; the first-k launches must equal the compacted steps
-    times the launches a step of their Tuning makes."""
+    times the launches a step of their Tuning makes. With
+    ``cfg.fused_train_step == 'on'`` the fused-step launches must equal the
+    rectangular marches of every step and the split backward never runs;
+    otherwise the split backward runs once a step."""
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
     from nerf_for_angiography_tpu_torch.training import train
 
-    print(f"--- {label}: {cfg.n_iters + 1} steps, march_mode={cfg.march_mode}")
-    fm.reset_counts()
-    fk.reset_counts()
+    fused = cfg.fused_train_step == "on"
+    print(f"--- {label}: {cfg.n_iters + 1} steps, march_mode={cfg.march_mode}, "
+          f"fused_train_step={cfg.fused_train_step}")
+    reset_all(fm, fk, fs)
     res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
     torch.cuda.synchronize()
-    fwd_n, bwd_n, fk_n, fk_shapes = fm.fwd_launches, fm.bwd_launches, fk.launches, set(fk.shapes)
+    counts, fk_shapes = read_counts(fm, fk, fs), set(fk.shapes)
+    fwd_n, bwd_n = counts["fwd_launches"], counts["bwd_launches"]
+    fk_n, fs_n = counts["first_k_launches"], counts["fused_step_launches"]
 
     steps = res.iters_run + 1
     t = res.timing
@@ -490,18 +601,21 @@ def compacted_run(torch, fm, fk, ds, cfg, label: str) -> dict:
     per_step = [first_k_calls_per_step(fk, cfg, p, res.state.grid, batch) for p in phases]
     expected_fk = sum(n * p["steps"] for n, p in zip(per_step, phases))
     compact_steps = sum(p["steps"] for p in phases)
+    rect = [marches_per_step(cfg, p, res.state.grid, batch) for p in phases]
+    expected_fs = (steps - compact_steps) + sum(n * p["steps"] for n, p in zip(rect, phases))
     grid_updates = sum(1 for s in range(steps) if s % cfg.grid_update_every == 0)
     evals = sum(1 for s in range(steps) if s % cfg.display_every == 0)
     loss, _ = train_loss(torch, res.state, ds.rays, cfg)
     out = dict(
-        label=label, steps=steps, compact_steps=compact_steps, fwd_launches=fwd_n,
-        bwd_launches=bwd_n, first_k_launches=fk_n, first_k_expected=expected_fk,
+        label=label, steps=steps, compact_steps=compact_steps, **counts,
+        first_k_expected=expected_fk, fused_step_expected=expected_fs if fused else 0,
         first_k_shapes=sorted(fk_shapes), tuning_final=t["tuning_final"],
         steady_rays_per_sec=t["steady_rays_per_sec"], step_compact_s=t["step_compact"],
         step_dense_s=t["step_dense"], choose_s=t["choose"], compile_s=t["compile"],
         total_s=t["total"], pressure_fired=t["pressure_fired"],
         pressure_muted=t["pressure_muted"], decay_bounces=t["decay_bounces"],
-        phases=[{**p, "first_k_per_step": n} for p, n in zip(phases, per_step)],
+        phases=[{**p, "first_k_per_step": n, "marches_per_step": m}
+                for p, n, m in zip(phases, per_step, rect)],
         train_loss=loss, heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
         rays_per_s_incl_first=res.rays_per_sec,
     )
@@ -516,12 +630,17 @@ def compacted_run(torch, fm, fk, ds, cfg, label: str) -> dict:
               f"k_lo={p['k_lo']}: {p['steps']} steps ({p['rays']} steady rays in "
               f"{p['wall_s']:.3f} s), {n} first-k launches per step")
     print(f"{label}: launches fwd {fwd_n} bwd {bwd_n} first_k {fk_n} (expected {expected_fk} "
-          f"from {compact_steps} compacted steps; shapes {sorted(fk_shapes)}); steps {steps}, "
-          f"grid updates {grid_updates}, evals {evals}; train loss {loss:.6f}, held-out PSNR "
-          f"{res.last_psnr:.3f} dB (best-checkpoint {res.best_heldout_psnr:.3f})")
+          f"from {compact_steps} compacted steps; shapes {sorted(fk_shapes)}) fused_step {fs_n}"
+          + (f" (expected {expected_fs}: the rectangular marches of {steps} steps)" if fused else "")
+          + f"; steps {steps}, grid updates {grid_updates}, evals {evals}; train loss {loss:.6f}, "
+          f"held-out PSNR {res.last_psnr:.3f} dB (best-checkpoint {res.best_heldout_psnr:.3f})")
     check(math.isfinite(loss) and math.isfinite(res.last_psnr), f"{label}: loss/PSNR not finite")
-    check(bwd_n == steps, f"{label}: bwd launches {bwd_n} != steps {steps}")
-    check(fwd_n >= steps + grid_updates + evals,
+    if fused:
+        check(bwd_n == 0, f"{label}: the split backward launched {bwd_n} times")
+        check(fs_n == expected_fs, f"{label}: fused_step launches {fs_n} != expected {expected_fs}")
+    else:
+        check(bwd_n == steps and fs_n == 0, f"{label}: bwd launches {bwd_n} != steps {steps}")
+    check(fwd_n >= (0 if fused else steps) + grid_updates + evals,
           f"{label}: fwd launches {fwd_n} < steps + grid updates + evals")
     check(fk_n == expected_fk, f"{label}: first_k launches {fk_n} != expected {expected_fk}")
     out["result"] = res
@@ -635,7 +754,7 @@ def check_first_k(torch, fk, grid, cfg, batch, shapes) -> list[dict]:
     return out
 
 
-def compact_phase(torch, fm, fk, ds, report: dict) -> dict:
+def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     """Phase 4: compacted training at the shipped defaults and forced
     hybrid, the first-k kernel on the trained grid's masks, the fused-MLP
     kernels at the compacted point count, and the compacted step profile."""
@@ -644,10 +763,10 @@ def compact_phase(torch, fm, fk, ds, report: dict) -> dict:
     from nerf_for_angiography_tpu_torch.training.train import _flat_positions, _march_for
 
     cfg = TrainConfig(n_iters=COMPACT_ITERS, display_every=100)
-    main = compacted_run(torch, fm, fk, ds, cfg, "shipped defaults")
+    main = compacted_run(torch, fm, fk, fs, ds, cfg, "shipped defaults")
     check(main["compact_steps"] > 0, "the shipped-default run never engaged the compacted stepper")
     hcfg = TrainConfig(n_iters=HYBRID_ITERS, display_every=100, march_mode="hybrid")
-    hyb = compacted_run(torch, fm, fk, ds, hcfg, "forced hybrid")
+    hyb = compacted_run(torch, fm, fk, fs, ds, hcfg, "forced hybrid")
     check(hyb["first_k_launches"] > 0, "the forced-hybrid run never launched the first-k kernel")
 
     state = main["result"].state
@@ -670,18 +789,23 @@ def compact_phase(torch, fm, fk, ds, report: dict) -> dict:
     packed, pbytes, gen = random_mlp(torch, fm)
     mlp = dict(fwd=check_fwd(torch, fm, packed, p, gen, pbytes, f"compacted step {final}"),
                bwd=check_bwd(torch, fm, packed, p, gen, pbytes, f"compacted step {final}"))
+    # the forward again with the 600-step run's trained weights
+    t_packed, t_pbytes = packed_of(torch, fm, state.model)
+    mlp["fwd_trained"] = check_fwd(torch, fm, t_packed, p, gen, t_pbytes,
+                                   f"compacted step {final}, trained weights")
+    for r in mlp.values():
+        r.pop("x", None)
 
     print(f"compacted step profile at the final Tuning {final}:")
     prof = step_profile(torch, state, ds.rays, fcfg)
     check(prof["host_waits_per_step"] == 0,
           f"the compacted step waits for the device {prof['host_waits_per_step']} times a step")
-    two = two_bucket_steps(torch, fm, fk, state, ds.rays, cfg, batch)
-    for run in (main, hyb):
-        run.pop("result")
+    two = two_bucket_steps(torch, fm, fk, fs, state, ds.rays, cfg, batch)
+    hyb.pop("result")
     out = dict(shipped=main, hybrid=hyb, first_k=fk_rows, first_k_row=fk_row, mlp=mlp,
-               profile=prof, compact_p=p, two_bucket=two)
-    report["compact"] = out
-    return out
+               profile=prof, compact_p=p, two_bucket=two, final=final)
+    report["compact"] = {**out, "shipped": {k: v for k, v in main.items() if k != "result"}}
+    return {**out, "batch": batch}
 
 
 # a two-bucket (hybrid2k) Tuning at the shapes of a pruned grid: the chooser
@@ -690,7 +814,7 @@ TWO_BUCKET = dict(mode="hybrid", k=96, w_cap=160, w_lo=48, k_lo=56)
 TWO_BUCKET_STEPS = 50
 
 
-def two_bucket_steps(torch, fm, fk, state, rays, cfg, batch) -> dict:
+def two_bucket_steps(torch, fm, fk, fs, state, rays, cfg, batch) -> dict:
     """TWO_BUCKET_STEPS steps of the trained state at the fixed two-bucket
     Tuning, launch counts read around them (two first-k launches a step),
     then that step's profile."""
@@ -705,24 +829,319 @@ def two_bucket_steps(torch, fm, fk, state, rays, cfg, batch) -> dict:
     check(isinstance(m, BucketedRays), f"{TWO_BUCKET} does not march two buckets")
     step = make_train_step(state.model, tcfg, near, far)
     rays = rays._replace(sampling_table=build_sampling_table(rays.weights))
-    fm.reset_counts()
-    fk.reset_counts()
+    reset_all(fm, fk, fs)
     for _ in range(TWO_BUCKET_STEPS):
         _, metrics, _, _ = step(state, rays)
     torch.cuda.synchronize()
-    out = dict(tuning=TWO_BUCKET, steps=TWO_BUCKET_STEPS, fwd_launches=fm.fwd_launches,
-               bwd_launches=fm.bwd_launches, first_k_launches=fk.launches,
+    counts = read_counts(fm, fk, fs)
+    out = dict(tuning=TWO_BUCKET, steps=TWO_BUCKET_STEPS, **counts,
                first_k_shapes=sorted(fk.shapes),
                pressure={k: int(v) for k, v in metrics.items() if k.startswith("march/")})
     print(f"two-bucket steps {TWO_BUCKET}: {TWO_BUCKET_STEPS} steps, launches fwd "
-          f"{fm.fwd_launches} bwd {fm.bwd_launches} first_k {fk.launches} (shapes "
-          f"{sorted(fk.shapes)}), last step's pressure {out['pressure']}")
-    check(fm.bwd_launches == TWO_BUCKET_STEPS and fk.launches == 2 * TWO_BUCKET_STEPS,
-          "the two-bucket steps did not launch one backward and two first-k kernels a step")
+          f"{counts['fwd_launches']} bwd {counts['bwd_launches']} first_k "
+          f"{counts['first_k_launches']} (shapes {sorted(fk.shapes)}) fused_step "
+          f"{counts['fused_step_launches']}, last step's pressure {out['pressure']}")
+    check(counts["bwd_launches"] == TWO_BUCKET_STEPS
+          and counts["first_k_launches"] == 2 * TWO_BUCKET_STEPS
+          and counts["fused_step_launches"] == 0,
+          "the two-bucket steps did not launch one backward, two first-k kernels and no "
+          "whole-step kernel a step")
     print(f"two-bucket step profile at {TWO_BUCKET}:")
     out["profile"] = step_profile(torch, state, rays, tcfg)
     check(out["profile"]["host_waits_per_step"] == 0,
           "the two-bucket step waits for the device inside a step")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the whole-step kernel (fused_train_step) and feature_major_mlp
+# ---------------------------------------------------------------------------
+
+LATTICE = dict(mode="lattice", k=160, w_cap=0, w_lo=0, k_lo=0)
+
+
+def march_blocks(torch, cfg, grid, batch) -> dict:
+    """The fused step's inputs at the training path's shapes, from the
+    marches of the trained grid on one batch: the dense lattice, the
+    lattice at k = 160 and the two buckets of TWO_BUCKET. Each is (o, d,
+    t_mid, mask, targets), contiguous."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+    from nerf_for_angiography_tpu_torch.training.train import _march_for
+
+    near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    o, d, tgt = batch.origins, batch.directions, batch.pixel_values
+
+    def block(m, oo, dd, tt):
+        t_mid = ((m.t_starts + m.t_ends) * 0.5).contiguous()
+        return tuple(a.contiguous() for a in (oo, dd, t_mid, m.mask, tt))
+
+    out = {}
+    dense = _march_for(dataclasses.replace(cfg, compact_samples=0), grid, o, d, near, far)
+    out["dense"] = block(dense, o, d, tgt)
+    lat = _march_for(tuning_cfg(cfg, LATTICE), grid, o, d, near, far)
+    out[f"lattice k={LATTICE['k']}"] = block(lat, o, d, tgt)
+    two = _march_for(tuning_cfg(cfg, TWO_BUCKET), grid, o, d, near, far)
+    check(isinstance(two, BucketedRays), f"{TWO_BUCKET} does not march two buckets")
+    o_s, d_s, t_s = (a.index_select(0, two.perm) for a in (o, d, tgt))
+    cut = two.lo.t_starts.shape[0]
+    out["two-bucket lo"] = block(two.lo, o_s[:cut], d_s[:cut], t_s[:cut])
+    out["two-bucket hi"] = block(two.hi, o_s[cut:], d_s[cut:], t_s[cut:])
+    return out
+
+
+def split_pair(torch, fm, model, o, d, t_mid, mask, tgt, kw):
+    """The same function through the split path a step runs without the
+    whole-step kernel: the fused-MLP forward kernel, the PyTorch composite
+    (sigmoid, prune_mask, Beer-Lambert, loss), autograd, the fused-MLP
+    backward kernel. Returns the parameter gradients."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import prune_mask
+
+    plist = fm.cppn_params_to_list(model)
+    params = [t for pair in plist for t in pair]
+    s = kw["input_scale"]
+    x = ((o[:, None, :] + d[:, None, :] * t_mid[..., None]) * s).reshape(-1, 3)
+    sigma = torch.sigmoid(fm.fused_mlp_raw(plist, x)).reshape(t_mid.shape)
+    dists = torch.full_like(t_mid, kw["step"])
+    keep = prune_mask(sigma, dists, mask, 0.0, kw["early_stop_eps"])
+    pixel = torch.exp(-(sigma * keep * dists).sum(-1))
+    loss = ((pixel - tgt) ** 2).sum() / kw["n_rays_loss"]
+    return torch.autograd.grad(loss, params)
+
+
+def grad_norm_errs(g_k, g_p) -> list[float]:
+    """Each gradient's max abs difference normalised by the max of g_p's,
+    in plist order (W_0, b_0, W_1, ...)."""
+    return [float((a - b.reshape(a.shape)).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for pk, pp in zip(g_k, g_p) for a, b in zip(pk, pp)]
+
+
+def fs_compare(torch, got, want) -> dict:
+    """Pixels (max abs, median abs) and every gradient normalised by the
+    plain version's max."""
+    (px_k, g_k), (px_p, g_p) = got, want
+    err = (px_k - px_p).abs()
+    norm = grad_norm_errs(g_k, g_p)
+    names = [f"{w}_{i}" for i in range(len(g_k)) for w in ("W", "b")]
+    finite = bool(torch.isfinite(px_k).all()) and all(
+        bool(torch.isfinite(t).all()) for pair in g_k for t in pair)
+    return dict(pix_max=float(err.max()), pix_median=float(err.median()), grad_norm=max(norm),
+                grad_norm_worst=names[norm.index(max(norm))],
+                max_abs_err=max(float(err.max()), max(
+                    float((a - b.reshape(a.shape)).abs().max())
+                    for pk, pp in zip(g_k, g_p) for a, b in zip(pk, pp))),
+                finite=finite)
+
+
+def eps_tie_dist(torch, fm, packed, o, d, t_mid, mask, kw):
+    """Per ray, the smallest |T / eps - 1| over its active samples of the
+    plain forward's exclusive transmittance T = exp(-sum of sigma step mask
+    before the sample)."""
+    r, k = t_mid.shape
+    s, step = kw["input_scale"], kw["step"]
+    x = ((o * s)[:, None, :] + (d * s)[:, None, :] * t_mid[..., None]).reshape(-1, 3)
+    _, acts = fm._forward_acts(packed, x)
+    tau = torch.sigmoid(fm._head(packed, acts)).reshape(r, k) * step * mask
+    t_excl = torch.exp(-(torch.cumsum(tau, dim=1) - tau))
+    dist = (t_excl / kw["early_stop_eps"] - 1).abs()
+    return torch.where(mask > 0, dist, torch.full_like(dist, float("inf"))).amin(dim=1)
+
+
+def check_fused_step(torch, fm, fs, model, blk, kw, label: str, timed: bool) -> dict:
+    """The whole-step kernel against its plain version on one march block
+    (limits FS_PIX_MAX / FS_PIX_MEDIAN / FS_GRAD_NORM), two launches
+    bit-identical; with ``timed``: kernel, plain and split-pair times and
+    the bound."""
+    packed = fm.pack_params(fm.cppn_params_to_list(model))
+    o, d, t_mid, mask, tgt = blk
+    r, k = t_mid.shape
+    got = fs.fused_step_grads_cuda(packed, *blk, **kw)
+    again = fs.fused_step_grads_cuda(packed, *blk, **kw)
+    want = fs.fused_step_grads_reference(packed, *blk, **kw)
+    torch.cuda.synchronize()
+    c = fs_compare(torch, got, want)
+    same = torch.equal(got[0], again[0]) and all(
+        torch.equal(u, v) for a, b in zip(got[1], again[1]) for u, v in zip(a, b))
+    bad = (got[0] - want[0]).abs() > FS_PIX_MAX
+    n_bad = int(bad.sum())
+    tie = (eps_tie_dist(torch, fm, packed, *(t[bad] for t in blk[:4]), kw)
+           if n_bad else torch.zeros(0))
+    ties_ok = n_bad == 0 or (kw["early_stop_eps"] > 0 and n_bad <= max(1, FS_TIE_SHARE * r)
+                             and bool((tie < FS_EPS_TIE).all()))
+    ok = (c["finite"] and ties_ok and c["pix_median"] <= FS_PIX_MEDIAN
+          and c["grad_norm"] <= FS_GRAD_NORM)
+    out = dict(label=label, R=r, k=k, actives=int(mask.sum()), **c, rays_beyond=n_bad,
+               deterministic=same)
+    line = (f"fused_step {label} (R={r}, k={k}, P={r * k}, {out['actives']} active samples): "
+            f"pixels max_abs_err {c['pix_max']:.3e} (limit {FS_PIX_MAX} except at eps ties: "
+            f"{n_bad} rays beyond it"
+            + (f", each within {float(tie.max()):.3e} of eps (limit {FS_EPS_TIE})" if n_bad else "")
+            + f") median {c['pix_median']:.3e} (limit {FS_PIX_MEDIAN}); max normalised grad err "
+            f"{c['grad_norm']:.3e} (limit {FS_GRAD_NORM}); two launches bit-identical {same}")
+    if timed:
+        f, nh = packed.width, packed.n_hidden
+        pbytes = sum(t.numel() * t.element_size() for t in packed)
+        k_ms = time_ms(torch, lambda: fs.fused_step_grads_cuda(packed, *blk, **kw))
+        p_ms = time_ms(torch, lambda: fs.fused_step_grads_reference(packed, *blk, **kw),
+                       reps=3, warmup=1)
+        s_ms = time_ms(torch, lambda: split_pair(torch, fm, model, *blk, kw), reps=5, warmup=2)
+        # one forward, the dW products and the dh products of the samples
+        # this data needs (mask != 0: the others add nothing to the pixel or
+        # the gradients); each input read once (rays, t_mid and mask,
+        # targets, weights), pixels and gradients written once. The
+        # interface bound counts every sample of the rectangle.
+        nbytes = r * 7 * 4 + r * k * 8 + pbytes + r * 4 + 4 * sum(
+            t.numel() for pair in got[1] for t in pair)
+        b_ms, b_by = bound_ms(3 * mlp_flops(out["actives"], f, nh)[0], nbytes)
+        i_ms, _ = bound_ms(3 * mlp_flops(r * k, f, nh)[0], nbytes)
+        out.update(ms=k_ms, plain_ms=p_ms, split_pair_ms=s_ms, bound_ms=b_ms, bound_by=b_by,
+                   interface_bound_ms=i_ms)
+        line += (f"; kernel_ms {k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, the active samples; "
+                 f"{i_ms:.4f} over all {r * k}) plain_ms {p_ms:.4f} split_pair_ms {s_ms:.4f} "
+                 f"library_ms null (no single PyTorch call computes the train-step gradient)")
+    print(line)
+    check(ok, f"fused_step disagrees with its plain version: {label}")
+    check(same, f"fused_step gradients differ between two launches: {label}")
+    return out
+
+
+def fused_wiring(torch, fm, state, batch, cfg, label: str, blks: list, kw: dict) -> dict:
+    """At one trained state and batch: the fused step's loss, pixels and
+    gradients against the split step's (render_rays + autograd). To locate
+    the gap, both also against split_pair on the same march blocks ``blks``
+    (the split composite with dists = step exactly and x = bf16((o + d·t)·s)):
+    the fused step differs from split_pair in x's cast points and the keep
+    sum's order, the split step from split_pair in dists."""
+    from nerf_for_angiography_tpu_torch.training.train import _fused_loss_and_grads, render_rays
+
+    near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    model = state.model
+    o, d, tgt = batch.origins, batch.directions, batch.pixel_values
+    loss_f, px_f, _, grads_f = _fused_loss_and_grads(model, state.grid, o, d, tgt, cfg,
+                                                     near, far)
+    model.zero_grad(set_to_none=True)
+    px_s, _, _ = render_rays(model, state.grid, o, d, cfg, near, far)
+    loss_s = torch.mean((px_s - tgt) ** 2)
+    loss_s.backward()
+    loss_s = loss_s.detach()
+    grads_s = [(lin.weight.grad.T, lin.bias.grad) for lin in model.linears()]
+    c = fs_compare(torch, (px_f, grads_f), (px_s.detach(), grads_s))
+    model.zero_grad(set_to_none=True)
+    loss_rel = abs(float(loss_f) - float(loss_s)) / max(float(loss_s), 1e-30)
+    exact = None
+    for blk in blks:
+        g = split_pair(torch, fm, model, *blk, kw)
+        exact = g if exact is None else [a + b for a, b in zip(exact, g)]
+    exact = [tuple(exact[i:i + 2]) for i in range(0, len(exact), 2)]
+    vs_fused = max(grad_norm_errs(grads_f, exact))
+    vs_split = max(grad_norm_errs(grads_s, exact))
+    print(f"fused step vs split step ({label}): loss {float(loss_f):.6e} vs {float(loss_s):.6e} "
+          f"(relative {loss_rel:.3e}, limit {WIRE_LOSS_REL}); pixels max_abs_err "
+          f"{c['pix_max']:.3e} (limit {WIRE_PIX_MAX}) median {c['pix_median']:.3e} (limit "
+          f"{WIRE_PIX_MEDIAN}); max normalised grad err {c['grad_norm']:.3e} (limit "
+          f"{WIRE_GRAD_NORM}; layer {c['grad_norm_worst']}, layers numbered from the input); "
+          f"against the split composite with dists = step exactly: fused {vs_fused:.3e}, "
+          f"split {vs_split:.3e}")
+    check(c["finite"] and loss_rel <= WIRE_LOSS_REL and c["pix_max"] <= WIRE_PIX_MAX
+          and c["pix_median"] <= WIRE_PIX_MEDIAN and c["grad_norm"] <= WIRE_GRAD_NORM,
+          f"the fused step disagrees with the split step ({label})")
+    return dict(label=label, loss_rel=loss_rel, **c, exact_dists_vs_fused=vs_fused,
+                exact_dists_vs_split=vs_split)
+
+
+def dense_run(torch, fm, fk, fs, ds, label: str, **cfg_kw) -> dict:
+    """DENSE_ITERS dense steps with the launch counters set to 0 just
+    before and read just after (a dense run never launches first-k)."""
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+
+    cfg = TrainConfig(compact_samples=0, n_iters=DENSE_ITERS, display_every=30, **cfg_kw)
+    steps = cfg.n_iters + 1
+    grid_updates = sum(1 for s in range(steps) if s % cfg.grid_update_every == 0)
+    evals = sum(1 for s in range(steps) if s % cfg.display_every == 0)
+    reset_all(fm, fk, fs)
+    res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = read_counts(fm, fk, fs)
+    ms_step = 1e3 * res.timing["step_dense"] / cfg.n_iters
+    print(f"{label}: {steps} dense steps, {ms_step:.3f} ms/step, held-out PSNR "
+          f"{res.last_psnr:.3f} dB (best-checkpoint {res.best_heldout_psnr:.3f}); launches fwd "
+          f"{counts['fwd_launches']} bwd {counts['bwd_launches']} first_k "
+          f"{counts['first_k_launches']} fused_step {counts['fused_step_launches']} (steps "
+          f"{steps}, grid updates {grid_updates}, evals {evals})")
+    check(math.isfinite(res.last_psnr), f"{label}: held-out PSNR not finite")
+    check(counts["first_k_launches"] == 0, f"{label}: the dense run launched first-k")
+    return dict(label=label, steps=steps, ms_per_step=ms_step, heldout_psnr=res.last_psnr,
+                best_heldout_psnr=res.best_heldout_psnr, **counts, grid_updates=grid_updates,
+                evals=evals, state=res.state)
+
+
+def profile_row(p: dict) -> str:
+    return (f"device {p['device_ms_per_step']:.3f} ms/step in {p['device_ops_per_step']:.1f} "
+            f"ops, host issue {p['host_issue_ms_per_step']:.3f} ms/step, wall "
+            f"{p['wall_ms_per_step']:.3f} ms/step, busy {p['busy_share'] or 0.0:.3f}, host "
+            f"waits {p['host_waits_per_step']:.2f}/step")
+
+
+def fused_step_phase(torch, fm, fk, fs, ds, tr: dict, cp: dict, report: dict) -> dict:
+    """Phase 5: the whole-step kernel and feature_major_mlp."""
+    from nerf_for_angiography_tpu_torch.training import TrainConfig
+
+    state = cp["shipped"]["result"].state
+    batch = cp["batch"]
+    cfg = TrainConfig(n_iters=COMPACT_ITERS, display_every=100)
+    kw = dict(step=(2 * cfg.outside) / cfg.depth_samples_per_ray,
+              early_stop_eps=cfg.early_stop_eps, n_rays_loss=cfg.img_sample_size,
+              input_scale=state.model.config.input_scale)
+    blocks = march_blocks(torch, cfg, state.grid, batch)
+    rnd_model, _ = random_cppn(torch)
+    shapes = {}
+    for name, blk in blocks.items():
+        shapes[name] = dict(
+            random=check_fused_step(torch, fm, fs, rnd_model, blk, kw,
+                                    f"{name}, random weights", timed=True),
+            trained=check_fused_step(torch, fm, fs, state.model, blk, kw,
+                                     f"{name}, trained weights", timed=False),
+        )
+    wiring = [fused_wiring(torch, fm, state, batch, dataclasses.replace(cfg, compact_samples=0),
+                           "dense", [blocks["dense"]], kw),
+              fused_wiring(torch, fm, state, batch, tuning_cfg(cfg, TWO_BUCKET), "two-bucket",
+                           [blocks["two-bucket lo"], blocks["two-bucket hi"]], kw)]
+
+    f_dense = dense_run(torch, fm, fk, fs, ds, "fused dense", fused_train_step="on")
+    check(f_dense["fused_step_launches"] == f_dense["steps"] and f_dense["bwd_launches"] == 0,
+          "the fused dense run did not launch one fused step a step and no split backward")
+    f_main = compacted_run(torch, fm, fk, fs, ds,
+                           TrainConfig(n_iters=COMPACT_ITERS, display_every=100,
+                                       fused_train_step="on"), "fused shipped defaults")
+    check(f_main["compact_steps"] > 0, "the fused shipped-default run never engaged compaction")
+    fm_dense = dense_run(torch, fm, fk, fs, ds, "feature-major dense", feature_major_mlp=True)
+    check(fm_dense["bwd_launches"] == fm_dense["steps"] and fm_dense["fused_step_launches"] == 0
+          and fm_dense["fwd_launches"] >= fm_dense["steps"] + fm_dense["grid_updates"]
+          + fm_dense["evals"], "the feature-major run did not launch the fused-MLP kernels")
+    print(f"held-out PSNR, split vs fused_train_step='on' (same call): dense "
+          f"{tr['heldout_psnr']:.3f} vs {f_dense['heldout_psnr']:.3f} dB; shipped defaults "
+          f"{cp['shipped']['heldout_psnr']:.3f} vs {f_main['heldout_psnr']:.3f} dB; "
+          f"feature-major dense {fm_dense['heldout_psnr']:.3f} dB")
+
+    # the fused step profiled at the lattice and two-bucket Tunings, beside
+    # the split profiles of this call
+    final = cp["final"]
+    profiles = {}
+    for name, t, split in (("lattice", final, cp["profile"]),
+                           ("two-bucket", TWO_BUCKET, cp["two_bucket"]["profile"])):
+        fcfg = dataclasses.replace(tuning_cfg(cfg, t), fused_train_step="on")
+        print(f"fused step profile at {name} {t}:")
+        prof = step_profile(torch, f_main["result"].state, ds.rays, fcfg)
+        check(prof["host_waits_per_step"] == 0, f"the fused {name} step waits for the device")
+        profiles[name] = dict(tuning=t, split=split, fused=prof)
+    for name, p in profiles.items():
+        print(f"  {name} split: {profile_row(p['split'])}")
+        print(f"  {name} fused: {profile_row(p['fused'])}")
+    f_main.pop("result")
+    for run in (f_dense, fm_dense):
+        run.pop("state")
+    out = dict(shapes=shapes, wiring=wiring, fused_dense=f_dense, fused_shipped=f_main,
+               feature_major_dense=fm_dense, profiles=profiles)
+    report["fused_step"] = out
     return out
 
 
@@ -868,6 +1287,7 @@ def main() -> int:
     try:
         from nerf_for_angiography_tpu_torch.ops.kernels import first_k as fk
         from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
+        from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
     except ImportError as e:
         print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
         return 2
@@ -882,11 +1302,13 @@ def main() -> int:
     report: dict = {"device": kind, "nvidia_smi": smi}
     t_all = time.perf_counter()
     try:
-        build_kernels(fm, fk)
+        build_kernels(fm, fk, fs)
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
-        tr = training_phase(torch, fm, ds, report)
-        cp = compact_phase(torch, fm, fk, ds, report)
+        report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)
+        tr = training_phase(torch, fm, fk, fs, ds, report)
+        cp = compact_phase(torch, fm, fk, fs, ds, report)
+        fp = fused_step_phase(torch, fm, fk, fs, ds, tr, cp, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
@@ -898,12 +1320,16 @@ def main() -> int:
         os.makedirs(os.path.join(HERE, "smoke_out"), exist_ok=True)
         with open(os.path.join(HERE, "smoke_out", "chip_smoke.json"), "w") as fh:
             json.dump(report, fh, indent=1, default=str)
-    runs = {"dense": {**tr, "first_k_launches": 0}, "shipped_defaults": cp["shipped"],
-            "forced_hybrid": cp["hybrid"], "two_bucket_steps": cp["two_bucket"]}
+    runs = {"dense": tr, "shipped_defaults": cp["shipped"],
+            "forced_hybrid": cp["hybrid"], "two_bucket_steps": cp["two_bucket"],
+            "fused_dense": fp["fused_dense"], "fused_shipped_defaults": fp["fused_shipped"],
+            "feature_major_dense": fp["feature_major_dense"]}
+    # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}
         for name, key in (("fused_mlp_fwd", "fwd_launches"), ("fused_mlp_bwd", "bwd_launches"),
-                          ("first_k_active", "first_k_launches"))
+                          ("first_k_active", "first_k_launches"),
+                          ("fused_step", "fused_step_launches"))
     }
     fk_row = cp["first_k_row"]
     rows.append(dict(
@@ -912,6 +1338,20 @@ def main() -> int:
         max_abs_err=fk_row["max_abs_err"], ms=fk_row["ms"], plain_ms=fk_row["plain_ms"],
         bound_ms=fk_row["bound_ms"], bound_by=fk_row["bound_by"], library_ms=None,
         shape=[fk_row["R"], fk_row["w"], fk_row["k"]],
+    ))
+    fs_row = fp["shapes"]["dense"]["random"]
+    rows.append(dict(
+        name="fused_step", route="cuda",
+        source="nerf_for_angiography_tpu_torch/csrc/fused_step.cu",
+        replaces="nerf_for_angiography_tpu/ops/pallas/fused_step.py:79", launches=0,
+        max_abs_err=fs_row["max_abs_err"], ms=fs_row["ms"], plain_ms=fs_row["plain_ms"],
+        bound_ms=fs_row["bound_ms"], bound_by=fs_row["bound_by"], library_ms=None,
+        split_pair_ms=fs_row["split_pair_ms"], shape=[fs_row["R"], fs_row["k"]],
+        interface_bound_ms=fs_row["interface_bound_ms"],
+        shapes={name: {k: v["random"][k] for k in ("R", "k", "actives", "ms", "plain_ms",
+                                                    "bound_ms", "interface_bound_ms",
+                                                    "split_pair_ms")}
+                for name, v in fp["shapes"].items()},
     ))
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())

@@ -3,10 +3,16 @@ plain PyTorch versions.
 
 Replaces the TPU kernels ``nerf_for_angiography_tpu/ops/pallas/fused_mlp.py``
 ``_fwd_kernel`` (line 142) and ``_bwd_kernel`` (line 160). The CUDA C++
-source is ``csrc/fused_mlp.cu`` (sm_90a, mma.sync bf16 with f32
-accumulators, the layer chain in registers); its header states the bound
-and the design. The backward takes 2 x (n_hidden + 1) x P x F bf16 of
-scratch for the activations and dz.
+source is ``csrc/fused_mlp.cu`` over the layer chain of
+``csrc/mlp_chain.cuh`` (sm_90a, mma.sync bf16 with f32 accumulators, the
+layer chain in registers); the header states the bound and the design. The
+backward takes 2 x (n_hidden + 1) x P x F bf16 of scratch for the
+activations and dz.
+
+The kernels read x through its strides: point-major (P, 3) as
+``fused_mlp_raw`` passes it, or feature-major (3, P) as ``fused_mlp_raw_fm``
+does (the JAX ``fused_mlp_raw_fm``'s input without its five pad rows), and
+write dx in the layout of x.
 
 Bound at the flagship shapes (F = 128, n_hidden = 4): 132,096 FLOP per point
 forward and about three times that backward, against 16 bytes of point
@@ -101,6 +107,10 @@ def pack_params(plist) -> PackedMLP:
 # ---------------------------------------------------------------------------
 
 
+def _point_major(x: torch.Tensor, feature_major: bool) -> torch.Tensor:
+    return x.T if feature_major else x
+
+
 def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
@@ -116,18 +126,38 @@ def _forward_acts(packed: PackedMLP, x: torch.Tensor):
     return xb, acts
 
 
-def fused_mlp_fwd_reference(packed: PackedMLP, x: torch.Tensor) -> torch.Tensor:
-    """x (P, 3) f32 -> raw density (P,) f32, plain PyTorch."""
-    _, acts = _forward_acts(packed, x)
+def _head(packed: PackedMLP, acts) -> torch.Tensor:
+    """raw = bf16 last activation . w_out + b_out, in f32."""
     return (acts[-1].float() * packed.w_out).sum(-1) + packed.b_out[0]
 
 
-def fused_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
+def fused_mlp_fwd_reference(
+    packed: PackedMLP, x: torch.Tensor, feature_major: bool = False
+) -> torch.Tensor:
+    """x (P, 3) f32, or (3, P) with ``feature_major`` -> raw density (P,)
+    f32, plain PyTorch."""
+    _, acts = _forward_acts(packed, _point_major(x, feature_major))
+    return _head(packed, acts)
+
+
+def fused_mlp_bwd_reference(
+    packed: PackedMLP, x: torch.Tensor, g: torch.Tensor, feature_major: bool = False
+):
     """Backward of fused_mlp_fwd_reference for dL/draw = g (P,).
 
     Returns (grads, dx): grads in the plist layout [(dW_in (3,F), db_in),
-    (dW (F,F), db)..., (dw_out (F,1), db_out (1,))], dx (P, 3) f32."""
-    xb, acts = _forward_acts(packed, x)
+    (dW (F,F), db)..., (dw_out (F,1), db_out (1,))], dx f32 in the layout of
+    x."""
+    xb, acts = _forward_acts(packed, _point_major(x, feature_major))
+    grads, dzf = backward_from_acts(packed, xb, acts, g)
+    dx = dzf @ packed.w_in[:, :3].float()
+    return grads, _point_major(dx, feature_major).contiguous()
+
+
+def backward_from_acts(packed: PackedMLP, xb: torch.Tensor, acts, g: torch.Tensor):
+    """The parameter gradients of the MLP for dL/draw = g (P,) from the
+    bf16 input xb (P, 3) and the bf16 activations of _forward_acts. Returns
+    (grads in the plist layout, the input layer's dz (P, F) f32)."""
     g = g.float()
     f = packed.width
     dw_out = acts[-1].float().T @ g
@@ -142,8 +172,7 @@ def fused_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor)
     dzf = (dh * (acts[0].float() > 0).to(torch.bfloat16)).float()
     grads = [(xb.T @ dzf, dzf.sum(0))] + hidden
     grads.append((dw_out.reshape(f, 1), db_out))
-    dx = dzf @ packed.w_in[:, :3].float()
-    return grads, dx
+    return grads, dzf
 
 
 # ---------------------------------------------------------------------------
@@ -164,12 +193,13 @@ def _load_lib() -> ctypes.CDLL:
                      "fused_mlp_mask_slots"):
             getattr(lib, name).argtypes = [i32, i32]
             getattr(lib, name).restype = ll
-        lib.fused_mlp_fwd.argtypes = [vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp]
+        lib.fused_mlp_fwd.argtypes = [vp, ll, ll, ll, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp]
         lib.fused_mlp_fwd.restype = i32
         lib.fused_mlp_chunk_quantum.argtypes = []
         lib.fused_mlp_chunk_quantum.restype = i32
         lib.fused_mlp_bwd.argtypes = [
-            vp, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll, i32, vp, vp, vp,
+            vp, ll, ll, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll, i32, vp, vp,
+            vp,
         ]
         lib.fused_mlp_bwd.restype = i32
         _lib = lib
@@ -180,14 +210,14 @@ def _load_lib() -> ctypes.CDLL:
 _MAX_SMEM = 232_448
 
 
-def _check_kernel_inputs(packed: PackedMLP, x: torch.Tensor, lib) -> None:
+def check_packed(packed: PackedMLP, device: torch.device, smem: int) -> None:
+    """Raise on parameters the kernels do not take: off ``device``, not
+    contiguous, an unsupported width (``smem`` 0) or weights beyond
+    shared memory."""
     f, nh = packed.width, packed.n_hidden
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous (P, 3) float32, got {tuple(x.shape)} {x.dtype}")
     for t in packed:
-        if t.device != x.device or not t.is_contiguous():
+        if t.device != device or not t.is_contiguous():
             raise ValueError("packed parameters must be contiguous on x's device")
-    smem = lib.fused_mlp_smem_bytes(f, nh)
     if smem == 0:
         raise ValueError(f"fused-MLP kernel needs 16 <= F <= 128, F % 16 == 0; got F={f}")
     if smem > _MAX_SMEM:
@@ -197,22 +227,69 @@ def _check_kernel_inputs(packed: PackedMLP, x: torch.Tensor, lib) -> None:
         )
 
 
+def _check_kernel_inputs(packed: PackedMLP, x: torch.Tensor, lib, feature_major: bool):
+    """Raise on inputs the kernels do not take; returns (P, the point
+    stride, the coordinate stride) of x."""
+    p = x.shape[-1] if feature_major else x.shape[0]
+    shape = (3, p) if feature_major else (p, 3)
+    if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
+        want = "(3, P)" if feature_major else "(P, 3)"
+        raise ValueError(f"x must be contiguous {want} float32, got {tuple(x.shape)} {x.dtype}")
+    check_packed(packed, x.device, lib.fused_mlp_smem_bytes(packed.width, packed.n_hidden))
+    return (p, 1, p) if feature_major else (p, 3, 1)
+
+
 def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def fused_mlp_fwd_cuda(packed: PackedMLP, x: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel: x (P, 3) f32 on the card -> (P,) f32."""
+class BwdScratch(NamedTuple):
+    """The backward's device scratch: every layer's bf16 activation and dz
+    ((n_hidden + 1, P, F) each), the relu-mask slots (8 bytes each) and the
+    f32 partials of the weight-gradient chunks (about one chunk per SM, each
+    a multiple of the kernel's pipeline stage)."""
+
+    acts: torch.Tensor
+    dzs: torch.Tensor
+    masks: torch.Tensor
+    partials: torch.Tensor
+    n_chunks: int
+    chunk: int
+
+    @staticmethod
+    def make(p, f, nh, n_sms, stride, mask_slots, quantum, dev) -> "BwdScratch":
+        chunk = max(1, -(-p // (n_sms * quantum))) * quantum
+        n_chunks = -(-p // chunk)
+        return BwdScratch(
+            acts=torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev),
+            dzs=torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev),
+            masks=torch.empty((mask_slots,), dtype=torch.int64, device=dev),
+            partials=torch.empty((max(n_chunks, 1) * stride,), dtype=torch.float32, device=dev),
+            n_chunks=n_chunks,
+            chunk=chunk,
+        )
+
+    def args(self) -> tuple:
+        """(acts, dzs, masks, partials, n_chunks, chunk) as the C functions
+        take them."""
+        return (self.acts.data_ptr(), self.dzs.data_ptr(), self.masks.data_ptr(),
+                self.partials.data_ptr(), self.n_chunks, self.chunk)
+
+
+def fused_mlp_fwd_cuda(
+    packed: PackedMLP, x: torch.Tensor, feature_major: bool = False
+) -> torch.Tensor:
+    """Launch the forward kernel: x (P, 3) f32 on the card, or (3, P) with
+    ``feature_major`` -> (P,) f32."""
     global fwd_launches
     lib = _load_lib()
-    _check_kernel_inputs(packed, x, lib)
-    p = x.shape[0]
+    p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     out = torch.empty((p,), dtype=torch.float32, device=x.device)
     if p == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.fused_mlp_fwd(
-        x.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
+        x.data_ptr(), sp, sc, p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
         packed.width, packed.n_hidden, out.data_ptr(), _num_sms(x.device), stream,
     )
@@ -221,38 +298,30 @@ def fused_mlp_fwd_cuda(packed: PackedMLP, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fused_mlp_bwd_cuda(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
-    """Launch the backward kernel (+ its fixed-order partial reduction)."""
+def fused_mlp_bwd_cuda(
+    packed: PackedMLP, x: torch.Tensor, g: torch.Tensor, feature_major: bool = False
+):
+    """Launch the backward kernel (+ its fixed-order partial reduction); dx
+    comes back in the layout of x."""
     global bwd_launches
     lib = _load_lib()
-    _check_kernel_inputs(packed, x, lib)
-    p = x.shape[0]
+    p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError("g must be contiguous (P,) float32")
     f, nh = packed.width, packed.n_hidden
     dev = x.device
-    n = lib.fused_mlp_grad_size(f, nh)
-    stride = lib.fused_mlp_partial_stride(f, nh)
-    # weight-gradient chunks: about one per SM, each a multiple of the
-    # kernel's pipeline stage
     n_sms = _num_sms(dev)
-    quantum = lib.fused_mlp_chunk_quantum()
-    chunk = max(1, -(-p // (n_sms * quantum))) * quantum
-    n_chunks = -(-p // chunk)
-    # scratch: every layer's bf16 activation and dz, the relu-mask slots
-    # (8 bytes each) and the chunk partials
-    acts = torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev)
-    dzs = torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev)
-    masks = torch.empty((lib.fused_mlp_mask_slots(n_sms, nh),), dtype=torch.int64, device=dev)
-    partials = torch.empty((max(n_chunks, 1) * stride,), dtype=torch.float32, device=dev)
-    flat = torch.empty((n,), dtype=torch.float32, device=dev)
-    dx = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    s = BwdScratch.make(
+        p, f, nh, n_sms, lib.fused_mlp_partial_stride(f, nh),
+        lib.fused_mlp_mask_slots(n_sms, nh), lib.fused_mlp_chunk_quantum(), dev,
+    )
+    flat = torch.empty((lib.fused_mlp_grad_size(f, nh),), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fused_mlp_bwd(
-        x.data_ptr(), g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
+        x.data_ptr(), sp, sc, g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        f, nh, acts.data_ptr(), dzs.data_ptr(), masks.data_ptr(), partials.data_ptr(), n_chunks,
-        chunk, n_sms, flat.data_ptr(), dx.data_ptr(), stream,
+        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), stream,
     )
     raise_on(code, "fused_mlp backward")
     bwd_launches += 1
@@ -277,62 +346,74 @@ def _unflatten_grads(flat: torch.Tensor, f: int, nh: int):
     )
 
 
-def fused_mlp_fwd(packed: PackedMLP, x: torch.Tensor) -> torch.Tensor:
+def fused_mlp_fwd(
+    packed: PackedMLP, x: torch.Tensor, feature_major: bool = False
+) -> torch.Tensor:
     """Forward dispatch: the plain version for CPU tensors, the kernel for
     CUDA tensors."""
     if x.device.type == "cuda":
-        return fused_mlp_fwd_cuda(packed, x)
+        return fused_mlp_fwd_cuda(packed, x, feature_major)
     if x.device.type == "cpu":
-        return fused_mlp_fwd_reference(packed, x)
+        return fused_mlp_fwd_reference(packed, x, feature_major)
     raise ValueError(f"fused_mlp: unsupported device {x.device}")
 
 
-def fused_mlp_bwd(packed: PackedMLP, x: torch.Tensor, g: torch.Tensor):
+def fused_mlp_bwd(
+    packed: PackedMLP, x: torch.Tensor, g: torch.Tensor, feature_major: bool = False
+):
     """Backward dispatch, as fused_mlp_fwd."""
     if x.device.type == "cuda":
-        return fused_mlp_bwd_cuda(packed, x, g)
+        return fused_mlp_bwd_cuda(packed, x, g, feature_major)
     if x.device.type == "cpu":
-        return fused_mlp_bwd_reference(packed, x, g)
+        return fused_mlp_bwd_reference(packed, x, g, feature_major)
     raise ValueError(f"fused_mlp: unsupported device {x.device}")
 
 
 class FusedMLPRaw(torch.autograd.Function):
     """raw = MLP(x) with the fused kernels (custom backward = kernel #2 on
-    the card). Inputs: x (P, 3) then the flattened plist
-    [W_in, b_in, W_0, b_0, ..., w_out, b_out] (W in (in, out) orientation);
-    returns gradients for x and every parameter."""
+    the card). Inputs: x ((P, 3), or (3, P) with ``feature_major``), the
+    layout flag, then the flattened plist [W_in, b_in, W_0, b_0, ..., w_out,
+    b_out] (W in (in, out) orientation); returns gradients for x and every
+    parameter."""
 
     @staticmethod
-    def forward(ctx, x, *flat):
+    def forward(ctx, x, feature_major, *flat):
         plist = list(zip(flat[0::2], flat[1::2]))
         packed = pack_params(plist)
         x = x.detach().to(torch.float32).contiguous()
         ctx.packed = packed
+        ctx.feature_major = feature_major
         ctx.shapes = [(t.shape, t.dtype) for t in flat]
         ctx.save_for_backward(x)
-        return fused_mlp_fwd(packed, x)
+        return fused_mlp_fwd(packed, x, feature_major)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        grads, dx = fused_mlp_bwd(ctx.packed, x, g.to(torch.float32).contiguous())
+        grads, dx = fused_mlp_bwd(
+            ctx.packed, x, g.to(torch.float32).contiguous(), ctx.feature_major
+        )
         flat = [t for pair in grads for t in pair]
         out = [t.reshape(s).to(dt) for t, (s, dt) in zip(flat, ctx.shapes)]
-        return (dx, *out)
+        return (dx, None, *out)
 
 
 def fused_mlp_raw(plist, x: torch.Tensor) -> torch.Tensor:
     """Fused MLP: x (P, 3) f32 -> raw density (P,) f32, differentiable in x
     and every parameter of ``plist`` (layout of pack_params)."""
     flat = [t for pair in plist for t in pair]
-    return FusedMLPRaw.apply(x, *flat)
+    return FusedMLPRaw.apply(x, False, *flat)
+
+
+def fused_mlp_raw_fm(plist, x_fm: torch.Tensor) -> torch.Tensor:
+    """Feature-major fused MLP: x_fm (3, P) f32 -> raw density (P,) f32, as
+    fused_mlp_raw; the kernels read the (3, P) block as it is (no relayout)
+    and its gradient comes back (3, P)."""
+    flat = [t for pair in plist for t in pair]
+    return FusedMLPRaw.apply(x_fm, True, *flat)
 
 
 def cppn_params_to_list(model) -> list:
-    """The fused-kernel parameter list of a port CPPN module (layer names
-    input_layer, early_i, output_linear), weights as (in, out) views."""
-    n_hidden = model.config.num_early_layers
-    layers = [model.input_layer] + [getattr(model, f"early_{i}") for i in range(n_hidden)]
-    out = [(lin.weight.T, lin.bias) for lin in layers]
-    out.append((model.output_linear.weight.T, model.output_linear.bias))
-    return out
+    """The fused-kernel parameter list of a port CPPN module (its linears()
+    in kernel order), weights as (in, out) views."""
+    return [(lin.weight.T, lin.bias) for lin in model.linears()]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -57,8 +58,14 @@ def gumbel_topk_indices(
 
 def build_sampling_table(weights: torch.Tensor, table_size: int = 1 << 18) -> torch.Tensor:
     """Quantized inverse-CDF table: table[j] = smallest i with
-    cdf[i] >= (j + 0.5) / table_size."""
-    cdf = torch.cumsum(weights.to(torch.float32), 0)
+    cdf[i] >= (j + 0.5) / table_size.
+
+    The cdf is a sequential f32 cumsum on the host (numpy's, in ray order),
+    moved to the weights' device: a cumsum on the card differs in its last
+    bits from run to run, and torch's CPU cumsum accumulates f32 in double.
+    It runs once per ``train()``."""
+    w = weights.detach().to("cpu", torch.float32).numpy()
+    cdf = torch.from_numpy(np.cumsum(w, dtype=np.float32)).to(weights.device)
     cdf = cdf / cdf[-1]
     u = (torch.arange(table_size, dtype=torch.float32, device=weights.device) + 0.5) / table_size
     return torch.searchsorted(cdf, u)

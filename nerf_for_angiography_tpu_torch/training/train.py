@@ -8,7 +8,11 @@ grids every ``grid_update_every`` steps from one shared sigma pass, march
 the compacted march ``march_mode`` names), evaluate the MLP (the fused
 kernels on the card), composite with Beer-Lambert under the early-stop keep
 mask, take the MSE and apply Adam with continuous exponential lr decay. A
-compacted step also reports its truncation pressure (march_pressure).
+compacted step also reports its truncation pressure (march_pressure). With
+``fused_train_step`` the MLP forward, composite, loss gradient and MLP
+backward of each rectangular march are one call of the whole-step kernel
+(ops/kernels/fused_step.py); with ``feature_major_mlp`` the fused-MLP
+kernels take the march's positions as one (3, P) block.
 
 The compact-mode chooser (choose_compact_mode and its sizers) probes the
 held-out view with one device pass reduced to five int32 values, read with
@@ -30,7 +34,8 @@ import torch
 
 from ..device import resolve_device
 from ..models import CPPN
-from ..ops.kernels.fused_mlp import cppn_params_to_list, fused_mlp_raw
+from ..ops.kernels.fused_mlp import cppn_params_to_list, fused_mlp_raw, fused_mlp_raw_fm
+from ..ops.kernels.fused_step import fused_step_grads
 from ..ops.occupancy import (
     BucketedRays,
     MarchedRays,
@@ -55,12 +60,6 @@ def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for configurations later slices bring."""
     if cfg.pos_enc in ("fourier", "barf"):
         raise NotImplementedError(f"pos_enc={cfg.pos_enc!r} arrives with slice 4")
-    if cfg.fused_train_step != "off":
-        raise NotImplementedError("fused_train_step arrives with slice 3")
-    if cfg.feature_major_mlp:
-        raise NotImplementedError(
-            "feature_major_mlp (feature-major kernel input) arrives with slice 3"
-        )
     if cfg.pose_refine:
         raise NotImplementedError("pose_refine arrives with the pose-refinement slice")
     if cfg.num_input_channels_views > 0:
@@ -196,6 +195,18 @@ def density_raw(model: CPPN, pts: torch.Tensor, backend: str = "auto") -> torch.
     if backend not in ("auto", "xla"):
         raise ValueError(f"unknown mlp_backend {backend!r}")
     return model(pts)[..., -1]
+
+
+def density_raw_fm(model: CPPN, pts_fm: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """density_raw for a feature-major (3, P) point block -> (P,).
+
+    On the fused-kernel path (an eligible model with 'auto' or 'pallas') the
+    block goes to ``fused_mlp_raw_fm`` as it is, with no relayout; every
+    other configuration transposes it back to density_raw."""
+    if backend in ("pallas", "auto") and _pallas_eligible(model):
+        x = (pts_fm * model.config.input_scale).contiguous()
+        return fused_mlp_raw_fm(cppn_params_to_list(model), x)
+    return density_raw(model, pts_fm.T, backend)
 
 
 def _sigma_fn(model: CPPN, backend: str = "auto"):
@@ -464,6 +475,29 @@ def _flat_positions(m) -> torch.Tensor:
     return m.positions.reshape(-1, 3)
 
 
+def _rect_marches(m, *per_ray: torch.Tensor) -> list:
+    """[(rectangular march, per-ray tensors in its ray order), ...]: the
+    march itself, or the lo and hi buckets of BucketedRays with their rays
+    taken through m.perm."""
+    if isinstance(m, BucketedRays):
+        cut = m.lo.t_starts.shape[0]
+        rays = [a.index_select(0, m.perm) for a in per_ray]
+        return [(m.lo, [a[:cut] for a in rays]), (m.hi, [a[cut:] for a in rays])]
+    return [(m, list(per_ray))]
+
+
+def _flat_positions_fm(m, origins: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """Sample positions of a march result as one feature-major (3, P) block
+    (the layout fused_mlp_raw_fm takes), recomputed as o + d * t_mid from
+    the march's (t_starts + t_ends) / 2, buckets concatenated lo first.
+    Within 1 ulp of the march's own positions."""
+    blocks = []
+    for mm, (o, d) in _rect_marches(m, origins, directions):
+        t_mid = (mm.t_starts + mm.t_ends) * 0.5  # (R, k)
+        blocks.append((o.T[:, :, None] + d.T[:, :, None] * t_mid[None]).reshape(3, -1))
+    return torch.cat(blocks, dim=1)
+
+
 def _bucket_sigmas(m, raw: torch.Tensor):
     """The flat MLP output split back into per-bucket (R_b, k_b) sigma
     blocks: [(march, sigma), ...], one entry for a rectangular march."""
@@ -477,7 +511,14 @@ def _bucket_sigmas(m, raw: torch.Tensor):
     return [(m, sig.reshape(m.mask.shape))]
 
 
-def _raw_for(model, m, cfg: TrainConfig) -> torch.Tensor:
+def _raw_for(model, m, origins, directions, cfg: TrainConfig) -> torch.Tensor:
+    """MLP raw densities of a march result, flat (P,) in bucket order:
+    feature-major when cfg.feature_major_mlp asks for it, point-major
+    otherwise."""
+    if cfg.feature_major_mlp:
+        return density_raw_fm(
+            model, _flat_positions_fm(m, origins, directions), cfg.mlp_backend
+        )
     return density_raw(model, _flat_positions(m), cfg.mlp_backend)
 
 
@@ -504,7 +545,7 @@ def render_rays(
     pixels are in input ray order; under the per-bucket-k march
     (BucketedRays) sigma and keep are flat (P,) tensors in bucket order."""
     m = _march_for(cfg, grid, origins, directions, near, far)
-    raw = _raw_for(model, m, cfg)
+    raw = _raw_for(model, m, origins, directions, cfg)
     parts, sigmas, keeps = [], [], []
     for mb, sb in _bucket_sigmas(m, raw):
         dists, keep = _keep_mask(mb, sb, cfg)
@@ -522,6 +563,70 @@ def render_rays(
     if return_march:
         return pixels, sigma, keep, m
     return pixels, sigma, keep
+
+
+def _fused_step_eligible(model: CPPN, cfg: TrainConfig) -> bool:
+    """Whether the whole-train-step kernel replaces the split forward /
+    backward for this model and config: pos_enc 'none', relu, no
+    pose_refine (the kernel returns no position gradient), no
+    train_alpha_prune (it replays the early-stop keep only) and an
+    mlp_backend of 'auto' or 'pallas'. 'on' forces it (the plain version on
+    CPU tensors) and raises ValueError for an ineligible model or config;
+    'auto' engages when the model lives on the card."""
+    mode = cfg.fused_train_step
+    if mode == "off":
+        return False
+    if mode not in ("on", "auto"):
+        raise ValueError(f"fused_train_step must be 'off', 'on' or 'auto', got {mode!r}")
+    ok = (
+        _pallas_eligible(model)  # relu, pos_enc 'none'
+        and not cfg.pose_refine
+        and not cfg.train_alpha_prune
+        and cfg.mlp_backend in ("auto", "pallas")
+    )
+    if mode == "on":
+        if not ok:
+            raise ValueError(
+                "fused_train_step='on' needs pos_enc='none', relu, no "
+                "pose_refine/train_alpha_prune and a pallas-capable mlp_backend"
+            )
+        return True
+    return ok and next(model.parameters()).device.type == "cuda"
+
+
+def _fused_loss_and_grads(model: CPPN, grid, origins, directions, targets, cfg, near, far):
+    """March, then one fused_step_grads per rectangular march (one per
+    bucket of BucketedRays: every ray lives in exactly one bucket, so the
+    buckets' gradients sum, and both take the whole batch as the loss
+    divisor). Returns (loss, pixels in input ray order, the march, grads in
+    the plist layout)."""
+    plist = cppn_params_to_list(model)
+    kw = dict(
+        step=(far - near) / cfg.depth_samples_per_ray,
+        early_stop_eps=cfg.early_stop_eps,
+        n_rays_loss=origins.shape[0],
+        input_scale=model.config.input_scale,
+    )
+    m = _march_for(cfg, grid, origins, directions, near, far)
+    parts, grads = [], None
+    for mm, (o, d, t) in _rect_marches(m, origins, directions, targets):
+        t_mid = ((mm.t_starts + mm.t_ends) * 0.5).contiguous()
+        px, g = fused_step_grads(plist, o, d, t_mid, mm.mask.contiguous(), t, **kw)
+        parts.append(px)
+        grads = g if grads is None else [(a + c, b + e) for (a, b), (c, e) in zip(grads, g)]
+    pixels = torch.cat(parts)
+    if isinstance(m, BucketedRays):
+        pixels = pixels.index_select(0, m.inv)
+    loss = torch.mean((pixels - targets) ** 2)
+    return loss, pixels, m, grads
+
+
+def _set_grads(model: CPPN, grads) -> None:
+    """Write plist-layout gradients into the module's .grad (nn.Linear holds
+    (out, in), the plist (in, out))."""
+    for lin, (dw, db) in zip(model.linears(), grads):
+        lin.weight.grad = dw.T.contiguous()
+        lin.bias.grad = db.reshape(lin.bias.shape).contiguous()
 
 
 def march_pressure(m) -> dict[str, torch.Tensor]:
@@ -563,6 +668,7 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     target_pixels)``; ``train_step.step_core(state, batch)`` runs one step
     on a given batch. Parameter gradients stay in ``.grad`` after the
     step."""
+    use_fused_step = _fused_step_eligible(model, cfg)
     check_ported(cfg)
     compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
 
@@ -584,16 +690,22 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             slabs=cfg.grid_update_slabs,
         )
         state.optimizer.zero_grad(set_to_none=True)
-        out = render_rays(
-            model, grid, batch.origins, batch.directions, cfg, near, far,
-            return_march=compacting,
-        )
-        pixels = out[0]
+        if use_fused_step:
+            loss, pixels, march, grads = _fused_loss_and_grads(
+                model, grid, batch.origins, batch.directions, batch.pixel_values, cfg,
+                near, far,
+            )
+            _set_grads(model, grads)
+        else:
+            pixels, _, _, march = render_rays(
+                model, grid, batch.origins, batch.directions, cfg, near, far,
+                return_march=True,
+            )
+            loss = torch.mean((pixels - batch.pixel_values) ** 2)
+            loss.backward()
         # a compacted step reports its truncation pressure; the loop reads
         # it at the chunk boundary (training/loop.py)
-        pressure = march_pressure(out[3]) if compacting else {}
-        loss = torch.mean((pixels - batch.pixel_values) ** 2)
-        loss.backward()
+        pressure = march_pressure(march) if compacting else {}
         state.optimizer.step()
         state.scheduler.step()
         loss = loss.detach()

@@ -22,6 +22,22 @@ def test_build_sampling_table_exact(n_rays):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n_rays", [5000, 260_000])
+def test_build_sampling_table_is_a_sequential_f32_cumsum(n_rays):
+    """The cdf is the sequential f32 cumsum in ray order (numpy's), bit for
+    bit, whatever the weights: the table is the same from run to run and
+    device to device."""
+    w = np.random.default_rng(n_rays).random(n_rays).astype(np.float32) + 1e-3
+    cdf = np.cumsum(w, dtype=np.float32)
+    cdf = cdf / cdf[-1]
+    u = (np.arange(1 << 14, dtype=np.float32) + np.float32(0.5)) / np.float32(1 << 14)
+    want = np.searchsorted(cdf, u, side="left")
+    got = st.build_sampling_table(torch.from_numpy(w), table_size=1 << 14).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert st.build_sampling_table(torch.from_numpy(w), table_size=1 << 14).equal(
+        torch.from_numpy(got))
+
+
 @pytest.mark.parametrize("n_values,n,seed", [(5000, 600, 0), (300, 250, 1), (64, 64, 2)])
 def test_overdraw_selection_exact_given_jax_draws(n_values, n, seed):
     w = np.random.default_rng(seed).random(n_values).astype(np.float32) + 1e-3

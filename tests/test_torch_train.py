@@ -127,13 +127,25 @@ def test_tiny_train_runs_on_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(num_input_channels_views=2), dict(pos_enc="fourier"), dict(pos_enc="barf"),
-    dict(fused_train_step="on"), dict(fused_train_step="auto"), dict(sample_mode="image"),
-    dict(pose_refine=True), dict(feature_major_mlp=True),
+    dict(sample_mode="image"), dict(pose_refine=True),
 ])
 def test_unported_train_configs_raise(kw):
     cfg = TrainConfig(**{**SMALL, **kw})
     with pytest.raises(NotImplementedError):
         create_train_state(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(pose_refine=True), dict(train_alpha_prune=True),
+                                dict(mlp_backend="xla")])
+def test_forced_fused_step_on_an_ineligible_config_raises(kw):
+    """fused_train_step='on' needs non-differentiable positions, the
+    early-stop keep only and a fused-kernel backend: the step builder
+    raises ValueError otherwise, as the JAX package's does."""
+    from nerf_for_angiography_tpu_torch.models import CPPN
+
+    cfg = TrainConfig(**{**SMALL, **kw, "fused_train_step": "on"})
+    with pytest.raises(ValueError, match="fused_train_step"):
+        make_train_step(CPPN(cfg.model_config()), cfg, NEAR, FAR)
 
 
 def test_log_dir_raises(tmp_path):
