@@ -7,8 +7,8 @@
 
 Phases:
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. every kernel library built from ``csrc/`` (one nvcc per source, all
-     started together), and the fused-MLP kernels held against their plain
+  2. every kernel library (four) built from ``csrc/`` (one nvcc per source,
+     all started together), and the fused-MLP kernels held against their plain
      PyTorch versions on the card at the dense path's shapes and timed
      (CUDA events); the feature-major (3, P) launch held equal to the
      point-major one; the sampling table built 20 times, bit-identical;
@@ -37,7 +37,14 @@ Phases:
      rectangular march, no split backward); the fused step profiled at the
      lattice and two-bucket Tunings; 60 dense steps with
      ``feature_major_mlp``;
-  6. one JSON line with the kernel table, the card's name/power line, and the
+  6. the encoded (fourier / BARF) pair: the kernels held against their plain
+     versions at 4x128, L = 5 (fourier coefficients ~ N(0, 5^2); BARF at
+     alpha 0, 2.7 and 5) at the path's shapes, two launches bit-identical,
+     timed; 600 full-width fourier steps at the shipped defaults and 300
+     BARF steps annealing alpha from 0 to 5, each with all six launch
+     counters read around it; the backward at the fourier run's compacted
+     point count; 16 fourier compacted steps profiled;
+  7. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -47,9 +54,11 @@ result. Details also go to ``smoke_out/chip_smoke.json``.
 
 from __future__ import annotations
 
-import json
 import argparse
+import contextlib
 import dataclasses
+import importlib
+import json
 import math
 import os
 import re
@@ -84,6 +93,12 @@ FS_EPS_TIE, FS_TIE_SHARE = 1e-3, 1e-3
 # relative, pixels max abs and median abs, gradients normalised
 WIRE_LOSS_REL, WIRE_PIX_MAX, WIRE_PIX_MEDIAN, WIRE_GRAD_NORM = 1e-2, 2e-2, 1e-3, 3e-2
 DX_BAD_SHARE = 1e-5  # at most ~17 of 1,687,500 points
+# the encoded pair (#3/#4): its input layer sums 33 products a unit where
+# kernel #1's sums 3, so the two sum orders round the first layer apart
+# more often and more relu ties arise downstream (2, 9 and 17 points of
+# 1,687,500 in three checks of one card call, each shown a tie); every point
+# beyond the dx limit must still be a relu tie
+DX_BAD_SHARE_ENC = 2e-5
 # a relu pre-activation this close to 0 can change sign between two f32 sum
 # orders once an upstream activation rounds to a neighbouring bf16 value
 RELU_TIE = 1e-3
@@ -95,6 +110,7 @@ FK_SHAPES = ((5625, 300, 96), (5625, 300, 192), (5625, 224, 128), (4218, 48, 56)
              (1407, 160, 96))
 SRC_Z = 1500.0  # the phantom's source distance (bench.py's datagen)
 COMPACT_ITERS, HYBRID_ITERS, DENSE_ITERS = 600, 300, 60
+ENC_FOURIER_ITERS, ENC_BARF_ITERS = 600, 300  # the encoded runs (phase 6)
 DEVICE = "cuda"
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -133,20 +149,22 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def mlp_flops(p: int, f: int, nh: int) -> tuple[float, float]:
-    """(forward, backward) FLOP of the 3 -> F -> nh x (F -> F) -> 1 MLP over
-    p points; backward = recompute + dW + dx/dh products."""
-    fwd = 2.0 * p * (3 * f + nh * f * f + f)
-    dw = 2.0 * p * (3 * f + nh * f * f + f)
-    dh = 2.0 * p * (nh * f * f + 3 * f)
+def mlp_flops(p: int, f: int, nh: int, n_in: int = 3) -> tuple[float, float]:
+    """(forward, backward) FLOP of the n_in -> F -> nh x (F -> F) -> 1 MLP
+    over p points (n_in = 3 coordinates, or the 3 + 6L encoded features);
+    backward = recompute + dW + dx/dh products."""
+    fwd = 2.0 * p * (n_in * f + nh * f * f + f)
+    dw = 2.0 * p * (n_in * f + nh * f * f + f)
+    dh = 2.0 * p * (nh * f * f + n_in * f)
     return fwd, fwd + dw + dh
 
 
 def min_abs_preact(torch, packed, x):
     """Per point, the smallest |pre-activation| over every relu of the plain
-    forward (same cast points as the kernels)."""
+    forward (same cast points as the kernels); x is the (P, 3) input or an
+    encoded (P, KE) block."""
     h = x.to(torch.bfloat16).float()
-    weights = [packed.w_in[:, :3]] + list(packed.w_hid)
+    weights = [packed.w_in[:, : x.shape[1]]] + list(packed.w_hid)
     dist = torch.full((x.shape[0],), float("inf"), device=x.device)
     for w, b in zip(weights, packed.bias):
         z = h @ w.float().T + b
@@ -155,13 +173,14 @@ def min_abs_preact(torch, packed, x):
     return dist
 
 
-def ptxas_summary(log: str, width: int) -> str:
-    """Registers of each kernel at this width (and of the width-free ones),
-    and any kernel that spills with its spill-store bytes, from nvcc's
-    -Xptxas -v report."""
+def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
+    """Registers of each kernel at this width (and encoded input width ke;
+    and of the width-free ones), any kernel that spills with its spill-store
+    bytes, and the stack frames of the kept ones, from nvcc's -Xptxas -v
+    report."""
     if not log:
         return "(built earlier in this process)"
-    regs, spills, cur = {}, [], None
+    regs, frames, spills, cur = {}, {}, [], None
     for ln in log.splitlines():
         if "Compiling entry function '" in ln:
             mangled = ln.split("'")[1]
@@ -169,16 +188,21 @@ def ptxas_summary(log: str, width: int) -> str:
                 r"(fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel"
                 r"|scan_kernel)", mangled)
             width_arg = re.search(r"ILi(\d+)E", mangled)
+            ke_arg = re.search(r"EncXILi(\d+)E", mangled)
             cur = (short.group(1) if short else mangled) + (
-                f"<{width_arg.group(1)}>" if width_arg else "")
+                f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "") + ">"
+                if width_arg else "")
         elif cur and "Used" in ln and "registers" in ln:
             regs[cur] = ln.split("Used")[1].split("registers")[0].strip()
         elif cur and "bytes spill stores" in ln:
+            frames[cur] = int(ln.split("bytes stack frame")[0].split()[-1])
             n = int(ln.split("bytes spill stores")[0].split(",")[-1])
             if n > 0:
                 spills.append(f"{cur} ({n} B of spill stores)")
-    keep = [f"{k} {v} registers" for k, v in regs.items() if f"<{width}>" in k or "<" not in k]
-    return "; ".join(keep) + f"; spills: {', '.join(spills) or 'none'}"
+    want = f"<{width}" + (f",KE{ke}" if ke else "") + ">"
+    keep = [k for k in regs if want in k or "<" not in k]
+    return ("; ".join(f"{k} {regs[k]} registers, {frames.get(k, 0)} B stack frame" for k in keep)
+            + f"; spills: {', '.join(spills) or 'none'}")
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -189,7 +213,7 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 
-def build_kernels(fm, fk, fs) -> None:
+def build_kernels(fm, fk, fs, fe) -> None:
     """Build every kernel library at once: one nvcc per source, started
     together (each library builds under its own lock)."""
     def timed(load):
@@ -198,7 +222,7 @@ def build_kernels(fm, fk, fs) -> None:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    mods = (fm, fk, fs)
+    mods = (fm, fk, fs, fe)
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = [(mod, ex.submit(timed, mod._load_lib)) for mod in mods]
         secs = [(mod, f.result()) for mod, f in futs]
@@ -207,50 +231,94 @@ def build_kernels(fm, fk, fs) -> None:
     print("nvcc ptxas fused_mlp:", ptxas_summary(fm.build_log, 128))
     print("nvcc ptxas first_k:", ptxas_summary(fk.build_log, 0))
     print("nvcc ptxas fused_step:", ptxas_summary(fs.build_log, 128))
+    print("nvcc ptxas fused_mlp_enc:", ptxas_summary(fe.build_log, 128, ke=48))
 
 
-def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
-    """The forward kernel against its plain version at P = p, timed."""
+def mlp_pair(fm, packed, enc=None) -> dict:
+    """The kernel and plain callables of the fused-MLP pair (kernels #1/#2),
+    or with ``enc = (fe, a, w)`` of the encoded pair (#3/#4) at the encoding
+    arrays (a, w). ``bwd``/``bwd_ref`` return (the gradients in a flat list,
+    for the encoded pair ending with dA, held like a gradient; dx);
+    ``first`` gives the block the first layer multiplies (for relu ties);
+    ``n_in`` the input features the function multiplies."""
+    if enc is None:
+        def flat(out):
+            grads, dx = out
+            return [t for pair in grads for t in pair], dx
+
+        return dict(
+            name="fused_mlp", n_in=3, first=lambda x: x, dx_bad_share=DX_BAD_SHARE,
+            fwd=lambda x: fm.fused_mlp_fwd_cuda(packed, x),
+            fwd_ref=lambda x: fm.fused_mlp_fwd_reference(packed, x),
+            bwd=lambda x, g: flat(fm.fused_mlp_bwd_cuda(packed, x, g)),
+            bwd_ref=lambda x, g: flat(fm.fused_mlp_bwd_reference(packed, x, g)),
+        )
+    fe, a, w = enc
+
+    def flat_enc(out):
+        grads, da, dx = out
+        return [t for pair in grads for t in pair] + [da], dx
+
+    return dict(
+        name="fused_mlp_enc", n_in=3 + 2 * a.shape[0], dx_bad_share=DX_BAD_SHARE_ENC,
+        first=lambda x: fe.encode(x, a, w, packed.w_in.shape[1])[0],
+        fwd=lambda x: fe.fused_mlp_enc_fwd_cuda(packed, a, w, x),
+        fwd_ref=lambda x: fe.fused_mlp_enc_fwd_reference(packed, a, w, x),
+        bwd=lambda x, g: flat_enc(fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)),
+        bwd_ref=lambda x, g: flat_enc(fe.fused_mlp_enc_bwd_reference(packed, a, w, x, g)),
+    )
+
+
+def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None) -> dict:
+    """The forward kernel against its plain version at P = p, two launches
+    bit-identical, timed (the encoded pair's with ``enc``, see mlp_pair)."""
+    ops = mlp_pair(fm, packed, enc)
     f, nh = packed.width, packed.n_hidden
     dev = torch.device(DEVICE)
     x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(dev)
-    got = fm.fused_mlp_fwd_cuda(packed, x)
-    want = fm.fused_mlp_fwd_reference(packed, x)
+    got = ops["fwd"](x)
+    again = ops["fwd"](x)
+    want = ops["fwd_ref"](x)
     torch.cuda.synchronize()
     err = (got - want).abs()
     max_err, med_err = float(err.max()), float(err.median())
     scale = max(1.0, float(want.abs().max()))
     lim_max, lim_med = FWD_MAX_REL * scale, FWD_MEDIAN_REL * scale
+    same = torch.equal(got, again)
     ok = bool(torch.isfinite(got).all()) and max_err <= lim_max and med_err <= lim_med
-    k_ms = time_ms(torch, lambda: fm.fused_mlp_fwd_cuda(packed, x))
-    p_ms = time_ms(torch, lambda: fm.fused_mlp_fwd_reference(packed, x), reps=5, warmup=1)
-    b_ms, b_by = bound_ms(mlp_flops(p, f, nh)[0], p * 3 * 4 + p * 4 + pbytes)
+    k_ms = time_ms(torch, lambda: ops["fwd"](x))
+    p_ms = time_ms(torch, lambda: ops["fwd_ref"](x), reps=5, warmup=1)
+    b_ms, b_by = bound_ms(mlp_flops(p, f, nh, ops["n_in"])[0], p * 3 * 4 + p * 4 + pbytes)
     print(
-        f"fused_mlp_fwd P={p} ({label}): output scale {scale:.3f}; max_abs_err {max_err:.3e} "
-        f"(limit {lim_max:.3e}) median_abs_err {med_err:.3e} (limit {lim_med:.3e}) kernel_ms {k_ms:.4f} "
+        f"{ops['name']}_fwd P={p} ({label}): output scale {scale:.3f}; max_abs_err {max_err:.3e} "
+        f"(limit {lim_max:.3e}) median_abs_err {med_err:.3e} (limit {lim_med:.3e}) "
+        f"bit-identical launches {same} kernel_ms {k_ms:.4f} "
         f"bound_ms {b_ms:.4f} ({b_by}) plain_ms {p_ms:.4f} library_ms null "
         "(no single PyTorch call computes the MLP chain)"
     )
-    check(ok, f"fused_mlp_fwd disagrees with its plain version at P={p}")
+    check(ok, f"{ops['name']}_fwd disagrees with its plain version at P={p} ({label})")
+    check(same, f"{ops['name']}_fwd differs between two launches at P={p} ({label})")
     return dict(P=p, label=label, max_abs_err=max_err, median_abs_err=med_err, ms=k_ms,
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, output_scale=scale, x=x)
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, output_scale=scale,
+                deterministic=same, x=x)
 
 
-def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
+def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None) -> dict:
     """The backward kernel against its plain version at P = p (parameter
     grads normalised, dx per point except relu ties), bit-determinism, and
-    its time."""
+    its time (the encoded pair's with ``enc``, dA held like a gradient)."""
+    ops = mlp_pair(fm, packed, enc)
     f, nh = packed.width, packed.n_hidden
     dev = torch.device(DEVICE)
     x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(dev)
     g = (torch.randn((p,), generator=gen) / p).to(dev)
-    grads_k, dx_k = fm.fused_mlp_bwd_cuda(packed, x, g)
-    grads_p, dx_p = fm.fused_mlp_bwd_reference(packed, x, g)
-    grads_k2, dx_k2 = fm.fused_mlp_bwd_cuda(packed, x, g)
+    grads_k, dx_k = ops["bwd"](x, g)
+    grads_p, dx_p = ops["bwd_ref"](x, g)
+    grads_k2, dx_k2 = ops["bwd"](x, g)
     torch.cuda.synchronize()
-    flat_k = [t for pair in grads_k for t in pair] + [dx_k]
-    flat_p = [t for pair in grads_p for t in pair] + [dx_p]
-    flat_k2 = [t for pair in grads_k2 for t in pair] + [dx_k2]
+    flat_k = grads_k + [dx_k]
+    flat_p = grads_p + [dx_p]
+    flat_k2 = grads_k2 + [dx_k2]
     norm_errs, abs_errs = [], []
     for a, b in zip(flat_k, flat_p):
         d = float((a - b.reshape(a.shape)).abs().max())
@@ -261,36 +329,40 @@ def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str) -> dict:
     # moves that one point's dx. dx is held to the limit at every point
     # except such relu ties: a point beyond it must have a pre-activation
     # within RELU_TIE of 0 in the plain forward, and such points must stay
-    # below DX_BAD_SHARE of all
+    # below the pair's DX_BAD_SHARE(_ENC) of all
     ddx = (dx_k - dx_p).abs()
     dx_rel_l2 = float(torch.linalg.norm(dx_k - dx_p) / torch.linalg.norm(dx_p))
     bad = (ddx > GRAD_NORM_MAX * dx_p.abs().max()).any(dim=1)
     dx_bad_share = float(bad.float().mean())
-    tie_dist = min_abs_preact(torch, packed, x[bad])
+    tie_dist = min_abs_preact(torch, packed, ops["first"](x[bad]))
     dx_bad_are_ties = bool((tie_dist < RELU_TIE).all())
     deterministic = all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2))
     finite = all(bool(torch.isfinite(t).all()) for t in flat_k)
-    k_ms = time_ms(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
-    p_ms = time_ms(torch, lambda: fm.fused_mlp_bwd_reference(packed, x, g), reps=5, warmup=1)
+    k_ms = time_ms(torch, lambda: ops["bwd"](x, g))
+    p_ms = time_ms(torch, lambda: ops["bwd_ref"](x, g), reps=5, warmup=1)
     grad_bytes = sum(t.numel() * 4 for t in flat_k[:-1])
-    b_ms, b_by = bound_ms(mlp_flops(p, f, nh)[1], p * 3 * 4 + p * 4 + p * 3 * 4 + pbytes + grad_bytes)
+    b_ms, b_by = bound_ms(mlp_flops(p, f, nh, ops["n_in"])[1],
+                          p * 3 * 4 + p * 4 + p * 3 * 4 + pbytes + grad_bytes)
     print(
-        f"fused_mlp_bwd P={p} ({label}): max normalised grad err {max(norm_errs[:-1]):.3e} "
-        f"(limit {GRAD_NORM_MAX}); dx max normalised {norm_errs[-1]:.3e} (limit "
+        f"{ops['name']}_bwd P={p} ({label}): max normalised grad err {max(norm_errs[:-1]):.3e} "
+        f"(limit {GRAD_NORM_MAX}"
+        + (f"; dA {norm_errs[-2]:.3e}" if enc is not None else "")
+        + f"); dx max normalised {norm_errs[-1]:.3e} (limit "
         f"{GRAD_NORM_MAX} except at relu ties), relative L2 {dx_rel_l2:.3e}, points beyond "
-        f"the limit {int(bad.sum())} = {dx_bad_share:.2e} of all (limit {DX_BAD_SHARE:.0e}), "
+        f"the limit {int(bad.sum())} = {dx_bad_share:.2e} of all "
+        f"(limit {ops['dx_bad_share']:.0e}), "
         f"each with a |pre-activation| <= {float(tie_dist.max()) if len(tie_dist) else 0.0:.3e} "
         f"(a relu tie if < {RELU_TIE}); max_abs_err {max(abs_errs):.3e} "
         f"bit-deterministic {deterministic} kernel_ms {k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
         f"plain_ms {p_ms:.4f} library_ms null (no single PyTorch call computes the MLP chain)"
     )
     check(finite and max(norm_errs[:-1]) <= GRAD_NORM_MAX and dx_bad_are_ties
-          and dx_bad_share <= DX_BAD_SHARE,
-          f"fused_mlp_bwd disagrees with its plain version at P={p}")
-    check(deterministic, "fused_mlp_bwd is not bit-deterministic across two runs")
+          and dx_bad_share <= ops["dx_bad_share"],
+          f"{ops['name']}_bwd disagrees with its plain version at P={p} ({label})")
+    check(deterministic, f"{ops['name']}_bwd is not bit-deterministic across two runs")
     return dict(P=p, label=label, max_abs_err=max(abs_errs), norm_errs=norm_errs,
                 dx_rel_l2=dx_rel_l2, dx_bad_share=dx_bad_share, ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, deterministic=deterministic)
 
 
 def check_feature_major(torch, fm, packed, x, gen, pm_ms: float) -> dict:
@@ -400,13 +472,14 @@ def train_loss(torch, state, rays, cfg) -> tuple[float, list]:
     run), and the rendered pixels' shape."""
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
     from nerf_for_angiography_tpu_torch.training import render_rays
+    from nerf_for_angiography_tpu_torch.training.train import _barf_alpha
 
     dense = dataclasses.replace(cfg, compact_samples=0)
     with torch.no_grad():
         batch = sample_pixel_rays(state.generator, rays, cfg.img_sample_size, impl="gumbel")
         near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
         pix, _, _ = render_rays(state.model, state.grid, batch.origins, batch.directions,
-                                dense, near, far)
+                                dense, near, far, _barf_alpha(cfg, state.step))
         loss = float(torch.mean((pix - batch.pixel_values) ** 2))
     check(tuple(pix.shape) == (cfg.img_sample_size,) and bool(torch.isfinite(pix).all()),
           "rendered pixels have the wrong shape or are not finite")
@@ -414,14 +487,27 @@ def train_loss(torch, state, rays, cfg) -> tuple[float, list]:
 
 
 def read_counts(fm, fk, fs) -> dict:
-    """Every kernel's launch count since the last reset_counts()."""
+    """Every kernel's launch count since the last reset_counts(), the
+    encoded pair's (#3/#4) among them."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+
     return dict(fwd_launches=fm.fwd_launches, bwd_launches=fm.bwd_launches,
-                first_k_launches=fk.launches, fused_step_launches=fs.fused_step_launches)
+                first_k_launches=fk.launches, fused_step_launches=fs.fused_step_launches,
+                enc_fwd_launches=fe.enc_fwd_launches, enc_bwd_launches=fe.enc_bwd_launches)
 
 
 def reset_all(fm, fk, fs) -> None:
-    for mod in (fm, fk, fs):
+    """Set all six launch counters to 0."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+
+    for mod in (fm, fk, fs, fe):
         mod.reset_counts()
+
+
+def check_no_enc(counts: dict, label: str) -> None:
+    """A run of a pos_enc 'none' model never launches the encoded pair."""
+    check(counts["enc_fwd_launches"] == 0 and counts["enc_bwd_launches"] == 0,
+          f"{label}: the encoded kernels launched on a pos_enc 'none' run")
 
 
 def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
@@ -466,6 +552,7 @@ def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     check(bwd_n == steps, f"bwd launches {bwd_n} != steps {steps}")
     check(counts["first_k_launches"] == 0 and counts["fused_step_launches"] == 0,
           "the dense split run launched the first-k or the whole-step kernel")
+    check_no_enc(counts, "dense")
     check(fwd_n >= steps + grid_updates + evals,
           f"fwd launches {fwd_n} < steps + grid updates + evals")
     out["profile"] = step_profile(torch, res.state, ds.rays, cfg)
@@ -575,20 +662,26 @@ def marches_per_step(cfg, t: dict, grid, batch) -> int:
 
 
 def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
-    """One train() run with the launch counters set to 0 just before it and
-    read just after; the first-k launches must equal the compacted steps
+    """One train() run with all six launch counters set to 0 just before it
+    and read just after; the first-k launches must equal the compacted steps
     times the launches a step of their Tuning makes. With
     ``cfg.fused_train_step == 'on'`` the fused-step launches must equal the
     rectangular marches of every step and the split backward never runs;
-    otherwise the split backward runs once a step."""
+    otherwise the split backward runs once a step: kernel #2, or for an
+    encoded model kernel #4, whose forward #3 then launches exactly once a
+    step, once a grid pass and once an eval (every_n_step_pair makes one
+    sigma call per update, eval one render of the held-out view), with #1,
+    #2 and #6 never. ``barf_alphas`` collects every step's "barf-coarse"."""
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
     from nerf_for_angiography_tpu_torch.training import train
 
     fused = cfg.fused_train_step == "on"
+    encoded = cfg.pos_enc != "none"
     print(f"--- {label}: {cfg.n_iters + 1} steps, march_mode={cfg.march_mode}, "
-          f"fused_train_step={cfg.fused_train_step}")
+          f"fused_train_step={cfg.fused_train_step}, pos_enc={cfg.pos_enc}")
     reset_all(fm, fk, fs)
-    res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
+    with recorded_barf_alphas() as barf_alphas:
+        res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
     torch.cuda.synchronize()
     counts, fk_shapes = read_counts(fm, fk, fs), set(fk.shapes)
     fwd_n, bwd_n = counts["fwd_launches"], counts["bwd_launches"]
@@ -617,7 +710,8 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
         phases=[{**p, "first_k_per_step": n, "marches_per_step": m}
                 for p, n, m in zip(phases, per_step, rect)],
         train_loss=loss, heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
-        rays_per_s_incl_first=res.rays_per_sec,
+        rays_per_s_incl_first=res.rays_per_sec, grid_updates=grid_updates, evals=evals,
+        barf_coarse_first=float(barf_alphas[0]), barf_coarse_last=float(barf_alphas[-1]),
     )
     print(f"{label}: final Tuning {t['tuning_final']}, steady_rays_per_sec "
           f"{t['steady_rays_per_sec']:.0f}, step_compact {t['step_compact']:.3f} s, "
@@ -632,9 +726,26 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
     print(f"{label}: launches fwd {fwd_n} bwd {bwd_n} first_k {fk_n} (expected {expected_fk} "
           f"from {compact_steps} compacted steps; shapes {sorted(fk_shapes)}) fused_step {fs_n}"
           + (f" (expected {expected_fs}: the rectangular marches of {steps} steps)" if fused else "")
+          + f" enc_fwd {counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}"
           + f"; steps {steps}, grid updates {grid_updates}, evals {evals}; train loss {loss:.6f}, "
-          f"held-out PSNR {res.last_psnr:.3f} dB (best-checkpoint {res.best_heldout_psnr:.3f})")
+          f"held-out PSNR {res.last_psnr:.3f} dB (best-checkpoint {res.best_heldout_psnr:.3f})"
+          + (f"; barf-coarse first {out['barf_coarse_first']} last {out['barf_coarse_last']}"
+             if cfg.pos_enc == "barf" else ""))
     check(math.isfinite(loss) and math.isfinite(res.last_psnr), f"{label}: loss/PSNR not finite")
+    check(len(barf_alphas) == steps, f"{label}: {len(barf_alphas)} step metrics for {steps} steps")
+    check(fk_n == expected_fk, f"{label}: first_k launches {fk_n} != expected {expected_fk}")
+    out["result"] = res
+    if encoded:
+        enc_f, enc_b = counts["enc_fwd_launches"], counts["enc_bwd_launches"]
+        check(fwd_n == 0 and bwd_n == 0 and fs_n == 0,
+              f"{label}: an encoded run launched fused_mlp ({fwd_n}, {bwd_n}) or fused_step "
+              f"({fs_n})")
+        check(enc_b == steps, f"{label}: enc bwd launches {enc_b} != steps {steps}")
+        check(enc_f == steps + grid_updates + evals,
+              f"{label}: enc fwd launches {enc_f} != steps + grid updates + evals "
+              f"= {steps + grid_updates + evals}")
+        return out
+    check_no_enc(counts, label)
     if fused:
         check(bwd_n == 0, f"{label}: the split backward launched {bwd_n} times")
         check(fs_n == expected_fs, f"{label}: fused_step launches {fs_n} != expected {expected_fs}")
@@ -642,9 +753,33 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
         check(bwd_n == steps and fs_n == 0, f"{label}: bwd launches {bwd_n} != steps {steps}")
     check(fwd_n >= (0 if fused else steps) + grid_updates + evals,
           f"{label}: fwd launches {fwd_n} < steps + grid updates + evals")
-    check(fk_n == expected_fk, f"{label}: first_k launches {fk_n} != expected {expected_fk}")
-    out["result"] = res
     return out
+
+
+@contextlib.contextmanager
+def recorded_barf_alphas():
+    """Within the block, every train step that train() builds appends its
+    "barf-coarse" metric (a device scalar, read after the run: no host
+    wait inside it) to the yielded list."""
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    seen: list = []
+    make = loop.make_train_step
+
+    def make_recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(state, rays):
+            out = step(state, rays)
+            seen.append(out[1]["barf-coarse"])
+            return out
+
+        return run
+
+    loop.make_train_step = make_recording
+    try:
+        yield seen
+    finally:
+        loop.make_train_step = make
 
 
 def fk_masks(torch, grid, cfg, batch, rows: int, w: int):
@@ -846,6 +981,7 @@ def two_bucket_steps(torch, fm, fk, fs, state, rays, cfg, batch) -> dict:
           and counts["fused_step_launches"] == 0,
           "the two-bucket steps did not launch one backward, two first-k kernels and no "
           "whole-step kernel a step")
+    check_no_enc(counts, "two-bucket steps")
     print(f"two-bucket step profile at {TWO_BUCKET}:")
     out["profile"] = step_profile(torch, state, rays, tcfg)
     check(out["profile"]["host_waits_per_step"] == 0,
@@ -1069,6 +1205,7 @@ def dense_run(torch, fm, fk, fs, ds, label: str, **cfg_kw) -> dict:
           f"{steps}, grid updates {grid_updates}, evals {evals})")
     check(math.isfinite(res.last_psnr), f"{label}: held-out PSNR not finite")
     check(counts["first_k_launches"] == 0, f"{label}: the dense run launched first-k")
+    check_no_enc(counts, label)
     return dict(label=label, steps=steps, ms_per_step=ms_step, heldout_psnr=res.last_psnr,
                 best_heldout_psnr=res.best_heldout_psnr, **counts, grid_updates=grid_updates,
                 evals=evals, state=res.state)
@@ -1143,6 +1280,125 @@ def fused_step_phase(torch, fm, fk, fs, ds, tr: dict, cp: dict, report: dict) ->
                feature_major_dense=fm_dense, profiles=profiles)
     report["fused_step"] = out
     return out
+
+
+# ---------------------------------------------------------------------------
+# the encoded pair (kernels #3/#4): fourier and BARF
+# ---------------------------------------------------------------------------
+
+BARF_ALPHAS = (0.0, 2.7, 5.0)
+ENC_BASIS = 5
+
+
+def random_enc(torch, fm, fe, kind: str, alpha: float = 0.0):
+    """The encoded pair's inputs at full width: random_cppn's 4x128 chain with
+    an L = 5 encoding (the fourier coefficients drawn by the module, ~ N(0,
+    5^2); the BARF window at ``alpha``), packed, with (a, w) and the
+    generator that drew them."""
+    from nerf_for_angiography_tpu_torch.models import CPPN, CPPNConfig
+
+    gen = torch.Generator().manual_seed(0)
+    model = CPPN(CPPNConfig(num_early_layers=4, num_filters=128, pos_enc=kind,
+                            pos_enc_basis=ENC_BASIS), generator=gen)
+    with torch.no_grad():
+        for lin in model.linears():
+            lin.bias.normal_(0.0, 0.1, generator=gen)
+    model = model.to(DEVICE)
+    return (*packed_enc_of(torch, fm, fe, model, alpha), gen)
+
+
+def packed_enc_of(torch, fm, fe, model, alpha: float = 0.0):
+    """(packed, parameter bytes, (fe, a, w)) of an encoded model, the BARF
+    window at ``alpha``."""
+    from nerf_for_angiography_tpu_torch.models import barf_k_values, barf_weights
+
+    c = model.config
+    packed = fe.pack_enc_params(fm.cppn_params_to_list(model), c.pos_enc_basis)
+    if c.pos_enc == "fourier":
+        enc = model.fourier_coefficients_pts.detach()
+    else:
+        enc = barf_weights(alpha, barf_k_values(c.pos_enc_basis, 3)).to(DEVICE)
+    a, w = fe.enc_arrays(c.pos_enc, c.pos_enc_basis, enc)
+    pbytes = sum(t.numel() * t.element_size() for t in packed) + 8 * a.numel()
+    return packed, pbytes, (fe, a.contiguous(), w.contiguous())
+
+
+def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
+    """Phase 6: kernels #3/#4 against their plain versions (fourier at the
+    path's forward shapes and the training backward; BARF at each of
+    BARF_ALPHAS), the fourier and BARF training runs, the backward at the
+    fourier run's compacted point count, the fourier compacted step
+    profile."""
+    from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
+    from nerf_for_angiography_tpu_torch.training import TrainConfig
+    from nerf_for_angiography_tpu_torch.training.train import _flat_positions, _march_for
+
+    labels = dict(zip(FWD_SHAPES, ("train", "grid warmup", "grid slab", "eval")))
+    packed, pbytes, enc, gen = random_enc(torch, fm, fe, "fourier")
+    checks = dict(
+        fourier_fwd=[check_fwd(torch, fm, packed, p, gen, pbytes, f"fourier, {labels[p]}", enc)
+                     for p in FWD_SHAPES],
+        fourier_bwd=check_bwd(torch, fm, packed, TRAIN_P, gen, pbytes, "fourier, train", enc),
+    )
+    for alpha in BARF_ALPHAS:
+        b_packed, b_pbytes, b_enc, b_gen = random_enc(torch, fm, fe, "barf", alpha)
+        lab = f"barf alpha {alpha}, train"
+        checks[f"barf_{alpha}"] = dict(
+            fwd=check_fwd(torch, fm, b_packed, TRAIN_P, b_gen, b_pbytes, lab, b_enc),
+            bwd=check_bwd(torch, fm, b_packed, TRAIN_P, b_gen, b_pbytes, lab, b_enc))
+
+    fcfg = TrainConfig(pos_enc="fourier", n_iters=ENC_FOURIER_ITERS, display_every=100)
+    fourier = compacted_run(torch, fm, fk, fs, ds, fcfg, "fourier_shipped")
+    check(fourier["compact_steps"] > 0, "the fourier run never engaged the compacted stepper")
+    bcfg = TrainConfig(pos_enc="barf", barf_start=0, barf_stop=ENC_BARF_ITERS,
+                       n_iters=ENC_BARF_ITERS, display_every=100)
+    barf = compacted_run(torch, fm, fk, fs, ds, bcfg, "barf_anneal")
+    check(barf["barf_coarse_first"] == 0.0 and barf["barf_coarse_last"] == float(ENC_BASIS),
+          "the BARF run's alpha did not rise from 0 to L")
+
+    # the backward at the point count of the fourier run's final Tuning,
+    # and the forward there with its trained weights
+    state = fourier["result"].state
+    batch = sample_pixel_rays(state.generator, ds.rays, fcfg.img_sample_size, impl="gumbel")
+    # (the Tuning it ended on, else its last compacted phase's)
+    final = fourier["tuning_final"] or {k: fourier["phases"][-1][k]
+                                        for k in ("mode", "k", "w_cap", "w_lo", "k_lo")}
+    tcfg = tuning_cfg(fcfg, final)
+    near, far = SRC_Z - fcfg.outside, SRC_Z + fcfg.outside
+    p = _flat_positions(_march_for(tcfg, state.grid, batch.origins, batch.directions,
+                                   near, far)).shape[0]
+    checks["compact_bwd"] = check_bwd(torch, fm, packed, p, gen, pbytes,
+                                      f"fourier, compacted step {final}", enc)
+    t_packed, t_pbytes, t_enc = packed_enc_of(torch, fm, fe, state.model)
+    checks["compact_fwd_trained"] = check_fwd(torch, fm, t_packed, p, gen, t_pbytes,
+                                              f"fourier, compacted step {final}, trained", t_enc)
+    for r in [*checks["fourier_fwd"], checks["compact_fwd_trained"],
+              *(v["fwd"] for k, v in checks.items() if k.startswith("barf_"))]:
+        r.pop("x", None)
+
+    print(f"fourier compacted step profile at the final Tuning {final}:")
+    prof = step_profile(torch, state, ds.rays, tcfg)
+    check(prof["host_waits_per_step"] == 0,
+          f"the fourier compacted step waits for the device {prof['host_waits_per_step']} times")
+    print(f"  fourier compacted: {profile_row(prof)}")
+    for run in (fourier, barf):
+        run.pop("result")
+    out = dict(checks=checks, fourier_shipped=fourier, barf_anneal=barf, compact_p=p,
+               final=final, profile=prof)
+    report["encoded"] = out
+    src = "nerf_for_angiography_tpu_torch/csrc/fused_mlp_enc.cu"
+    rows = []
+    for name, r, line in (("fused_mlp_enc_fwd", checks["fourier_fwd"][0], 539),
+                          ("fused_mlp_enc_bwd", checks["fourier_bwd"], 551)):
+        rows.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"nerf_for_angiography_tpu/ops/pallas/fused_mlp.py:{line}",
+            launches=0, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        ))
+    rows[1]["compact_path"] = {k: checks["compact_bwd"][k]
+                               for k in ("P", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return dict(out, rows=rows)
 
 
 def determinism_phase(torch, fm, ds, report: dict) -> None:
@@ -1287,6 +1543,7 @@ def main() -> int:
     try:
         from nerf_for_angiography_tpu_torch.ops.kernels import first_k as fk
         from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
+        from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
         from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
     except ImportError as e:
         print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
@@ -1302,13 +1559,14 @@ def main() -> int:
     report: dict = {"device": kind, "nvidia_smi": smi}
     t_all = time.perf_counter()
     try:
-        build_kernels(fm, fk, fs)
+        build_kernels(fm, fk, fs, fe)
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
         report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)
         tr = training_phase(torch, fm, fk, fs, ds, report)
         cp = compact_phase(torch, fm, fk, fs, ds, report)
         fp = fused_step_phase(torch, fm, fk, fs, ds, tr, cp, report)
+        ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
@@ -1323,13 +1581,16 @@ def main() -> int:
     runs = {"dense": tr, "shipped_defaults": cp["shipped"],
             "forced_hybrid": cp["hybrid"], "two_bucket_steps": cp["two_bucket"],
             "fused_dense": fp["fused_dense"], "fused_shipped_defaults": fp["fused_shipped"],
-            "feature_major_dense": fp["feature_major_dense"]}
+            "feature_major_dense": fp["feature_major_dense"],
+            "fourier_shipped": ep["fourier_shipped"], "barf_anneal": ep["barf_anneal"]}
     # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}
         for name, key in (("fused_mlp_fwd", "fwd_launches"), ("fused_mlp_bwd", "bwd_launches"),
                           ("first_k_active", "first_k_launches"),
-                          ("fused_step", "fused_step_launches"))
+                          ("fused_step", "fused_step_launches"),
+                          ("fused_mlp_enc_fwd", "enc_fwd_launches"),
+                          ("fused_mlp_enc_bwd", "enc_bwd_launches"))
     }
     fk_row = cp["first_k_row"]
     rows.append(dict(
@@ -1353,6 +1614,7 @@ def main() -> int:
                                                     "split_pair_ms")}
                 for name, v in fp["shapes"].items()},
     ))
+    rows += ep["rows"]
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())
         row["launches_by_path"] = by_path[row["name"]]

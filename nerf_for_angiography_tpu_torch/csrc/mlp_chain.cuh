@@ -1,9 +1,12 @@
 // The CPPN-MLP layer chain on Hopper (sm_90a) bf16 tensor cores: the pieces
-// shared by csrc/fused_mlp.cu (the MLP forward/backward kernels) and
+// shared by csrc/fused_mlp.cu (the MLP forward/backward kernels),
+// csrc/fused_mlp_enc.cu (the same over an encoded input) and
 // csrc/fused_step.cu (the whole-train-step gradient).
 //
 // The function: a relu MLP 3 -> F -> (n_hidden x F -> F) -> 1 over P points,
-// raw density out.  Cast points follow the TPU kernels exactly: x and every
+// raw density out; or, with an encoded input (EncX, csrc/fused_mlp_enc.cu),
+// the same chain over the fourier / BARF encoding of the 3 coordinates.
+// Cast points follow the TPU kernels exactly: x and every
 // weight are rounded to bf16 before each product, products accumulate in f32,
 // bias + relu run in f32 and the activation is then stored as bf16, the head
 // is an f32 dot of the bf16 activation with w_out plus b_out.  In backward,
@@ -25,6 +28,10 @@
 //    3..15 are zero, so the padding adds exact zeros.  Where x comes from is
 //    a template parameter: a (P, 3) or (3, P) array read through strides
 //    (StridedX), or a march's o + d * t_mid formed in the kernel (MarchX).
+//    The input type also fixes the input width KI (X::KI): 16 for the
+//    coordinates, KE = 16, 32, 48 or 64 for an encoded input (EncX), whose
+//    features each lane forms in registers; its backward adds dx through
+//    the encode and per-warp sums of dA (no float atomics).
 //  * The ragged edge is masked in the kernel: rows >= P read x = 0 and g = 0
 //    and are never stored.
 //  * Backward (three launches): (1) per tile, recompute the forward, store
@@ -57,13 +64,14 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int KIN = 16;          // input features (3 coords) padded to one k-step
-constexpr int LDIN = KIN + 8;    // shared row stride (bf16) of the staged input weight
 constexpr int FWD_WARPS = 16;    // forward: warps per block (at most 128 registers a thread)
 constexpr int BWD_WARPS = 8;     // backward chain: warps per block (at most 255)
 constexpr int TILE = 16;         // points per warp tile
 constexpr int KB = 64;           // weight gradients: points per pipeline stage
 
 __host__ __device__ constexpr int ldw(int F) { return F + 8; }  // conflict-free ldmatrix rows
+// shared row stride (bf16) of the staged input weight, KI inputs wide
+__host__ __device__ constexpr int ldin(int KI) { return KI + 8; }
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // shared-memory carve-up of the staged weights (forward and backward)
@@ -71,10 +79,10 @@ struct WLayout {
   size_t w_in, w_hid, bias, w_out, total;
 };
 
-__host__ __device__ inline WLayout weight_layout(int F, int nh) {
+__host__ __device__ inline WLayout weight_layout(int F, int nh, int KI = KIN) {
   WLayout l;
   size_t off = 0;
-  l.w_in = off;  off = align16(off + size_t(F) * LDIN * sizeof(bf16));
+  l.w_in = off;  off = align16(off + size_t(F) * ldin(KI) * sizeof(bf16));
   l.w_hid = off; off = align16(off + size_t(nh) * F * ldw(F) * sizeof(bf16));
   l.bias = off;  off = align16(off + size_t(nh + 1) * F * sizeof(float));
   l.w_out = off; off = align16(off + size_t(F) * sizeof(float));
@@ -91,16 +99,16 @@ __host__ __device__ inline size_t wgrad_smem(int F, long long chunk) {
 }
 
 // flat gradient layout, shared by the per-chunk partials and the result:
-// [dW_in (KIN x F)][dW_hidden (nh x F x F)][db (nh+1 x F)][dw_out (F)][db_out]
+// [dW_in (KI x F)][dW_hidden (nh x F x F)][db (nh+1 x F)][dw_out (F)][db_out]
 // with every weight gradient in (in, out) orientation
 struct GradLayout {
   size_t w_in, w_hid, b, w_out, b_out, n, stride;
 };
 
-__host__ __device__ inline GradLayout grad_layout(int F, int nh) {
+__host__ __device__ inline GradLayout grad_layout(int F, int nh, int KI = KIN) {
   GradLayout l;
   l.w_in = 0;
-  l.w_hid = size_t(KIN) * F;
+  l.w_hid = size_t(KI) * F;
   l.b = l.w_hid + size_t(nh) * F * F;
   l.w_out = l.b + size_t(nh + 1) * F;
   l.b_out = l.w_out + F;
@@ -109,8 +117,9 @@ __host__ __device__ inline GradLayout grad_layout(int F, int nh) {
   return l;
 }
 
-// w_in (F, KIN) with inputs 3..15 zero and w_hid (nh, F, F), both bf16 in
-// (out, in) orientation; bias (nh+1, F), w_out (F,) f32, b_out (1,) f32
+// w_in (F, KI) (for the coordinates KI = KIN, inputs 3..15 zero) and w_hid
+// (nh, F, F), both bf16 in (out, in) orientation; bias (nh+1, F), w_out (F,)
+// f32, b_out (1,) f32
 struct Params {
   const bf16* w_in;
   const bf16* w_hid;
@@ -130,6 +139,8 @@ struct Params {
 // coordinate c of point p at x[p * sp + c * sc]: (P, 3) is sp = 3, sc = 1;
 // the feature-major (3, P) is sp = 1, sc = P.  Every point is active.
 struct StridedX {
+  static constexpr int KI = KIN;
+  static constexpr bool ENCODED = false;
   const float* x;
   long long sp, sc;
   __device__ __forceinline__ float operator()(long long p, int c) const {
@@ -144,6 +155,8 @@ struct StridedX {
 // computes it.  A sample with mask 0 adds nothing to the pixel or to the
 // gradients (its draw is 0), so only samples with mask != 0 are active.
 struct MarchX {
+  static constexpr int KI = KIN;
+  static constexpr bool ENCODED = false;
   const float* o;     // (R, 3) origins
   const float* d;     // (R, 3) directions
   const float* tm;    // (R, k) sample midpoints
@@ -166,10 +179,84 @@ __device__ __forceinline__ bool tile_active(const X& x, long long p0, long long 
   return __any_sync(0xffffffffu, lane < 16 && p < P && x.active(p));
 }
 
-// where the backward chain writes dx (dx == nullptr: not at all)
+// an encoded input: the coordinates of a (P, 3) or (3, P) array (read as
+// StridedX reads them) through the fourier / BARF positional encoding,
+// formed in the kernel.  Its KE features come in pairs (2m, 2m + 1), one
+// pair to one register of an A fragment:
+//   pair 0 = (x0, x1), pair 1 = (x2, 0),
+//   pair 2 + j = (sin(v_j) w_j, cos(v_j) w_j) with v_j = a_j x_{j % 3} (one
+//     f32 product), j < n_enc = 3 L,
+//   every later pair (0, 0);
+// each rounded to bf16 where it enters the product.  The JAX order [x, sin
+// rows, cos rows] is this one permuted: the caller stages W_in's columns in
+// this order, so one sincosf serves a point's sin and cos feature of band j.
+// sincosf is the full-precision one: |v| reaches ~100 rad (fourier
+// coefficients at 3 sigma of 5, times 2 pi), where __sinf is far off.
+template <int KE>
+struct EncX {
+  static constexpr int KI = KE;
+  static constexpr bool ENCODED = true;
+  StridedX xs;
+  const float* a;  // (n_enc,) a_j
+  const float* w;  // (n_enc,) w_j
+  int n_enc;
+  __device__ __forceinline__ float operator()(long long p, int c) const { return xs(p, c); }
+  __device__ __forceinline__ bool active(long long) const { return true; }
+  __device__ __forceinline__ float3 coords(long long p) const {
+    return make_float3(xs(p, 0), xs(p, 1), xs(p, 2));
+  }
+  static __device__ __forceinline__ float coord(const float3& c, int i) {
+    return i == 0 ? c.x : (i == 1 ? c.y : c.z);
+  }
+  // the f32 features of pair m of a point at coordinates c
+  __device__ __forceinline__ float2 pair(const float3& c, int m) const {
+    if (m == 0) return make_float2(c.x, c.y);
+    if (m == 1) return make_float2(c.z, 0.0f);
+    const int j = m - 2;
+    if (j >= n_enc) return make_float2(0.0f, 0.0f);
+    float s, co;
+    sincosf(__fmul_rn(a[j], coord(c, j % 3)), &s, &co);
+    const float wj = w[j];
+    return make_float2(__fmul_rn(s, wj), __fmul_rn(co, wj));
+  }
+  // backward of pair m for (d0, d1) = dL/d(its two features) in f32: adds
+  // dL/dx to (dx0, dx1, dx2) and returns the pair's two dA terms
+  // (dv_sin x_c, dv_cos x_c), c = j % 3, with x in f32
+  __device__ __forceinline__ float2 pair_backward(const float3& c, int m, float d0, float d1,
+                                                  float& dx0, float& dx1, float& dx2) const {
+    if (m == 0) {
+      dx0 += d0;
+      dx1 += d1;
+      return make_float2(0.0f, 0.0f);
+    }
+    if (m == 1) {
+      dx2 += d0;
+      return make_float2(0.0f, 0.0f);
+    }
+    const int j = m - 2;
+    if (j >= n_enc) return make_float2(0.0f, 0.0f);
+    const int ci = j % 3;
+    const float xc = coord(c, ci), aj = a[j], wj = w[j];
+    float s, co;
+    sincosf(__fmul_rn(aj, xc), &s, &co);
+    const float dvs = __fmul_rn(co, __fmul_rn(d0, wj));   // sin row: cos(v) (dencw w)
+    const float dvc = __fmul_rn(-s, __fmul_rn(d1, wj));   // cos row: -sin(v) (dencw w)
+    const float dxc = __fadd_rn(__fmul_rn(aj, dvs), __fmul_rn(aj, dvc));
+    if (ci == 0) dx0 += dxc;
+    else if (ci == 1) dx1 += dxc;
+    else dx2 += dxc;
+    return make_float2(__fmul_rn(dvs, xc), __fmul_rn(dvc, xc));
+  }
+};
+
+// where the backward chain writes dx (dx == nullptr: not at all) and, for
+// an encoded input, each warp's KI sums of dA (per pair, the sin and cos
+// row's sum of dv x_c over the warp's points) at da[(block * BWD_WARPS +
+// warp) * KI]
 struct DxOut {
   float* dx;
   long long sp, sc;
+  float* da = nullptr;
 };
 
 // ---------------------------------------------------------------------------
@@ -299,13 +386,15 @@ __device__ __forceinline__ void store_frag(bf16* dst, const uint32_t (&a)[F / 16
   }
 }
 
+template <int KI>
 __device__ void stage_weights(unsigned char* smem, const WLayout& L, const Params& prm, int F,
                               int nh) {
   bf16* win = reinterpret_cast<bf16*>(smem + L.w_in);
-  for (int i = threadIdx.x; i < F * 2; i += blockDim.x) {
-    const int r = i >> 1, c = (i & 1) * 8;
-    *reinterpret_cast<uint4*>(win + r * LDIN + c) =
-        *reinterpret_cast<const uint4*>(prm.w_in + r * KIN + c);
+  constexpr int VI = KI / 8;  // 16-byte vectors per input-weight row
+  for (int i = threadIdx.x; i < F * VI; i += blockDim.x) {
+    const int r = i / VI, c = (i % VI) * 8;
+    *reinterpret_cast<uint4*>(win + r * ldin(KI) + c) =
+        *reinterpret_cast<const uint4*>(prm.w_in + r * KI + c);
   }
   bf16* wh = reinterpret_cast<bf16*>(smem + L.w_hid);
   const int vec = F / 8;  // 16-byte vectors per row
@@ -350,22 +439,42 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
                                              int nh, bf16* acts, uint2* masks) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long r0 = p0 + g, r1 = r0 + 8;
-  // A fragment of x: thread t = 0 holds columns 0, 1; t = 1 holds 2 (and a zero 3)
-  float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f, v3 = 0.0f;
-  if (t < 2) {
-    if (r0 < P) {
-      v0 = x(r0, 2 * t);
-      if (t == 0) v1 = x(r0, 1);
+  constexpr int KT = X::KI / 16;
+  uint32_t ax[KT][4];
+  if constexpr (X::ENCODED) {
+    // register q of k-step kt holds row g + 8 (q & 1), pair 8 kt + 4 (q >> 1) + t
+    const float3 zero = make_float3(0.0f, 0.0f, 0.0f);
+    const float3 c0 = r0 < P ? x.coords(r0) : zero, c1 = r1 < P ? x.coords(r1) : zero;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * kt + 4 * h + t;
+        const float2 u0 = x.pair(c0, m), u1 = x.pair(c1, m);
+        ax[kt][2 * h] = pack2(u0.x, u0.y);
+        ax[kt][2 * h + 1] = pack2(u1.x, u1.y);
+      }
     }
-    if (r1 < P) {
-      v2 = x(r1, 2 * t);
-      if (t == 0) v3 = x(r1, 1);
+  } else {
+    // A fragment of x: thread t = 0 holds columns 0, 1; t = 1 holds 2 (and a zero 3)
+    float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f, v3 = 0.0f;
+    if (t < 2) {
+      if (r0 < P) {
+        v0 = x(r0, 2 * t);
+        if (t == 0) v1 = x(r0, 1);
+      }
+      if (r1 < P) {
+        v2 = x(r1, 2 * t);
+        if (t == 0) v3 = x(r1, 1);
+      }
     }
+    ax[0][0] = pack2(v0, v1);
+    ax[0][1] = pack2(v2, v3);
+    ax[0][2] = ax[0][3] = 0u;
   }
-  uint32_t ax[1][4] = {{pack2(v0, v1), pack2(v2, v3), 0u, 0u}};
   const float* bias = reinterpret_cast<const float*>(smem + L.bias);
   float acc[F / 8][4];
-  warp_mm<1, F / 8>(acc, ax, reinterpret_cast<const bf16*>(smem + L.w_in), LDIN);
+  warp_mm<KT, F / 8>(acc, ax, reinterpret_cast<const bf16*>(smem + L.w_in), ldin(X::KI));
   bias_relu_pack<F>(a, acc, bias);
   if (acts) {
     store_frag<F>(acts, a, p0, P);
@@ -391,8 +500,8 @@ template <int F, class X, bool SIGMOID>
 __global__ void __launch_bounds__(FWD_WARPS * 32, 1)
 fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const WLayout L = weight_layout(F, nh);
-  stage_weights(smem, L, prm, F, nh);
+  const WLayout L = weight_layout(F, nh, X::KI);
+  stage_weights<X::KI>(smem, L, prm, F, nh);
   __syncthreads();
   const float b_out = prm.b_out[0];
   const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
@@ -435,15 +544,21 @@ fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
 }
 
 // backward, part 1: recompute, store activations, backpropagate dz, dx
+// (and, for an encoded input, each warp's dA sums)
 template <int F, class X>
 __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int nh,
                  bf16* __restrict__ acts, bf16* __restrict__ dzs, DxOut dx,
                  uint2* __restrict__ mask_slots) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const WLayout L = weight_layout(F, nh);
-  stage_weights(smem, L, prm, F, nh);
+  const WLayout L = weight_layout(F, nh, X::KI);
+  stage_weights<X::KI>(smem, L, prm, F, nh);
   __syncthreads();
+  // encoded input: this lane's running dA terms of its pairs 4 nt + t
+  constexpr int NE = X::ENCODED ? X::KI / 8 : 1;
+  float da[NE][2];
+#pragma unroll
+  for (int nt = 0; nt < NE; ++nt) da[nt][0] = da[nt][1] = 0.0f;
   const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
   const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -488,10 +603,44 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
       store_frag<F>(dzs + size_t(l - 1) * P * F, a, p0, P);
     }
 
-    // dx = dz_0 @ W_in (f32); columns 0..2 are the coordinates
-    if (dx.dx) {
+    if constexpr (X::ENCODED) {
+      // dencw = dz_0 @ W_in (f32, KI columns): C n-tile nt holds pair
+      // 4 nt + t, rows g (registers 0, 1) and g + 8 (2, 3); back through the
+      // encode to dx (summed over the four lanes of a row) and dA
+      float acce[NE][4];
+      warp_mm_t<F / 16, NE>(acce, a, reinterpret_cast<const bf16*>(smem + L.w_in),
+                            ldin(X::KI));
+      const float3 zero = make_float3(0.0f, 0.0f, 0.0f);
+      const float3 c0 = r0 < P ? x.coords(r0) : zero, c1 = r1 < P ? x.coords(r1) : zero;
+      float d0[3] = {0.0f, 0.0f, 0.0f}, d1[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < NE; ++nt) {
+        const int m = 4 * nt + t;
+        const float2 e0 = x.pair_backward(c0, m, acce[nt][0], acce[nt][1], d0[0], d0[1], d0[2]);
+        const float2 e1 = x.pair_backward(c1, m, acce[nt][2], acce[nt][3], d1[0], d1[1], d1[2]);
+        da[nt][0] += e0.x + e1.x;
+        da[nt][1] += e0.y + e1.y;
+      }
+      if (dx.dx) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          d0[i] += __shfl_xor_sync(0xffffffffu, d0[i], 1);
+          d0[i] += __shfl_xor_sync(0xffffffffu, d0[i], 2);
+          d1[i] += __shfl_xor_sync(0xffffffffu, d1[i], 1);
+          d1[i] += __shfl_xor_sync(0xffffffffu, d1[i], 2);
+        }
+        if (t == 0) {
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            if (r0 < P) dx.dx[r0 * dx.sp + i * dx.sc] = d0[i];
+            if (r1 < P) dx.dx[r1 * dx.sp + i * dx.sc] = d1[i];
+          }
+        }
+      }
+    } else if (dx.dx) {
+      // dx = dz_0 @ W_in (f32); columns 0..2 are the coordinates
       float accx[2][4];
-      warp_mm_t<F / 16, 2>(accx, a, reinterpret_cast<const bf16*>(smem + L.w_in), LDIN);
+      warp_mm_t<F / 16, 2>(accx, a, reinterpret_cast<const bf16*>(smem + L.w_in), ldin(KIN));
       if (t < 2) {
         if (r0 < P) {
           dx.dx[r0 * dx.sp + 2 * t * dx.sc] = accx[0][0];
@@ -504,10 +653,33 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
       }
     }
   }
+  if constexpr (X::ENCODED) {
+    // the warp's sums: over the eight lanes (g) of each pair, in a fixed order
+#pragma unroll
+    for (int nt = 0; nt < NE; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = da[nt][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        da[nt][e] = v;
+      }
+    }
+    if (g == 0 && dx.da) {
+      float* slot = dx.da + (size_t(blockIdx.x) * BWD_WARPS + warp) * X::KI;
+#pragma unroll
+      for (int nt = 0; nt < NE; ++nt) {
+        slot[2 * (4 * nt + t)] = da[nt][0];
+        slot[2 * (4 * nt + t) + 1] = da[nt][1];
+      }
+    }
+  }
 }
 
 // backward, part 2: one block per (chunk of points, job).  Job l <= nh:
-// dW_l = A_l^T dz_l (A_0 = bf16(x) padded to 16 columns, A_l = a_{l-1}) and
+// dW_l = A_l^T dz_l (A_0 = bf16(x) padded to 16 columns, or the encoded
+// input's KI features formed again from x; A_l = a_{l-1}) and
 // db_l = 1^T dz_l; job nh + 1: dw_out = a_nh^T g, db_out = sum g in f32.
 // Warp w < M/16 owns rows 16w.. of dW_l; the last warp computes db_l.
 // Stages of KB points with no active tile are skipped; inside a stage the
@@ -538,7 +710,7 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
   const bf16* asrc = (!head && job >= 1) ? acts + size_t(job - 1) * P * F : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, r = lane & 7;
-  const int m_tiles = job == 0 ? 1 : F / 16;
+  const int m_tiles = job == 0 ? X::KI / 16 : F / 16;
   const bool ones_warp = warp == F / 16;
 
   for (int st = warp; st < n_stages; st += NWARPS) {
@@ -577,10 +749,24 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
       if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
     }
     if (!head && job == 0) {
-      for (int i = threadIdx.x; i < KB * KIN; i += blockDim.x) {
-        const int row = i / KIN, c = i % KIN;
-        const long long p = kb + row;
-        As[(s * KB + row) * LD + c] = __float2bfloat16_rn(c < 3 && p < p_hi ? x(p, c) : 0.0f);
+      if constexpr (X::ENCODED) {
+        constexpr int NP = X::KI / 2;  // feature pairs a point
+        for (int i = threadIdx.x; i < KB * NP; i += blockDim.x) {
+          const int row = i / NP, m = i % NP;
+          const long long p = kb + row;
+          uint32_t v = 0u;
+          if (p < p_hi) {
+            const float2 u = x.pair(x.coords(p), m);
+            v = pack2(u.x, u.y);
+          }
+          *reinterpret_cast<uint32_t*>(As + (s * KB + row) * LD + 2 * m) = v;
+        }
+      } else {
+        for (int i = threadIdx.x; i < KB * KIN; i += blockDim.x) {
+          const int row = i / KIN, c = i % KIN;
+          const long long p = kb + row;
+          As[(s * KB + row) * LD + c] = __float2bfloat16_rn(c < 3 && p < p_hi ? x(p, c) : 0.0f);
+        }
       }
     }
     if (head) {
@@ -634,7 +820,7 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
     __syncthreads();
   }
 
-  const GradLayout GL = grad_layout(F, nh);
+  const GradLayout GL = grad_layout(F, nh, X::KI);
   float* part = partials + size_t(blockIdx.x) * stride;
   if (head) {
     if (threadIdx.x < F) part[GL.w_out + threadIdx.x] = hs;
@@ -677,7 +863,7 @@ int launch_fwd(const X& x, long long P, const Params& prm, int nh, float* out, i
   if (P <= 0) return (int)cudaSuccess;
   const long long tiles = (P + TILE - 1) / TILE;
   const int grid = (int)std::min<long long>((tiles + FWD_WARPS - 1) / FWD_WARPS, n_sms);
-  const size_t smem = weight_layout(F, nh).total;
+  const size_t smem = weight_layout(F, nh, X::KI).total;
   cudaError_t e = cudaFuncSetAttribute(fwd_kernel<F, X, SIGMOID>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -695,6 +881,12 @@ struct BwdScratch {
   long long chunk;   // points per chunk, a multiple of KB
 };
 
+// blocks of the backward chain launch over P points
+inline int bwd_grid(long long P, int n_sms) {
+  const long long tiles = (P + TILE - 1) / TILE;
+  return (int)std::min<long long>((tiles + BWD_WARPS - 1) / BWD_WARPS, n_sms);
+}
+
 inline long long mask_slots(int n_sms, int nh) {
   return (long long)n_sms * BWD_WARPS * (nh + 1) * 32;
 }
@@ -707,11 +899,10 @@ inline bool scratch_ok(const BwdScratch& s, long long P, int n_sms) {
 template <int F, class X>
 int launch_bwd(const X& x, const float* g, long long P, const Params& prm, int nh,
                const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st) {
-  const GradLayout GL = grad_layout(F, nh);
+  const GradLayout GL = grad_layout(F, nh, X::KI);
   if (P > 0) {
-    const long long tiles = (P + TILE - 1) / TILE;
-    const int grid = (int)std::min<long long>((tiles + BWD_WARPS - 1) / BWD_WARPS, n_sms);
-    const size_t smem = weight_layout(F, nh).total;
+    const int grid = bwd_grid(P, n_sms);
+    const size_t smem = weight_layout(F, nh, X::KI).total;
     cudaError_t e = cudaFuncSetAttribute(bwd_chain_kernel<F, X>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

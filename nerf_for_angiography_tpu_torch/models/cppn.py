@@ -1,12 +1,15 @@
 """CPPN coordinate field as a torch ``nn.Module`` (port of
 ``nerf_for_angiography_tpu/models/cppn.py``).
 
-This slice covers the flagship density stack: ``act_func='relu'``,
-``pos_enc='none'``, no view branch and no late layers. Parameter names
-follow the flax module (``input_layer``, ``early_i``, ``output_linear``,
-``img1``, ``img2``) so weights carry across one to one (``convert.py``).
-Initialisation matches flax in distribution (lecun_normal kernels — a
-truncated normal of variance 1/fan_in — and zero biases), not in bits.
+The port covers the density stack with ``act_func='relu'``, no view branch
+and no late layers, with ``pos_enc`` 'none', 'fourier' (learnable Gaussian
+coefficients) or 'barf' (fixed 2^k pi frequencies under a coarse-to-fine
+window that is a pure function of ``barf_alpha``; ref CPPN.py:62-94,207-259).
+Parameter names follow the flax module (``input_layer``, ``early_i``,
+``output_linear``, ``fourier_coefficients_pts``, ``img1``, ``img2``) so
+weights carry across one to one (``convert.py``). Initialisation matches
+flax in distribution (lecun_normal kernels — a truncated normal of variance
+1/fan_in — zero biases, N(0, fourier_sigma^2) coefficients), not in bits.
 """
 
 from __future__ import annotations
@@ -14,8 +17,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import nn
+
+# The reference's BARF window uses the literal 3.1415 (CPPN.py:252), not pi.
+_BARF_PI = 3.1415
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +54,46 @@ class CPPNConfig:
     def use_viewdirs(self) -> bool:
         return self.num_input_channels_views > 0
 
+    @property
+    def encoded_pts_features(self) -> int:
+        c = self.num_input_channels
+        if self.pos_enc != "none" and self.pos_enc_basis > 0:
+            return c + c * 2 * self.pos_enc_basis
+        return c
+
+
+def barf_k_values(pos_enc_basis: int, num_channels: int, device=None) -> torch.Tensor:
+    """k index per encoded channel: repeat_interleave(arange(L), C).
+    Ref: CPPN.py:84."""
+    k = torch.arange(pos_enc_basis, dtype=torch.float32, device=device)
+    return k.repeat_interleave(num_channels)
+
+
+def barf_weights(alpha, k_values: torch.Tensor) -> torch.Tensor:
+    """Coarse-to-fine BARF frequency window, a pure function of alpha, in
+    f32 (ref CPPN.py:244-259): with barf_k = alpha - (k + 1), w = 0 where
+    barf_k < 0, (1 - cos((alpha - k + 1) 3.1415)) / 2 where 0 <= barf_k < 1,
+    1 where barf_k >= 1."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=k_values.device)
+    barf_k = alpha - (k_values + 1.0)
+    mid = (1.0 - torch.cos((alpha - k_values + 1.0) * _BARF_PI)) / 2.0
+    one = torch.ones_like(mid)
+    return torch.where(barf_k < 0.0, torch.zeros_like(mid), torch.where(barf_k < 1.0, mid, one))
+
+
+def barf_alpha_schedule(step: int, pos_enc_basis: int, barf_start: int = 8000,
+                        barf_stop: int = 250000) -> float:
+    """Linear BARF alpha annealing, on the host in f32: 0 until barf_start,
+    then a ramp to pos_enc_basis at barf_stop. Ref: run_nerf_acc.py:165-167,
+    268-272."""
+    slope = np.float32(pos_enc_basis / float(barf_stop - barf_start))
+    alpha = (np.float32(step) - np.float32(barf_start)) * slope
+    return float(np.clip(alpha, np.float32(0.0), np.float32(pos_enc_basis)))
+
 
 def _check_ported(cfg: CPPNConfig) -> None:
-    if cfg.pos_enc != "none":
-        raise NotImplementedError(
-            f"pos_enc={cfg.pos_enc!r} arrives with slice 4 (fourier/BARF encodings)"
-        )
+    if cfg.pos_enc not in ("none", "fourier", "barf"):
+        raise ValueError(f"unknown pos_enc: {cfg.pos_enc!r}")
     if cfg.act_func != "relu":
         raise NotImplementedError(
             f"act_func={cfg.act_func!r} arrives with the classic-path slice"
@@ -78,7 +119,8 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
 
 
 class CPPN(nn.Module):
-    """Coordinate MLP: (x, y, z) -> 1-channel raw density."""
+    """Coordinate MLP: (x, y, z) -> 1-channel raw density, the coordinates
+    optionally through the fourier or BARF positional encoding."""
 
     def __init__(self, config: CPPNConfig, generator: torch.Generator | None = None,
                  device: torch.device | str | None = None):
@@ -87,7 +129,7 @@ class CPPN(nn.Module):
         self.config = config
         f = config.num_filters
         kw = dict(device=device, dtype=torch.float32)
-        self.input_layer = nn.Linear(config.num_input_channels, f, **kw)
+        self.input_layer = nn.Linear(config.encoded_pts_features, f, **kw)
         for i in range(config.num_early_layers):
             setattr(self, f"early_{i}", nn.Linear(f, f, **kw))
         self.output_linear = nn.Linear(f, config.num_output_channels, **kw)
@@ -97,6 +139,13 @@ class CPPN(nn.Module):
         for lin in self.linears():
             lecun_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
+        if config.pos_enc == "fourier" and config.pos_enc_basis > 0:
+            # learnable Gaussian coefficients ~ N(0, sigma^2) (CPPN.py:70-80)
+            n = config.num_input_channels * config.pos_enc_basis
+            coeff = torch.randn((n,), generator=generator, dtype=torch.float32)
+            self.fourier_coefficients_pts = nn.Parameter(
+                (coeff * config.fourier_sigma).to(device)
+            )
 
     def linears(self) -> list[nn.Linear]:
         n = self.config.num_early_layers
@@ -106,14 +155,36 @@ class CPPN(nn.Module):
             + [self.output_linear]
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., 3) world coords -> (..., num_output_channels) float32, in
-        the compute dtype of the config (flax Dense with ``dtype``: inputs,
-        weights and biases cast, result rounded to that dtype per layer)."""
+    def forward(self, x: torch.Tensor, barf_alpha=0.0) -> torch.Tensor:
+        """x (..., 3) world coords -> (..., num_output_channels) float32: the
+        encode in f32, then the layers in the compute dtype of the config
+        (flax Dense with ``dtype``: inputs, weights and biases cast, result
+        rounded to that dtype per layer). ``barf_alpha`` sets the BARF
+        window."""
         dt = self.config.dtype
-        h = (x[..., : self.config.num_input_channels] * self.config.input_scale).to(dt)
+        pts = x[..., : self.config.num_input_channels] * self.config.input_scale
+        h = self._pos_enc(pts, barf_alpha).to(dt)
         *hidden, out = self.linears()
         for lin in hidden:
             h = torch.relu(nn.functional.linear(h, lin.weight.to(dt), lin.bias.to(dt)))
         h = nn.functional.linear(h, out.weight.to(dt), out.bias.to(dt))
         return h.to(torch.float32)
+
+    def _pos_enc(self, values: torch.Tensor, alpha) -> torch.Tensor:
+        """concat([x, enc(tile(x, L))]) in f32, as flax's _pos_enc (ref
+        CPPN.py:207-234): feature order [x, sin rows, cos rows], row j
+        encoding coordinate j % 3 at band j // 3."""
+        cfg = self.config
+        basis = cfg.pos_enc_basis
+        if cfg.pos_enc == "none" or basis <= 0:
+            return values
+        tiled = torch.cat([values] * basis, dim=-1)
+        if cfg.pos_enc == "fourier":
+            v = 2.0 * math.pi * tiled * self.fourier_coefficients_pts
+            enc = torch.cat([torch.sin(v), torch.cos(v)], dim=-1)
+        else:
+            k = barf_k_values(basis, values.shape[-1], device=values.device)
+            w = barf_weights(alpha, k)
+            v = (torch.pow(2.0, k) * math.pi) * tiled
+            enc = torch.cat([w * torch.sin(v), w * torch.cos(v)], dim=-1)
+        return torch.cat([values, enc], dim=-1)

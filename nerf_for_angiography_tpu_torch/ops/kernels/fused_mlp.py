@@ -116,9 +116,10 @@ def _bf(t: torch.Tensor) -> torch.Tensor:
 
 
 def _forward_acts(packed: PackedMLP, x: torch.Tensor):
-    """bf16-rounded input (P, 3) and the bf16 activations of every layer."""
+    """bf16-rounded input (P, n_in) and the bf16 activations of every layer
+    (n_in = 3 coordinates, or an encoded input as wide as w_in)."""
     xb = _bf(x)
-    h = torch.relu(xb @ packed.w_in[:, :3].float().T + packed.bias[0])
+    h = torch.relu(xb @ packed.w_in[:, : xb.shape[1]].float().T + packed.bias[0])
     acts = [h.to(torch.bfloat16)]
     for li in range(packed.n_hidden):
         z = acts[-1].float() @ packed.w_hid[li].float().T + packed.bias[li + 1]
@@ -156,7 +157,7 @@ def fused_mlp_bwd_reference(
 
 def backward_from_acts(packed: PackedMLP, xb: torch.Tensor, acts, g: torch.Tensor):
     """The parameter gradients of the MLP for dL/draw = g (P,) from the
-    bf16 input xb (P, 3) and the bf16 activations of _forward_acts. Returns
+    bf16 input xb (P, n_in) and the bf16 activations of _forward_acts. Returns
     (grads in the plist layout, the input layer's dz (P, F) f32)."""
     g = g.float()
     f = packed.width
@@ -328,11 +329,12 @@ def fused_mlp_bwd_cuda(
     return _unflatten_grads(flat, f, nh), dx
 
 
-def _unflatten_grads(flat: torch.Tensor, f: int, nh: int):
-    """Flat kernel gradient -> the plist layout (see csrc GradLayout)."""
+def _unflatten_grads(flat: torch.Tensor, f: int, nh: int, k_in: int = _KIN, rows: int = 3):
+    """Flat kernel gradient -> the plist layout (see csrc GradLayout): dW_in
+    is the first ``rows`` of the kernel's (k_in, F) block."""
     o = 0
-    dw_in = flat[o : o + _KIN * f].view(_KIN, f)[:3]
-    o += _KIN * f
+    dw_in = flat[o : o + k_in * f].view(k_in, f)[:rows]
+    o += k_in * f
     dw_hid = flat[o : o + nh * f * f].view(nh, f, f)
     o += nh * f * f
     db = flat[o : o + (nh + 1) * f].view(nh + 1, f)

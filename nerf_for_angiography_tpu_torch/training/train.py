@@ -6,7 +6,9 @@ Per step: sample a ray batch on the device, EMA-update the two occupancy
 grids every ``grid_update_every`` steps from one shared sigma pass, march
 (the dense lattice, or with ``0 < compact_samples < depth_samples_per_ray``
 the compacted march ``march_mode`` names), evaluate the MLP (the fused
-kernels on the card), composite with Beer-Lambert under the early-stop keep
+kernels on the card: the encoded pair for pos_enc 'fourier' / 'barf', at
+the BARF alpha of the step counter, computed on the host), composite with
+Beer-Lambert under the early-stop keep
 mask, take the MSE and apply Adam with continuous exponential lr decay. A
 compacted step also reports its truncation pressure (march_pressure). With
 ``fused_train_step`` the MLP forward, composite, loss gradient and MLP
@@ -33,8 +35,9 @@ from typing import Any, NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..models import CPPN
+from ..models import CPPN, barf_alpha_schedule, barf_k_values, barf_weights
 from ..ops.kernels.fused_mlp import cppn_params_to_list, fused_mlp_raw, fused_mlp_raw_fm
+from ..ops.kernels.fused_mlp_enc import fused_mlp_enc_raw
 from ..ops.kernels.fused_step import fused_step_grads
 from ..ops.occupancy import (
     BucketedRays,
@@ -58,8 +61,6 @@ from .config import TrainConfig
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for configurations later slices bring."""
-    if cfg.pos_enc in ("fourier", "barf"):
-        raise NotImplementedError(f"pos_enc={cfg.pos_enc!r} arrives with slice 4")
     if cfg.pose_refine:
         raise NotImplementedError("pose_refine arrives with the pose-refinement slice")
     if cfg.num_input_channels_views > 0:
@@ -166,10 +167,13 @@ def create_train_state(
 
 
 def _pallas_eligible(model: CPPN) -> bool:
-    """The fused kernels cover the relu density stack with pos_enc 'none'."""
+    """The fused kernels cover the relu density stack with pos_enc 'none'
+    (fused_mlp_raw) and 'fourier' / 'barf' with pos_enc_basis > 0
+    (fused_mlp_enc_raw, the encode in the kernel)."""
     c = model.config
+    enc_ok = c.pos_enc == "none" or (c.pos_enc in ("fourier", "barf") and c.pos_enc_basis > 0)
     return (
-        c.pos_enc == "none"
+        enc_ok
         and c.act_func == "relu"
         and c.num_late_layers == 0
         and c.num_input_channels == 3
@@ -178,42 +182,72 @@ def _pallas_eligible(model: CPPN) -> bool:
     )
 
 
-def density_raw(model: CPPN, pts: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+def _barf_alpha(cfg: TrainConfig, step: int) -> float:
+    """The BARF anneal alpha at ``step`` (run_nerf_acc.py:268-272), 0 for
+    other encodings: an f32 value computed on the host from the host-side
+    step counter, so no step reads the device for it."""
+    if cfg.pos_enc != "barf":
+        return 0.0
+    return barf_alpha_schedule(step, cfg.pos_enc_basis, cfg.barf_start, cfg.barf_stop)
+
+
+def density_raw(
+    model: CPPN, pts: torch.Tensor, barf_alpha=0.0, backend: str = "auto"
+) -> torch.Tensor:
     """Raw 1-channel density at pts (..., 3) -> (...,).
 
     'pallas' (the JAX package's name for the fused kernels) and 'auto' on an
-    eligible model go through ``fused_mlp_raw``: the CUDA kernels for CUDA
-    tensors, their plain versions for CPU tensors. 'xla' runs the module's
-    own forward."""
+    eligible model go through ``fused_mlp_raw`` (pos_enc 'none') or
+    ``fused_mlp_enc_raw`` (fourier with the module's coefficients, BARF with
+    the window at ``barf_alpha``, built on the host and copied over once):
+    the CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
+    'xla' runs the module's own forward."""
     if backend == "pallas" and not _pallas_eligible(model):
         raise ValueError(
-            "mlp_backend='pallas' needs pos_enc='none', relu, no view branch/late layers"
+            "mlp_backend='pallas' needs pos_enc 'none' (or 'fourier'/'barf' with "
+            "pos_enc_basis > 0), relu, no view branch/late layers"
         )
     if backend in ("pallas", "auto") and _pallas_eligible(model):
-        x = (pts.reshape(-1, 3) * model.config.input_scale).contiguous()
-        return fused_mlp_raw(cppn_params_to_list(model), x).reshape(pts.shape[:-1])
+        c = model.config
+        x = (pts.reshape(-1, 3) * c.input_scale).contiguous()
+        plist = cppn_params_to_list(model)
+        if c.pos_enc == "none":
+            raw = fused_mlp_raw(plist, x)
+        else:
+            if c.pos_enc == "fourier":
+                enc = {"coeff": model.fourier_coefficients_pts}
+            else:  # barf: the window at the current anneal alpha
+                w = barf_weights(barf_alpha, barf_k_values(c.pos_enc_basis, 3))
+                # an asynchronous copy: the host does not wait for the stream
+                enc = {"w": w.to(x.device, non_blocking=True)}
+            raw = fused_mlp_enc_raw((c.pos_enc, c.pos_enc_basis), plist, enc, x)
+        return raw.reshape(pts.shape[:-1])
     if backend not in ("auto", "xla"):
         raise ValueError(f"unknown mlp_backend {backend!r}")
-    return model(pts)[..., -1]
+    return model(pts, barf_alpha)[..., -1]
 
 
-def density_raw_fm(model: CPPN, pts_fm: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+def density_raw_fm(
+    model: CPPN, pts_fm: torch.Tensor, barf_alpha=0.0, backend: str = "auto"
+) -> torch.Tensor:
     """density_raw for a feature-major (3, P) point block -> (P,).
 
-    On the fused-kernel path (an eligible model with 'auto' or 'pallas') the
-    block goes to ``fused_mlp_raw_fm`` as it is, with no relayout; every
-    other configuration transposes it back to density_raw."""
-    if backend in ("pallas", "auto") and _pallas_eligible(model):
+    On the fused-kernel path of a pos_enc 'none' model ('auto' or 'pallas')
+    the block goes to ``fused_mlp_raw_fm`` as it is, with no relayout; every
+    other configuration (the encoded models among them, as in the JAX
+    package) transposes it back to density_raw."""
+    if (backend in ("pallas", "auto") and _pallas_eligible(model)
+            and model.config.pos_enc == "none"):
         x = (pts_fm * model.config.input_scale).contiguous()
         return fused_mlp_raw_fm(cppn_params_to_list(model), x)
-    return density_raw(model, pts_fm.T, backend)
+    return density_raw(model, pts_fm.T, barf_alpha, backend)
 
 
-def _sigma_fn(model: CPPN, backend: str = "auto"):
+def _sigma_fn(model: CPPN, barf_alpha=0.0, backend: str = "auto"):
     """Density closure: sigmoid of the raw output (nerf_helpers_acc.py:22-24)."""
 
     def fn(pts):
-        return torch.sigmoid(density_raw(model, pts, backend))
+        return torch.sigmoid(density_raw(model, pts, barf_alpha, backend))
 
     return fn
 
@@ -511,15 +545,15 @@ def _bucket_sigmas(m, raw: torch.Tensor):
     return [(m, sig.reshape(m.mask.shape))]
 
 
-def _raw_for(model, m, origins, directions, cfg: TrainConfig) -> torch.Tensor:
+def _raw_for(model, m, origins, directions, cfg: TrainConfig, barf_alpha=0.0) -> torch.Tensor:
     """MLP raw densities of a march result, flat (P,) in bucket order:
     feature-major when cfg.feature_major_mlp asks for it, point-major
     otherwise."""
     if cfg.feature_major_mlp:
         return density_raw_fm(
-            model, _flat_positions_fm(m, origins, directions), cfg.mlp_backend
+            model, _flat_positions_fm(m, origins, directions), barf_alpha, cfg.mlp_backend
         )
-    return density_raw(model, _flat_positions(m), cfg.mlp_backend)
+    return density_raw(model, _flat_positions(m), barf_alpha, cfg.mlp_backend)
 
 
 def _keep_mask(m: MarchedRays, sigma: torch.Tensor, cfg: TrainConfig):
@@ -536,16 +570,17 @@ def _keep_mask(m: MarchedRays, sigma: torch.Tensor, cfg: TrainConfig):
 
 def render_rays(
     model: CPPN, grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor,
-    cfg: TrainConfig, near: float, far: float, binary_thresh: float | None = None,
-    return_march: bool = False,
+    cfg: TrainConfig, near: float, far: float, barf_alpha=0.0,
+    binary_thresh: float | None = None, return_march: bool = False,
 ):
     """Grid-pruned masked render of a ray batch, differentiable in the model
-    parameters (run_nerf_acc.py:287-296). Returns (pixels, sigma, keep),
+    parameters (run_nerf_acc.py:287-296), the BARF window at ``barf_alpha``.
+    Returns (pixels, sigma, keep),
     plus the march result with ``return_march`` (for march_pressure).
     pixels are in input ray order; under the per-bucket-k march
     (BucketedRays) sigma and keep are flat (P,) tensors in bucket order."""
     m = _march_for(cfg, grid, origins, directions, near, far)
-    raw = _raw_for(model, m, origins, directions, cfg)
+    raw = _raw_for(model, m, origins, directions, cfg, barf_alpha)
     parts, sigmas, keeps = [], [], []
     for mb, sb in _bucket_sigmas(m, raw):
         dists, keep = _keep_mask(mb, sb, cfg)
@@ -567,7 +602,8 @@ def render_rays(
 
 def _fused_step_eligible(model: CPPN, cfg: TrainConfig) -> bool:
     """Whether the whole-train-step kernel replaces the split forward /
-    backward for this model and config: pos_enc 'none', relu, no
+    backward for this model and config: pos_enc 'none' (the encoded models
+    keep the split kernels), relu, no
     pose_refine (the kernel returns no position gradient), no
     train_alpha_prune (it replays the early-stop keep only) and an
     mlp_backend of 'auto' or 'pallas'. 'on' forces it (the plain version on
@@ -579,7 +615,8 @@ def _fused_step_eligible(model: CPPN, cfg: TrainConfig) -> bool:
     if mode not in ("on", "auto"):
         raise ValueError(f"fused_train_step must be 'off', 'on' or 'auto', got {mode!r}")
     ok = (
-        _pallas_eligible(model)  # relu, pos_enc 'none'
+        model.config.pos_enc == "none"
+        and _pallas_eligible(model)  # relu, no view branch / late layers
         and not cfg.pose_refine
         and not cfg.train_alpha_prune
         and cfg.mlp_backend in ("auto", "pallas")
@@ -679,11 +716,14 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
         )
 
     def step_core(state: TrainState, batch: RayBatch):
+        # BARF alpha anneal (run_nerf_acc.py:268-272), from the host-side
+        # step counter at every call
+        barf_alpha = _barf_alpha(cfg, state.step)
         # occupancy EMA updates every n steps (run_nerf_acc.py:285-286), one
         # shared sigma pass for both grids
         grid, vessel_grid = every_n_step_pair(
             state.grid, state.vessel_grid, state.step,
-            _sigma_fn(model, cfg.mlp_backend),
+            _sigma_fn(model, barf_alpha, cfg.mlp_backend),
             cfg.alpha_thre, cfg.vessel_alpha_thre,
             cfg.grid_update_every, cfg.grid_ema_decay,
             generator=state.generator if cfg.grid_jitter else None,
@@ -698,7 +738,7 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             _set_grads(model, grads)
         else:
             pixels, _, _, march = render_rays(
-                model, grid, batch.origins, batch.directions, cfg, near, far,
+                model, grid, batch.origins, batch.directions, cfg, near, far, barf_alpha,
                 return_march=True,
             )
             loss = torch.mean((pixels - batch.pixel_values) ** 2)
@@ -715,7 +755,7 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             "psnr/train-coarse": psnr_from_mse(loss),
             "mean/train-pred-coarse": pixels.mean(),
             "mean/train": batch.pixel_values.mean(),
-            "barf-coarse": torch.zeros((), device=loss.device),
+            "barf-coarse": torch.full((), barf_alpha, dtype=torch.float32, device=loss.device),
             **pressure,
         }
         state.grid, state.vessel_grid = grid, vessel_grid
@@ -736,12 +776,13 @@ def make_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
 
 def make_eval_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     """Held-out view evaluation (run_nerf_acc.py:330-380): full-image MSE,
-    PSNR and vessel-pixel PSNR."""
+    PSNR and vessel-pixel PSNR, at the BARF alpha of the state's step."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, test: TestView):
         pixels, _, _ = render_rays(
-            model, state.grid, test.origins, test.directions, cfg, near, far
+            model, state.grid, test.origins, test.directions, cfg, near, far,
+            _barf_alpha(cfg, state.step),
         )
         mse = torch.mean((pixels - test.pixel_values) ** 2)
         vessel = test.vessel_mask.to(torch.float32)

@@ -1,6 +1,8 @@
 """Port on the card: the CUDA kernels against their plain versions at small
 and ragged shapes, the launch counters, one dense and one compacted train
-step, the whole-step kernel's train steps and the feature-major layout. Skipped without a GPU; on the card run
+step, the whole-step kernel's train steps, the feature-major layout and the
+encoded (fourier / BARF) kernels and train steps. Skipped without a GPU; on
+the card run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (this file imports torch only)."""
 
@@ -11,6 +13,7 @@ import torch
 from nerf_for_angiography_tpu_torch.models import CPPN, CPPNConfig
 from nerf_for_angiography_tpu_torch.ops.kernels import first_k as fk
 from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
+from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
 
 pytestmark = pytest.mark.cuda
 
@@ -60,9 +63,11 @@ def test_kernels_match_plain(dev, n_hidden, width, p):
 
 
 def _min_abs_preact(packed, x):
+    """Per point, the smallest |pre-activation| of the plain forward; x is
+    the (P, 3) input or an encoded (P, KE) block."""
     h = x.to(torch.bfloat16).float()
     dist = torch.full((x.shape[0],), float("inf"), device=x.device)
-    for w, b in zip([packed.w_in[:, :3]] + list(packed.w_hid), packed.bias):
+    for w, b in zip([packed.w_in[:, : x.shape[1]]] + list(packed.w_hid), packed.bias):
         z = h @ w.float().T + b
         dist = torch.minimum(dist, z.abs().amin(dim=1))
         h = torch.relu(z).to(torch.bfloat16).float()
@@ -340,3 +345,133 @@ def test_sampling_table_repeats_bit_for_bit(dev):
     first = build_sampling_table(w)
     assert first.device.type == "cuda"
     assert all(torch.equal(first, build_sampling_table(w)) for _ in range(5))
+
+
+# ---------------------------------------------------------------------------
+# the encoded (fourier / BARF) kernels
+# ---------------------------------------------------------------------------
+
+
+def _enc_model(n_hidden, width, kind, n_basis, dev, alpha=2.7, seed=0):
+    """A port CPPN with non-zero biases (fourier coefficients ~ N(0, 5^2)),
+    its kernel-layout weights and (a, w)."""
+    from nerf_for_angiography_tpu_torch.models import barf_k_values, barf_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    model = CPPN(CPPNConfig(num_early_layers=n_hidden, num_filters=width, pos_enc=kind,
+                            pos_enc_basis=n_basis), generator=gen)
+    with torch.no_grad():
+        for lin in model.linears():
+            lin.bias.normal_(0.0, 0.1, generator=gen)
+    model = model.to(dev)
+    packed = fe.pack_enc_params(fm.cppn_params_to_list(model), n_basis)
+    if kind == "fourier":
+        enc = model.fourier_coefficients_pts.detach()
+    else:
+        enc = barf_weights(alpha, barf_k_values(n_basis, 3)).to(dev)
+    a, w = fe.enc_arrays(kind, n_basis, enc)
+    return model, packed, a.contiguous(), w.contiguous()
+
+
+@pytest.mark.parametrize("n_hidden,width,kind,n_basis,p", [
+    (4, 128, "fourier", 5, 1), (4, 128, "fourier", 5, 3001), (4, 128, "barf", 5, 3001),
+    (4, 128, "barf", 2, 777), (2, 64, "fourier", 5, 65), (2, 64, "fourier", 2, 1000),
+    (1, 128, "barf", 10, 64 * 300 + 5), (3, 48, "fourier", 3, 129), (2, 32, "barf", 4, 500),
+])
+def test_enc_kernels_match_plain(dev, n_hidden, width, kind, n_basis, p):
+    _, packed, a, w = _enc_model(n_hidden, width, kind, n_basis, dev)
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    g = torch.randn((p,), generator=gen).to(dev)
+    got = fe.fused_mlp_enc_fwd_cuda(packed, a, w, x)
+    want = fe.fused_mlp_enc_fwd_reference(packed, a, w, x)
+    s = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=2e-2 * s, rtol=0)
+    assert float((got - want).abs().median()) < 1e-3 * s
+    grads_k, da_k, dx_k = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+    grads_p, da_p, dx_p = fe.fused_mlp_enc_bwd_reference(packed, a, w, x, g)
+    for (wk, bk), (wp, bp) in zip(grads_k, grads_p):
+        for u, v in ((wk, wp), (bk, bp)):
+            scale = max(float(v.abs().max()), 1e-12)
+            torch.testing.assert_close(u / scale, v.reshape(u.shape) / scale, atol=3e-2, rtol=0)
+    # dA (dcoeff's two terms per band), held like a gradient
+    scale = max(float(da_p.abs().max()), 1e-12)
+    torch.testing.assert_close(da_k / scale, da_p / scale, atol=3e-2, rtol=0)
+    rel = float(torch.linalg.norm(dx_k - dx_p) / torch.linalg.norm(dx_p))
+    assert rel < 3e-2
+    # per point within 3e-2 of max |dx|, except at relu ties
+    bad = ((dx_k - dx_p).abs() > 3e-2 * dx_p.abs().max()).any(dim=1)
+    enc, _ = fe.encode(x[bad], a, w, packed.w_in.shape[1])
+    assert bool((_min_abs_preact(packed, enc) < 1e-3).all())
+
+
+@pytest.mark.parametrize("kind", ["fourier", "barf"])
+def test_enc_backward_is_deterministic(dev, kind):
+    _, packed, a, w = _enc_model(4, 128, kind, 5, dev)
+    x = torch.rand((50_000, 3), device=dev) * 2 - 1
+    g = torch.randn((50_000,), device=dev)
+    ga, daa, dxa = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+    gb, dab, dxb = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+    assert all(torch.equal(u, v) for pa, pb in zip(ga, gb) for u, v in zip(pa, pb))
+    assert torch.equal(daa, dab) and torch.equal(dxa, dxb)
+    assert torch.equal(fe.fused_mlp_enc_fwd_cuda(packed, a, w, x),
+                       fe.fused_mlp_enc_fwd_cuda(packed, a, w, x))
+
+
+def test_enc_autograd_launches_the_kernels(dev):
+    model, _, _, _ = _enc_model(2, 64, "fourier", 5, dev)
+    fe.reset_counts()
+    fm.reset_counts()
+    x = (torch.rand((4000, 3), device=dev) * 2 - 1).requires_grad_(True)
+    raw = fe.fused_mlp_enc_raw(("fourier", 5), fm.cppn_params_to_list(model),
+                               {"coeff": model.fourier_coefficients_pts}, x)
+    raw.square().mean().backward()
+    torch.cuda.synchronize()
+    assert fe.enc_fwd_launches == 1 and fe.enc_bwd_launches == 1
+    assert fm.fwd_launches == 0 and fm.bwd_launches == 0
+    assert x.grad is not None and model.fourier_coefficients_pts.grad is not None
+
+
+def test_enc_input_wider_than_the_layer_raises(dev):
+    _, packed, a, w = _enc_model(1, 32, "fourier", 5, dev)  # KE = 48 > F = 32
+    with pytest.raises(ValueError, match="KE"):
+        fe.fused_mlp_enc_fwd_cuda(packed, a, w, torch.zeros((10, 3), device=dev))
+
+
+@pytest.mark.parametrize("kind", ["fourier", "barf"])
+def test_encoded_train_step_on_card(dev, monkeypatch, kind):
+    """An encoded split step on the card: the encoded pair launches for the
+    grid update and the step, never fused_mlp or fused_step, and never the
+    plain version."""
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_sphere_volume,
+    )
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, create_train_state, make_train_step,
+    )
+
+    def plain_refused(*args, **kwargs):
+        raise AssertionError("the plain encoded version ran on the card")
+
+    monkeypatch.setattr(fe, "fused_mlp_enc_fwd_reference", plain_refused)
+    monkeypatch.setattr(fe, "fused_mlp_enc_bwd_reference", plain_refused)
+    ds = generate_dataset(
+        make_sphere_volume(res=32), DatagenConfig(limited_size=90.0, number_angles=1.0,
+                                                  img_width=16, img_height=16,
+                                                  sample_outside=100.0), device=dev,
+    )
+    cfg = TrainConfig(compact_samples=0, sample_size=16, depth_samples_per_ray=64,
+                      grid_resolution=32, pos_enc=kind, barf_start=0, barf_stop=4,
+                      fused_train_step="auto")
+    model, state = create_train_state(cfg, device=dev)
+    step = make_train_step(model, cfg, 1400.0, 1600.0)
+    for mod in (fe, fm, fs):
+        mod.reset_counts()
+    state, metrics, _, _ = step(state, ds.rays)
+    state, metrics, _, _ = step(state, ds.rays)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss/train-pixel-coarse"])
+    assert fe.enc_fwd_launches == 3 and fe.enc_bwd_launches == 2  # grid update at step 0
+    assert fm.fwd_launches == fm.bwd_launches == fs.fused_step_launches == 0
+    assert float(metrics["barf-coarse"]) == (1.25 if kind == "barf" else 0.0)

@@ -376,8 +376,8 @@ def test_density_raw_fm_matches_density_raw():
     model = CPPN(cfg.model_config(), generator=torch.Generator().manual_seed(3))
     pts = torch.from_numpy(np.random.default_rng(3).uniform(-90, 90, (500, 3)).astype(np.float32))
     for backend in ("auto", "pallas", "xla"):
-        got = tt.density_raw_fm(model, pts.T.contiguous(), backend)
-        want = tt.density_raw(model, pts, backend)
+        got = tt.density_raw_fm(model, pts.T.contiguous(), backend=backend)
+        want = tt.density_raw(model, pts, backend=backend)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 

@@ -65,7 +65,8 @@ def test_init_matches_flax_in_distribution():
     assert all(float(lin.bias.detach().abs().max()) == 0.0 for lin in torch_model.linears())
 
 
-@pytest.mark.parametrize("kw", [dict(pos_enc="fourier"), dict(pos_enc="barf"),
+@pytest.mark.parametrize("kw", [dict(pos_enc="fourier", act_func="sine"),
+                                dict(pos_enc="barf", num_input_channels_views=3),
                                 dict(act_func="sine"), dict(num_late_layers=1),
                                 dict(num_input_channels_views=3)])
 def test_unported_model_configs_raise(kw):

@@ -126,8 +126,8 @@ def test_tiny_train_runs_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(num_input_channels_views=2), dict(pos_enc="fourier"), dict(pos_enc="barf"),
-    dict(sample_mode="image"), dict(pose_refine=True),
+    dict(num_input_channels_views=2), dict(pos_enc="fourier", pose_refine=True),
+    dict(pos_enc="barf", sample_mode="image"), dict(sample_mode="image"), dict(pose_refine=True),
 ])
 def test_unported_train_configs_raise(kw):
     cfg = TrainConfig(**{**SMALL, **kw})
@@ -136,11 +136,12 @@ def test_unported_train_configs_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(pose_refine=True), dict(train_alpha_prune=True),
-                                dict(mlp_backend="xla")])
+                                dict(mlp_backend="xla"), dict(pos_enc="fourier"),
+                                dict(pos_enc="barf")])
 def test_forced_fused_step_on_an_ineligible_config_raises(kw):
-    """fused_train_step='on' needs non-differentiable positions, the
-    early-stop keep only and a fused-kernel backend: the step builder
-    raises ValueError otherwise, as the JAX package's does."""
+    """fused_train_step='on' needs pos_enc 'none', non-differentiable
+    positions, the early-stop keep only and a fused-kernel backend: the step
+    builder raises ValueError otherwise, as the JAX package's does."""
     from nerf_for_angiography_tpu_torch.models import CPPN
 
     cfg = TrainConfig(**{**SMALL, **kw, "fused_train_step": "on"})
