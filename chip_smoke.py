@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # the checks below
     python3 chip_smoke.py --determinism      # also: run-to-run reproducibility
     python3 chip_smoke.py --protocol 20000   # also: one 20k-step shipped run
+    python3 chip_smoke.py --parent DIR       # also: the parent checkout's numbers
 
 Phases:
   1. environment: torch/CUDA versions, the card's name and power limit;
@@ -36,7 +37,14 @@ Phases:
      shipped-default steps with ``fused_train_step='on'`` (one launch per
      rectangular march, no split backward); the fused step profiled at the
      lattice and two-bucket Tunings; 60 dense steps with
-     ``feature_major_mlp``;
+     ``feature_major_mlp``; then the fused-MLP backward (kernel #2) on the
+     gradient the split composite hands it at the trained state on the same
+     four marches (share of active 16-point tiles, against its plain
+     version, dx exactly 0 on skipped tiles, time beside the bound and the
+     scratch traffic floor over the active tiles) and at random g; with
+     ``--parent DIR`` also the parent checkout's kernel #2 and split pairs
+     on the same inputs and its dense run, which must equal this one;
+     every compacted run's pressure schedule is held to the JAX loop's;
   6. the encoded (fourier / BARF) pair: the kernels held against their plain
      versions at 4x128, L = 5 (fourier coefficients ~ N(0, 5^2); BARF at
      alpha 0, 2.7 and 5) at the path's shapes, two launches bit-identical,
@@ -76,6 +84,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FWD_SHAPES = (1_687_500, 2_097_152, 524_288, 3_000_000)  # train, grid warmup, grid slab, eval
 TRAIN_P = 1_687_500  # 5625 rays x 300 samples
+# kernel #2 at random g: the dense step's points and the lattice k = 160 step's
+BWD_RANDOM_P = (TRAIN_P, 900_000)
 # fused-MLP forward limits relative to the output scale max(1, max |raw|):
 # larger raw outputs (trained weights) scale the bf16 tie flips with them
 FWD_MAX_REL, FWD_MEDIAN_REL, GRAD_NORM_MAX = 2e-2, 1e-3, 3e-2
@@ -189,8 +199,10 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
                 r"|scan_kernel)", mangled)
             width_arg = re.search(r"ILi(\d+)E", mangled)
             ke_arg = re.search(r"EncXILi(\d+)E", mangled)
+            gated = re.search(r"GatedXILb([01])E", mangled)
             cur = (short.group(1) if short else mangled) + (
-                f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "") + ">"
+                f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "")
+                + ((",staged" if gated.group(1) == "1" else ",gated") if gated else "") + ">"
                 if width_arg else "")
         elif cur and "Used" in ln and "registers" in ln:
             regs[cur] = ln.split("Used")[1].split("registers")[0].strip()
@@ -303,15 +315,20 @@ def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None)
                 deterministic=same, x=x)
 
 
-def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None) -> dict:
+def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None,
+              xg=None) -> dict:
     """The backward kernel against its plain version at P = p (parameter
     grads normalised, dx per point except relu ties), bit-determinism, and
-    its time (the encoded pair's with ``enc``, dA held like a gradient)."""
+    its time (the encoded pair's with ``enc``, dA held like a gradient), on
+    random x and g, or on ``xg = (x, g)``."""
     ops = mlp_pair(fm, packed, enc)
     f, nh = packed.width, packed.n_hidden
     dev = torch.device(DEVICE)
-    x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(dev)
-    g = (torch.randn((p,), generator=gen) / p).to(dev)
+    if xg is None:
+        x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(dev)
+        g = (torch.randn((p,), generator=gen) / p).to(dev)
+    else:
+        x, g = xg
     grads_k, dx_k = ops["bwd"](x, g)
     grads_p, dx_p = ops["bwd_ref"](x, g)
     grads_k2, dx_k2 = ops["bwd"](x, g)
@@ -516,7 +533,7 @@ def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     dense step profile."""
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
-    cfg = TrainConfig(compact_samples=0, n_iters=60, display_every=30)
+    cfg = TrainConfig(compact_samples=0, n_iters=DENSE_ITERS, display_every=30)
     steps = cfg.n_iters + 1  # the loop steps iterations 0..n_iters
     grid_updates = sum(1 for s in range(steps) if s % cfg.grid_update_every == 0)
     evals = sum(1 for s in range(steps) if s % cfg.display_every == 0)
@@ -680,7 +697,7 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
     print(f"--- {label}: {cfg.n_iters + 1} steps, march_mode={cfg.march_mode}, "
           f"fused_train_step={cfg.fused_train_step}, pos_enc={cfg.pos_enc}")
     reset_all(fm, fk, fs)
-    with recorded_barf_alphas() as barf_alphas:
+    with recorded_barf_alphas() as barf_alphas, recorded_schedule(barf_alphas) as sched:
         res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
     torch.cuda.synchronize()
     counts, fk_shapes = read_counts(fm, fk, fs), set(fk.shapes)
@@ -733,6 +750,7 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
              if cfg.pos_enc == "barf" else ""))
     check(math.isfinite(loss) and math.isfinite(res.last_psnr), f"{label}: loss/PSNR not finite")
     check(len(barf_alphas) == steps, f"{label}: {len(barf_alphas)} step metrics for {steps} steps")
+    out["schedule"] = check_schedule(sched, cfg, label)
     check(fk_n == expected_fk, f"{label}: first_k launches {fk_n} != expected {expected_fk}")
     out["result"] = res
     if encoded:
@@ -780,6 +798,68 @@ def recorded_barf_alphas():
         yield seen
     finally:
         loop.make_train_step = make
+
+
+@contextlib.contextmanager
+def recorded_schedule(issued: list):
+    """Within the block, the PressureTuner that train() builds records each
+    observe (its boundary m, the steps issued by then = len(issued), the k
+    the loop runs and whether a fire was armed just before) and each Tuning
+    it engages or changes to (with the iteration)."""
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    base = loop.PressureTuner
+    log = dict(observe=[], tunings=[], k=0)
+
+    class Recording(base):
+        def observe(self, m, *stats):
+            log["observe"].append((m, len(issued), log["k"], self.fire, stats[:3]))
+            super().observe(m, *stats)
+
+        def engage(self, choice, cfg):
+            t = super().engage(choice, cfg)
+            log["k"] = t.k
+            log["tunings"].append(("engage", len(issued) - 1, dataclasses.asdict(t)))
+            return t
+
+        def retune(self, t, choice, cfg):
+            t2 = super().retune(t, choice, cfg)
+            log["k"] = t2.k
+            if t2 != t:
+                log["tunings"].append(("retune", len(issued) - 1, dataclasses.asdict(t2)))
+            return t2
+
+    loop.PressureTuner = Recording
+    try:
+        yield log
+    finally:
+        loop.PressureTuner = base
+
+
+def check_schedule(log: dict, cfg, label: str) -> dict:
+    """The JAX loop's pressure latency (JAX training/loop.py:411-538): a
+    full chunk's pressure reaches the tuner once the next chunk is issued
+    (m + chunk + 1 steps), and at its own boundary (m + 1 steps) exactly
+    where that loop drains: a re-check boundary of the k then running, an
+    armed fire, a display boundary, the last iteration, or a partial chunk
+    next."""
+    chunk = math.gcd(100, cfg.display_every)
+    check_every = max(chunk, -(-cfg.compact_check_every // chunk) * chunk)
+    deferred = 0
+    for m, issued, k, fire, _ in log["observe"]:
+        recheck = check_every if k > cfg.compact_samples else cfg.display_every
+        at_once = (m % recheck == 0 or fire or m % cfg.display_every == 0
+                   or m >= cfg.n_iters or m + chunk > cfg.n_iters or m % chunk != 0)
+        want = m + 1 if at_once else m + chunk + 1
+        deferred += not at_once
+        check(issued == want, f"{label}: the pressure of the chunk ending at {m} reached the "
+                              f"tuner after {issued} steps, the JAX loop's schedule says {want}")
+    fired = [m for m, _, _, _, st in log["observe"] if any(v > 0 for v in st)]
+    changes = [(kind, n, t["k"]) for kind, n, t in log["tunings"]]
+    print(f"{label}: Tunings (kind, iteration, k) {changes}; pressure in the chunks ending at "
+          f"{fired}; {len(log['observe'])} chunks observed, {deferred} of them one chunk "
+          "later (the JAX loop's schedule held)")
+    return dict(tunings=log["tunings"], pressure_chunks=fired,
+                observed=[o[:2] for o in log["observe"]], deferred=deferred)
 
 
 def fk_masks(torch, grid, cfg, batch, rows: int, w: int):
@@ -935,6 +1015,11 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     prof = step_profile(torch, state, ds.rays, fcfg)
     check(prof["host_waits_per_step"] == 0,
           f"the compacted step waits for the device {prof['host_waits_per_step']} times a step")
+    prof["bwd_kernels_ms"] = {k: sum(r["ms_per_step"] for r in prof["top"] if k in r["name"])
+                              for k in ("bwd_chain_kernel", "wgrad_kernel")}
+    print(f"  kernel #2 in this split step: backward chain "
+          f"{prof['bwd_kernels_ms']['bwd_chain_kernel']:.4f} ms/step, weight gradients "
+          f"{prof['bwd_kernels_ms']['wgrad_kernel']:.4f} ms/step; {profile_row(prof)}")
     two = two_bucket_steps(torch, fm, fk, fs, state, ds.rays, cfg, batch)
     hyb.pop("result")
     out = dict(shipped=main, hybrid=hyb, first_k=fk_rows, first_k_row=fk_row, mlp=mlp,
@@ -1025,23 +1110,41 @@ def march_blocks(torch, cfg, grid, batch) -> dict:
     return out
 
 
-def split_pair(torch, fm, model, o, d, t_mid, mask, tgt, kw):
-    """The same function through the split path a step runs without the
-    whole-step kernel: the fused-MLP forward kernel, the PyTorch composite
-    (sigmoid, prune_mask, Beer-Lambert, loss), autograd, the fused-MLP
-    backward kernel. Returns the parameter gradients."""
+def split_loss(torch, raw, t_mid, mask, tgt, kw):
+    """The split path's composite of one march block from the raw density:
+    sigmoid, prune_mask, Beer-Lambert, loss."""
     from nerf_for_angiography_tpu_torch.ops.occupancy import prune_mask
 
-    plist = fm.cppn_params_to_list(model)
-    params = [t for pair in plist for t in pair]
-    s = kw["input_scale"]
-    x = ((o[:, None, :] + d[:, None, :] * t_mid[..., None]) * s).reshape(-1, 3)
-    sigma = torch.sigmoid(fm.fused_mlp_raw(plist, x)).reshape(t_mid.shape)
+    sigma = torch.sigmoid(raw).reshape(t_mid.shape)
     dists = torch.full_like(t_mid, kw["step"])
     keep = prune_mask(sigma, dists, mask, 0.0, kw["early_stop_eps"])
     pixel = torch.exp(-(sigma * keep * dists).sum(-1))
-    loss = ((pixel - tgt) ** 2).sum() / kw["n_rays_loss"]
-    return torch.autograd.grad(loss, params)
+    return ((pixel - tgt) ** 2).sum() / kw["n_rays_loss"]
+
+
+def march_x(o, d, t_mid, kw):
+    """The (P, 3) MLP input of a march block, as the split step forms it."""
+    return ((o[:, None, :] + d[:, None, :] * t_mid[..., None]) * kw["input_scale"]).reshape(-1, 3)
+
+
+def split_pair(torch, fm, plist, o, d, t_mid, mask, tgt, kw):
+    """The same function through the split path a step runs without the
+    whole-step kernel, for the parameter list ``plist``: the fused-MLP
+    forward kernel, the PyTorch composite, autograd, the fused-MLP backward
+    kernel. Returns the parameter gradients."""
+    params = [t for pair in plist for t in pair]
+    raw = fm.fused_mlp_raw(plist, march_x(o, d, t_mid, kw))
+    return torch.autograd.grad(split_loss(torch, raw, t_mid, mask, tgt, kw), params)
+
+
+def split_raw_grad(torch, fm, plist, o, d, t_mid, mask, tgt, kw):
+    """(x, g): the MLP input of a march block and the gradient the split
+    composite hands kernel #2 for it (dL/draw, as FusedMLPRaw.backward
+    receives it)."""
+    x = march_x(o, d, t_mid, kw).contiguous()
+    raw = fm.fused_mlp_raw(plist, x).detach().requires_grad_(True)
+    (g,) = torch.autograd.grad(split_loss(torch, raw, t_mid, mask, tgt, kw), raw)
+    return x, g.contiguous()
 
 
 def grad_norm_errs(g_k, g_p) -> list[float]:
@@ -1119,7 +1222,8 @@ def check_fused_step(torch, fm, fs, model, blk, kw, label: str, timed: bool) -> 
         k_ms = time_ms(torch, lambda: fs.fused_step_grads_cuda(packed, *blk, **kw))
         p_ms = time_ms(torch, lambda: fs.fused_step_grads_reference(packed, *blk, **kw),
                        reps=3, warmup=1)
-        s_ms = time_ms(torch, lambda: split_pair(torch, fm, model, *blk, kw), reps=5, warmup=2)
+        plist = fm.cppn_params_to_list(model)
+        s_ms = time_ms(torch, lambda: split_pair(torch, fm, plist, *blk, kw), reps=5, warmup=2)
         # one forward, the dW products and the dh products of the samples
         # this data needs (mask != 0: the others add nothing to the pixel or
         # the gradients); each input read once (rays, t_mid and mask,
@@ -1165,7 +1269,7 @@ def fused_wiring(torch, fm, state, batch, cfg, label: str, blks: list, kw: dict)
     loss_rel = abs(float(loss_f) - float(loss_s)) / max(float(loss_s), 1e-30)
     exact = None
     for blk in blks:
-        g = split_pair(torch, fm, model, *blk, kw)
+        g = split_pair(torch, fm, fm.cppn_params_to_list(model), *blk, kw)
         exact = g if exact is None else [a + b for a, b in zip(exact, g)]
     exact = [tuple(exact[i:i + 2]) for i in range(0, len(exact), 2)]
     vs_fused = max(grad_norm_errs(grads_f, exact))
@@ -1279,6 +1383,175 @@ def fused_step_phase(torch, fm, fk, fs, ds, tr: dict, cp: dict, report: dict) ->
     out = dict(shapes=shapes, wiring=wiring, fused_dense=f_dense, fused_shipped=f_main,
                feature_major_dense=fm_dense, profiles=profiles)
     report["fused_step"] = out
+    return dict(out, blocks=blocks, kw=kw)
+
+
+# ---------------------------------------------------------------------------
+# kernel #2 at the trained state, and the parent commit's times
+# ---------------------------------------------------------------------------
+
+
+def scratch_floor_ms(points: int, f: int, nh: int) -> float:
+    """The scratch traffic floor of the backward over ``points`` points:
+    every layer's bf16 activation and dz written once and read back once,
+    over the card's memory rate."""
+    return 1e3 * 4 * (nh + 1) * points * f * 2 / PEAK_BYTES_PER_S
+
+
+def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
+    """Kernel #2 on the gradient the split composite really hands it at the
+    600-step run's trained state, at the four march shapes of the fused-step
+    phase: the share of active 16-point tiles and points, the kernel against
+    its plain version (check_bwd's limits, two launches bit-identical), dx
+    exactly 0 on every skipped tile, its time beside the bound and the
+    scratch traffic floor over the active tiles. Returns the (x, g) of each
+    shape under its name for the parent's timing."""
+    plist = fm.cppn_params_to_list(state.model)
+    packed, pbytes = packed_of(torch, fm, state.model)
+    f, nh = packed.width, packed.n_hidden
+    grad_bytes = 4 * (3 * f + nh * f * f + (nh + 1) * f + f + 1)
+    out, inputs = {}, {}
+    for name, blk in fp["blocks"].items():
+        x, g = split_raw_grad(torch, fm, plist, *blk, fp["kw"])
+        p = x.shape[0]
+        act = g != 0
+        tiles = torch.nn.functional.pad(act, (0, (-p) % 16)).reshape(-1, 16).any(dim=1)
+        skipped = ~tiles.repeat_interleave(16)[:p]
+        n_tiles, n_act = tiles.numel(), int(tiles.sum())
+        r = check_bwd(torch, fm, packed, p, None, pbytes, f"trained state, {name}", xg=(x, g))
+        _, dx = fm.fused_mlp_bwd_cuda(packed, x, g)
+        dx_zero = bool((dx[skipped] == 0).all())
+        pt = 16 * n_act
+        b_ms, b_by = bound_ms(mlp_flops(pt, f, nh)[1],
+                              p * 4 + pt * 12 + p * 12 + pbytes + grad_bytes)
+        floor = scratch_floor_ms(pt, f, nh)
+        row = dict(P=p, tiles=n_tiles, active_tiles=n_act, active_tile_share=n_act / n_tiles,
+                   active_points=int(act.sum()), active_point_share=float(act.float().mean()),
+                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                   floor_ms=floor, max_abs_err=r["max_abs_err"],
+                   grad_norm_err=max(r["norm_errs"][:-1]), deterministic=r["deterministic"],
+                   dx_zero_on_skipped=dx_zero)
+        print(f"fused_mlp_bwd at the trained state, {name}: P={p}, active tiles {n_act} of "
+              f"{n_tiles} ({row['active_tile_share']:.4f}), active points "
+              f"{row['active_points']} ({row['active_point_share']:.4f}); kernel_ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f}; over the active tiles bound_ms "
+              f"{b_ms:.4f} ({b_by}) and scratch traffic floor {floor:.4f} ms; dx exactly 0 on "
+              f"the {int(skipped.sum())} points of skipped tiles {dx_zero}")
+        check(dx_zero, f"kernel #2's dx is not 0 on the skipped tiles ({name})")
+        row["store_variants"] = store_variants_at(torch, fm, packed, x, g, name)
+        out[name] = row
+        inputs[name] = (x, g)
+    report["bwd_trained"] = out
+    return dict(rows=out, inputs=inputs, plist=plist)
+
+
+def parent_times(torch, fm, parent: str, saved: dict) -> dict:
+    """Run this script with ``--time-saved`` against the package of the
+    checkout ``parent`` in a process of its own, on the inputs in ``saved``
+    (written to smoke_out/): its kernel #2 and split-pair times on the same
+    inputs, and its dense 60-step run."""
+    path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: v for k, v in saved.items()}, path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
+                           "--root", os.path.abspath(parent)],
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"the parent's timing run failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    print(f"parent checkout {parent}: timed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | None,
+                      report: dict) -> dict:
+    """Kernel #2 at random g (all tiles active) beside the scratch traffic
+    floor; with ``parent`` (a checkout of the parent commit), the parent's
+    kernel #2 on the same random and trained-state inputs, its split pairs on
+    the same march blocks, and its dense 60-step run, whose train loss and
+    held-out PSNR this tree's must equal bit for bit (the skipped tiles add
+    exact zeros)."""
+    model, gen = random_cppn(torch)
+    packed, _ = packed_of(torch, fm, model)
+    f, nh = packed.width, packed.n_hidden
+    gen.manual_seed(6)
+    rnd = {}
+    for p in BWD_RANDOM_P:
+        rnd[f"P={p}"] = ((torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(DEVICE),
+                         (torch.randn((p,), generator=gen) / p).to(DEVICE))
+    ms = {f"random: {k}": time_ms(torch, lambda x=x, g=g: fm.fused_mlp_bwd_cuda(packed, x, g))
+          for k, (x, g) in rnd.items()}
+    variants = {k: store_variants_at(torch, fm, packed, x, g, f"random g, {k}")
+                for k, (x, g) in rnd.items()}
+    ms.update({f"trained: {k}": r["ms"] for k, r in bt["rows"].items()})
+    split = {k: v["random"]["split_pair_ms"] for k, v in fp["shapes"].items()}
+    floors = {f"random: {k}": scratch_floor_ms(x.shape[0], f, nh) for k, (x, _) in rnd.items()}
+    floors.update({f"trained: {k}": r["floor_ms"] for k, r in bt["rows"].items()})
+    out = dict(ms=ms, split_pair_ms=split, floor_ms=floors, store_variants=variants,
+               dense=dict(train_loss=tr["train_loss"], heldout_psnr=tr["heldout_psnr"]))
+    par = None
+    if parent:
+        def cpu(plist):
+            return [(w.detach().cpu(), b.detach().cpu()) for w, b in plist]
+
+        par = parent_times(torch, fm, parent, dict(
+            trained={k: (x.cpu(), g.cpu()) for k, (x, g) in bt["inputs"].items()},
+            random={k: (x.cpu(), g.cpu()) for k, (x, g) in rnd.items()},
+            trained_plist=cpu(bt["plist"]), random_plist=cpu(fm.cppn_params_to_list(model)),
+            blocks={k: tuple(t.cpu() for t in blk) for k, blk in fp["blocks"].items()},
+            kw=fp["kw"]))
+        out["parent"] = par
+    for k, v in ms.items():
+        print(f"fused_mlp_bwd {k}: kernel_ms {v:.4f}, scratch traffic floor {floors[k]:.4f} ms"
+              + (f"; parent commit {par['bwd_ms'][k]:.4f} ms (this / parent "
+                 f"{v / par['bwd_ms'][k]:.3f})" if par else ""))
+    for k, v in split.items():
+        print(f"split pair {k}: {v:.4f} ms"
+              + (f"; parent commit {par['split_pair_ms'][k]:.4f} ms" if par else ""))
+    d = out["dense"]
+    print(f"dense {DENSE_ITERS}-step split run: train loss {d['train_loss']!r}, held-out PSNR "
+          f"{d['heldout_psnr']!r}"
+          + (f"; parent commit {par['dense']['train_loss']!r}, {par['dense']['heldout_psnr']!r}"
+             if par else ""))
+    if par:
+        check(d["train_loss"] == par["dense"]["train_loss"]
+              and d["heldout_psnr"] == par["dense"]["heldout_psnr"],
+              "the dense split run differs from the parent commit's")
+    report["bwd_compare"] = out
+    return out
+
+
+def time_saved(torch, fm, path: str) -> dict:
+    """The ``--time-saved`` run: kernel #2 and the split pair of this
+    process's package on the saved inputs, and the dense 60-step run's
+    train loss and held-out PSNR (CUDA-event medians; full precision)."""
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+
+    saved = torch.load(path)
+    dev = torch.device(DEVICE)
+
+    def to_dev(v):  # parameters, as the split pair differentiates them
+        return [tuple(t.to(dev).requires_grad_(True) for t in pair) for pair in v]
+
+    out = {"bwd_ms": {}, "split_pair_ms": {}}
+    for key, plist_key in (("trained", "trained_plist"), ("random", "random_plist")):
+        packed = fm.pack_params(to_dev(saved[plist_key]))
+        for name, (x, g) in saved[key].items():
+            x, g = x.to(dev), g.to(dev)
+            out["bwd_ms"][f"{key}: {name}"] = time_ms(
+                torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
+    plist = to_dev(saved["random_plist"])
+    for name, blk in saved["blocks"].items():
+        blk = tuple(t.to(dev) for t in blk)
+        out["split_pair_ms"][name] = time_ms(
+            torch, lambda: split_pair(torch, fm, plist, *blk, saved["kw"]), reps=5, warmup=2)
+    ds = make_dataset(torch)
+    cfg = TrainConfig(compact_samples=0, n_iters=DENSE_ITERS, display_every=30)
+    res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
+    out["dense"] = dict(train_loss=train_loss(torch, res.state, ds.rays, cfg)[0],
+                        heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr)
     return out
 
 
@@ -1399,6 +1672,69 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
     rows[1]["compact_path"] = {k: checks["compact_bwd"][k]
                                for k in ("P", "ms", "plain_ms", "bound_ms", "bound_by")}
     return dict(out, rows=rows)
+
+
+def store_variants_phase(torch, fm, report: dict) -> None:
+    """Kernel #2's scratch-store variants against each other and the plain
+    version in one process: (a) row-major stores from registers, (b) the
+    tile-fragment layout through two or one shared staging buffers a warp
+    and bulk copies, or stored coalesced from registers; at random g and at
+    g zero on 70% / 90% of the 16-point tiles."""
+    packed, _, gen = random_mlp(torch, fm)
+    variants = (("a: row-major", False, -1), ("b: staged x2", True, 2),
+                ("b: staged x1", True, 1), ("b: coalesced", True, 0))
+    out = []
+    for p in BWD_RANDOM_P:
+        x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(DEVICE)
+        for share in (0.0, 0.7, 0.9):
+            g = torch.randn((p,), generator=gen) / p
+            tiles = -(-p // 16)
+            zero = torch.zeros(tiles, dtype=torch.bool)
+            zero[torch.randperm(tiles, generator=gen)[: int(share * tiles)]] = True
+            g[zero.repeat_interleave(16)[:p]] = 0.0
+            g = g.to(DEVICE)
+            grads_p, dx_p = fm.fused_mlp_bwd_reference(packed, x, g)
+            flat_p = [t for pair in grads_p for t in pair]
+            for label, staged, nbuf in variants:
+                fm.STAGED, fm.NBUF = staged, nbuf
+                grads_k, dx_k = fm.fused_mlp_bwd_cuda(packed, x, g)
+                grads_k2, dx_k2 = fm.fused_mlp_bwd_cuda(packed, x, g)
+                torch.cuda.synchronize()
+                flat_k = [t for pair in grads_k for t in pair]
+                err = max(float((a - b.reshape(a.shape)).abs().max())
+                          / max(float(b.abs().max()), 1e-30) for a, b in zip(flat_k, flat_p))
+                same = torch.equal(dx_k, dx_k2) and all(
+                    torch.equal(a, b) for a, b in zip(flat_k, [t for pr in grads_k2 for t in pr]))
+                ms = time_ms(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
+                print(f"kernel #2 P={p} zero tiles {share:.0%} {label}: {ms:.4f} ms, max "
+                      f"normalised grad err {err:.3e}, bit-identical launches {same}")
+                out.append(dict(P=p, zero_share=share, variant=label, ms=ms, grad_err=err,
+                                deterministic=same))
+                check(err <= GRAD_NORM_MAX and same, f"store variant {label} fails at P={p}")
+    fm.STAGED, fm.NBUF = True, -1
+    report["store_variants"] = out
+
+
+def store_variants_at(torch, fm, packed, x, g, name: str) -> dict:
+    """Kernel #2's store variants on one input, timed in turns (a, b x2,
+    b x1, b coalesced, then the reverse; 20 launches each, the two medians
+    averaged), each bit-identical to the shipped variant's result."""
+    variants = (("a: row-major", False, -1), ("b: staged x2", True, 2),
+                ("b: staged x1", True, 1), ("b: coalesced", True, 0))
+    ref = fm.fused_mlp_bwd_cuda(packed, x, g)
+    times: dict = {}
+    for label, staged, nbuf in variants + variants[::-1]:
+        fm.STAGED, fm.NBUF = staged, nbuf
+        got = fm.fused_mlp_bwd_cuda(packed, x, g)
+        same = torch.equal(got[1], ref[1]) and all(
+            torch.equal(a, b) for pa, pb in zip(got[0], ref[0]) for a, b in zip(pa, pb))
+        check(same, f"store variant {label} differs from the shipped one at {name}")
+        times.setdefault(label, []).append(
+            time_ms(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g), reps=20))
+    fm.STAGED, fm.NBUF = True, -1
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"  store variants at {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
 
 
 def determinism_phase(torch, fm, ds, report: dict) -> None:
@@ -1530,6 +1866,13 @@ def main() -> int:
                          "algorithms and report the ops that warn")
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
+    ap.add_argument("--store-variants", action="store_true",
+                    help="only build and time kernel #2's scratch-store variants")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: also time its kernel #2 and split "
+                         "pairs on this run's inputs and hold its dense run equal to this one")
+    ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -1539,7 +1882,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, args.root)
     try:
         from nerf_for_angiography_tpu_torch.ops.kernels import first_k as fk
         from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
@@ -1551,6 +1894,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run f32 products
     torch.backends.cudnn.allow_tf32 = False
+    if args.time_saved:
+        print(json.dumps(time_saved(torch, fm, args.time_saved)))
+        return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -1560,12 +1906,18 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         build_kernels(fm, fk, fs, fe)
+        report["build_logs"] = {m.__name__: m.build_log for m in (fm, fk, fs, fe)}
+        if args.store_variants:
+            store_variants_phase(torch, fm, report)
+            return 0
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
         report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)
         tr = training_phase(torch, fm, fk, fs, ds, report)
         cp = compact_phase(torch, fm, fk, fs, ds, report)
         fp = fused_step_phase(torch, fm, fk, fs, ds, tr, cp, report)
+        bt = bwd_trained_phase(torch, fm, cp["shipped"]["result"].state, fp, report)
+        bc = bwd_compare_phase(torch, fm, tr, fp, bt, args.parent, report)
         ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
@@ -1626,6 +1978,15 @@ def main() -> int:
         r = cp["mlp"][key]
         row["compact_path"] = dict(P=r["P"], ms=r["ms"], plain_ms=r["plain_ms"],
                                    bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+    parent_ms = bc.get("parent", {}).get("bwd_ms", {})
+    rows[1]["traffic_floor_ms"] = bc["floor_ms"][f"random: P={BWD_RANDOM_P[0]}"]
+    rows[1]["random_g"] = {k: dict(ms=v, floor_ms=bc["floor_ms"][k], parent_ms=parent_ms.get(k))
+                           for k, v in bc["ms"].items() if k.startswith("random")}
+    rows[1]["trained_state"] = {
+        k: {**{q: r[q] for q in ("P", "active_tile_share", "active_point_share", "ms",
+                                 "plain_ms", "bound_ms", "bound_by", "floor_ms")},
+            "parent_ms": parent_ms.get(f"trained: {k}")}
+        for k, r in bt["rows"].items()}
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -7,12 +7,15 @@
 // The layer chain, its cast points and the kernels live in mlp_chain.cuh,
 // shared with fused_step.cu; this file binds them to a strided input: x
 // (P, 3) or (3, P) f32 read through its strides, dx written in the same
-// layout.
+// layout.  The backward's input is GatedX: it skips every 16-point tile
+// whose g is all zero, and stores its scratch through shared staging
+// buffers and bulk asynchronous copies (mlp_chain.cuh's header).
 //
 // Bound: at F = 128, n_hidden = 4 a point costs 132,096 FLOP forward and
 // about three times that backward (recompute + dW + dh), against 16 bytes of
-// input/output per point, so every call is compute-bound on the tensor cores
-// (989 TFLOP/s bf16 dense).
+// input/output per point, so the forward is compute-bound on the tensor
+// cores (989 TFLOP/s bf16 dense); the backward's scratch round trip (8
+// (n_hidden + 1) F bytes a point of an active tile) makes it bytes-bound.
 
 #include "mlp_chain.cuh"
 
@@ -50,23 +53,38 @@ int fused_mlp_fwd(const float* x, long long sp, long long sc, long long P, const
   MLP_CHAIN_DISPATCH_F(F, launch_fwd<FF, StridedX, false>(xin, P, prm, nh, out, n_sms, st))
 }
 
-// x and dx through the strides (sp, sc); acts, dzs: (nh + 1, P, F) bf16
+// rows of each layer block of the backward's acts/dzs scratch (P rounded up
+// to whole tiles with staged stores)
+long long fused_mlp_scratch_rows(long long P, int staged) {
+  return staged ? scratch_rows<GatedX<true>>(P) : scratch_rows<GatedX<false>>(P);
+}
+
+// x and dx through the strides (sp, sc), dx zeroed by the caller (a tile
+// whose g is all zero is skipped); acts, dzs: (nh + 1, scratch_rows, F) bf16
 // scratch; masks: fused_mlp_mask_slots 8-byte slots; partials: n_chunks x
-// stride f32; grads: the flat gradient (grad_size floats)
+// stride f32; grads: the flat gradient (grad_size floats).  staged: store the
+// scratch through shared staging buffers (nbuf of them a warp, -1 as many as
+// fit) and bulk copies, else row-major from registers
 int fused_mlp_bwd(const float* x, long long sp, long long sc, const float* g, long long P,
                   const void* w_in, const void* w_hid, const float* bias, const float* w_out,
                   const float* b_out, int F, int nh, void* acts, void* dzs, void* masks,
                   float* partials, int n_chunks, long long chunk, int n_sms, float* grads,
-                  float* dx, void* stream) {
+                  float* dx, int staged, int nbuf, void* stream) {
   const BwdScratch s{static_cast<bf16*>(acts), static_cast<bf16*>(dzs),
                      static_cast<uint2*>(masks), partials, n_chunks, chunk};
   if (!dims_ok(F, nh) || !scratch_ok(s, P, n_sms)) return (int)cudaErrorInvalidValue;
   const Params prm{static_cast<const bf16*>(w_in), static_cast<const bf16*>(w_hid), bias, w_out,
                    b_out};
-  const StridedX xin{x, sp, sc};
   const DxOut dxo{dx, sp, sc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, StridedX>(xin, g, P, prm, nh, dxo, s, n_sms, grads, st))
+  if (staged) {
+    const GatedX<true> xin{{x, sp, sc}, g};
+    MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX<true>>(xin, g, P, prm, nh, dxo, s, n_sms,
+                                                          grads, st, nbuf))
+  }
+  const GatedX<false> xin{{x, sp, sc}, g};
+  MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX<false>>(xin, g, P, prm, nh, dxo, s, n_sms, grads,
+                                                         st))
 }
 
 }  // extern "C"

@@ -49,7 +49,26 @@
 //    chunking follows the SM count).  The activations and dz cost
 //    2 x (n_hidden + 1) x P x F bf16 of device scratch (4.3 GB at the
 //    training shape), allocated by the caller.
-//  * wgmma, TMA and a warp-specialised pipeline are later work.
+//  * Kernel #2 (the split path's MLP backward, input GatedX) works only on
+//    tiles that carry a gradient: a point is active where g != 0, and a
+//    16-point tile with no active point is skipped by the chain (no
+//    recompute, no stores; dx stays the caller's 0) and read as zeros by
+//    the weight gradients, by the same tile rule.  Such points add exact
+//    zeros to every gradient, so the result equals the unskipped one bit
+//    for bit but for the sign of a zero.  Its chain stores its scratch in
+//    the tile-fragment layout (scratch_rows): each warp writes a tile's
+//    layer block into its shared staging buffer with conflict-free 128-byte
+//    stores, and one lane hands the 4 KB block (F = 128) to one bulk
+//    asynchronous copy (cp.async.bulk) that drains while the warp computes
+//    the next layer; two buffers a warp where shared memory allows.
+//  * Bound of kernel #2 at 4 x 128, P = 1,687,500, every point active:
+//    0.6757 ms of bf16 tensor-core work.  Every design that round-trips the
+//    activations and dz through device memory also moves 8 (n_hidden + 1)
+//    P F bytes of scratch (written once, read once), 8.64 GB there: a
+//    traffic floor of 2.58 ms at 3.35 TB/s, so such a backward is
+//    bytes-bound.  With the skip both figures scale with the active tiles,
+//    not with P.
+//  * wgmma, TMA tensor maps and a warp-specialised pipeline are later work.
 
 #pragma once
 
@@ -136,17 +155,36 @@ struct Params {
 // active point is skipped by the forward and the backward chain (nothing
 // is stored for it), and the weight-gradient kernel reads it as zeros.
 
+// An input with STAGED also fixes how the backward chain stores its scratch:
+// in the tile-fragment layout through shared staging buffers and bulk
+// asynchronous copies (store_layer below); every other input stores it
+// row-major from registers.
+
 // coordinate c of point p at x[p * sp + c * sc]: (P, 3) is sp = 3, sc = 1;
-// the feature-major (3, P) is sp = 1, sc = P.  Every point is active.
+// the feature-major (3, P) is sp = 1, sc = P.  Every point is active (the
+// forward kernel #1 computes every point; kernel #2's input is GatedX).
 struct StridedX {
   static constexpr int KI = KIN;
   static constexpr bool ENCODED = false;
+  static constexpr bool STAGED = false;
   const float* x;
   long long sp, sc;
   __device__ __forceinline__ float operator()(long long p, int c) const {
     return x[p * sp + c * sc];
   }
   __device__ __forceinline__ bool active(long long) const { return true; }
+};
+
+// kernel #2's input: the points of a StridedX, active where the upstream
+// gradient g[p] != 0 (-0 counts as zero).  A point with g = 0 has dz = 0 in
+// every layer, so it adds exact zeros to every weight gradient and its dx is
+// 0: the chain skips a tile with no active point, the weight-gradient kernel
+// reads it as zeros, and the caller hands in a zeroed dx.
+template <bool STAGE>
+struct GatedX : StridedX {
+  static constexpr bool STAGED = STAGE;
+  const float* g;
+  __device__ __forceinline__ bool active(long long p) const { return g[p] != 0.0f; }
 };
 
 // the sample positions of a rectangular march, formed in the kernel: point
@@ -157,6 +195,7 @@ struct StridedX {
 struct MarchX {
   static constexpr int KI = KIN;
   static constexpr bool ENCODED = false;
+  static constexpr bool STAGED = false;
   const float* o;     // (R, 3) origins
   const float* d;     // (R, 3) directions
   const float* tm;    // (R, k) sample midpoints
@@ -196,6 +235,7 @@ template <int KE>
 struct EncX {
   static constexpr int KI = KE;
   static constexpr bool ENCODED = true;
+  static constexpr bool STAGED = false;
   StridedX xs;
   const float* a;  // (n_enc,) a_j
   const float* w;  // (n_enc,) w_j
@@ -296,6 +336,28 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
+// bulk asynchronous copy shared -> global of ``bytes`` (a multiple of 16,
+// both addresses 16-byte aligned), in this thread's bulk async-group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::); }
+// until at most N of this thread's bulk groups still read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until every bulk group of this thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// orders this thread's shared-memory writes before a later bulk copy reads them
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // two floats -> one register of two bf16 (round to nearest even), lo first
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -386,6 +448,65 @@ __device__ __forceinline__ void store_frag(bf16* dst, const uint32_t (&a)[F / 16
   }
 }
 
+// The tile-fragment layout of a STAGED input's scratch: layer blocks of
+// scratch_rows(P) rows (P rounded up to whole tiles); the tile at p0 is the
+// contiguous 16 x F bf16 block at row p0, in which 32-bit word
+// (4 kt + q) * 32 + lane holds that lane's A-fragment register a[kt][q].  So
+// its 16-byte chunk (4 kt + q) * 8 + g is row g + 8 (q & 1), columns
+// 16 kt + 8 (q >> 1) .. + 7 in order, and a warp writes a whole tile with
+// 4 F / 16 stores of 128 contiguous bytes.
+template <class X>
+__host__ __device__ inline long long scratch_rows(long long P) {
+  return X::STAGED ? (P + TILE - 1) / TILE * TILE : P;
+}
+
+// bytes of one tile's layer block (one staging buffer)
+__host__ __device__ constexpr int stage_bytes(int F) { return TILE * F * 2; }
+
+// a warp's ring of shared staging buffers for its bulk scratch stores
+struct StageRing {
+  uint32_t* buf;  // nbuf buffers of stage_bytes(F), or nullptr
+  int nbuf;       // 2 or 1; 0: store from registers
+  int next;
+};
+
+// store a tile's A fragments to its block of a layer's scratch: row-major
+// with store_frag, or (X::STAGED) in the tile-fragment layout, through the
+// next staging buffer and one bulk copy that drains while the warp computes
+// on (without staging buffers: straight from registers, coalesced)
+template <int F, class X>
+__device__ __forceinline__ void store_layer(bf16* layer, const uint32_t (&a)[F / 16][4],
+                                            long long p0, long long P, StageRing& ring) {
+  if constexpr (X::STAGED) {
+    const int lane = threadIdx.x & 31;
+    bf16* dst = layer + size_t(p0) * F;
+    if (ring.nbuf == 0) {
+      uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+      for (int i = 0; i < F / 4; ++i) d[i * 32 + lane] = a[i >> 2][i & 3];
+      return;
+    }
+    uint32_t* buf = ring.buf + ring.next * (stage_bytes(F) / 4);
+    // this buffer's previous copy has read it (lane 0 issued every copy)
+    if (lane == 0) {
+      if (ring.nbuf == 2) bulk_wait_read<1>();
+      else bulk_wait_read<0>();
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < F / 4; ++i) buf[i * 32 + lane] = a[i >> 2][i & 3];
+    fence_proxy_async_shared();
+    __syncwarp();
+    if (lane == 0) {
+      bulk_store(dst, buf, stage_bytes(F));
+      bulk_commit();
+    }
+    ring.next = ring.next + 1 == ring.nbuf ? 0 : ring.next + 1;
+  } else {
+    store_frag<F>(layer, a, p0, P);
+  }
+}
+
 template <int KI>
 __device__ void stage_weights(unsigned char* smem, const WLayout& L, const Params& prm, int F,
                               int nh) {
@@ -431,12 +552,15 @@ __device__ __forceinline__ uint2 relu_mask(const uint32_t (&a)[F / 16][4]) {
 
 // the forward chain of one 16-point tile; a ends as the last activation.
 // With acts != nullptr every layer's activation is stored to acts[l]
-// (P x F bf16) and this lane's relu mask of it to masks[32 l].
+// (scratch_rows(P) x F bf16, by store_layer through ``ring``) and this
+// lane's relu mask of it to masks[32 l].
 template <int F, class X>
 __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& x,
                                              long long p0, long long P,
                                              const unsigned char* smem, const WLayout& L,
-                                             int nh, bf16* acts, uint2* masks) {
+                                             int nh, bf16* acts, uint2* masks,
+                                             StageRing& ring) {
+  const long long PS = scratch_rows<X>(P);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long r0 = p0 + g, r1 = r0 + 8;
   constexpr int KT = X::KI / 16;
@@ -477,7 +601,7 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
   warp_mm<KT, F / 8>(acc, ax, reinterpret_cast<const bf16*>(smem + L.w_in), ldin(X::KI));
   bias_relu_pack<F>(a, acc, bias);
   if (acts) {
-    store_frag<F>(acts, a, p0, P);
+    store_layer<F, X>(acts, a, p0, P, ring);
     masks[0] = relu_mask<F>(a);
   }
   const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
@@ -485,7 +609,7 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
     warp_mm<F / 16, F / 8>(acc, a, wh + size_t(l) * F * ldw(F), ldw(F));
     bias_relu_pack<F>(a, acc, bias + (l + 1) * F);
     if (acts) {
-      store_frag<F>(acts + size_t(l + 1) * P * F, a, p0, P);
+      store_layer<F, X>(acts + size_t(l + 1) * PS * F, a, p0, P, ring);
       masks[32 * (l + 1)] = relu_mask<F>(a);
     }
   }
@@ -512,7 +636,8 @@ fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
     const long long p0 = tile * TILE;
     if (!tile_active(x, p0, P)) continue;  // its outputs are never read
     uint32_t a[F / 16][4];
-    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr, nullptr);
+    StageRing none{nullptr, 0, 0};
+    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr, nullptr, none);
     // head: f32 products of the bf16 activation with w_out, summed over
     // this thread's columns and then across the four threads of a row
     float s0 = 0.0f, s1 = 0.0f;
@@ -544,16 +669,21 @@ fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
 }
 
 // backward, part 1: recompute, store activations, backpropagate dz, dx
-// (and, for an encoded input, each warp's dA sums)
+// (and, for an encoded input, each warp's dA sums).  A STAGED input's warps
+// each own ``nbuf`` staging buffers after the weights.
 template <int F, class X>
 __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int nh,
                  bf16* __restrict__ acts, bf16* __restrict__ dzs, DxOut dx,
-                 uint2* __restrict__ mask_slots) {
+                 uint2* __restrict__ mask_slots, int nbuf) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WLayout L = weight_layout(F, nh, X::KI);
   stage_weights<X::KI>(smem, L, prm, F, nh);
   __syncthreads();
+  const long long PS = scratch_rows<X>(P);
+  StageRing ring{reinterpret_cast<uint32_t*>(smem + L.total) +
+                     (threadIdx.x >> 5) * nbuf * (stage_bytes(F) / 4),
+                 nbuf, 0};
   // encoded input: this lane's running dA terms of its pairs 4 nt + t
   constexpr int NE = X::ENCODED ? X::KI / 8 : 1;
   float da[NE][2];
@@ -570,7 +700,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
     if (!tile_active(x, p0, P)) continue;  // the weight gradients read it as zeros
     const long long r0 = p0 + g, r1 = r0 + 8;
     uint32_t a[F / 16][4];
-    warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks);
+    warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks, ring);
 
     // head: dz = bf16(w_out * g) where the last activation is > 0
     const float g0 = r0 < P ? gr[r0] : 0.0f, g1 = r1 < P ? gr[r1] : 0.0f;
@@ -585,7 +715,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
             pack2(u1.x > 0.0f ? wo[c] * g1 : 0.0f, u1.y > 0.0f ? wo[c + 1] * g1 : 0.0f);
       }
     }
-    store_frag<F>(dzs + size_t(nh) * P * F, a, p0, P);
+    store_layer<F, X>(dzs + size_t(nh) * PS * F, a, p0, P, ring);
 
     // hidden layers in reverse: dz_{l-1} = bf16(dz_l @ W_l) where a_{l-1} > 0
     for (int l = nh; l >= 1; --l) {
@@ -600,7 +730,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
         a[nt >> 1][(nt & 1) * 2 + 1] =
             pack2((bits & 4u) ? acc[nt][2] : 0.0f, (bits & 8u) ? acc[nt][3] : 0.0f);
       }
-      store_frag<F>(dzs + size_t(l - 1) * P * F, a, p0, P);
+      store_layer<F, X>(dzs + size_t(l - 1) * PS * F, a, p0, P, ring);
     }
 
     if constexpr (X::ENCODED) {
@@ -652,6 +782,10 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
         }
       }
     }
+  }
+  if constexpr (X::STAGED) {
+    // the staging buffers stay valid until every copy has completed
+    if ((threadIdx.x & 31) == 0 && nbuf > 0) bulk_wait_all();
   }
   if constexpr (X::ENCODED) {
     // the warp's sums: over the eight lanes (g) of each pair, in a fixed order
@@ -706,8 +840,9 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
   const long long p_lo = (long long)blockIdx.x * chunk;
   const long long p_hi = p_lo + chunk < P ? p_lo + chunk : P;
   const int n_stages = p_hi > p_lo ? (int)((p_hi - p_lo + KB - 1) / KB) : 0;
-  const bf16* bsrc = head ? acts + size_t(nh) * P * F : dzs + size_t(job) * P * F;
-  const bf16* asrc = (!head && job >= 1) ? acts + size_t(job - 1) * P * F : nullptr;
+  const long long PS = scratch_rows<X>(P);
+  const bf16* bsrc = head ? acts + size_t(nh) * PS * F : dzs + size_t(job) * PS * F;
+  const bf16* asrc = (!head && job >= 1) ? acts + size_t(job - 1) * PS * F : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, r = lane & 7;
   const int m_tiles = job == 0 ? X::KI / 16 : F / 16;
@@ -741,12 +876,25 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
     const long long kb = p_lo + (long long)st * KB;
     const uint32_t bits = stage_bits[st];
     for (int i = threadIdx.x; i < KB * VEC; i += blockDim.x) {
-      const int row = i / VEC, c = (i % VEC) * 8;
-      const long long p = kb + row;
-      const bool in = p < p_hi && ((bits >> (row / TILE)) & 1u);
-      const size_t off = size_t(in ? p : p_lo) * F + c;
-      cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
-      if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
+      if constexpr (X::STAGED) {
+        // consecutive threads read consecutive chunks of the tile-fragment
+        // layout (chunk ch of tile tt) into their row-major place
+        const int tt = i / (2 * F), ch = i % (2 * F);
+        const int row = tt * TILE + (ch & 7) + 8 * ((ch >> 3) & 1);
+        const int c = (ch >> 5) * 16 + 8 * ((ch >> 4) & 1);
+        const long long p = kb + row;
+        const bool in = p < p_hi && ((bits >> tt) & 1u);
+        const size_t off = in ? size_t(kb + tt * TILE) * F + size_t(ch) * 8 : size_t(p_lo) * F;
+        cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
+        if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
+      } else {
+        const int row = i / VEC, c = (i % VEC) * 8;
+        const long long p = kb + row;
+        const bool in = p < p_hi && ((bits >> (row / TILE)) & 1u);
+        const size_t off = size_t(in ? p : p_lo) * F + c;
+        cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
+        if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
+      }
     }
     if (!head && job == 0) {
       if constexpr (X::ENCODED) {
@@ -896,18 +1044,33 @@ inline bool scratch_ok(const BwdScratch& s, long long P, int n_sms) {
                     (long long)s.n_chunks * s.chunk >= P);
 }
 
+// the largest block shared memory on Hopper (bytes)
+constexpr size_t MAX_SMEM = 232448;
+
+// staging buffers a warp of the chain gets beside weights of ``wbytes``: two
+// where they fit, else one, else none (stores from registers)
+inline int stage_buffers(size_t wbytes, int F) {
+  for (int n = 2; n > 0; --n)
+    if (wbytes + size_t(n) * BWD_WARPS * stage_bytes(F) <= MAX_SMEM) return n;
+  return 0;
+}
+
 template <int F, class X>
 int launch_bwd(const X& x, const float* g, long long P, const Params& prm, int nh,
-               const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st) {
+               const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st,
+               int nbuf = -1) {
   const GradLayout GL = grad_layout(F, nh, X::KI);
   if (P > 0) {
     const int grid = bwd_grid(P, n_sms);
-    const size_t smem = weight_layout(F, nh, X::KI).total;
+    const size_t wbytes = weight_layout(F, nh, X::KI).total;
+    if (!X::STAGED) nbuf = 0;
+    else if (nbuf < 0 || nbuf > stage_buffers(wbytes, F)) nbuf = stage_buffers(wbytes, F);
+    const size_t smem = wbytes + size_t(nbuf) * BWD_WARPS * stage_bytes(F);
     cudaError_t e = cudaFuncSetAttribute(bwd_chain_kernel<F, X>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     bwd_chain_kernel<F, X><<<grid, BWD_WARPS * 32, smem, st>>>(x, g, P, prm, nh, s.acts, s.dzs,
-                                                               dx, s.masks);
+                                                               dx, s.masks, nbuf);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const size_t wsmem = wgrad_smem(F, s.chunk);

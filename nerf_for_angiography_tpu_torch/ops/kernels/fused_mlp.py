@@ -45,6 +45,10 @@ fwd_launches = 0
 bwd_launches = 0
 
 _KIN = 16  # input features (3 coords) padded to one mma k-step
+# the backward chain's scratch stores: staged bulk copies (NBUF staging
+# buffers a warp, -1 as many as fit) or row-major from registers
+STAGED = True
+NBUF = -1
 _lib = None
 _lib_lock = threading.Lock()
 # nvcc's output of the last build (ptxas register/shared-memory report)
@@ -200,9 +204,11 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_chunk_quantum.restype = i32
         lib.fused_mlp_bwd.argtypes = [
             vp, ll, ll, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll, i32, vp, vp,
-            vp,
+            i32, i32, vp,
         ]
         lib.fused_mlp_bwd.restype = i32
+        lib.fused_mlp_scratch_rows.argtypes = [ll, i32]
+        lib.fused_mlp_scratch_rows.restype = ll
         _lib = lib
         return lib
 
@@ -258,12 +264,14 @@ class BwdScratch(NamedTuple):
     chunk: int
 
     @staticmethod
-    def make(p, f, nh, n_sms, stride, mask_slots, quantum, dev) -> "BwdScratch":
+    def make(p, f, nh, n_sms, stride, mask_slots, quantum, dev, rows=None) -> "BwdScratch":
+        """``rows``: rows of each layer block of acts/dzs (default p)."""
         chunk = max(1, -(-p // (n_sms * quantum))) * quantum
         n_chunks = -(-p // chunk)
+        rows = p if rows is None else rows
         return BwdScratch(
-            acts=torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev),
-            dzs=torch.empty((nh + 1, p, f), dtype=torch.bfloat16, device=dev),
+            acts=torch.empty((nh + 1, rows, f), dtype=torch.bfloat16, device=dev),
+            dzs=torch.empty((nh + 1, rows, f), dtype=torch.bfloat16, device=dev),
             masks=torch.empty((mask_slots,), dtype=torch.int64, device=dev),
             partials=torch.empty((max(n_chunks, 1) * stride,), dtype=torch.float32, device=dev),
             n_chunks=n_chunks,
@@ -315,14 +323,16 @@ def fused_mlp_bwd_cuda(
     s = BwdScratch.make(
         p, f, nh, n_sms, lib.fused_mlp_partial_stride(f, nh),
         lib.fused_mlp_mask_slots(n_sms, nh), lib.fused_mlp_chunk_quantum(), dev,
+        rows=lib.fused_mlp_scratch_rows(p, int(STAGED)),
     )
     flat = torch.empty((lib.fused_mlp_grad_size(f, nh),), dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
+    # the kernel skips 16-point tiles whose g is all zero: their dx stays 0
+    dx = torch.zeros_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fused_mlp_bwd(
         x.data_ptr(), sp, sc, g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), stream,
+        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), int(STAGED), NBUF, stream,
     )
     raise_on(code, "fused_mlp backward")
     bwd_launches += 1

@@ -15,11 +15,15 @@ lattice. One step callable per ``Tuning``, cached.
 
 The JAX loop's ``lax.scan`` chunks become a Python loop of steps between
 the same boundaries, and the host waits for the card only at those
-boundaries: no step reads the device. The JAX loop also defers reading a
-chunk's pressure until the next chunk is in flight, to hide TPU round
-trips; here each chunk's per-step (5,) pressure vectors stay on the device
-and are reduced and read with one copy at that chunk's own boundary, so the
-tuner reacts one chunk earlier than in the JAX loop, never later.
+boundaries: no step reads the device. Each chunk's per-step (5,) pressure
+vectors stay on the device and are reduced and copied to the host once per
+chunk. The tuner sees them with the JAX loop's latency: a full chunk's
+pressure waits in a one-entry queue until the next chunk's steps have been
+issued, and the queue drains early only where the JAX loop drains it
+(before a new step callable's first chunk or a partial chunk, at a
+compaction check, a re-check boundary, an armed fire, a display boundary
+and the last iteration); a partial chunk is observed at once. So a fire in
+the chunk ending at 100 retunes at 200 in both loops.
 Checkpoints, TensorBoard logging and VTK export arrive with the
 checkpoints/logging slice.
 """
@@ -232,6 +236,16 @@ def train(
     steady_phases: dict[Tuning, list] = {}
     # truncation-pressure tuner (training/pressure.py)
     tuner = PressureTuner(display_every=cfg.display_every)
+    # a full chunk's (boundary, host copy of its reduced pressure), not yet
+    # observed (JAX loop.py:411-475)
+    pending: tuple[int, torch.Tensor] | None = None
+
+    def drain() -> None:
+        nonlocal pending
+        if pending is not None:
+            tuner.observe(pending[0], *pending[1].tolist())
+            pending = None
+
     t_start = time.perf_counter()
 
     n_iter = 0
@@ -240,10 +254,13 @@ def train(
         # run up to (and including) the next boundary iteration
         m = min(-(-n_iter // chunk_c) * chunk_c, cfg.n_iters)
         count = m - n_iter + 1
+        full_chunk = chunk_c > 1 and count == chunk_c
         step = compact_step() if using_compact else dense_step
         pressure = []  # per-step (5,) int32 pressure vectors, on the device
-        t0 = time.perf_counter()
         first = id(step) not in seen_steps
+        if first or not full_chunk:
+            drain()  # a new step callable's first chunk, a partial chunk
+        t0 = time.perf_counter()
         for i in range(count):
             state, metrics, _, _ = step(state, train_rays)
             if "march/over_k" in metrics:  # a compacted step (k < depth)
@@ -253,8 +270,10 @@ def train(
                 _sync(device)
                 timing["compile"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
-        # one reduction and one device-to-host copy per chunk
-        stats = torch.stack(pressure).amax(dim=0).tolist() if pressure else None
+        # one reduction and one device-to-host copy per chunk, complete
+        # after the boundary's synchronize
+        stats = (torch.stack(pressure).amax(dim=0).to("cpu", non_blocking=True)
+                 if pressure else None)
         _sync(device)
         dt = time.perf_counter() - t0
         steady = count - 1 if first else count
@@ -265,13 +284,32 @@ def train(
             ph[0] += dt
             ph[1] += steady * batch
             ph[2] += count
-            if stats is not None:
-                tuner.observe(m, *stats)
         else:
             timing["step_dense"] += dt
             dense_rays += count * batch
         rays_done += count * batch
         n_iter = m
+        # the previous full chunk is observed now that this one is issued;
+        # this one waits, unless it is partial
+        drain()
+        if stats is not None:
+            if full_chunk:
+                pending = (m, stats)
+            else:
+                tuner.observe(m, *stats.tolist())
+
+        # re-check cadence of the engaged compacted stepper: check_every
+        # while k is on the interim ladder (above compact_samples),
+        # display_every once settled
+        recheck = check_every if tuning.k > cfg.compact_samples else cfg.display_every
+        # drain where a consumer below reads tuner state (JAX loop.py:528-538)
+        if (
+            (want_compact and not using_compact and n_iter % check_every == 0)
+            or (want_compact and using_compact and (n_iter % recheck == 0 or tuner.fire))
+            or n_iter % cfg.display_every == 0
+            or n_iter >= cfg.n_iters
+        ):
+            drain()
 
         # compaction-readiness check at its own cadence (iteration 0
         # included: with carve_init the grid can fit at once)
@@ -286,11 +324,9 @@ def train(
                     print(f"switching to compacted stepper at iter {n_iter} "
                           f"(march_mode={tuning.mode}, needed width/ray {_sizes(choice, tuning)})")
 
-        # re-validate / re-tune the engaged compacted stepper: every
-        # check_every while k is on the interim ladder (above
-        # compact_samples), every display_every once settled, and at once
-        # when the batch's pressure fires; revert to the dense stepper if
-        # no compacted mode fits the evolved grid
+        # re-validate / re-tune the engaged compacted stepper at the re-check
+        # cadence, and at once when the batch's pressure fires; revert to
+        # the dense stepper if no compacted mode fits the evolved grid
         recheck = check_every if tuning.k > cfg.compact_samples else cfg.display_every
         if want_compact and using_compact and (n_iter % recheck == 0 or tuner.fire):
             before = (tuning, using_compact)

@@ -7,6 +7,7 @@ loss and gradients of a compacted step within tests/test_torch_train.py's."""
 
 import dataclasses
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -383,3 +384,140 @@ def test_tiny_train_engages_compaction_on_cpu(vessel_rays, march_mode, capsys):
     assert res.timing["dense_rays"] == cfg.img_sample_size  # iteration 0
     assert res.timing["tuning_final"] is not None and res.timing["step_compact"] > 0
     assert np.isfinite(res.best_heldout_psnr) and np.isfinite(res.last_psnr)
+
+
+# ---------------------------------------------------------------------------
+# the loop's pressure latency: both train() loops driven by the same scripted
+# steps (every step builder, the eval, the chooser and the train state
+# stubbed inside the test; neither package changes)
+# ---------------------------------------------------------------------------
+
+loop_j = importlib.import_module("nerf_for_angiography_tpu.training.loop")
+loop_t = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+
+_SCRIPT_CFG = dict(n_iters=600, display_every=500, sampling_strategy="random",
+                   carve_init=False)
+
+
+def _pressure_at(i, fires):
+    """A compacted step's (over_k, over_k_lo, edge_rays, ac, ac_lo) at
+    iteration i: 40 samples over k at the iterations in ``fires`` (the
+    tuner keeps the last observed chunk's, so pressure that lasts past the
+    chunk that fired is what a retune grows by)."""
+    return (40 if i in fires else 0, 0, 0, 80, 0)
+
+
+def _recording_tuner(base, issued, observed):
+    class Recording(base):
+        def observe(self, m, *stats):
+            observed.append((m, issued[0]))  # (boundary, steps issued by then)
+            super().observe(m, *stats)
+
+    return Recording
+
+
+def _drive_jax(monkeypatch, width, fires, issued, observed):
+    cfg = TrainConfigJ(**_SCRIPT_CFG)
+
+    def metrics_of(c, i0, n):
+        if not 0 < c.compact_samples < c.depth_samples_per_ray:
+            return {}
+        rows = np.array([_pressure_at(i, fires) for i in range(i0, i0 + n)], np.int32)
+        return {k: jnp.asarray(rows[:, j]) for j, k in enumerate(loop_j._PRESSURE_KEYS)}
+
+    def make_step(model, c, near, far, **kw):
+        def step(state, rays):
+            mets = {k: v[0] for k, v in metrics_of(c, issued[0], 1).items()}
+            issued[0] += 1
+            return state, mets, jnp.zeros(1), jnp.zeros(1)
+        return step
+
+    def make_chunk(model, c, near, far, n, **kw):
+        def chunk(state, rays):
+            mets = metrics_of(c, issued[0], n)
+            issued[0] += n
+            return state, mets, jnp.zeros(1), jnp.zeros(1)
+        return chunk
+
+    evals = {"psnr/test-coarse": 20.0, "psnr/vessel-test-coarse": 20.0,
+             "loss/test-pixel-coarse": 0.01}
+    monkeypatch.setattr(loop_j, "create_train_state", lambda *a, **k: (None, type("S", (), {
+        "grid": None})()))
+    monkeypatch.setattr(loop_j, "make_test_view", lambda *a, **k: type("T", (), {
+        "origins": None, "directions": None})())
+    monkeypatch.setattr(loop_j, "drop_test_view", lambda r, *a: r)
+    monkeypatch.setattr(loop_j, "make_train_step", make_step)
+    monkeypatch.setattr(loop_j, "make_train_chunk", make_chunk)
+    monkeypatch.setattr(loop_j, "make_eval_step", lambda *a, **k: lambda s, t: (evals, None))
+    monkeypatch.setattr(tj, "choose_compact_mode",
+                        lambda *a, **k: tj.CompactChoice("lattice", width))
+    monkeypatch.setattr(loop_j, "PressureTuner",
+                        _recording_tuner(pj.PressureTuner, issued, observed))
+    rays = type("R", (), {"num_rays": 10**6})()
+    loop_j.train(cfg, rays, src_pt_z=1500.0, rays_per_view=100, verbose=True)
+
+
+def _drive_torch(monkeypatch, width, fires, issued, observed):
+    cfg = TrainConfig(**_SCRIPT_CFG)
+
+    def make_step(model, c, near, far):
+        compacted = 0 < c.compact_samples < c.depth_samples_per_ray
+
+        def step(state, rays):
+            mets = ({k: torch.tensor(v, dtype=torch.int32)
+                     for k, v in zip(loop_t._PRESSURE_KEYS, _pressure_at(issued[0], fires))}
+                    if compacted else {})
+            issued[0] += 1
+            return state, mets, None, None
+        return step
+
+    evals = {"psnr/test-coarse": 20.0, "psnr/vessel-test-coarse": 20.0,
+             "loss/test-pixel-coarse": 0.01}
+    rays = type("R", (), {"num_rays": 10**6, "to": lambda self, d: self})()
+    monkeypatch.setattr(loop_t, "create_train_state", lambda *a, **k: (None, type("S", (), {
+        "grid": None})()))
+    monkeypatch.setattr(loop_t, "make_test_view", lambda *a, **k: type("T", (), {
+        "origins": None, "directions": None})())
+    monkeypatch.setattr(loop_t, "drop_test_view", lambda r, *a: r)
+    monkeypatch.setattr(loop_t, "make_train_step", make_step)
+    monkeypatch.setattr(loop_t, "make_eval_step", lambda *a, **k: lambda s, t: (evals, None))
+    monkeypatch.setattr(loop_t, "choose_compact_mode",
+                        lambda *a, **k: tt.CompactChoice("lattice", width))
+    monkeypatch.setattr(loop_t, "PressureTuner",
+                        _recording_tuner(pt.PressureTuner, issued, observed))
+    loop_t.train(cfg, rays, src_pt_z=1500.0, rays_per_view=100, verbose=True, device="cpu")
+
+
+@pytest.mark.parametrize("width,fires,first_observe,retunes", [
+    # settled k = 96 (re-check = display_every 500): the chunk ending at 100
+    # is observed once 101..200 are issued, and its fire retunes at 200
+    (80, range(50, 200), (100, 201), [200]),
+    # k = 160 on the interim ladder (re-check = check_every 100): the chunk
+    # is observed at its own boundary and retunes there
+    (120, range(50, 200), (100, 101), [100]),
+    # a fire in the chunk ending at 400 (settled) retunes at 500
+    (80, range(350, 500), (100, 201), [500]),
+])
+def test_loop_observes_pressure_with_the_jax_latency(monkeypatch, capsys, width, fires,
+                                                      first_observe, retunes):
+    """The port's train() and the JAX train() on the same scripted steps:
+    tuner.observe sees each chunk at the same boundary after the same number
+    of issued steps, and the Tuning changes at the same iterations (a full
+    chunk's pressure waits for the next chunk, JAX loop.py:468-475; drains
+    early at a re-check, a fire, a display boundary and the last iteration,
+    :528-538)."""
+    runs = {}
+    for side, drive in (("jax", _drive_jax), ("torch", _drive_torch)):
+        issued, observed = [0], []
+        drive(monkeypatch, width, fires, issued, observed)
+        out = capsys.readouterr().out
+        runs[side] = (observed, [int(n) for n in re.findall(r"retuning compacted stepper at "
+                                                            r"iter (\d+)", out)], issued[0])
+    assert runs["torch"] == runs["jax"]
+    observed, got_retunes, n_steps = runs["torch"]
+    assert n_steps == _SCRIPT_CFG["n_iters"] + 1
+    assert observed[0] == first_observe
+    assert got_retunes == retunes
+    # every full chunk is observed once, at most one chunk late
+    assert [m for m, _ in observed] == list(range(100, 601, 100))
+    assert all(m + 1 <= n <= m + 101 for m, n in observed)

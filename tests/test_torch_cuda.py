@@ -84,6 +84,64 @@ def test_backward_is_deterministic(dev):
     assert torch.equal(dxa, dxb)
 
 
+def _zero_tiled_g(p, zero_share, dev, seed=1):
+    """g (P,) standard normal except on a seeded ``zero_share`` of the
+    16-point tiles, where it is 0 (-0 on every fifth point), and the bool
+    mask of the points in those tiles."""
+    gen = torch.Generator().manual_seed(seed)
+    n_tiles = -(-p // 16)
+    zero = torch.zeros(n_tiles, dtype=torch.bool)
+    zero[torch.randperm(n_tiles, generator=gen)[: int(round(zero_share * n_tiles))]] = True
+    zero = zero.repeat_interleave(16)[:p]
+    g = torch.randn((p,), generator=gen)
+    g[zero] = 0.0
+    g[zero.nonzero()[::5, 0]] = -0.0
+    return g.to(dev), zero.to(dev)
+
+
+@pytest.mark.parametrize("feature_major", [False, True])
+@pytest.mark.parametrize("zero_share", [0.3, 0.7, 1.0])
+def test_backward_skips_zero_gradient_tiles(dev, zero_share, feature_major):
+    """Kernel #2 on a g zero on whole tiles (P ragged): within the plain
+    version's limits, dx exactly 0 on the zero tiles, two launches
+    bit-identical, and within 1e-5 of each gradient's max of the kernel on
+    the active points alone (other chunks, so another f32 summation order)."""
+    _, packed = _packed(4, 128, dev)
+    p = 64 * 300 + 5
+    gen = torch.Generator().manual_seed(2)
+    x = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    g, zero = _zero_tiled_g(p, zero_share, dev)
+    xin = x.T.contiguous() if feature_major else x
+    grads_k, dx_k = fm.fused_mlp_bwd_cuda(packed, xin, g, feature_major)
+    grads_k2, dx_k2 = fm.fused_mlp_bwd_cuda(packed, xin, g, feature_major)
+    grads_p, dx_p = fm.fused_mlp_bwd_reference(packed, xin, g, feature_major)
+    torch.cuda.synchronize()
+    if feature_major:
+        dx_k, dx_k2, dx_p = dx_k.T, dx_k2.T, dx_p.T
+    assert all(torch.equal(u, v) for a, b in zip(grads_k, grads_k2) for u, v in zip(a, b))
+    assert torch.equal(dx_k, dx_k2)
+    assert bool((dx_k[zero] == 0).all())
+    for (wk, bk), (wp, bp) in zip(grads_k, grads_p):
+        for a, b in ((wk, wp), (bk, bp)):
+            scale = max(float(b.abs().max()), 1e-12)
+            torch.testing.assert_close(a / scale, b.reshape(a.shape) / scale, atol=3e-2, rtol=0)
+    if zero_share == 1.0:
+        assert all(bool((t == 0).all()) for pair in grads_k for t in pair)
+        assert bool((dx_k == 0).all())
+        return
+    rel = float(torch.linalg.norm(dx_k - dx_p) / torch.linalg.norm(dx_p))
+    assert rel < 3e-2
+    bad = ((dx_k - dx_p).abs() > 3e-2 * dx_p.abs().max()).any(dim=1)
+    assert bool((_min_abs_preact(packed, x[bad]) < 1e-3).all())
+    act = ~zero
+    grads_a, dx_a = fm.fused_mlp_bwd_cuda(packed, x[act].contiguous(), g[act].contiguous())
+    for (wk, bk), (wa, ba) in zip(grads_k, grads_a):
+        for a, b in ((wk, wa), (bk, ba)):
+            scale = max(float(b.abs().max()), 1e-30)
+            torch.testing.assert_close(a / scale, b / scale, atol=1e-5, rtol=0)
+    assert torch.equal(dx_k[act], dx_a)
+
+
 def test_autograd_launches_the_kernels(dev):
     model, _ = _packed(2, 64, dev)
     fm.reset_counts()
