@@ -199,10 +199,8 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
                 r"|scan_kernel)", mangled)
             width_arg = re.search(r"ILi(\d+)E", mangled)
             ke_arg = re.search(r"EncXILi(\d+)E", mangled)
-            gated = re.search(r"GatedXILb([01])E", mangled)
             cur = (short.group(1) if short else mangled) + (
-                f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "")
-                + ((",staged" if gated.group(1) == "1" else ",gated") if gated else "") + ">"
+                f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "") + ">"
                 if width_arg else "")
         elif cur and "Used" in ln and "registers" in ln:
             regs[cur] = ln.split("Used")[1].split("registers")[0].strip()
@@ -1438,7 +1436,6 @@ def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
               f"{b_ms:.4f} ({b_by}) and scratch traffic floor {floor:.4f} ms; dx exactly 0 on "
               f"the {int(skipped.sum())} points of skipped tiles {dx_zero}")
         check(dx_zero, f"kernel #2's dx is not 0 on the skipped tiles ({name})")
-        row["store_variants"] = store_variants_at(torch, fm, packed, x, g, name)
         out[name] = row
         inputs[name] = (x, g)
     report["bwd_trained"] = out
@@ -1483,13 +1480,11 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
                          (torch.randn((p,), generator=gen) / p).to(DEVICE))
     ms = {f"random: {k}": time_ms(torch, lambda x=x, g=g: fm.fused_mlp_bwd_cuda(packed, x, g))
           for k, (x, g) in rnd.items()}
-    variants = {k: store_variants_at(torch, fm, packed, x, g, f"random g, {k}")
-                for k, (x, g) in rnd.items()}
     ms.update({f"trained: {k}": r["ms"] for k, r in bt["rows"].items()})
     split = {k: v["random"]["split_pair_ms"] for k, v in fp["shapes"].items()}
     floors = {f"random: {k}": scratch_floor_ms(x.shape[0], f, nh) for k, (x, _) in rnd.items()}
     floors.update({f"trained: {k}": r["floor_ms"] for k, r in bt["rows"].items()})
-    out = dict(ms=ms, split_pair_ms=split, floor_ms=floors, store_variants=variants,
+    out = dict(ms=ms, split_pair_ms=split, floor_ms=floors,
                dense=dict(train_loss=tr["train_loss"], heldout_psnr=tr["heldout_psnr"]))
     par = None
     if parent:
@@ -1674,69 +1669,6 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
     return dict(out, rows=rows)
 
 
-def store_variants_phase(torch, fm, report: dict) -> None:
-    """Kernel #2's scratch-store variants against each other and the plain
-    version in one process: (a) row-major stores from registers, (b) the
-    tile-fragment layout through two or one shared staging buffers a warp
-    and bulk copies, or stored coalesced from registers; at random g and at
-    g zero on 70% / 90% of the 16-point tiles."""
-    packed, _, gen = random_mlp(torch, fm)
-    variants = (("a: row-major", False, -1), ("b: staged x2", True, 2),
-                ("b: staged x1", True, 1), ("b: coalesced", True, 0))
-    out = []
-    for p in BWD_RANDOM_P:
-        x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(DEVICE)
-        for share in (0.0, 0.7, 0.9):
-            g = torch.randn((p,), generator=gen) / p
-            tiles = -(-p // 16)
-            zero = torch.zeros(tiles, dtype=torch.bool)
-            zero[torch.randperm(tiles, generator=gen)[: int(share * tiles)]] = True
-            g[zero.repeat_interleave(16)[:p]] = 0.0
-            g = g.to(DEVICE)
-            grads_p, dx_p = fm.fused_mlp_bwd_reference(packed, x, g)
-            flat_p = [t for pair in grads_p for t in pair]
-            for label, staged, nbuf in variants:
-                fm.STAGED, fm.NBUF = staged, nbuf
-                grads_k, dx_k = fm.fused_mlp_bwd_cuda(packed, x, g)
-                grads_k2, dx_k2 = fm.fused_mlp_bwd_cuda(packed, x, g)
-                torch.cuda.synchronize()
-                flat_k = [t for pair in grads_k for t in pair]
-                err = max(float((a - b.reshape(a.shape)).abs().max())
-                          / max(float(b.abs().max()), 1e-30) for a, b in zip(flat_k, flat_p))
-                same = torch.equal(dx_k, dx_k2) and all(
-                    torch.equal(a, b) for a, b in zip(flat_k, [t for pr in grads_k2 for t in pr]))
-                ms = time_ms(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
-                print(f"kernel #2 P={p} zero tiles {share:.0%} {label}: {ms:.4f} ms, max "
-                      f"normalised grad err {err:.3e}, bit-identical launches {same}")
-                out.append(dict(P=p, zero_share=share, variant=label, ms=ms, grad_err=err,
-                                deterministic=same))
-                check(err <= GRAD_NORM_MAX and same, f"store variant {label} fails at P={p}")
-    fm.STAGED, fm.NBUF = True, -1
-    report["store_variants"] = out
-
-
-def store_variants_at(torch, fm, packed, x, g, name: str) -> dict:
-    """Kernel #2's store variants on one input, timed in turns (a, b x2,
-    b x1, b coalesced, then the reverse; 20 launches each, the two medians
-    averaged), each bit-identical to the shipped variant's result."""
-    variants = (("a: row-major", False, -1), ("b: staged x2", True, 2),
-                ("b: staged x1", True, 1), ("b: coalesced", True, 0))
-    ref = fm.fused_mlp_bwd_cuda(packed, x, g)
-    times: dict = {}
-    for label, staged, nbuf in variants + variants[::-1]:
-        fm.STAGED, fm.NBUF = staged, nbuf
-        got = fm.fused_mlp_bwd_cuda(packed, x, g)
-        same = torch.equal(got[1], ref[1]) and all(
-            torch.equal(a, b) for pa, pb in zip(got[0], ref[0]) for a, b in zip(pa, pb))
-        check(same, f"store variant {label} differs from the shipped one at {name}")
-        times.setdefault(label, []).append(
-            time_ms(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g), reps=20))
-    fm.STAGED, fm.NBUF = True, -1
-    out = {k: sum(v) / len(v) for k, v in times.items()}
-    print(f"  store variants at {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
-    return out
-
-
 def determinism_phase(torch, fm, ds, report: dict) -> None:
     """The 60-step dense run twice with the default algorithms and twice
     under torch.use_deterministic_algorithms(True, warn_only=True): the ops
@@ -1866,8 +1798,6 @@ def main() -> int:
                          "algorithms and report the ops that warn")
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
-    ap.add_argument("--store-variants", action="store_true",
-                    help="only build and time kernel #2's scratch-store variants")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: also time its kernel #2 and split "
                          "pairs on this run's inputs and hold its dense run equal to this one")
@@ -1907,9 +1837,6 @@ def main() -> int:
     try:
         build_kernels(fm, fk, fs, fe)
         report["build_logs"] = {m.__name__: m.build_log for m in (fm, fk, fs, fe)}
-        if args.store_variants:
-            store_variants_phase(torch, fm, report)
-            return 0
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
         report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)

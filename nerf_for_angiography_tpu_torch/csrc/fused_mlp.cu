@@ -8,8 +8,8 @@
 // shared with fused_step.cu; this file binds them to a strided input: x
 // (P, 3) or (3, P) f32 read through its strides, dx written in the same
 // layout.  The backward's input is GatedX: it skips every 16-point tile
-// whose g is all zero, and stores its scratch through shared staging
-// buffers and bulk asynchronous copies (mlp_chain.cuh's header).
+// whose g is all zero and stores its scratch in the tile-fragment layout
+// (mlp_chain.cuh's header).
 //
 // Bound: at F = 128, n_hidden = 4 a point costs 132,096 FLOP forward and
 // about three times that backward (recompute + dW + dh), against 16 bytes of
@@ -54,22 +54,18 @@ int fused_mlp_fwd(const float* x, long long sp, long long sc, long long P, const
 }
 
 // rows of each layer block of the backward's acts/dzs scratch (P rounded up
-// to whole tiles with staged stores)
-long long fused_mlp_scratch_rows(long long P, int staged) {
-  return staged ? scratch_rows<GatedX<true>>(P) : scratch_rows<GatedX<false>>(P);
-}
+// to whole tiles)
+long long fused_mlp_scratch_rows(long long P) { return scratch_rows<GatedX>(P); }
 
 // x and dx through the strides (sp, sc), dx zeroed by the caller (a tile
 // whose g is all zero is skipped); acts, dzs: (nh + 1, scratch_rows, F) bf16
 // scratch; masks: fused_mlp_mask_slots 8-byte slots; partials: n_chunks x
-// stride f32; grads: the flat gradient (grad_size floats).  staged: store the
-// scratch through shared staging buffers (nbuf of them a warp, -1 as many as
-// fit) and bulk copies, else row-major from registers
+// stride f32; grads: the flat gradient (grad_size floats)
 int fused_mlp_bwd(const float* x, long long sp, long long sc, const float* g, long long P,
                   const void* w_in, const void* w_hid, const float* bias, const float* w_out,
                   const float* b_out, int F, int nh, void* acts, void* dzs, void* masks,
                   float* partials, int n_chunks, long long chunk, int n_sms, float* grads,
-                  float* dx, int staged, int nbuf, void* stream) {
+                  float* dx, void* stream) {
   const BwdScratch s{static_cast<bf16*>(acts), static_cast<bf16*>(dzs),
                      static_cast<uint2*>(masks), partials, n_chunks, chunk};
   if (!dims_ok(F, nh) || !scratch_ok(s, P, n_sms)) return (int)cudaErrorInvalidValue;
@@ -77,14 +73,8 @@ int fused_mlp_bwd(const float* x, long long sp, long long sc, const float* g, lo
                    b_out};
   const DxOut dxo{dx, sp, sc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (staged) {
-    const GatedX<true> xin{{x, sp, sc}, g};
-    MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX<true>>(xin, g, P, prm, nh, dxo, s, n_sms,
-                                                          grads, st, nbuf))
-  }
-  const GatedX<false> xin{{x, sp, sc}, g};
-  MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX<false>>(xin, g, P, prm, nh, dxo, s, n_sms, grads,
-                                                         st))
+  const GatedX xin{{x, sp, sc}, g};
+  MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX>(xin, g, P, prm, nh, dxo, s, n_sms, grads, st))
 }
 
 }  // extern "C"

@@ -56,11 +56,14 @@
 //    the weight gradients, by the same tile rule.  Such points add exact
 //    zeros to every gradient, so the result equals the unskipped one bit
 //    for bit but for the sign of a zero.  Its chain stores its scratch in
-//    the tile-fragment layout (scratch_rows): each warp writes a tile's
-//    layer block into its shared staging buffer with conflict-free 128-byte
-//    stores, and one lane hands the 4 KB block (F = 128) to one bulk
-//    asynchronous copy (cp.async.bulk) that drains while the warp computes
-//    the next layer; two buffers a warp where shared memory allows.
+//    the tile-fragment layout (scratch_rows): a warp writes a tile's layer
+//    block with 4 F / 16 stores of 128 contiguous bytes (a whole-sector
+//    store each, where row-major fragment stores cover half sectors), and
+//    the weight gradients read each 16-byte chunk back into its row-major
+//    place.  Staging the block in shared memory and writing it with one
+//    bulk asynchronous copy (cp.async.bulk) was measured slower than these
+//    stores straight from registers: the chain is bound by its own latency
+//    at eight warps an SM, not by its stores.
 //  * Bound of kernel #2 at 4 x 128, P = 1,687,500, every point active:
 //    0.6757 ms of bf16 tensor-core work.  Every design that round-trips the
 //    activations and dz through device memory also moves 8 (n_hidden + 1)
@@ -155,10 +158,9 @@ struct Params {
 // active point is skipped by the forward and the backward chain (nothing
 // is stored for it), and the weight-gradient kernel reads it as zeros.
 
-// An input with STAGED also fixes how the backward chain stores its scratch:
-// in the tile-fragment layout through shared staging buffers and bulk
-// asynchronous copies (store_layer below); every other input stores it
-// row-major from registers.
+// An input with FRAG_SCRATCH also fixes how the backward stores its scratch:
+// in the tile-fragment layout (store_layer below); every other input stores
+// it row-major.
 
 // coordinate c of point p at x[p * sp + c * sc]: (P, 3) is sp = 3, sc = 1;
 // the feature-major (3, P) is sp = 1, sc = P.  Every point is active (the
@@ -166,7 +168,7 @@ struct Params {
 struct StridedX {
   static constexpr int KI = KIN;
   static constexpr bool ENCODED = false;
-  static constexpr bool STAGED = false;
+  static constexpr bool FRAG_SCRATCH = false;
   const float* x;
   long long sp, sc;
   __device__ __forceinline__ float operator()(long long p, int c) const {
@@ -180,9 +182,8 @@ struct StridedX {
 // every layer, so it adds exact zeros to every weight gradient and its dx is
 // 0: the chain skips a tile with no active point, the weight-gradient kernel
 // reads it as zeros, and the caller hands in a zeroed dx.
-template <bool STAGE>
 struct GatedX : StridedX {
-  static constexpr bool STAGED = STAGE;
+  static constexpr bool FRAG_SCRATCH = true;
   const float* g;
   __device__ __forceinline__ bool active(long long p) const { return g[p] != 0.0f; }
 };
@@ -195,7 +196,7 @@ struct GatedX : StridedX {
 struct MarchX {
   static constexpr int KI = KIN;
   static constexpr bool ENCODED = false;
-  static constexpr bool STAGED = false;
+  static constexpr bool FRAG_SCRATCH = false;
   const float* o;     // (R, 3) origins
   const float* d;     // (R, 3) directions
   const float* tm;    // (R, k) sample midpoints
@@ -235,7 +236,7 @@ template <int KE>
 struct EncX {
   static constexpr int KI = KE;
   static constexpr bool ENCODED = true;
-  static constexpr bool STAGED = false;
+  static constexpr bool FRAG_SCRATCH = false;
   StridedX xs;
   const float* a;  // (n_enc,) a_j
   const float* w;  // (n_enc,) w_j
@@ -336,28 +337,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// bulk asynchronous copy shared -> global of ``bytes`` (a multiple of 16,
-// both addresses 16-byte aligned), in this thread's bulk async-group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::); }
-// until at most N of this thread's bulk groups still read their source
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-// until every bulk group of this thread has completed
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// orders this thread's shared-memory writes before a later bulk copy reads them
-__device__ __forceinline__ void fence_proxy_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // two floats -> one register of two bf16 (round to nearest even), lo first
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -448,7 +427,7 @@ __device__ __forceinline__ void store_frag(bf16* dst, const uint32_t (&a)[F / 16
   }
 }
 
-// The tile-fragment layout of a STAGED input's scratch: layer blocks of
+// The tile-fragment layout of a FRAG_SCRATCH input's scratch: layer blocks of
 // scratch_rows(P) rows (P rounded up to whole tiles); the tile at p0 is the
 // contiguous 16 x F bf16 block at row p0, in which 32-bit word
 // (4 kt + q) * 32 + lane holds that lane's A-fragment register a[kt][q].  So
@@ -457,51 +436,18 @@ __device__ __forceinline__ void store_frag(bf16* dst, const uint32_t (&a)[F / 16
 // 4 F / 16 stores of 128 contiguous bytes.
 template <class X>
 __host__ __device__ inline long long scratch_rows(long long P) {
-  return X::STAGED ? (P + TILE - 1) / TILE * TILE : P;
+  return X::FRAG_SCRATCH ? (P + TILE - 1) / TILE * TILE : P;
 }
 
-// bytes of one tile's layer block (one staging buffer)
-__host__ __device__ constexpr int stage_bytes(int F) { return TILE * F * 2; }
-
-// a warp's ring of shared staging buffers for its bulk scratch stores
-struct StageRing {
-  uint32_t* buf;  // nbuf buffers of stage_bytes(F), or nullptr
-  int nbuf;       // 2 or 1; 0: store from registers
-  int next;
-};
-
 // store a tile's A fragments to its block of a layer's scratch: row-major
-// with store_frag, or (X::STAGED) in the tile-fragment layout, through the
-// next staging buffer and one bulk copy that drains while the warp computes
-// on (without staging buffers: straight from registers, coalesced)
+// with store_frag, or (X::FRAG_SCRATCH) in the tile-fragment layout
 template <int F, class X>
 __device__ __forceinline__ void store_layer(bf16* layer, const uint32_t (&a)[F / 16][4],
-                                            long long p0, long long P, StageRing& ring) {
-  if constexpr (X::STAGED) {
-    const int lane = threadIdx.x & 31;
-    bf16* dst = layer + size_t(p0) * F;
-    if (ring.nbuf == 0) {
-      uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+                                            long long p0, long long P) {
+  if constexpr (X::FRAG_SCRATCH) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(layer + size_t(p0) * F) + (threadIdx.x & 31);
 #pragma unroll
-      for (int i = 0; i < F / 4; ++i) d[i * 32 + lane] = a[i >> 2][i & 3];
-      return;
-    }
-    uint32_t* buf = ring.buf + ring.next * (stage_bytes(F) / 4);
-    // this buffer's previous copy has read it (lane 0 issued every copy)
-    if (lane == 0) {
-      if (ring.nbuf == 2) bulk_wait_read<1>();
-      else bulk_wait_read<0>();
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < F / 4; ++i) buf[i * 32 + lane] = a[i >> 2][i & 3];
-    fence_proxy_async_shared();
-    __syncwarp();
-    if (lane == 0) {
-      bulk_store(dst, buf, stage_bytes(F));
-      bulk_commit();
-    }
-    ring.next = ring.next + 1 == ring.nbuf ? 0 : ring.next + 1;
+    for (int i = 0; i < F / 4; ++i) d[i * 32] = a[i >> 2][i & 3];
   } else {
     store_frag<F>(layer, a, p0, P);
   }
@@ -552,14 +498,13 @@ __device__ __forceinline__ uint2 relu_mask(const uint32_t (&a)[F / 16][4]) {
 
 // the forward chain of one 16-point tile; a ends as the last activation.
 // With acts != nullptr every layer's activation is stored to acts[l]
-// (scratch_rows(P) x F bf16, by store_layer through ``ring``) and this
-// lane's relu mask of it to masks[32 l].
+// (scratch_rows(P) x F bf16, by store_layer) and this lane's relu mask of
+// it to masks[32 l].
 template <int F, class X>
 __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& x,
                                              long long p0, long long P,
                                              const unsigned char* smem, const WLayout& L,
-                                             int nh, bf16* acts, uint2* masks,
-                                             StageRing& ring) {
+                                             int nh, bf16* acts, uint2* masks) {
   const long long PS = scratch_rows<X>(P);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long r0 = p0 + g, r1 = r0 + 8;
@@ -601,7 +546,7 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
   warp_mm<KT, F / 8>(acc, ax, reinterpret_cast<const bf16*>(smem + L.w_in), ldin(X::KI));
   bias_relu_pack<F>(a, acc, bias);
   if (acts) {
-    store_layer<F, X>(acts, a, p0, P, ring);
+    store_layer<F, X>(acts, a, p0, P);
     masks[0] = relu_mask<F>(a);
   }
   const bf16* wh = reinterpret_cast<const bf16*>(smem + L.w_hid);
@@ -609,7 +554,7 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
     warp_mm<F / 16, F / 8>(acc, a, wh + size_t(l) * F * ldw(F), ldw(F));
     bias_relu_pack<F>(a, acc, bias + (l + 1) * F);
     if (acts) {
-      store_layer<F, X>(acts + size_t(l + 1) * PS * F, a, p0, P, ring);
+      store_layer<F, X>(acts + size_t(l + 1) * PS * F, a, p0, P);
       masks[32 * (l + 1)] = relu_mask<F>(a);
     }
   }
@@ -636,8 +581,7 @@ fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
     const long long p0 = tile * TILE;
     if (!tile_active(x, p0, P)) continue;  // its outputs are never read
     uint32_t a[F / 16][4];
-    StageRing none{nullptr, 0, 0};
-    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr, nullptr, none);
+    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr, nullptr);
     // head: f32 products of the bf16 activation with w_out, summed over
     // this thread's columns and then across the four threads of a row
     float s0 = 0.0f, s1 = 0.0f;
@@ -669,21 +613,17 @@ fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
 }
 
 // backward, part 1: recompute, store activations, backpropagate dz, dx
-// (and, for an encoded input, each warp's dA sums).  A STAGED input's warps
-// each own ``nbuf`` staging buffers after the weights.
+// (and, for an encoded input, each warp's dA sums)
 template <int F, class X>
 __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int nh,
                  bf16* __restrict__ acts, bf16* __restrict__ dzs, DxOut dx,
-                 uint2* __restrict__ mask_slots, int nbuf) {
+                 uint2* __restrict__ mask_slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WLayout L = weight_layout(F, nh, X::KI);
   stage_weights<X::KI>(smem, L, prm, F, nh);
   __syncthreads();
   const long long PS = scratch_rows<X>(P);
-  StageRing ring{reinterpret_cast<uint32_t*>(smem + L.total) +
-                     (threadIdx.x >> 5) * nbuf * (stage_bytes(F) / 4),
-                 nbuf, 0};
   // encoded input: this lane's running dA terms of its pairs 4 nt + t
   constexpr int NE = X::ENCODED ? X::KI / 8 : 1;
   float da[NE][2];
@@ -700,7 +640,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
     if (!tile_active(x, p0, P)) continue;  // the weight gradients read it as zeros
     const long long r0 = p0 + g, r1 = r0 + 8;
     uint32_t a[F / 16][4];
-    warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks, ring);
+    warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks);
 
     // head: dz = bf16(w_out * g) where the last activation is > 0
     const float g0 = r0 < P ? gr[r0] : 0.0f, g1 = r1 < P ? gr[r1] : 0.0f;
@@ -715,7 +655,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
             pack2(u1.x > 0.0f ? wo[c] * g1 : 0.0f, u1.y > 0.0f ? wo[c + 1] * g1 : 0.0f);
       }
     }
-    store_layer<F, X>(dzs + size_t(nh) * PS * F, a, p0, P, ring);
+    store_layer<F, X>(dzs + size_t(nh) * PS * F, a, p0, P);
 
     // hidden layers in reverse: dz_{l-1} = bf16(dz_l @ W_l) where a_{l-1} > 0
     for (int l = nh; l >= 1; --l) {
@@ -730,7 +670,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
         a[nt >> 1][(nt & 1) * 2 + 1] =
             pack2((bits & 4u) ? acc[nt][2] : 0.0f, (bits & 8u) ? acc[nt][3] : 0.0f);
       }
-      store_layer<F, X>(dzs + size_t(l - 1) * PS * F, a, p0, P, ring);
+      store_layer<F, X>(dzs + size_t(l - 1) * PS * F, a, p0, P);
     }
 
     if constexpr (X::ENCODED) {
@@ -782,10 +722,6 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
         }
       }
     }
-  }
-  if constexpr (X::STAGED) {
-    // the staging buffers stay valid until every copy has completed
-    if ((threadIdx.x & 31) == 0 && nbuf > 0) bulk_wait_all();
   }
   if constexpr (X::ENCODED) {
     // the warp's sums: over the eight lanes (g) of each pair, in a fixed order
@@ -876,7 +812,7 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
     const long long kb = p_lo + (long long)st * KB;
     const uint32_t bits = stage_bits[st];
     for (int i = threadIdx.x; i < KB * VEC; i += blockDim.x) {
-      if constexpr (X::STAGED) {
+      if constexpr (X::FRAG_SCRATCH) {
         // consecutive threads read consecutive chunks of the tile-fragment
         // layout (chunk ch of tile tt) into their row-major place
         const int tt = i / (2 * F), ch = i % (2 * F);
@@ -1044,33 +980,18 @@ inline bool scratch_ok(const BwdScratch& s, long long P, int n_sms) {
                     (long long)s.n_chunks * s.chunk >= P);
 }
 
-// the largest block shared memory on Hopper (bytes)
-constexpr size_t MAX_SMEM = 232448;
-
-// staging buffers a warp of the chain gets beside weights of ``wbytes``: two
-// where they fit, else one, else none (stores from registers)
-inline int stage_buffers(size_t wbytes, int F) {
-  for (int n = 2; n > 0; --n)
-    if (wbytes + size_t(n) * BWD_WARPS * stage_bytes(F) <= MAX_SMEM) return n;
-  return 0;
-}
-
 template <int F, class X>
 int launch_bwd(const X& x, const float* g, long long P, const Params& prm, int nh,
-               const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st,
-               int nbuf = -1) {
+               const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st) {
   const GradLayout GL = grad_layout(F, nh, X::KI);
   if (P > 0) {
     const int grid = bwd_grid(P, n_sms);
-    const size_t wbytes = weight_layout(F, nh, X::KI).total;
-    if (!X::STAGED) nbuf = 0;
-    else if (nbuf < 0 || nbuf > stage_buffers(wbytes, F)) nbuf = stage_buffers(wbytes, F);
-    const size_t smem = wbytes + size_t(nbuf) * BWD_WARPS * stage_bytes(F);
+    const size_t smem = weight_layout(F, nh, X::KI).total;
     cudaError_t e = cudaFuncSetAttribute(bwd_chain_kernel<F, X>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     bwd_chain_kernel<F, X><<<grid, BWD_WARPS * 32, smem, st>>>(x, g, P, prm, nh, s.acts, s.dzs,
-                                                               dx, s.masks, nbuf);
+                                                               dx, s.masks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const size_t wsmem = wgrad_smem(F, s.chunk);

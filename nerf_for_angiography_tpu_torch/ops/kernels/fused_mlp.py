@@ -7,7 +7,9 @@ source is ``csrc/fused_mlp.cu`` over the layer chain of
 ``csrc/mlp_chain.cuh`` (sm_90a, mma.sync bf16 with f32 accumulators, the
 layer chain in registers); the header states the bound and the design. The
 backward takes 2 x (n_hidden + 1) x P x F bf16 of scratch for the
-activations and dz.
+activations and dz (P rounded up to whole 16-point tiles). It works only on
+tiles whose upstream gradient g is not all zero: the others add exact
+zeros to every gradient, and their dx stays 0.
 
 The kernels read x through its strides: point-major (P, 3) as
 ``fused_mlp_raw`` passes it, or feature-major (3, P) as ``fused_mlp_raw_fm``
@@ -45,10 +47,6 @@ fwd_launches = 0
 bwd_launches = 0
 
 _KIN = 16  # input features (3 coords) padded to one mma k-step
-# the backward chain's scratch stores: staged bulk copies (NBUF staging
-# buffers a warp, -1 as many as fit) or row-major from registers
-STAGED = True
-NBUF = -1
 _lib = None
 _lib_lock = threading.Lock()
 # nvcc's output of the last build (ptxas register/shared-memory report)
@@ -204,10 +202,10 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_chunk_quantum.restype = i32
         lib.fused_mlp_bwd.argtypes = [
             vp, ll, ll, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll, i32, vp, vp,
-            i32, i32, vp,
+            vp,
         ]
         lib.fused_mlp_bwd.restype = i32
-        lib.fused_mlp_scratch_rows.argtypes = [ll, i32]
+        lib.fused_mlp_scratch_rows.argtypes = [ll]
         lib.fused_mlp_scratch_rows.restype = ll
         _lib = lib
         return lib
@@ -323,7 +321,7 @@ def fused_mlp_bwd_cuda(
     s = BwdScratch.make(
         p, f, nh, n_sms, lib.fused_mlp_partial_stride(f, nh),
         lib.fused_mlp_mask_slots(n_sms, nh), lib.fused_mlp_chunk_quantum(), dev,
-        rows=lib.fused_mlp_scratch_rows(p, int(STAGED)),
+        rows=lib.fused_mlp_scratch_rows(p),
     )
     flat = torch.empty((lib.fused_mlp_grad_size(f, nh),), dtype=torch.float32, device=dev)
     # the kernel skips 16-point tiles whose g is all zero: their dx stays 0
@@ -332,7 +330,7 @@ def fused_mlp_bwd_cuda(
     code = lib.fused_mlp_bwd(
         x.data_ptr(), sp, sc, g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), int(STAGED), NBUF, stream,
+        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), stream,
     )
     raise_on(code, "fused_mlp backward")
     bwd_launches += 1
