@@ -975,7 +975,9 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     from nerf_for_angiography_tpu_torch.training import TrainConfig
     from nerf_for_angiography_tpu_torch.training.train import _flat_positions, _march_for
 
-    cfg = TrainConfig(n_iters=COMPACT_ITERS, display_every=100)
+    # the shipped display_every (500): between display boundaries the tuner
+    # sees a settled k's full chunk once the next is issued, as in the JAX loop
+    cfg = TrainConfig(n_iters=COMPACT_ITERS)
     main = compacted_run(torch, fm, fk, fs, ds, cfg, "shipped defaults")
     check(main["compact_steps"] > 0, "the shipped-default run never engaged the compacted stepper")
     hcfg = TrainConfig(n_iters=HYBRID_ITERS, display_every=100, march_mode="hybrid")
@@ -1349,8 +1351,8 @@ def fused_step_phase(torch, fm, fk, fs, ds, tr: dict, cp: dict, report: dict) ->
     check(f_dense["fused_step_launches"] == f_dense["steps"] and f_dense["bwd_launches"] == 0,
           "the fused dense run did not launch one fused step a step and no split backward")
     f_main = compacted_run(torch, fm, fk, fs, ds,
-                           TrainConfig(n_iters=COMPACT_ITERS, display_every=100,
-                                       fused_train_step="on"), "fused shipped defaults")
+                           TrainConfig(n_iters=COMPACT_ITERS, fused_train_step="on"),
+                           "fused shipped defaults")
     check(f_main["compact_steps"] > 0, "the fused shipped-default run never engaged compaction")
     fm_dense = dense_run(torch, fm, fk, fs, ds, "feature-major dense", feature_major_mlp=True)
     check(fm_dense["bwd_launches"] == fm_dense["steps"] and fm_dense["fused_step_launches"] == 0
@@ -1449,7 +1451,7 @@ def parent_times(torch, fm, parent: str, saved: dict) -> dict:
     inputs, and its dense 60-step run."""
     path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({k: v for k, v in saved.items()}, path)
+    torch.save(saved, path)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
                            "--root", os.path.abspath(parent)],
@@ -1836,7 +1838,6 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         build_kernels(fm, fk, fs, fe)
-        report["build_logs"] = {m.__name__: m.build_log for m in (fm, fk, fs, fe)}
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
         report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)
