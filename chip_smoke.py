@@ -42,8 +42,10 @@ Phases:
      four marches (share of active 16-point tiles, against its plain
      version, dx exactly 0 on skipped tiles, time beside the bound and the
      scratch traffic floor over the active tiles) and at random g; with
-     ``--parent DIR`` also the parent checkout's kernel #2 and split pairs
-     on the same inputs and its dense run, which must equal this one;
+     ``--parent DIR`` also kernel #2 and the split pairs of the parent
+     checkout and of this one on the same inputs, each twice in fresh
+     processes (parent, this, this, parent), and the parent's dense run,
+     which must equal this one;
      every compacted run's pressure schedule is held to the JAX loop's;
   6. the encoded (fourier / BARF) pair: the kernels held against their plain
      versions at 4x128, L = 5 (fourier coefficients ~ N(0, 5^2); BARF at
@@ -219,8 +221,6 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 
 
 def build_kernels(fm, fk, fs, fe) -> None:
@@ -1444,32 +1444,51 @@ def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
     return dict(rows=out, inputs=inputs, plist=plist)
 
 
-def parent_times(torch, fm, parent: str, saved: dict) -> dict:
+def saved_times(root: str, path: str, dense: bool) -> dict:
     """Run this script with ``--time-saved`` against the package of the
-    checkout ``parent`` in a process of its own, on the inputs in ``saved``
-    (written to smoke_out/): its kernel #2 and split-pair times on the same
-    inputs, and its dense 60-step run."""
-    path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(saved, path)
+    checkout ``root`` in a process of its own, on the inputs saved at
+    ``path``: its kernel #2 and split-pair times on them and, with
+    ``dense``, its dense 60-step run."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
-                           "--root", os.path.abspath(parent)],
+                           "--root", os.path.abspath(root)] + ([] if dense else ["--no-dense"]),
                           capture_output=True, text=True, timeout=900)
     lines = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and lines,
-          f"the parent's timing run failed ({proc.returncode}): {proc.stderr[-2000:]}")
+          f"the timing run of {root} failed ({proc.returncode}): {proc.stderr[-2000:]}")
     out = json.loads(lines[-1])
-    print(f"parent checkout {parent}: timed in {time.perf_counter() - t0:.1f} s")
+    print(f"checkout {root}: timed in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
+    """The parent checkout's and this checkout's saved_times on the same
+    inputs, each in fresh processes, in the order parent, this, this, parent
+    (so a drift of the card or the host cancels): (parent, this), each with
+    its two readings of every time under ``runs`` and their mean in place,
+    and the dense run of each side's first process."""
+    path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(saved, path)
+    runs = [saved_times(root, path, dense=i < 2)
+            for i, root in enumerate((parent, HERE, HERE, parent))]
+    sides = []
+    for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
+        side = dict(dense=a["dense"])
+        for key in ("bwd_ms", "split_pair_ms"):
+            side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
+            side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
+        sides.append(side)
+    return sides[0], sides[1]
 
 
 def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | None,
                       report: dict) -> dict:
     """Kernel #2 at random g (all tiles active) beside the scratch traffic
-    floor; with ``parent`` (a checkout of the parent commit), the parent's
-    kernel #2 on the same random and trained-state inputs, its split pairs on
-    the same march blocks, and its dense 60-step run, whose train loss and
+    floor; with ``parent`` (a checkout of the parent commit), kernel #2 on
+    the same random and trained-state inputs and the split pairs on the same
+    march blocks, of the parent and of this checkout alike in fresh processes
+    (paired_times), and the parent's dense 60-step run, whose train loss and
     held-out PSNR this tree's must equal bit for bit (the skipped tiles add
     exact zeros)."""
     model, gen = random_cppn(torch)
@@ -1488,25 +1507,32 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
     floors.update({f"trained: {k}": r["floor_ms"] for k, r in bt["rows"].items()})
     out = dict(ms=ms, split_pair_ms=split, floor_ms=floors,
                dense=dict(train_loss=tr["train_loss"], heldout_psnr=tr["heldout_psnr"]))
-    par = None
+    par = own = None
     if parent:
         def cpu(plist):
             return [(w.detach().cpu(), b.detach().cpu()) for w, b in plist]
 
-        par = parent_times(torch, fm, parent, dict(
+        par, own = paired_times(torch, parent, dict(
             trained={k: (x.cpu(), g.cpu()) for k, (x, g) in bt["inputs"].items()},
             random={k: (x.cpu(), g.cpu()) for k, (x, g) in rnd.items()},
             trained_plist=cpu(bt["plist"]), random_plist=cpu(fm.cppn_params_to_list(model)),
             blocks={k: tuple(t.cpu() for t in blk) for k, blk in fp["blocks"].items()},
             kw=fp["kw"]))
-        out["parent"] = par
+        out.update(parent=par, paired=own)
+
+    def vs_parent(key: str, k: str) -> str:
+        if not par:
+            return ""
+        a, b = own[key + "_runs"][k], par[key + "_runs"][k]
+        return (f"; fresh processes (parent, this, this, parent): this {a[0]:.4f} / {a[1]:.4f} "
+                f"ms, parent commit {b[0]:.4f} / {b[1]:.4f} ms (this / parent "
+                f"{own[key][k] / par[key][k]:.3f})")
+
     for k, v in ms.items():
         print(f"fused_mlp_bwd {k}: kernel_ms {v:.4f}, scratch traffic floor {floors[k]:.4f} ms"
-              + (f"; parent commit {par['bwd_ms'][k]:.4f} ms (this / parent "
-                 f"{v / par['bwd_ms'][k]:.3f})" if par else ""))
+              + vs_parent("bwd_ms", k))
     for k, v in split.items():
-        print(f"split pair {k}: {v:.4f} ms"
-              + (f"; parent commit {par['split_pair_ms'][k]:.4f} ms" if par else ""))
+        print(f"split pair {k}: {v:.4f} ms" + vs_parent("split_pair_ms", k))
     d = out["dense"]
     print(f"dense {DENSE_ITERS}-step split run: train loss {d['train_loss']!r}, held-out PSNR "
           f"{d['heldout_psnr']!r}"
@@ -1520,10 +1546,11 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
     return out
 
 
-def time_saved(torch, fm, path: str) -> dict:
+def time_saved(torch, fm, path: str, dense: bool = True) -> dict:
     """The ``--time-saved`` run: kernel #2 and the split pair of this
-    process's package on the saved inputs, and the dense 60-step run's
-    train loss and held-out PSNR (CUDA-event medians; full precision)."""
+    process's package on the saved inputs (CUDA-event medians) and, with
+    ``dense``, the dense 60-step run's train loss and held-out PSNR (full
+    precision)."""
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
     saved = torch.load(path)
@@ -1544,6 +1571,8 @@ def time_saved(torch, fm, path: str) -> dict:
         blk = tuple(t.to(dev) for t in blk)
         out["split_pair_ms"][name] = time_ms(
             torch, lambda: split_pair(torch, fm, plist, *blk, saved["kw"]), reps=5, warmup=2)
+    if not dense:
+        return out
     ds = make_dataset(torch)
     cfg = TrainConfig(compact_samples=0, n_iters=DENSE_ITERS, display_every=30)
     res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
@@ -1804,6 +1833,7 @@ def main() -> int:
                     help="a checkout of the parent commit: also time its kernel #2 and split "
                          "pairs on this run's inputs and hold its dense run equal to this one")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--no-dense", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
@@ -1827,7 +1857,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run f32 products
     torch.backends.cudnn.allow_tf32 = False
     if args.time_saved:
-        print(json.dumps(time_saved(torch, fm, args.time_saved)))
+        print(json.dumps(time_saved(torch, fm, args.time_saved, dense=not args.no_dense)))
         return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -1906,13 +1936,17 @@ def main() -> int:
         r = cp["mlp"][key]
         row["compact_path"] = dict(P=r["P"], ms=r["ms"], plain_ms=r["plain_ms"],
                                    bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+    # with --parent: both checkouts' means in fresh processes (paired_times)
     parent_ms = bc.get("parent", {}).get("bwd_ms", {})
+    paired_ms = bc.get("paired", {}).get("bwd_ms", {})
     rows[1]["traffic_floor_ms"] = bc["floor_ms"][f"random: P={BWD_RANDOM_P[0]}"]
-    rows[1]["random_g"] = {k: dict(ms=v, floor_ms=bc["floor_ms"][k], parent_ms=parent_ms.get(k))
+    rows[1]["random_g"] = {k: dict(ms=v, floor_ms=bc["floor_ms"][k], paired_ms=paired_ms.get(k),
+                                   parent_ms=parent_ms.get(k))
                            for k, v in bc["ms"].items() if k.startswith("random")}
     rows[1]["trained_state"] = {
         k: {**{q: r[q] for q in ("P", "active_tile_share", "active_point_share", "ms",
                                  "plain_ms", "bound_ms", "bound_by", "floor_ms")},
+            "paired_ms": paired_ms.get(f"trained: {k}"),
             "parent_ms": parent_ms.get(f"trained: {k}")}
         for k, r in bt["rows"].items()}
     print(f"total {time.perf_counter() - t_all:.1f} s")
