@@ -52,10 +52,11 @@
 //  * Kernel #2 (the split path's MLP backward, input GatedX) works only on
 //    tiles that carry a gradient: a point is active where g != 0, and a
 //    16-point tile with no active point is skipped by the chain (no
-//    recompute, no stores; dx stays the caller's 0) and read as zeros by
-//    the weight gradients, by the same tile rule.  Such points add exact
-//    zeros to every gradient, so the result equals the unskipped one bit
-//    for bit but for the sign of a zero.  Its chain stores its scratch in
+//    recompute, no stores; dx stays the caller's 0) and by the weight
+//    gradients, by the same tile rule: their stages hold the chunk's active
+//    tiles only.  Such points add exact zeros to every gradient, so the
+//    result equals the unskipped one bit for bit but for the sign of a
+//    zero.  Its chain stores its scratch in
 //    the tile-fragment layout (scratch_rows): a warp writes a tile's layer
 //    block with 4 F / 16 stores of 128 contiguous bytes (a whole-sector
 //    store each, where row-major fragment stores cover half sectors), and
@@ -113,11 +114,14 @@ __host__ __device__ inline WLayout weight_layout(int F, int nh, int KI = KIN) {
 }
 
 // the weight-gradient kernel's ring, g stages, and per-stage bits and list
-// for a chunk of ``chunk`` points
+// (of stages, or for a FRAG_SCRATCH input of tiles) for a chunk of
+// ``chunk`` points
+template <class X>
 __host__ __device__ inline size_t wgrad_smem(int F, long long chunk) {
   const size_t stages = size_t(chunk / KB);
+  const size_t items = X::FRAG_SCRATCH ? size_t(chunk / TILE) : stages;
   return 2 * 2 * size_t(KB) * ldw(F) * sizeof(bf16) + 2 * size_t(KB) * sizeof(float) +
-         align16(stages) + stages * sizeof(int);
+         align16(stages) + items * sizeof(int);
 }
 
 // flat gradient layout, shared by the per-chunk partials and the result:
@@ -158,9 +162,10 @@ struct Params {
 // active point is skipped by the forward and the backward chain (nothing
 // is stored for it), and the weight-gradient kernel reads it as zeros.
 
-// An input with FRAG_SCRATCH also fixes how the backward stores its scratch:
-// in the tile-fragment layout (store_layer below); every other input stores
-// it row-major.
+// An input with FRAG_SCRATCH also fixes how the backward stores its scratch,
+// in the tile-fragment layout (store_layer below), and the weight-gradient
+// kernel fills its stages with the active tiles alone; every other input
+// stores it row-major and has the weight gradients read it stage by stage.
 
 // coordinate c of point p at x[p * sp + c * sc]: (P, 3) is sp = 3, sc = 1;
 // the feature-major (3, P) is sp = 1, sc = P.  Every point is active (the
@@ -181,7 +186,7 @@ struct StridedX {
 // gradient g[p] != 0 (-0 counts as zero).  A point with g = 0 has dz = 0 in
 // every layer, so it adds exact zeros to every weight gradient and its dx is
 // 0: the chain skips a tile with no active point, the weight-gradient kernel
-// reads it as zeros, and the caller hands in a zeroed dx.
+// leaves it out of its stages, and the caller hands in a zeroed dx.
 struct GatedX : StridedX {
   static constexpr bool FRAG_SCRATCH = true;
   const float* g;
@@ -753,21 +758,28 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
 // db_l = 1^T dz_l; job nh + 1: dw_out = a_nh^T g, db_out = sum g in f32.
 // Warp w < M/16 owns rows 16w.. of dW_l; the last warp computes db_l.
 // Stages of KB points with no active tile are skipped; inside a stage the
-// rows of an inactive tile (never stored by the chain) load as zeros.
+// rows of an inactive tile (never stored by the chain) load as zeros.  For
+// a FRAG_SCRATCH input a stage is instead made of the chunk's next KB / TILE
+// active tiles, so no inactive tile is multiplied: the active tiles meet
+// the accumulators in the same order and an inactive one added exact
+// zeros, so the result is the same bit for bit but for the sign of a zero.
 template <int F, class X>
 __global__ void __launch_bounds__(32 * (F / 16 + 1))
 wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
              const bf16* __restrict__ dzs, long long P, int nh, long long chunk,
              float* __restrict__ partials, long long stride) {
+  static_assert(!(X::FRAG_SCRATCH && X::ENCODED), "a FRAG_SCRATCH input has 3 coordinates");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LD = F + 8;
   constexpr int NWARPS = F / 16 + 1;
+  constexpr int TPS = KB / TILE;  // tiles a stage
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + 2 * KB * LD;
   float* gs = reinterpret_cast<float*>(Bs + 2 * KB * LD);
   const int max_stages = (int)(chunk / KB);
   // per stage of the chunk: bit t set where its tile t holds an active
-  // point; then the list of stages with any
+  // point; then the list of stages with any (FRAG_SCRATCH: of the active
+  // tiles, as tile indices in the chunk)
   uint8_t* stage_bits = reinterpret_cast<uint8_t*>(gs + 2 * KB);
   int* stage_list = reinterpret_cast<int*>(stage_bits + align16(max_stages));
   __shared__ int n_active;
@@ -798,39 +810,68 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
   __syncthreads();
   if (threadIdx.x == 0) {
     int n = 0;
-    for (int st = 0; st < n_stages; ++st)
-      if (stage_bits[st]) stage_list[n++] = st;
+    for (int st = 0; st < n_stages; ++st) {
+      if constexpr (X::FRAG_SCRATCH) {
+        for (uint32_t b = stage_bits[st]; b; b &= b - 1u)
+          stage_list[n++] = st * TPS + __ffs((int)b) - 1;
+      } else {
+        if (stage_bits[st]) stage_list[n++] = st;
+      }
+    }
     n_active = n;
   }
   __syncthreads();
-  const int n_k = n_active;
+  const int n_k = X::FRAG_SCRATCH ? (n_active + TPS - 1) / TPS : n_active;
 
-  // stage s of the ring <- the kk-th active stage of the chunk
+  // stage s of the ring <- the kk-th active stage of the chunk (FRAG_SCRATCH:
+  // its active tiles TPS kk .. TPS kk + TPS - 1)
   auto load = [&](int s, int kk) {
     constexpr int VEC = F / 8;
+    if constexpr (X::FRAG_SCRATCH) {
+      // the first point of the stage's tile tt; p_hi where the chunk has no
+      // more active tiles, so that the tile's rows load as zeros
+      auto tile_p0 = [&](int tt) {
+        const int j = kk * TPS + tt;
+        return j < n_active ? p_lo + (long long)stage_list[j] * TILE : p_hi;
+      };
+      for (int i = threadIdx.x; i < KB * VEC; i += blockDim.x) {
+        // consecutive threads read consecutive chunks of the tile-fragment
+        // layout (chunk ch of tile tt) into their row-major place
+        const int tt = i / (2 * F), ch = i % (2 * F);
+        const int rt = (ch & 7) + 8 * ((ch >> 3) & 1);
+        const int row = tt * TILE + rt;
+        const int c = (ch >> 5) * 16 + 8 * ((ch >> 4) & 1);
+        const long long t0 = tile_p0(tt);
+        const bool in = t0 + rt < p_hi;
+        const size_t off = in ? size_t(t0) * F + size_t(ch) * 8 : size_t(p_lo) * F;
+        cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
+        if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
+      }
+      if (!head && job == 0) {
+        for (int i = threadIdx.x; i < KB * KIN; i += blockDim.x) {
+          const int row = i / KIN, c = i % KIN;
+          const long long p = tile_p0(row / TILE) + row % TILE;
+          As[(s * KB + row) * LD + c] = __float2bfloat16_rn(c < 3 && p < p_hi ? x(p, c) : 0.0f);
+        }
+      }
+      if (head) {
+        for (int i = threadIdx.x; i < KB; i += blockDim.x) {
+          const long long p = tile_p0(i / TILE) + i % TILE;
+          gs[s * KB + i] = p < p_hi ? gr[p] : 0.0f;
+        }
+      }
+      return;
+    }
     const int st = stage_list[kk];
     const long long kb = p_lo + (long long)st * KB;
     const uint32_t bits = stage_bits[st];
     for (int i = threadIdx.x; i < KB * VEC; i += blockDim.x) {
-      if constexpr (X::FRAG_SCRATCH) {
-        // consecutive threads read consecutive chunks of the tile-fragment
-        // layout (chunk ch of tile tt) into their row-major place
-        const int tt = i / (2 * F), ch = i % (2 * F);
-        const int row = tt * TILE + (ch & 7) + 8 * ((ch >> 3) & 1);
-        const int c = (ch >> 5) * 16 + 8 * ((ch >> 4) & 1);
-        const long long p = kb + row;
-        const bool in = p < p_hi && ((bits >> tt) & 1u);
-        const size_t off = in ? size_t(kb + tt * TILE) * F + size_t(ch) * 8 : size_t(p_lo) * F;
-        cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
-        if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
-      } else {
-        const int row = i / VEC, c = (i % VEC) * 8;
-        const long long p = kb + row;
-        const bool in = p < p_hi && ((bits >> (row / TILE)) & 1u);
-        const size_t off = size_t(in ? p : p_lo) * F + c;
-        cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
-        if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
-      }
+      const int row = i / VEC, c = (i % VEC) * 8;
+      const long long p = kb + row;
+      const bool in = p < p_hi && ((bits >> (row / TILE)) & 1u);
+      const size_t off = size_t(in ? p : p_lo) * F + c;
+      cp_async16(Bs + (s * KB + row) * LD + c, bsrc + off, in ? 16 : 0);
+      if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
     }
     if (!head && job == 0) {
       if constexpr (X::ENCODED) {
@@ -994,7 +1035,7 @@ int launch_bwd(const X& x, const float* g, long long P, const Params& prm, int n
                                                                dx, s.masks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    const size_t wsmem = wgrad_smem(F, s.chunk);
+    const size_t wsmem = wgrad_smem<X>(F, s.chunk);
     e = cudaFuncSetAttribute(wgrad_kernel<F, X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)wsmem);
     if (e != cudaSuccess) return (int)e;
