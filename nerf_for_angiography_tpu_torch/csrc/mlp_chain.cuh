@@ -160,7 +160,8 @@ struct Params {
 
 // Each input also says which points carry work: a 16-point tile with no
 // active point is skipped by the forward and the backward chain (nothing
-// is stored for it), and the weight-gradient kernel reads it as zeros.
+// is stored for it), and the weight-gradient kernel reads it as zeros or
+// leaves it out.
 
 // An input with FRAG_SCRATCH also fixes how the backward stores its scratch,
 // in the tile-fragment layout (store_layer below), and the weight-gradient
@@ -642,7 +643,7 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
   for (long long tile = (long long)blockIdx.x * BWD_WARPS + warp; tile < n_tiles;
        tile += (long long)gridDim.x * BWD_WARPS) {
     const long long p0 = tile * TILE;
-    if (!tile_active(x, p0, P)) continue;  // the weight gradients read it as zeros
+    if (!tile_active(x, p0, P)) continue;  // the weight gradients skip it too
     const long long r0 = p0 + g, r1 = r0 + 8;
     uint32_t a[F / 16][4];
     warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks);

@@ -1,12 +1,13 @@
 """Port: the premise of kernel #2's zero-gradient tile skip, on the CPU.
 
 The backward kernel skips every 16-point tile whose upstream gradient g is
-all zero (-0 counts as zero) and reads such tiles as zeros. That leaves every
-gradient as it was only if those points add exact zeros: checked here on the
-plain version (against the same call on the active points alone, and against
-the JAX Pallas kernel pair's VJP in interpret mode), and on a CPU split step,
-whose composite must hand the MLP exact zeros wherever the early-stop keep is
-0. Inputs come from a numpy seed; weights cross over with convert.py."""
+all zero (-0 counts as zero) and leaves such tiles out of the weight
+gradients. That leaves every gradient as it was only if those points add
+exact zeros: checked here on the plain version (against the same call on the
+active points alone, and against the JAX Pallas kernel pair's VJP in
+interpret mode), and on a CPU split step, whose composite must hand the MLP
+exact zeros wherever the early-stop keep is 0. Inputs come from a numpy seed;
+weights cross over with convert.py."""
 
 import importlib
 
