@@ -44,8 +44,9 @@ Phases:
      scratch traffic floor over the active tiles) and at random g; with
      ``--parent DIR`` also kernel #2 and the split pairs of the parent
      checkout and of this one on the same inputs, each twice in fresh
-     processes (parent, this, this, parent), and the parent's dense run,
-     which must equal this one;
+     processes (parent, this, this, parent), #2's chain and weight-gradient
+     device times profiled, and the parent's dense run, which must equal
+     this one;
      every compacted run's pressure schedule is held to the JAX loop's;
   6. the encoded (fourier / BARF) pair: the kernels held against their plain
      versions at 4x128, L = 5 (fourier coefficients ~ N(0, 5^2); BARF at
@@ -1444,6 +1445,32 @@ def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
     return dict(rows=out, inputs=inputs, plist=plist)
 
 
+def bwd_parts_ms(torch, fm, packed, x, g, n: int = 5) -> dict:
+    """Device ms a launch of kernel #2's parts, traced with torch.profiler
+    over ``n`` launches: the chain, the weight gradients and the rest (the
+    partial sum and, where the wrapper zeroes dx, that fill)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fm.fused_mlp_bwd_cuda(packed, x, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fm.fused_mlp_bwd_cuda(packed, x, g)
+        torch.cuda.synchronize()
+    out = dict(chain=0.0, wgrad=0.0, rest=0.0)
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        part = ("chain" if "bwd_chain_kernel" in ev.key
+                else "wgrad" if "wgrad_kernel" in ev.key else "rest")
+        out[part] += dev_us / 1e3 / n
+    return out
+
+
 def saved_times(root: str, path: str, dense: bool) -> dict:
     """Run this script with ``--time-saved`` against the package of the
     checkout ``root`` in a process of its own, on the inputs saved at
@@ -1465,8 +1492,9 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     """The parent checkout's and this checkout's saved_times on the same
     inputs, each in fresh processes, in the order parent, this, this, parent
     (so a drift of the card or the host cancels): (parent, this), each with
-    its two readings of every time under ``runs`` and their mean in place,
-    and the dense run of each side's first process."""
+    its two readings of every time under ``runs`` and their mean in place
+    (also of kernel #2's profiled parts), and the dense run of each side's
+    first process."""
     path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
@@ -1478,6 +1506,8 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
         for key in ("bwd_ms", "split_pair_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
             side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
+        side["bwd_parts_ms"] = {k: {q: (t + b["bwd_parts_ms"][k][q]) / 2 for q, t in v.items()}
+                                for k, v in a["bwd_parts_ms"].items()}
         sides.append(side)
     return sides[0], sides[1]
 
@@ -1528,9 +1558,17 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
                 f"ms, parent commit {b[0]:.4f} / {b[1]:.4f} ms (this / parent "
                 f"{own[key][k] / par[key][k]:.3f})")
 
+    def parts(k: str) -> str:
+        if not par:
+            return ""
+        a, b = own["bwd_parts_ms"][k], par["bwd_parts_ms"][k]
+        return ("; device ms a launch, chain / weight gradients / rest (profiled, fresh): this "
+                + " / ".join(f"{a[q]:.4f}" for q in a) + ", parent commit "
+                + " / ".join(f"{b[q]:.4f}" for q in a))
+
     for k, v in ms.items():
         print(f"fused_mlp_bwd {k}: kernel_ms {v:.4f}, scratch traffic floor {floors[k]:.4f} ms"
-              + vs_parent("bwd_ms", k))
+              + vs_parent("bwd_ms", k) + parts(k))
     for k, v in split.items():
         print(f"split pair {k}: {v:.4f} ms" + vs_parent("split_pair_ms", k))
     d = out["dense"]
@@ -1547,10 +1585,10 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
 
 
 def time_saved(torch, fm, path: str, dense: bool = True) -> dict:
-    """The ``--time-saved`` run: kernel #2 and the split pair of this
-    process's package on the saved inputs (CUDA-event medians) and, with
-    ``dense``, the dense 60-step run's train loss and held-out PSNR (full
-    precision)."""
+    """The ``--time-saved`` run: kernel #2 (and its profiled parts) and the
+    split pair of this process's package on the saved inputs (CUDA-event
+    medians) and, with ``dense``, the dense 60-step run's train loss and
+    held-out PSNR (full precision)."""
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
     saved = torch.load(path)
@@ -1559,13 +1597,14 @@ def time_saved(torch, fm, path: str, dense: bool = True) -> dict:
     def to_dev(v):  # parameters, as the split pair differentiates them
         return [tuple(t.to(dev).requires_grad_(True) for t in pair) for pair in v]
 
-    out = {"bwd_ms": {}, "split_pair_ms": {}}
+    out = {"bwd_ms": {}, "bwd_parts_ms": {}, "split_pair_ms": {}}
     for key, plist_key in (("trained", "trained_plist"), ("random", "random_plist")):
         packed = fm.pack_params(to_dev(saved[plist_key]))
         for name, (x, g) in saved[key].items():
             x, g = x.to(dev), g.to(dev)
             out["bwd_ms"][f"{key}: {name}"] = time_ms(
                 torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
+            out["bwd_parts_ms"][f"{key}: {name}"] = bwd_parts_ms(torch, fm, packed, x, g)
     plist = to_dev(saved["random_plist"])
     for name, blk in saved["blocks"].items():
         blk = tuple(t.to(dev) for t in blk)
@@ -1939,15 +1978,20 @@ def main() -> int:
     # with --parent: both checkouts' means in fresh processes (paired_times)
     parent_ms = bc.get("parent", {}).get("bwd_ms", {})
     paired_ms = bc.get("paired", {}).get("bwd_ms", {})
+    parent_parts = bc.get("parent", {}).get("bwd_parts_ms", {})
+    paired_parts = bc.get("paired", {}).get("bwd_parts_ms", {})
     rows[1]["traffic_floor_ms"] = bc["floor_ms"][f"random: P={BWD_RANDOM_P[0]}"]
     rows[1]["random_g"] = {k: dict(ms=v, floor_ms=bc["floor_ms"][k], paired_ms=paired_ms.get(k),
-                                   parent_ms=parent_ms.get(k))
+                                   parent_ms=parent_ms.get(k), paired_parts_ms=paired_parts.get(k),
+                                   parent_parts_ms=parent_parts.get(k))
                            for k, v in bc["ms"].items() if k.startswith("random")}
     rows[1]["trained_state"] = {
         k: {**{q: r[q] for q in ("P", "active_tile_share", "active_point_share", "ms",
                                  "plain_ms", "bound_ms", "bound_by", "floor_ms")},
             "paired_ms": paired_ms.get(f"trained: {k}"),
-            "parent_ms": parent_ms.get(f"trained: {k}")}
+            "parent_ms": parent_ms.get(f"trained: {k}"),
+            "paired_parts_ms": paired_parts.get(f"trained: {k}"),
+            "parent_parts_ms": parent_parts.get(f"trained: {k}")}
         for k, r in bt["rows"].items()}
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
