@@ -62,9 +62,8 @@
 //    store each, where row-major fragment stores cover half sectors), and
 //    the weight gradients read each 16-byte chunk back into its row-major
 //    place.  Staging the block in shared memory and writing it with one
-//    bulk asynchronous copy (cp.async.bulk) was measured slower than these
-//    stores straight from registers: the chain is bound by its own latency
-//    at eight warps an SM, not by its stores.
+//    bulk asynchronous copy (cp.async.bulk) measured no faster than these
+//    stores straight from registers.
 //  * Bound of kernel #2 at 4 x 128, P = 1,687,500, every point active:
 //    0.6757 ms of bf16 tensor-core work.  Every design that round-trips the
 //    activations and dz through device memory also moves 8 (n_hidden + 1)
