@@ -1448,7 +1448,8 @@ def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
 def bwd_parts_ms(torch, fm, packed, x, g, n: int = 5) -> dict:
     """Device ms a launch of kernel #2's parts, traced with torch.profiler
     over ``n`` launches: the chain, the weight gradients and the rest (the
-    partial sum and, where the wrapper zeroes dx, that fill)."""
+    partial sum and, where the wrapper zeroes dx, that fill); None where the
+    profiler saw no device time (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1468,7 +1469,14 @@ def bwd_parts_ms(torch, fm, packed, x, g, n: int = 5) -> dict:
         part = ("chain" if "bwd_chain_kernel" in ev.key
                 else "wgrad" if "wgrad_kernel" in ev.key else "rest")
         out[part] += dev_us / 1e3 / n
-    return out
+    return out if any(out.values()) else None
+
+
+def mean_parts(*runs):
+    """The mean of kernel #2's profiled parts over the runs that measured
+    them, None where none did."""
+    have = [r for r in runs if r]
+    return {q: sum(r[q] for r in have) / len(have) for q in have[0]} if have else None
 
 
 def saved_times(root: str, path: str, dense: bool) -> dict:
@@ -1506,7 +1514,7 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
         for key in ("bwd_ms", "split_pair_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
             side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
-        side["bwd_parts_ms"] = {k: {q: (t + b["bwd_parts_ms"][k][q]) / 2 for q, t in v.items()}
+        side["bwd_parts_ms"] = {k: mean_parts(v, b["bwd_parts_ms"][k])
                                 for k, v in a["bwd_parts_ms"].items()}
         sides.append(side)
     return sides[0], sides[1]
@@ -1563,8 +1571,9 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
             return ""
         a, b = own["bwd_parts_ms"][k], par["bwd_parts_ms"][k]
         return ("; device ms a launch, chain / weight gradients / rest (profiled, fresh): this "
-                + " / ".join(f"{a[q]:.4f}" for q in a) + ", parent commit "
-                + " / ".join(f"{b[q]:.4f}" for q in a))
+                + (" / ".join(f"{t:.4f}" for t in a.values()) if a else "not measured")
+                + ", parent commit "
+                + (" / ".join(f"{t:.4f}" for t in b.values()) if b else "not measured"))
 
     for k, v in ms.items():
         print(f"fused_mlp_bwd {k}: kernel_ms {v:.4f}, scratch traffic floor {floors[k]:.4f} ms"
