@@ -9,10 +9,13 @@
 Phases:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. every kernel library (four) built from ``csrc/`` (one nvcc per source,
-     all started together), and the fused-MLP kernels held against their plain
-     PyTorch versions on the card at the dense path's shapes and timed
-     (CUDA events); the feature-major (3, P) launch held equal to the
-     point-major one; the sampling table built 20 times, bit-identical;
+     all started together), the HGMMA instructions of the wgmma forward
+     (kernel #1) counted in the built library's SASS, and the fused-MLP
+     kernels held against their plain PyTorch versions on the card at the
+     dense path's shapes and timed (CUDA events): the forward at the dense,
+     lattice, grid-EMA, eval and a ragged point count, its feature-major
+     (3, P) launch equal to the point-major one at each; the sampling table
+     built 20 times, bit-identical;
   3. dense training: 60 dense-lattice steps at full width (4x128 CPPN, 75^2
      rays x 300 samples, two 128^3 grids, carve_init) on the vessel
      phantom, the launch counters read around the run, then 16 more steps
@@ -42,11 +45,13 @@ Phases:
      four marches (share of active 16-point tiles, against its plain
      version, dx exactly 0 on skipped tiles, time beside the bound and the
      scratch traffic floor over the active tiles) and at random g; with
-     ``--parent DIR`` also kernel #2 and the split pairs of the parent
-     checkout and of this one on the same inputs, each twice in fresh
+     ``--parent DIR`` also kernels #1 and #2 and the split pairs of the
+     parent checkout and of this one on the same inputs, each twice in fresh
      processes (parent, this, this, parent), #2's chain and weight-gradient
-     device times profiled, and the parent's dense run, which must equal
-     this one;
+     device times profiled, #1's outputs against the parent's, the parent's
+     ptxas registers and spills (every kernel but the forward it replaced
+     must keep them), and the parent's dense run, which must equal this one
+     where #1's outputs equal the parent's;
      every compacted run's pressure schedule is held to the JAX loop's;
   6. the encoded (fourier / BARF) pair: the kernels held against their plain
      versions at 4x128, L = 5 (fourier coefficients ~ N(0, 5^2); BARF at
@@ -87,6 +92,13 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FWD_SHAPES = (1_687_500, 2_097_152, 524_288, 3_000_000)  # train, grid warmup, grid slab, eval
 TRAIN_P = 1_687_500  # 5625 rays x 300 samples
+# kernel #1 also at the lattice k = 160 step's points and at a ragged count
+# (P % 64 = 63: the last 64-point tile holds one row beyond P)
+FWD1_SHAPES = FWD_SHAPES + (900_000, 640_063)
+FWD1_LABELS = ("train", "grid warmup", "grid slab", "eval", "lattice k=160", "ragged")
+# kernel #1 in the paired fresh processes of --parent: the dense, lattice
+# and grid-EMA point counts
+FWD1_PAIRED = (1_687_500, 900_000, 2_097_152, 524_288)
 # kernel #2 at random g: the dense step's points and the lattice k = 160 step's
 BWD_RANDOM_P = (TRAIN_P, 900_000)
 # fused-MLP forward limits relative to the output scale max(1, max |raw|):
@@ -162,6 +174,28 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_ms_b2b(torch, fn, n: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Median over ``reps`` of the device ms a call of fn() with ``n`` calls
+    enqueued back to back between two CUDA events, after warmup: the host's
+    time a call overlaps the device's, where time_ms's single call between
+    two events also counts the host's issue of it (tens of microseconds of
+    a wrapper's checks, against a kernel of a few hundred)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
 def mlp_flops(p: int, f: int, nh: int, n_in: int = 3) -> tuple[float, float]:
     """(forward, backward) FLOP of the n_in -> F -> nh x (F -> F) -> 1 MLP
     over p points (n_in = 3 coordinates, or the 3 + 6L encoded features);
@@ -186,6 +220,27 @@ def min_abs_preact(torch, packed, x):
     return dist
 
 
+# the anonymous namespace in a mangled kernel name, which differs between
+# two builds of one source in two directories
+ANON_NS = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def ptxas_table(log: str) -> dict:
+    """Every kernel of nvcc's -Xptxas -v report: (registers, stack frame,
+    spill-store and spill-load bytes) by mangled name (anonymous namespace
+    normalised)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            cur = ANON_NS.sub("ANON", ln.split("'")[1])
+            out[cur] = [None, 0, 0, 0]
+        elif cur and "bytes stack frame" in ln:
+            out[cur][1:] = [int(n) for n in re.findall(r"(\d+) bytes", ln)[:3]]
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur][0] = int(ln.split("Used")[1].split("registers")[0])
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
     """Registers of each kernel at this width (and encoded input width ke;
     and of the width-free ones), any kernel that spills with its spill-store
@@ -193,29 +248,41 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
     report."""
     if not log:
         return "(built earlier in this process)"
-    regs, frames, spills, cur = {}, {}, [], None
-    for ln in log.splitlines():
-        if "Compiling entry function '" in ln:
-            mangled = ln.split("'")[1]
-            short = re.search(
-                r"(fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel"
-                r"|scan_kernel)", mangled)
-            width_arg = re.search(r"ILi(\d+)E", mangled)
-            ke_arg = re.search(r"EncXILi(\d+)E", mangled)
-            cur = (short.group(1) if short else mangled) + (
-                f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "") + ">"
-                if width_arg else "")
-        elif cur and "Used" in ln and "registers" in ln:
-            regs[cur] = ln.split("Used")[1].split("registers")[0].strip()
-        elif cur and "bytes spill stores" in ln:
-            frames[cur] = int(ln.split("bytes stack frame")[0].split()[-1])
-            n = int(ln.split("bytes spill stores")[0].split(",")[-1])
-            if n > 0:
-                spills.append(f"{cur} ({n} B of spill stores)")
+    regs, frames, spills = {}, {}, []
+    for mangled, (n_regs, frame, stores, _) in ptxas_table(log).items():
+        short = re.search(
+            r"(wgmma_fwd_kernel|fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials"
+            r"|first_k_kernel|scan_kernel)", mangled)
+        width_arg = re.search(r"ILi(\d+)E", mangled)
+        ke_arg = re.search(r"EncXILi(\d+)E", mangled)
+        cur = (short.group(1) if short else mangled) + (
+            f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "") + ">"
+            if width_arg else "")
+        regs[cur], frames[cur] = n_regs, frame
+        if stores > 0:
+            spills.append(f"{cur} ({stores} B of spill stores)")
     want = f"<{width}" + (f",KE{ke}" if ke else "") + ">"
     keep = [k for k in regs if want in k or "<" not in k]
-    return ("; ".join(f"{k} {regs[k]} registers, {frames.get(k, 0)} B stack frame" for k in keep)
+    return ("; ".join(f"{k} {regs[k]} registers, {frames[k]} B stack frame" for k in keep)
             + f"; spills: {', '.join(spills) or 'none'}")
+
+
+def sass_hgmma(so_path: str) -> dict:
+    """HGMMA instructions in each kernel of a built library's SASS
+    (cuobjdump -sass, beside nvcc), by mangled name."""
+    from nerf_for_angiography_tpu_torch.ops.kernels.build import nvcc
+
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            cur = ANON_NS.sub("ANON", ln.split("Function : ")[1].strip())
+            out[cur] = 0
+        elif cur and "HGMMA" in ln:
+            out[cur] += 1
+    return out
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -224,9 +291,11 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def build_kernels(fm, fk, fs, fe) -> None:
+def build_kernels(fm, fk, fs, fe) -> dict:
     """Build every kernel library at once: one nvcc per source, started
-    together (each library builds under its own lock)."""
+    together (each library builds under its own lock); count the wgmma
+    forward's HGMMA instructions (every width must have some). Returns
+    each library's ptxas table and the HGMMA counts."""
     def timed(load):
         t0 = time.perf_counter()
         load()
@@ -243,6 +312,19 @@ def build_kernels(fm, fk, fs, fe) -> None:
     print("nvcc ptxas first_k:", ptxas_summary(fk.build_log, 0))
     print("nvcc ptxas fused_step:", ptxas_summary(fs.build_log, 128))
     print("nvcc ptxas fused_mlp_enc:", ptxas_summary(fe.build_log, 128, ke=48))
+    for mod in mods:
+        for ln in mod.build_log.splitlines():
+            if "Performance Loss" in ln or "wgmma" in ln.lower() and "warning" in ln.lower():
+                print(f"nvcc {mod.__name__.rsplit('.', 1)[-1]}: {ln.strip()}")
+    hg = {k: v for k, v in sass_hgmma(fm._lib._name).items() if "wgmma_fwd_kernel" in k}
+    wide = [v for k, v in hg.items() if "ILi128E" in k]
+    print(f"HGMMA instructions in the wgmma forward's SASS (fused_mlp library): "
+          f"{sum(hg.values())} over its {len(hg)} widths, {wide[0] if wide else 0} at F=128")
+    check(len(hg) == 8 and all(v > 0 for v in hg.values()),
+          "the wgmma forward's SASS holds no HGMMA instruction at some width")
+    return dict(hgmma=hg, hgmma_total=sum(hg.values()),
+                ptxas={mod.__name__.rsplit(".", 1)[-1]: ptxas_table(mod.build_log)
+                       for mod in mods})
 
 
 def mlp_pair(fm, packed, enc=None) -> dict:
@@ -251,7 +333,8 @@ def mlp_pair(fm, packed, enc=None) -> dict:
     arrays (a, w). ``bwd``/``bwd_ref`` return (the gradients in a flat list,
     for the encoded pair ending with dA, held like a gradient; dx);
     ``first`` gives the block the first layer multiplies (for relu ties);
-    ``n_in`` the input features the function multiplies."""
+    ``n_in`` the input features the function multiplies; ``fwd_fm`` (the
+    fused-MLP pair only) the feature-major launch on a (3, P) block."""
     if enc is None:
         def flat(out):
             grads, dx = out
@@ -260,6 +343,7 @@ def mlp_pair(fm, packed, enc=None) -> dict:
         return dict(
             name="fused_mlp", n_in=3, first=lambda x: x, dx_bad_share=DX_BAD_SHARE,
             fwd=lambda x: fm.fused_mlp_fwd_cuda(packed, x),
+            fwd_fm=lambda x_fm: fm.fused_mlp_fwd_cuda(packed, x_fm, True),
             fwd_ref=lambda x: fm.fused_mlp_fwd_reference(packed, x),
             bwd=lambda x, g: flat(fm.fused_mlp_bwd_cuda(packed, x, g)),
             bwd_ref=lambda x, g: flat(fm.fused_mlp_bwd_reference(packed, x, g)),
@@ -282,13 +366,15 @@ def mlp_pair(fm, packed, enc=None) -> dict:
 
 def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None) -> dict:
     """The forward kernel against its plain version at P = p, two launches
-    bit-identical, timed (the encoded pair's with ``enc``, see mlp_pair)."""
+    bit-identical, the feature-major launch (kernel #1) equal to the
+    point-major one, timed (the encoded pair's with ``enc``, see mlp_pair)."""
     ops = mlp_pair(fm, packed, enc)
     f, nh = packed.width, packed.n_hidden
     dev = torch.device(DEVICE)
     x = (torch.rand((p, 3), generator=gen) * 2.0 - 1.0).to(dev)
     got = ops["fwd"](x)
     again = ops["fwd"](x)
+    fm_same = torch.equal(got, ops["fwd_fm"](x.T.contiguous())) if "fwd_fm" in ops else None
     want = ops["fwd_ref"](x)
     torch.cuda.synchronize()
     err = (got - want).abs()
@@ -298,20 +384,24 @@ def check_fwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None)
     same = torch.equal(got, again)
     ok = bool(torch.isfinite(got).all()) and max_err <= lim_max and med_err <= lim_med
     k_ms = time_ms(torch, lambda: ops["fwd"](x))
+    b2b_ms = time_ms_b2b(torch, lambda: ops["fwd"](x))
     p_ms = time_ms(torch, lambda: ops["fwd_ref"](x), reps=5, warmup=1)
     b_ms, b_by = bound_ms(mlp_flops(p, f, nh, ops["n_in"])[0], p * 3 * 4 + p * 4 + pbytes)
     print(
         f"{ops['name']}_fwd P={p} ({label}): output scale {scale:.3f}; max_abs_err {max_err:.3e} "
         f"(limit {lim_max:.3e}) median_abs_err {med_err:.3e} (limit {lim_med:.3e}) "
-        f"bit-identical launches {same} kernel_ms {k_ms:.4f} "
-        f"bound_ms {b_ms:.4f} ({b_by}) plain_ms {p_ms:.4f} library_ms null "
-        "(no single PyTorch call computes the MLP chain)"
+        f"bit-identical launches {same} "
+        + ("" if fm_same is None else f"feature-major launch equal {fm_same} ")
+        + f"kernel_ms {k_ms:.4f} (back to back {b2b_ms:.4f}) bound_ms {b_ms:.4f} ({b_by}) "
+        f"plain_ms {p_ms:.4f} library_ms null (no single PyTorch call computes the MLP chain)"
     )
     check(ok, f"{ops['name']}_fwd disagrees with its plain version at P={p} ({label})")
     check(same, f"{ops['name']}_fwd differs between two launches at P={p} ({label})")
+    check(fm_same is not False,
+          f"{ops['name']}_fwd's feature-major launch differs from the point-major one at P={p}")
     return dict(P=p, label=label, max_abs_err=max_err, median_abs_err=med_err, ms=k_ms,
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, output_scale=scale,
-                deterministic=same, x=x)
+                ms_back_to_back=b2b_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                output_scale=scale, deterministic=same, feature_major_equal=fm_same, x=x)
 
 
 def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None,
@@ -444,23 +534,33 @@ def kernel_phase(torch, fm, report: dict) -> list[dict]:
     """The fused-MLP kernels against their plain versions at the dense
     path's shapes."""
     packed, pbytes, gen = random_mlp(torch, fm)
-    labels = dict(zip(FWD_SHAPES, ("train", "grid warmup", "grid slab", "eval")))
+    labels = dict(zip(FWD1_SHAPES, FWD1_LABELS))
     fwd = [check_fwd(torch, fm, packed, p, gen, pbytes, labels[p]) for p in FWD_SHAPES]
     bwd = check_bwd(torch, fm, packed, TRAIN_P, gen, pbytes, "train")
+    # kernel #1 at the shapes added for its wgmma redesign, drawn after the
+    # earlier checks' inputs
+    fwd += [check_fwd(torch, fm, packed, p, gen, pbytes, labels[p])
+            for p in FWD1_SHAPES if p not in FWD_SHAPES]
     fwd[0]["feature_major"] = check_feature_major(torch, fm, packed, fwd[0].pop("x"), gen,
                                                   fwd[0]["ms"])
     for r in fwd[1:]:
         r.pop("x")
     report["fwd"], report["bwd"] = fwd, bwd
-    src = "nerf_for_angiography_tpu_torch/csrc/fused_mlp.cu"
+    src = "nerf_for_angiography_tpu_torch/csrc/"
     rows = []
-    for name, r, line in (("fused_mlp_fwd", fwd[0], 142), ("fused_mlp_bwd", bwd, 160)):
+    for name, r, line, file in (("fused_mlp_fwd", fwd[0], 142, "mlp_wgmma.cuh"),
+                                ("fused_mlp_bwd", bwd, 160, "fused_mlp.cu")):
         rows.append(dict(
-            name=name, route="cuda", source=src,
+            name=name, route="cuda", source=src + file,
             replaces=f"nerf_for_angiography_tpu/ops/pallas/fused_mlp.py:{line}",
             launches=0, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         ))
+    rows[0]["ms_back_to_back"] = fwd[0]["ms_back_to_back"]
+    rows[0]["shapes"] = {r["label"]: {k: r[k] for k in ("P", "ms", "ms_back_to_back", "plain_ms",
+                                                       "bound_ms", "max_abs_err",
+                                                       "median_abs_err", "feature_major_equal")}
+                         for r in fwd}
     return rows
 
 
@@ -1018,9 +1118,11 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
           f"the compacted step waits for the device {prof['host_waits_per_step']} times a step")
     prof["bwd_kernels_ms"] = {k: sum(r["ms_per_step"] for r in prof["top"] if k in r["name"])
                               for k in ("bwd_chain_kernel", "wgrad_kernel")}
-    print(f"  kernel #2 in this split step: backward chain "
-          f"{prof['bwd_kernels_ms']['bwd_chain_kernel']:.4f} ms/step, weight gradients "
-          f"{prof['bwd_kernels_ms']['wgrad_kernel']:.4f} ms/step; {profile_row(prof)}")
+    prof["fwd_kernel_ms"] = sum(r["ms_per_step"] for r in prof["top"]
+                                if "wgmma_fwd_kernel" in r["name"])
+    print(f"  kernel #1 in this split step: {prof['fwd_kernel_ms']:.4f} ms/step; kernel #2: "
+          f"backward chain {prof['bwd_kernels_ms']['bwd_chain_kernel']:.4f} ms/step, weight "
+          f"gradients {prof['bwd_kernels_ms']['wgrad_kernel']:.4f} ms/step; {profile_row(prof)}")
     two = two_bucket_steps(torch, fm, fk, fs, state, ds.rays, cfg, batch)
     hyb.pop("result")
     out = dict(shipped=main, hybrid=hyb, first_k=fk_rows, first_k_row=fk_row, mlp=mlp,
@@ -1479,14 +1581,17 @@ def mean_parts(*runs):
     return {q: sum(r[q] for r in have) / len(have) for q in have[0]} if have else None
 
 
-def saved_times(root: str, path: str, dense: bool) -> dict:
+def saved_times(root: str, path: str, dense: bool, ptxas: bool = False) -> dict:
     """Run this script with ``--time-saved`` against the package of the
     checkout ``root`` in a process of its own, on the inputs saved at
-    ``path``: its kernel #2 and split-pair times on them and, with
-    ``dense``, its dense 60-step run."""
+    ``path``: its kernel #1 (back to back and one launch at a time), kernel
+    #2 and split-pair times on them, the file of its kernel #1 outputs at
+    the dense shape, with ``dense`` its dense 60-step run and with ``ptxas``
+    the ptxas tables of its four libraries (built first, in that process)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
-                           "--root", os.path.abspath(root)] + ([] if dense else ["--no-dense"]),
+                           "--root", os.path.abspath(root)] + ([] if dense else ["--no-dense"])
+                          + (["--ptxas"] if ptxas else []),
                           capture_output=True, text=True, timeout=900)
     lines = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and lines,
@@ -1501,17 +1606,17 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     inputs, each in fresh processes, in the order parent, this, this, parent
     (so a drift of the card or the host cancels): (parent, this), each with
     its two readings of every time under ``runs`` and their mean in place
-    (also of kernel #2's profiled parts), and the dense run of each side's
-    first process."""
+    (also of kernel #2's profiled parts), and the dense run, kernel #1's
+    outputs and (the parent's) ptxas tables of each side's first process."""
     path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
-    runs = [saved_times(root, path, dense=i < 2)
+    runs = [saved_times(root, path, dense=i < 2, ptxas=i == 0)
             for i, root in enumerate((parent, HERE, HERE, parent))]
     sides = []
     for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
-        side = dict(dense=a["dense"])
-        for key in ("bwd_ms", "split_pair_ms"):
+        side = dict(dense=a["dense"], fwd_out=a["fwd_out"], ptxas=a.get("ptxas"))
+        for key in ("bwd_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
             side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
         side["bwd_parts_ms"] = {k: mean_parts(v, b["bwd_parts_ms"][k])
@@ -1520,15 +1625,61 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     return sides[0], sides[1]
 
 
+def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
+    """Kernel #1 of this checkout against the parent's on the same input at
+    the dense shape, with the random and the trained weights (each side's
+    first fresh process): equal bit for bit, else the largest and the
+    median |raw difference|, held to the forward limits; then the ptxas
+    report: every kernel of the parent's four libraries but the forward this
+    checkout replaced keeps its registers, stack frame and spills here."""
+    mine_raw, theirs_raw = torch.load(own["fwd_out"]), torch.load(par["fwd_out"])
+    out = {}
+    for k, b in theirs_raw.items():
+        a = mine_raw[k]
+        d = (a - b).abs()
+        scale = max(1.0, float(b.abs().max()))
+        row = dict(equal=torch.equal(a, b), max_abs_diff=float(d.max()),
+                   median_abs_diff=float(d.median()), output_scale=scale)
+        print(f"fused_mlp_fwd against the parent commit's at P={TRAIN_P}, {k} weights: equal bit "
+              f"for bit {row['equal']}, max |raw difference| {row['max_abs_diff']:.3e}, median "
+              f"{row['median_abs_diff']:.3e} (output scale {scale:.3f})")
+        check(row["max_abs_diff"] <= FWD_MAX_REL * scale
+              and row["median_abs_diff"] <= FWD_MEDIAN_REL * scale,
+              f"kernel #1 differs from the parent commit's beyond the forward limits ({k})")
+        out[k] = row
+    out["equal"] = all(r["equal"] for r in out.values())
+    mine, theirs = kb["ptxas"], par["ptxas"]
+    if not all(mine.values()):
+        print("ptxas against the parent commit: not compared (this process loaded an earlier "
+              "build, so it has no ptxas report)")
+        return out
+    compared, differ = 0, []
+    for lib, table in theirs.items():
+        for name, v in table.items():
+            if lib == "fused_mlp" and "fwd_kernel" in name:
+                continue  # the forward the wgmma kernel replaced
+            compared += 1
+            if tuple(mine[lib].get(name, ())) != tuple(v):
+                differ.append(f"{lib} {name}: parent {v}, this {mine[lib].get(name)}")
+    print(f"ptxas against the parent commit: {compared} kernels of the four libraries (all but "
+          f"the replaced forward) compared on (registers, stack frame, spill stores, spill "
+          f"loads): {len(differ)} differ" + ("".join(f"\n  {d}" for d in differ)))
+    check(compared > 0 and not differ,
+          "a kernel other than the forward changed its ptxas registers or spills")
+    out["ptxas_compared"] = compared
+    return out
+
+
 def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | None,
-                      report: dict) -> dict:
+                      report: dict, kb: dict) -> dict:
     """Kernel #2 at random g (all tiles active) beside the scratch traffic
     floor; with ``parent`` (a checkout of the parent commit), kernel #2 on
     the same random and trained-state inputs and the split pairs on the same
     march blocks, of the parent and of this checkout alike in fresh processes
-    (paired_times), and the parent's dense 60-step run, whose train loss and
-    held-out PSNR this tree's must equal bit for bit (the skipped tiles add
-    exact zeros)."""
+    (paired_times) with kernel #1 beside them (fwd_vs_parent), and the
+    parent's dense 60-step run, whose train loss and held-out PSNR this
+    tree's must equal bit for bit where kernel #1 gives the parent's outputs
+    bit for bit (kernel #2's skipped tiles add exact zeros)."""
     model, gen = random_cppn(torch)
     packed, _ = packed_of(torch, fm, model)
     f, nh = packed.width, packed.n_hidden
@@ -1557,6 +1708,7 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
             blocks={k: tuple(t.cpu() for t in blk) for k, blk in fp["blocks"].items()},
             kw=fp["kw"]))
         out.update(parent=par, paired=own)
+        out["fwd_vs_parent"] = fwd_vs_parent(torch, par, own, kb)
 
     def vs_parent(key: str, k: str) -> str:
         if not par:
@@ -1580,33 +1732,59 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
               + vs_parent("bwd_ms", k) + parts(k))
     for k, v in split.items():
         print(f"split pair {k}: {v:.4f} ms" + vs_parent("split_pair_ms", k))
+    for k in (own or {}).get("fwd_ms", {}):
+        print(f"fused_mlp_fwd {k}, random weights, back to back" + vs_parent("fwd_ms", k))
+        print(f"fused_mlp_fwd {k}, random weights, one launch" + vs_parent("fwd_one_ms", k))
     d = out["dense"]
+    same = bool(par) and (d["train_loss"] == par["dense"]["train_loss"]
+                          and d["heldout_psnr"] == par["dense"]["heldout_psnr"])
     print(f"dense {DENSE_ITERS}-step split run: train loss {d['train_loss']!r}, held-out PSNR "
           f"{d['heldout_psnr']!r}"
-          + (f"; parent commit {par['dense']['train_loss']!r}, {par['dense']['heldout_psnr']!r}"
-             if par else ""))
-    if par:
-        check(d["train_loss"] == par["dense"]["train_loss"]
-              and d["heldout_psnr"] == par["dense"]["heldout_psnr"],
-              "the dense split run differs from the parent commit's")
+          + (f"; parent commit {par['dense']['train_loss']!r}, {par['dense']['heldout_psnr']!r}; "
+             f"equal bit for bit {same}" if par else ""))
+    out["dense_equal_parent"] = same if par else None
+    if par and out["fwd_vs_parent"]["equal"]:
+        check(same, "the dense split run differs from the parent commit's, though kernel #1 "
+                    "gives the parent's outputs bit for bit")
     report["bwd_compare"] = out
     return out
 
 
-def time_saved(torch, fm, path: str, dense: bool = True) -> dict:
-    """The ``--time-saved`` run: kernel #2 (and its profiled parts) and the
-    split pair of this process's package on the saved inputs (CUDA-event
+def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
+    """The ``--time-saved`` run: with ``mods`` (the other three kernel
+    modules) first every library built at once and its ptxas table; kernel
+    #1 at FWD1_PAIRED on seeded inputs with the saved random weights, and
+    its outputs at the dense shape with the random and the trained weights
+    (saved to a file beside ``path``); kernel #2 (and its profiled parts) and
+    the split pair of this process's package on the saved inputs (CUDA-event
     medians) and, with ``dense``, the dense 60-step run's train loss and
     held-out PSNR (full precision)."""
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
+    out = {"bwd_ms": {}, "bwd_parts_ms": {}, "split_pair_ms": {}, "fwd_ms": {},
+           "fwd_one_ms": {}}
+    if mods:
+        libs = (fm, *mods)
+        with ThreadPoolExecutor(len(libs)) as ex:
+            list(ex.map(lambda mod: mod._load_lib(), libs))
+        out["ptxas"] = {mod.__name__.rsplit(".", 1)[-1]: ptxas_table(mod.build_log)
+                        for mod in libs}
     saved = torch.load(path)
     dev = torch.device(DEVICE)
 
     def to_dev(v):  # parameters, as the split pair differentiates them
         return [tuple(t.to(dev).requires_grad_(True) for t in pair) for pair in v]
 
-    out = {"bwd_ms": {}, "bwd_parts_ms": {}, "split_pair_ms": {}}
+    packed = fm.pack_params(to_dev(saved["random_plist"]))
+    for p in FWD1_PAIRED:
+        x = (torch.rand((p, 3), generator=torch.Generator().manual_seed(p)) * 2.0 - 1.0).to(dev)
+        out["fwd_ms"][f"P={p}"] = time_ms_b2b(torch, lambda: fm.fused_mlp_fwd_cuda(packed, x))
+        out["fwd_one_ms"][f"P={p}"] = time_ms(torch, lambda: fm.fused_mlp_fwd_cuda(packed, x))
+    x = (torch.rand((TRAIN_P, 3), generator=torch.Generator().manual_seed(7)) * 2.0 - 1.0).to(dev)
+    raws = {k: fm.fused_mlp_fwd_cuda(fm.pack_params(to_dev(saved[k + "_plist"])), x).cpu()
+            for k in ("random", "trained")}
+    out["fwd_out"] = f"{path}.fwd.{os.getpid()}.pt"
+    torch.save(raws, out["fwd_out"])
     for key, plist_key in (("trained", "trained_plist"), ("random", "random_plist")):
         packed = fm.pack_params(to_dev(saved[plist_key]))
         for name, (x, g) in saved[key].items():
@@ -1878,10 +2056,12 @@ def main() -> int:
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: also time its kernel #2 and split "
-                         "pairs on this run's inputs and hold its dense run equal to this one")
+                    help="a checkout of the parent commit: also time its kernels #1 and #2 and "
+                         "split pairs on this run's inputs, hold #1's outputs and the ptxas "
+                         "report to it and its dense run equal to this one")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--no-dense", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
@@ -1905,7 +2085,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run f32 products
     torch.backends.cudnn.allow_tf32 = False
     if args.time_saved:
-        print(json.dumps(time_saved(torch, fm, args.time_saved, dense=not args.no_dense)))
+        print(json.dumps(time_saved(torch, fm, args.time_saved, dense=not args.no_dense,
+                                    mods=(fk, fs, fe) if args.ptxas else None)))
         return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -1915,7 +2096,8 @@ def main() -> int:
     report: dict = {"device": kind, "nvidia_smi": smi}
     t_all = time.perf_counter()
     try:
-        build_kernels(fm, fk, fs, fe)
+        kb = build_kernels(fm, fk, fs, fe)
+        report["build"] = kb
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
         report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)
@@ -1923,7 +2105,7 @@ def main() -> int:
         cp = compact_phase(torch, fm, fk, fs, ds, report)
         fp = fused_step_phase(torch, fm, fk, fs, ds, tr, cp, report)
         bt = bwd_trained_phase(torch, fm, cp["shipped"]["result"].state, fp, report)
-        bc = bwd_compare_phase(torch, fm, tr, fp, bt, args.parent, report)
+        bc = bwd_compare_phase(torch, fm, tr, fp, bt, args.parent, report, kb)
         ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
@@ -2002,6 +2184,15 @@ def main() -> int:
             "paired_parts_ms": paired_parts.get(f"trained: {k}"),
             "parent_parts_ms": parent_parts.get(f"trained: {k}")}
         for k, r in bt["rows"].items()}
+    rows[0]["hgmma"] = kb["hgmma_total"]
+    rows[0]["ptxas"] = {k: v for k, v in kb["ptxas"]["fused_mlp"].items()
+                        if "wgmma_fwd_kernel" in k}
+    rows[0]["compact_step_profile_ms"] = cp["profile"].get("fwd_kernel_ms")
+    rows[0]["paired_ms"] = bc.get("paired", {}).get("fwd_ms")
+    rows[0]["parent_ms"] = bc.get("parent", {}).get("fwd_ms")
+    rows[0]["paired_one_launch_ms"] = bc.get("paired", {}).get("fwd_one_ms")
+    rows[0]["parent_one_launch_ms"] = bc.get("parent", {}).get("fwd_one_ms")
+    rows[0]["vs_parent"] = bc.get("fwd_vs_parent")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

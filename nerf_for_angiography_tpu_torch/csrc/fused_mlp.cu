@@ -4,11 +4,13 @@
 // ::_fwd_kernel (line 142) and ::_bwd_kernel (line 160), both as
 // fused_mlp_raw (P, 3) and as fused_mlp_raw_fm (feature-major) reach them.
 //
-// The layer chain, its cast points and the kernels live in mlp_chain.cuh,
-// shared with fused_step.cu; this file binds them to a strided input: x
-// (P, 3) or (3, P) f32 read through its strides, dx written in the same
-// layout.  The backward's input is GatedX: it skips every 16-point tile
-// whose g is all zero and stores its scratch in the tile-fragment layout
+// This file binds them to a strided input: x (P, 3) or (3, P) f32 read
+// through its strides, dx written in the same layout.  The forward is the
+// warpgroup-MMA kernel of mlp_wgmma.cuh (wgmma, 64-point tiles, weights in
+// wgmma's shared-memory layouts).  The backward is mlp_chain.cuh's (the
+// layer chain and its cast points, shared with fused_mlp_enc.cu and
+// fused_step.cu); its input is GatedX: it skips every 16-point tile whose g
+// is all zero and stores its scratch in the tile-fragment layout
 // (mlp_chain.cuh's header).
 //
 // Bound: at F = 128, n_hidden = 4 a point costs 132,096 FLOP forward and
@@ -18,11 +20,12 @@
 // (n_hidden + 1) F bytes a point of an active tile) makes it bytes-bound.
 
 #include "mlp_chain.cuh"
+#include "mlp_wgmma.cuh"
 
 extern "C" {
 
-// dynamic shared memory of a forward or backward-chain launch (bytes); 0
-// for unsupported widths
+// dynamic shared memory of a backward-chain launch (bytes); the forward's
+// wgmma layout fits wherever this does; 0 for unsupported widths
 long long fused_mlp_smem_bytes(int F, int nh) {
   if (!dims_ok(F, nh)) return 0;
   return (long long)weight_layout(F, nh).total;
@@ -41,7 +44,7 @@ long long fused_mlp_mask_slots(int n_sms, int nh) { return mask_slots(n_sms, nh)
 // points per weight-gradient pipeline stage (chunks are multiples of it)
 int fused_mlp_chunk_quantum(void) { return KB; }
 
-// x: coordinate c of point p at x[p * sp + c * sc]
+// x: coordinate c of point p at x[p * sp + c * sc]; the wgmma forward
 int fused_mlp_fwd(const float* x, long long sp, long long sc, long long P, const void* w_in,
                   const void* w_hid, const float* bias, const float* w_out, const float* b_out,
                   int F, int nh, float* out, int n_sms, void* stream) {
@@ -50,7 +53,7 @@ int fused_mlp_fwd(const float* x, long long sp, long long sc, long long P, const
                    b_out};
   const StridedX xin{x, sp, sc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MLP_CHAIN_DISPATCH_F(F, launch_fwd<FF, StridedX, false>(xin, P, prm, nh, out, n_sms, st))
+  MLP_CHAIN_DISPATCH_F(F, launch_wgmma_fwd<FF>(xin, P, prm, nh, out, n_sms, st))
 }
 
 // rows of each layer block of the backward's acts/dzs scratch (P rounded up

@@ -1,6 +1,6 @@
 // The CPPN-MLP layer chain on Hopper (sm_90a) bf16 tensor cores: the pieces
-// shared by csrc/fused_mlp.cu (the MLP forward/backward kernels),
-// csrc/fused_mlp_enc.cu (the same over an encoded input) and
+// shared by csrc/fused_mlp.cu (the MLP backward, and through mlp_wgmma.cuh
+// the forward), csrc/fused_mlp_enc.cu (the same over an encoded input) and
 // csrc/fused_step.cu (the whole-train-step gradient).
 //
 // The function: a relu MLP 3 -> F -> (n_hidden x F -> F) -> 1 over P points,
@@ -13,7 +13,10 @@
 // dh is rounded to bf16, the relu mask comes from the recomputed bf16
 // activations, dW/db accumulate in f32 and dx is f32.
 //
-// Design:
+// Design (of the kernels here; kernel #1, the forward over a (P, 3) or
+// (3, P) input, is mlp_wgmma.cuh's warpgroup-MMA kernel, built on these
+// pieces; fwd_kernel here serves the encoded forward and the whole-step
+// kernel's first launch):
 //  * Every weight of the MLP is staged once per block into shared memory in
 //    (out, in) orientation (148 KB at F = 128, n_hidden = 4) and stays there;
 //    one persistent block per SM, 16 warps forward, 8 in the backward chain.
@@ -71,7 +74,11 @@
 //    traffic floor of 2.58 ms at 3.35 TB/s, so such a backward is
 //    bytes-bound.  With the skip both figures scale with the active tiles,
 //    not with P.
-//  * wgmma, TMA tensor maps and a warp-specialised pipeline are later work.
+//  * These kernels read every layer's B operand from shared memory once per
+//    16-point tile (ldmatrix); mlp_wgmma.cuh's forward reads it once per 64
+//    points.  The encoded forward, the whole-step kernel and the backward
+//    can adopt wgmma the same way; TMA tensor maps and a warp-specialised
+//    pipeline are later work.
 
 #pragma once
 

@@ -3,13 +3,15 @@ plain PyTorch versions.
 
 Replaces the TPU kernels ``nerf_for_angiography_tpu/ops/pallas/fused_mlp.py``
 ``_fwd_kernel`` (line 142) and ``_bwd_kernel`` (line 160). The CUDA C++
-source is ``csrc/fused_mlp.cu`` over the layer chain of
-``csrc/mlp_chain.cuh`` (sm_90a, mma.sync bf16 with f32 accumulators, the
-layer chain in registers); the header states the bound and the design. The
-backward takes 2 x (n_hidden + 1) x P x F bf16 of scratch for the
-activations and dz (P rounded up to whole 16-point tiles). It works only on
-tiles whose upstream gradient g is not all zero: the others add exact
-zeros to every gradient, and their dx stays 0.
+source is ``csrc/fused_mlp.cu`` (sm_90a, bf16 tensor cores with f32
+accumulators, the layer chain in registers): the forward is the warpgroup
+MMA kernel of ``csrc/mlp_wgmma.cuh`` (wgmma, 64-point tiles a warpgroup,
+every weight in shared memory in wgmma's layouts), the backward the
+``mma.sync`` chain of ``csrc/mlp_chain.cuh``; the headers state the bound
+and the design. The backward takes 2 x (n_hidden + 1) x P x F bf16 of
+scratch for the activations and dz (P rounded up to whole 16-point tiles).
+It works only on tiles whose upstream gradient g is not all zero: the
+others add exact zeros to every gradient, and their dx stays 0.
 
 The kernels read x through its strides: point-major (P, 3) as
 ``fused_mlp_raw`` passes it, or feature-major (3, P) as ``fused_mlp_raw_fm``

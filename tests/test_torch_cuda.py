@@ -396,6 +396,69 @@ def test_fused_train_step_on_card_launches_the_kernel(dev, monkeypatch, cfg_kw, 
     assert fs.fused_step_launches == 2 * steps_per_call and fm.bwd_launches == 0
 
 
+# ---------------------------------------------------------------------------
+# kernel #1: the warpgroup-MMA forward at every width it takes
+# ---------------------------------------------------------------------------
+
+# ragged P (P % 64 in {1, 17, 63}) and P below one 64-point tile
+_WGMMA_PS = (64 * 37 + 1, 64 * 5 + 17, 64 * 41 + 63, 50)
+
+
+@pytest.mark.parametrize("n_hidden", [0, 1, 4])
+@pytest.mark.parametrize("width", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_wgmma_forward_matches_plain(dev, width, n_hidden):
+    """The forward kernel against its plain version within the forward
+    limits (max abs <= 2e-2 s, median <= 1e-3 s, s = max(1, max |raw|)), two
+    launches bit-identical and the (3, P) launch equal to the (P, 3) one."""
+    _, packed = _packed(n_hidden, width, dev, seed=width + n_hidden)
+    gen = torch.Generator().manual_seed(3)
+    for p in _WGMMA_PS:
+        x = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+        got = fm.fused_mlp_fwd_cuda(packed, x)
+        again = fm.fused_mlp_fwd_cuda(packed, x)
+        fmaj = fm.fused_mlp_fwd_cuda(packed, x.T.contiguous(), True)
+        want = fm.fused_mlp_fwd_reference(packed, x)
+        torch.cuda.synchronize()
+        s = max(1.0, float(want.abs().max()))
+        err = (got - want).abs()
+        assert got.shape == (p,) and bool(torch.isfinite(got).all())
+        assert float(err.max()) <= 2e-2 * s and float(err.median()) <= 1e-3 * s, p
+        assert torch.equal(got, again) and torch.equal(got, fmaj), p
+
+
+def test_wgmma_forward_at_the_shared_memory_limit(dev):
+    # the most hidden 128-wide layers the kernels take (7 do not fit)
+    _, packed = _packed(6, 128, dev)
+    x = torch.rand((64 * 300 + 5, 3), device=dev) * 2 - 1
+    got = fm.fused_mlp_fwd_cuda(packed, x)
+    want = fm.fused_mlp_fwd_reference(packed, x)
+    s = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 2e-2 * s
+    assert float((got - want).abs().median()) <= 1e-3 * s
+
+
+def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
+    """On the card the autograd function and the dispatchers launch the
+    kernels; the plain versions are never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("fused_mlp_fwd_reference", "fused_mlp_bwd_reference", "_forward_acts",
+                 "backward_from_acts"):
+        monkeypatch.setattr(fm, name, refuse)
+    model, _ = _packed(4, 128, dev)
+    fm.reset_counts()
+    x = (torch.rand((5000, 3), device=dev) * 2 - 1).requires_grad_(True)
+    fm.fused_mlp_raw(fm.cppn_params_to_list(model), x).sum().backward()
+    x_fm = (torch.rand((3, 777), device=dev) * 2 - 1).requires_grad_(True)
+    fm.fused_mlp_raw_fm(fm.cppn_params_to_list(model), x_fm).sum().backward()
+    packed = fm.pack_params(fm.cppn_params_to_list(model))
+    fm.fused_mlp_fwd(packed, x.detach())
+    torch.cuda.synchronize()
+    assert fm.fwd_launches == 3 and fm.bwd_launches == 2
+    assert x.grad is not None and x_fm.grad is not None
+
+
 def test_sampling_table_repeats_bit_for_bit(dev):
     from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
 
