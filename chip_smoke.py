@@ -44,14 +44,7 @@ Phases:
      gradient the split composite hands it at the trained state on the same
      four marches (share of active 16-point tiles, against its plain
      version, dx exactly 0 on skipped tiles, time beside the bound and the
-     scratch traffic floor over the active tiles) and at random g; with
-     ``--parent DIR`` also kernels #1 and #2 and the split pairs of the
-     parent checkout and of this one on the same inputs, each twice in fresh
-     processes (parent, this, this, parent), #2's chain and weight-gradient
-     device times profiled, #1's outputs against the parent's, the parent's
-     ptxas registers and spills (every kernel but the forward it replaced
-     must keep them), and the parent's dense run, which must equal this one
-     where #1's outputs equal the parent's;
+     scratch traffic floor over the active tiles);
      every compacted run's pressure schedule is held to the JAX loop's;
   6. the encoded (fourier / BARF) pair: the kernels held against their plain
      versions at 4x128, L = 5 (fourier coefficients ~ N(0, 5^2); BARF at
@@ -59,8 +52,22 @@ Phases:
      timed; 600 full-width fourier steps at the shipped defaults and 300
      BARF steps annealing alpha from 0 to 5, each with all six launch
      counters read around it; the backward at the fourier run's compacted
-     point count; 16 fourier compacted steps profiled;
-  7. one JSON line with the kernel table, the card's name/power line, and the
+     point count; the encoded backward (kernel #4) on the gradient the split
+     composite hands it at the fourier run's trained state, at the final
+     Tuning's marches and any two-bucket Tuning the run reached (active-tile
+     share below 1, the rest as for #2 above); 16 fourier compacted steps
+     profiled (#4's chain and weight gradients and their share);
+  7. kernels #2 and #4 at random g (#4: fourier at two point counts, BARF
+     at each alpha); with ``--parent DIR`` also kernels #1, #2 and #4 and
+     the split pairs of the parent checkout and of this one on the same
+     inputs, each twice in fresh processes (parent, this, this, parent),
+     #2's and #4's chain and weight-gradient device times profiled, #1's
+     outputs against the parent's, #4's equal to the parent's bit for bit
+     but for the sign of a zero, the parent's ptxas registers and spills
+     (every kernel but #4's must keep them; #4's at F = 128, KE = 48 may
+     not spill more), and the parent's dense run, which must equal this one
+     where #1's outputs equal the parent's;
+  8. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -73,6 +80,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import json
 import math
@@ -1184,32 +1192,41 @@ def two_bucket_steps(torch, fm, fk, fs, state, rays, cfg, batch) -> dict:
 LATTICE = dict(mode="lattice", k=160, w_cap=0, w_lo=0, k_lo=0)
 
 
+def rect_blocks(m, o, d, tgt) -> list:
+    """The rectangular marches of march ``m`` on the rays (o, d, targets):
+    one block, or a BucketedRays' lo and hi buckets, each (o, d, t_mid,
+    mask, targets), contiguous."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+
+    def block(mm, oo, dd, tt):
+        t_mid = ((mm.t_starts + mm.t_ends) * 0.5).contiguous()
+        return tuple(a.contiguous() for a in (oo, dd, t_mid, mm.mask, tt))
+
+    if not isinstance(m, BucketedRays):
+        return [block(m, o, d, tgt)]
+    o_s, d_s, t_s = (a.index_select(0, m.perm) for a in (o, d, tgt))
+    cut = m.lo.t_starts.shape[0]
+    return [block(m.lo, o_s[:cut], d_s[:cut], t_s[:cut]),
+            block(m.hi, o_s[cut:], d_s[cut:], t_s[cut:])]
+
+
 def march_blocks(torch, cfg, grid, batch) -> dict:
     """The fused step's inputs at the training path's shapes, from the
     marches of the trained grid on one batch: the dense lattice, the
-    lattice at k = 160 and the two buckets of TWO_BUCKET. Each is (o, d,
-    t_mid, mask, targets), contiguous."""
-    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+    lattice at k = 160 and the two buckets of TWO_BUCKET (rect_blocks)."""
     from nerf_for_angiography_tpu_torch.training.train import _march_for
 
     near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
     o, d, tgt = batch.origins, batch.directions, batch.pixel_values
 
-    def block(m, oo, dd, tt):
-        t_mid = ((m.t_starts + m.t_ends) * 0.5).contiguous()
-        return tuple(a.contiguous() for a in (oo, dd, t_mid, m.mask, tt))
+    def blocks(c):
+        return rect_blocks(_march_for(c, grid, o, d, near, far), o, d, tgt)
 
-    out = {}
-    dense = _march_for(dataclasses.replace(cfg, compact_samples=0), grid, o, d, near, far)
-    out["dense"] = block(dense, o, d, tgt)
-    lat = _march_for(tuning_cfg(cfg, LATTICE), grid, o, d, near, far)
-    out[f"lattice k={LATTICE['k']}"] = block(lat, o, d, tgt)
-    two = _march_for(tuning_cfg(cfg, TWO_BUCKET), grid, o, d, near, far)
-    check(isinstance(two, BucketedRays), f"{TWO_BUCKET} does not march two buckets")
-    o_s, d_s, t_s = (a.index_select(0, two.perm) for a in (o, d, tgt))
-    cut = two.lo.t_starts.shape[0]
-    out["two-bucket lo"] = block(two.lo, o_s[:cut], d_s[:cut], t_s[:cut])
-    out["two-bucket hi"] = block(two.hi, o_s[cut:], d_s[cut:], t_s[cut:])
+    out = {"dense": blocks(dataclasses.replace(cfg, compact_samples=0))[0],
+           f"lattice k={LATTICE['k']}": blocks(tuning_cfg(cfg, LATTICE))[0]}
+    two = blocks(tuning_cfg(cfg, TWO_BUCKET))
+    check(len(two) == 2, f"{TWO_BUCKET} does not march two buckets")
+    out["two-bucket lo"], out["two-bucket hi"] = two
     return out
 
 
@@ -1240,12 +1257,13 @@ def split_pair(torch, fm, plist, o, d, t_mid, mask, tgt, kw):
     return torch.autograd.grad(split_loss(torch, raw, t_mid, mask, tgt, kw), params)
 
 
-def split_raw_grad(torch, fm, plist, o, d, t_mid, mask, tgt, kw):
+def split_raw_grad(torch, raw_fn, o, d, t_mid, mask, tgt, kw):
     """(x, g): the MLP input of a march block and the gradient the split
-    composite hands kernel #2 for it (dL/draw, as FusedMLPRaw.backward
-    receives it)."""
+    composite hands the MLP backward for it (dL/draw, as FusedMLPRaw or
+    FusedMLPEncRaw.backward receives it); ``raw_fn`` maps x to the raw
+    density (the forward kernel of the model's path)."""
     x = march_x(o, d, t_mid, kw).contiguous()
-    raw = fm.fused_mlp_raw(plist, x).detach().requires_grad_(True)
+    raw = raw_fn(x).detach().requires_grad_(True)
     (g,) = torch.autograd.grad(split_loss(torch, raw, t_mid, mask, tgt, kw), raw)
     return x, g.contiguous()
 
@@ -1494,72 +1512,87 @@ def fused_step_phase(torch, fm, fk, fs, ds, tr: dict, cp: dict, report: dict) ->
 # ---------------------------------------------------------------------------
 
 
-def scratch_floor_ms(points: int, f: int, nh: int) -> float:
+def scratch_floor_ms(points: int, f: int, nh: int, ke: int = 0) -> float:
     """The scratch traffic floor of the backward over ``points`` points:
-    every layer's bf16 activation and dz written once and read back once,
-    over the card's memory rate."""
-    return 1e3 * 4 * (nh + 1) * points * f * 2 / PEAK_BYTES_PER_S
+    every layer's bf16 activation and dz (and kernel #4's ``ke`` encoded
+    features) written once and read back once, over the card's memory
+    rate."""
+    return 1e3 * 4 * ((nh + 1) * f * 2 + ke) * points / PEAK_BYTES_PER_S
 
 
-def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
-    """Kernel #2 on the gradient the split composite really hands it at the
-    600-step run's trained state, at the four march shapes of the fused-step
-    phase: the share of active 16-point tiles and points, the kernel against
+def trained_state_rows(torch, fm, packed, pbytes, raw_fn, blocks: dict, kw: dict,
+                       enc=None) -> tuple[dict, dict]:
+    """The MLP backward, kernel #2 (or with ``enc`` = (fe, a, w) the encoded
+    kernel #4), on the gradient the split composite really hands it at a
+    trained state (``raw_fn``: the forward of that model), on each march
+    block: the share of active 16-point tiles and points, the kernel against
     its plain version (check_bwd's limits, two launches bit-identical), dx
     exactly 0 on every skipped tile, its time beside the bound and the
-    scratch traffic floor over the active tiles. Returns the (x, g) of each
-    shape under its name for the parent's timing."""
-    plist = fm.cppn_params_to_list(state.model)
-    packed, pbytes = packed_of(torch, fm, state.model)
-    f, nh = packed.width, packed.n_hidden
-    grad_bytes = 4 * (3 * f + nh * f * f + (nh + 1) * f + f + 1)
+    scratch traffic floor over the active tiles. Returns (the rows, the (x,
+    g) of each block) under the blocks' names."""
+    ops = mlp_pair(fm, packed, enc)
+    f, nh, n_in = packed.width, packed.n_hidden, ops["n_in"]
+    grad_bytes = 4 * (n_in * f + nh * f * f + (nh + 1) * f + f + 1)
     out, inputs = {}, {}
-    for name, blk in fp["blocks"].items():
-        x, g = split_raw_grad(torch, fm, plist, *blk, fp["kw"])
+    for name, blk in blocks.items():
+        x, g = split_raw_grad(torch, raw_fn, *blk, kw)
         p = x.shape[0]
         act = g != 0
         tiles = torch.nn.functional.pad(act, (0, (-p) % 16)).reshape(-1, 16).any(dim=1)
         skipped = ~tiles.repeat_interleave(16)[:p]
         n_tiles, n_act = tiles.numel(), int(tiles.sum())
-        r = check_bwd(torch, fm, packed, p, None, pbytes, f"trained state, {name}", xg=(x, g))
-        _, dx = fm.fused_mlp_bwd_cuda(packed, x, g)
+        r = check_bwd(torch, fm, packed, p, None, pbytes, f"trained state, {name}", enc=enc,
+                      xg=(x, g))
+        _, dx = ops["bwd"](x, g)
         dx_zero = bool((dx[skipped] == 0).all())
         pt = 16 * n_act
-        b_ms, b_by = bound_ms(mlp_flops(pt, f, nh)[1],
+        b_ms, b_by = bound_ms(mlp_flops(pt, f, nh, n_in)[1],
                               p * 4 + pt * 12 + p * 12 + pbytes + grad_bytes)
-        floor = scratch_floor_ms(pt, f, nh)
+        floor = scratch_floor_ms(pt, f, nh, packed.w_in.shape[1] if enc else 0)
         row = dict(P=p, tiles=n_tiles, active_tiles=n_act, active_tile_share=n_act / n_tiles,
                    active_points=int(act.sum()), active_point_share=float(act.float().mean()),
                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                    floor_ms=floor, max_abs_err=r["max_abs_err"],
                    grad_norm_err=max(r["norm_errs"][:-1]), deterministic=r["deterministic"],
                    dx_zero_on_skipped=dx_zero)
-        print(f"fused_mlp_bwd at the trained state, {name}: P={p}, active tiles {n_act} of "
+        print(f"{ops['name']}_bwd at the trained state, {name}: P={p}, active tiles {n_act} of "
               f"{n_tiles} ({row['active_tile_share']:.4f}), active points "
               f"{row['active_points']} ({row['active_point_share']:.4f}); kernel_ms "
               f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f}; over the active tiles bound_ms "
               f"{b_ms:.4f} ({b_by}) and scratch traffic floor {floor:.4f} ms; dx exactly 0 on "
               f"the {int(skipped.sum())} points of skipped tiles {dx_zero}")
-        check(dx_zero, f"kernel #2's dx is not 0 on the skipped tiles ({name})")
+        check(dx_zero, f"{ops['name']}_bwd's dx is not 0 on the skipped tiles ({name})")
         out[name] = row
         inputs[name] = (x, g)
+    return out, inputs
+
+
+def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
+    """Kernel #2 at the 600-step run's trained state (trained_state_rows) at
+    the four march shapes of the fused-step phase. Returns the rows and the
+    (x, g) of each shape under its name for the parent's timing."""
+    plist = fm.cppn_params_to_list(state.model)
+    packed, pbytes = packed_of(torch, fm, state.model)
+    out, inputs = trained_state_rows(torch, fm, packed, pbytes,
+                                     lambda x: fm.fused_mlp_raw(plist, x), fp["blocks"], fp["kw"])
     report["bwd_trained"] = out
     return dict(rows=out, inputs=inputs, plist=plist)
 
 
-def bwd_parts_ms(torch, fm, packed, x, g, n: int = 5) -> dict:
-    """Device ms a launch of kernel #2's parts, traced with torch.profiler
-    over ``n`` launches: the chain, the weight gradients and the rest (the
-    partial sum and, where the wrapper zeroes dx, that fill); None where the
-    profiler saw no device time (not measured)."""
+def bwd_parts_ms(torch, launch, n: int = 5) -> dict:
+    """Device ms a call of ``launch`` (one MLP backward, kernel #2 or #4)
+    in its parts, traced with torch.profiler over ``n`` calls: the chain,
+    the weight gradients and the rest (the partial sums and, where the
+    wrapper zeroes dx, that fill); None where the profiler saw no device
+    time (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fm.fused_mlp_bwd_cuda(packed, x, g)
+    launch()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            fm.fused_mlp_bwd_cuda(packed, x, g)
+            launch()
         torch.cuda.synchronize()
     out = dict(chain=0.0, wgrad=0.0, rest=0.0)
     for ev in prof.key_averages():
@@ -1585,8 +1618,9 @@ def saved_times(root: str, path: str, dense: bool, ptxas: bool = False) -> dict:
     """Run this script with ``--time-saved`` against the package of the
     checkout ``root`` in a process of its own, on the inputs saved at
     ``path``: its kernel #1 (back to back and one launch at a time), kernel
-    #2 and split-pair times on them, the file of its kernel #1 outputs at
-    the dense shape, with ``dense`` its dense 60-step run and with ``ptxas``
+    #2, kernel #4 and split-pair times on them, the files of its kernel #1
+    outputs at the dense shape and of its kernel #4 outputs, with ``dense``
+    its dense 60-step run and with ``ptxas``
     the ptxas tables of its four libraries (built first, in that process)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
@@ -1606,8 +1640,9 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     inputs, each in fresh processes, in the order parent, this, this, parent
     (so a drift of the card or the host cancels): (parent, this), each with
     its two readings of every time under ``runs`` and their mean in place
-    (also of kernel #2's profiled parts), and the dense run, kernel #1's
-    outputs and (the parent's) ptxas tables of each side's first process."""
+    (also of kernels #2 and #4's profiled parts), and the dense run, kernel
+    #1's and #4's outputs and (the parent's) ptxas tables of each side's
+    first process."""
     path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
@@ -1615,14 +1650,20 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
             for i, root in enumerate((parent, HERE, HERE, parent))]
     sides = []
     for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
-        side = dict(dense=a["dense"], fwd_out=a["fwd_out"], ptxas=a.get("ptxas"))
-        for key in ("bwd_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms"):
+        side = dict(dense=a["dense"], fwd_out=a["fwd_out"], enc_out=a["enc_out"],
+                    ptxas=a.get("ptxas"))
+        for key in ("bwd_ms", "enc_bwd_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
             side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
-        side["bwd_parts_ms"] = {k: mean_parts(v, b["bwd_parts_ms"][k])
-                                for k, v in a["bwd_parts_ms"].items()}
+        for key in ("bwd_parts_ms", "enc_bwd_parts_ms"):
+            side[key] = {k: mean_parts(v, b[key][k]) for k, v in a[key].items()}
         sides.append(side)
     return sides[0], sides[1]
+
+
+# kernel #4's kernels in the encoded library's ptxas report (its chain and
+# weight gradients; the forward's fwd_kernel and reduce_partials are shared)
+ENC_BWD_KERNELS = ("bwd_chain_kernel", "wgrad_kernel")
 
 
 def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
@@ -1630,8 +1671,9 @@ def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
     the dense shape, with the random and the trained weights (each side's
     first fresh process): equal bit for bit, else the largest and the
     median |raw difference|, held to the forward limits; then the ptxas
-    report: every kernel of the parent's four libraries but the forward this
-    checkout replaced keeps its registers, stack frame and spills here."""
+    report: every kernel of the parent's four libraries but kernel #4's
+    keeps its registers, stack frame and spills here, and #4's gated
+    kernels at F = 128, KE = 48 spill no more than the parent's."""
     mine_raw, theirs_raw = torch.load(own["fwd_out"]), torch.load(par["fwd_out"])
     out = {}
     for k, b in theirs_raw.items():
@@ -1656,30 +1698,113 @@ def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
     compared, differ = 0, []
     for lib, table in theirs.items():
         for name, v in table.items():
-            if lib == "fused_mlp" and "fwd_kernel" in name:
-                continue  # the forward the wgmma kernel replaced
+            if lib == "fused_mlp_enc" and any(k in name for k in ENC_BWD_KERNELS):
+                continue  # kernel #4's, replaced by its gated instantiations
             compared += 1
             if tuple(mine[lib].get(name, ())) != tuple(v):
                 differ.append(f"{lib} {name}: parent {v}, this {mine[lib].get(name)}")
     print(f"ptxas against the parent commit: {compared} kernels of the four libraries (all but "
-          f"the replaced forward) compared on (registers, stack frame, spill stores, spill "
-          f"loads): {len(differ)} differ" + ("".join(f"\n  {d}" for d in differ)))
+          f"kernel #4's) compared on (registers, stack frame, spill stores, spill loads): "
+          f"{len(differ)} differ" + ("".join(f"\n  {d}" for d in differ)))
     check(compared > 0 and not differ,
-          "a kernel other than the forward changed its ptxas registers or spills")
+          "a kernel other than kernel #4 changed its ptxas registers or spills")
     out["ptxas_compared"] = compared
+    # kernel #4 at F = 128, KE = 48: its gated kernels may spill no more
+    # than the ungated ones they replaced
+    for kind in ENC_BWD_KERNELS:
+        found = [[v for n, v in t["fused_mlp_enc"].items()
+                  if kind in n and "ILi128E" in n and "EncXILi48E" in n] for t in (mine, theirs)]
+        check(all(len(v) == 1 for v in found),
+              f"kernel #4's {kind} at F=128, KE=48 is not in both ptxas reports once")
+        new, old = (v[0] for v in found)
+        print(f"ptxas {kind} of kernel #4 at F=128, KE=48 (registers, stack frame, spill "
+              f"stores, spill loads): this {tuple(new)}, parent commit {tuple(old)}")
+        check(new[2] <= old[2] and new[3] <= old[3],
+              f"kernel #4's {kind} spills more than the parent's at F=128, KE=48")
+        out[f"enc_{kind}_ptxas"] = dict(this=list(new), parent=list(old))
     return out
 
 
-def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | None,
+def enc_compare_inputs(torch, fm, rnd: dict, ep: dict) -> dict:
+    """Kernel #4's inputs for the parent comparison: random_enc's fourier
+    model and its BARF model at each of BARF_ALPHAS on the random (x, g) of
+    ``rnd`` (fourier at each of its point counts, BARF at the first), and
+    the fourier run's trained model on its trained-state (x, g). Returns
+    models (packed as a tuple, a, w), inputs (x, g) and cases (model, input)
+    by name, on the card."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+
+    def model(packed, enc):
+        return (tuple(packed), enc[1], enc[2])
+
+    models = {"fourier": model(*random_enc(torch, fm, fe, "fourier")[::2])}
+    models.update({f"barf alpha {a}": model(*random_enc(torch, fm, fe, "barf", a)[::2])
+                   for a in BARF_ALPHAS})
+    t_packed, _, t_enc = ep["trained_model"]
+    models["trained fourier"] = model(t_packed, t_enc)
+    inputs = {f"random: {k}": xg for k, xg in rnd.items()}
+    inputs.update({f"trained: {k}": xg for k, xg in ep["trained_inputs"].items()})
+    cases = {f"random: fourier, {k}": ("fourier", f"random: {k}") for k in rnd}
+    first = next(iter(rnd))
+    cases.update({f"random: barf alpha {a}, {first}": (f"barf alpha {a}", f"random: {first}")
+                  for a in BARF_ALPHAS})
+    cases.update({f"trained: fourier, {k}": ("trained fourier", f"trained: {k}")
+                  for k in ep["trained_inputs"]})
+    return dict(models=models, inputs=inputs, cases=cases)
+
+
+def enc_launch(fm, fe, enc: dict, case: str):
+    """A callable that runs kernel #4 on one case of enc_compare_inputs."""
+    mk, ik = enc["cases"][case]
+    packed, a, w = enc["models"][mk]
+    packed = fm.PackedMLP(*packed)
+    x, g = enc["inputs"][ik]
+    return lambda: fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+
+
+def canonical_outputs(torch, out) -> dict:
+    """Kernel #4's outputs (grads, dA, dx) with every -0 made +0 (x + 0.0):
+    the gradients and dA on the host, and the SHA-1 of dx's bytes."""
+    grads, da, dx = out
+    return dict(grads=[(t + 0.0).cpu() for pair in grads for t in pair], da=(da + 0.0).cpu(),
+                dx_sha1=hashlib.sha1((dx + 0.0).cpu().numpy().tobytes()).hexdigest())
+
+
+def enc_vs_parent(torch, par: dict, own: dict) -> dict:
+    """Kernel #4 of this checkout against the parent's on every case of
+    enc_compare_inputs (each side's first fresh process): its gradients,
+    dA and dx equal bit for bit but for the sign of a zero."""
+    mine, theirs = torch.load(own["enc_out"]), torch.load(par["enc_out"])
+    out = {}
+    for case, b in theirs.items():
+        a = mine[case]
+        grads = all(torch.equal(u, v) for u, v in zip(a["grads"], b["grads"]))
+        da = torch.equal(a["da"], b["da"])
+        dx = a["dx_sha1"] == b["dx_sha1"]
+        worst = max(float((u - v).abs().max()) for u, v in zip(a["grads"], b["grads"]))
+        out[case] = dict(grads=grads, da=da, dx=dx, max_abs_grad_diff=worst)
+        print(f"fused_mlp_enc_bwd against the parent commit's, {case}: equal bit for bit but for "
+              f"the sign of a zero: gradients {grads}, dA {da}, dx {dx} (largest gradient "
+              f"difference {worst:.3e})")
+    check(all(r["grads"] and r["da"] and r["dx"] for r in out.values()),
+          "kernel #4's outputs differ from the parent commit's beyond the sign of a zero")
+    return out
+
+
+def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent: str | None,
                       report: dict, kb: dict) -> dict:
     """Kernel #2 at random g (all tiles active) beside the scratch traffic
-    floor; with ``parent`` (a checkout of the parent commit), kernel #2 on
-    the same random and trained-state inputs and the split pairs on the same
-    march blocks, of the parent and of this checkout alike in fresh processes
-    (paired_times) with kernel #1 beside them (fwd_vs_parent), and the
-    parent's dense 60-step run, whose train loss and held-out PSNR this
-    tree's must equal bit for bit where kernel #1 gives the parent's outputs
-    bit for bit (kernel #2's skipped tiles add exact zeros)."""
+    floor, and kernel #4 on enc_compare_inputs; with ``parent`` (a checkout
+    of the parent commit), kernels #2 and #4 on the same random and
+    trained-state inputs and the split pairs on the same march blocks, of
+    the parent and of this checkout alike in fresh processes (paired_times)
+    with kernel #1 beside them (fwd_vs_parent), #4's outputs against the
+    parent's (enc_vs_parent), and the parent's dense 60-step run, whose
+    train loss and held-out PSNR this tree's must equal bit for bit where
+    kernel #1 gives the parent's outputs bit for bit (kernel #2's skipped
+    tiles add exact zeros)."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+
     model, gen = random_cppn(torch)
     packed, _ = packed_of(torch, fm, model)
     f, nh = packed.width, packed.n_hidden
@@ -1694,7 +1819,9 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
     split = {k: v["random"]["split_pair_ms"] for k, v in fp["shapes"].items()}
     floors = {f"random: {k}": scratch_floor_ms(x.shape[0], f, nh) for k, (x, _) in rnd.items()}
     floors.update({f"trained: {k}": r["floor_ms"] for k, r in bt["rows"].items()})
-    out = dict(ms=ms, split_pair_ms=split, floor_ms=floors,
+    enc = enc_compare_inputs(torch, fm, rnd, ep)
+    enc_ms = {case: time_ms(torch, enc_launch(fm, fe, enc, case)) for case in enc["cases"]}
+    out = dict(ms=ms, split_pair_ms=split, floor_ms=floors, enc_ms=enc_ms,
                dense=dict(train_loss=tr["train_loss"], heldout_psnr=tr["heldout_psnr"]))
     par = own = None
     if parent:
@@ -1706,9 +1833,14 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
             random={k: (x.cpu(), g.cpu()) for k, (x, g) in rnd.items()},
             trained_plist=cpu(bt["plist"]), random_plist=cpu(fm.cppn_params_to_list(model)),
             blocks={k: tuple(t.cpu() for t in blk) for k, blk in fp["blocks"].items()},
-            kw=fp["kw"]))
+            kw=fp["kw"],
+            enc=dict(models={k: (tuple(t.cpu() for t in pk), a.cpu(), w.cpu())
+                             for k, (pk, a, w) in enc["models"].items()},
+                     inputs={k: (x.cpu(), g.cpu()) for k, (x, g) in enc["inputs"].items()},
+                     cases=enc["cases"])))
         out.update(parent=par, paired=own)
         out["fwd_vs_parent"] = fwd_vs_parent(torch, par, own, kb)
+        out["enc_vs_parent"] = enc_vs_parent(torch, par, own)
 
     def vs_parent(key: str, k: str) -> str:
         if not par:
@@ -1718,10 +1850,10 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
                 f"ms, parent commit {b[0]:.4f} / {b[1]:.4f} ms (this / parent "
                 f"{own[key][k] / par[key][k]:.3f})")
 
-    def parts(k: str) -> str:
+    def parts(key: str, k: str) -> str:
         if not par:
             return ""
-        a, b = own["bwd_parts_ms"][k], par["bwd_parts_ms"][k]
+        a, b = own[key][k], par[key][k]
         return ("; device ms a launch, chain / weight gradients / rest (profiled, fresh): this "
                 + (" / ".join(f"{t:.4f}" for t in a.values()) if a else "not measured")
                 + ", parent commit "
@@ -1729,7 +1861,10 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, parent: str | Non
 
     for k, v in ms.items():
         print(f"fused_mlp_bwd {k}: kernel_ms {v:.4f}, scratch traffic floor {floors[k]:.4f} ms"
-              + vs_parent("bwd_ms", k) + parts(k))
+              + vs_parent("bwd_ms", k) + parts("bwd_parts_ms", k))
+    for k, v in enc_ms.items():
+        print(f"fused_mlp_enc_bwd {k}: kernel_ms {v:.4f}" + vs_parent("enc_bwd_ms", k)
+              + parts("enc_bwd_parts_ms", k))
     for k, v in split.items():
         print(f"split pair {k}: {v:.4f} ms" + vs_parent("split_pair_ms", k))
     for k in (own or {}).get("fwd_ms", {}):
@@ -1757,12 +1892,15 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
     its outputs at the dense shape with the random and the trained weights
     (saved to a file beside ``path``); kernel #2 (and its profiled parts) and
     the split pair of this process's package on the saved inputs (CUDA-event
-    medians) and, with ``dense``, the dense 60-step run's train loss and
-    held-out PSNR (full precision)."""
+    medians), kernel #4 (and its profiled parts) on the saved encoded cases
+    (enc_compare_inputs) with its outputs (canonical_outputs) saved to a
+    file beside ``path``, and, with ``dense``, the dense 60-step run's train
+    loss and held-out PSNR (full precision)."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
-    out = {"bwd_ms": {}, "bwd_parts_ms": {}, "split_pair_ms": {}, "fwd_ms": {},
-           "fwd_one_ms": {}}
+    out = {"bwd_ms": {}, "bwd_parts_ms": {}, "enc_bwd_ms": {}, "enc_bwd_parts_ms": {},
+           "split_pair_ms": {}, "fwd_ms": {}, "fwd_one_ms": {}}
     if mods:
         libs = (fm, *mods)
         with ThreadPoolExecutor(len(libs)) as ex:
@@ -1791,7 +1929,20 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
             x, g = x.to(dev), g.to(dev)
             out["bwd_ms"][f"{key}: {name}"] = time_ms(
                 torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
-            out["bwd_parts_ms"][f"{key}: {name}"] = bwd_parts_ms(torch, fm, packed, x, g)
+            out["bwd_parts_ms"][f"{key}: {name}"] = bwd_parts_ms(
+                torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
+    enc = dict(saved["enc"], models={
+        k: (tuple(t.to(dev) for t in pk), a.to(dev), w.to(dev))
+        for k, (pk, a, w) in saved["enc"]["models"].items()},
+        inputs={k: (x.to(dev), g.to(dev)) for k, (x, g) in saved["enc"]["inputs"].items()})
+    enc_out = {}
+    for case in enc["cases"]:
+        launch = enc_launch(fm, fe, enc, case)
+        out["enc_bwd_ms"][case] = time_ms(torch, launch)
+        out["enc_bwd_parts_ms"][case] = bwd_parts_ms(torch, launch)
+        enc_out[case] = canonical_outputs(torch, launch())
+    out["enc_out"] = f"{path}.enc.{os.getpid()}.pt"
+    torch.save(enc_out, out["enc_out"])
     plist = to_dev(saved["random_plist"])
     for name, blk in saved["blocks"].items():
         blk = tuple(t.to(dev) for t in blk)
@@ -1852,8 +2003,9 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
     """Phase 6: kernels #3/#4 against their plain versions (fourier at the
     path's forward shapes and the training backward; BARF at each of
     BARF_ALPHAS), the fourier and BARF training runs, the backward at the
-    fourier run's compacted point count, the fourier compacted step
-    profile."""
+    fourier run's compacted point count and at its trained state (on the
+    split composite's gradient: trained_state_rows), the fourier compacted
+    step profile."""
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
     from nerf_for_angiography_tpu_torch.training import TrainConfig
     from nerf_for_angiography_tpu_torch.training.train import _flat_positions, _march_for
@@ -1897,6 +2049,32 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
     t_packed, t_pbytes, t_enc = packed_enc_of(torch, fm, fe, state.model)
     checks["compact_fwd_trained"] = check_fwd(torch, fm, t_packed, p, gen, t_pbytes,
                                               f"fourier, compacted step {final}, trained", t_enc)
+    # kernel #4 on the gradient the split composite hands it at the trained
+    # state: the final Tuning's marches and any two-bucket Tuning the run
+    # reached
+    plist = fm.cppn_params_to_list(state.model)
+    enc_params = {"coeff": state.model.fourier_coefficients_pts}
+    kw = dict(step=(2 * fcfg.outside) / fcfg.depth_samples_per_ray,
+              early_stop_eps=fcfg.early_stop_eps, n_rays_loss=fcfg.img_sample_size,
+              input_scale=state.model.config.input_scale)
+    keys = ("mode", "k", "w_cap", "w_lo", "k_lo")
+    tunings = [final] + [t for t in fourier["phases"] if t["w_lo"] > 0]
+    tunings = [t for i, t in enumerate(tunings)
+               if all(any(t[q] != u[q] for q in keys) for u in tunings[:i])]
+    blocks = {}
+    for t in tunings:
+        name = f"{t['mode']} k={t['k']}" + (
+            f" w_cap={t['w_cap']} w_lo={t['w_lo']} k_lo={t['k_lo']}" if t["w_lo"] else "")
+        bl = rect_blocks(_march_for(tuning_cfg(fcfg, t), state.grid, batch.origins,
+                                    batch.directions, near, far),
+                         batch.origins, batch.directions, batch.pixel_values)
+        blocks.update({name: bl[0]} if len(bl) == 1 else {f"{name} lo": bl[0], f"{name} hi": bl[1]})
+    t_rows, t_inputs = trained_state_rows(
+        torch, fm, t_packed, t_pbytes,
+        lambda x: fe.fused_mlp_enc_raw(("fourier", ENC_BASIS), plist, enc_params, x),
+        blocks, kw, enc=t_enc)
+    check(all(r["active_tile_share"] < 1 for r in t_rows.values()),
+          "kernel #4 found every tile active at the fourier run's trained state")
     for r in [*checks["fourier_fwd"], checks["compact_fwd_trained"],
               *(v["fwd"] for k, v in checks.items() if k.startswith("barf_"))]:
         r.pop("x", None)
@@ -1906,10 +2084,18 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
     check(prof["host_waits_per_step"] == 0,
           f"the fourier compacted step waits for the device {prof['host_waits_per_step']} times")
     print(f"  fourier compacted: {profile_row(prof)}")
+    prof["enc_bwd_kernels_ms"] = {k: sum(r["ms_per_step"] for r in prof["top"] if k in r["name"])
+                                  for k in ENC_BWD_KERNELS}
+    enc_ms = sum(prof["enc_bwd_kernels_ms"].values())
+    print("  kernel #4 in the fourier step: " + (
+        f"chain {prof['enc_bwd_kernels_ms']['bwd_chain_kernel']:.4f} + weight gradients "
+        f"{prof['enc_bwd_kernels_ms']['wgrad_kernel']:.4f} ms/step, "
+        f"{enc_ms / prof['device_ms_per_step']:.3f} of the step's device time"
+        if prof["device_ms_per_step"] else "not measured (no device time in the profile)"))
     for run in (fourier, barf):
         run.pop("result")
     out = dict(checks=checks, fourier_shipped=fourier, barf_anneal=barf, compact_p=p,
-               final=final, profile=prof)
+               final=final, profile=prof, trained=t_rows)
     report["encoded"] = out
     src = "nerf_for_angiography_tpu_torch/csrc/fused_mlp_enc.cu"
     rows = []
@@ -1923,7 +2109,8 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
         ))
     rows[1]["compact_path"] = {k: checks["compact_bwd"][k]
                                for k in ("P", "ms", "plain_ms", "bound_ms", "bound_by")}
-    return dict(out, rows=rows)
+    return dict(out, rows=rows, trained_inputs=t_inputs,
+                trained_model=(t_packed, t_pbytes, t_enc))
 
 
 def determinism_phase(torch, fm, ds, report: dict) -> None:
@@ -2056,9 +2243,9 @@ def main() -> int:
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: also time its kernels #1 and #2 and "
-                         "split pairs on this run's inputs, hold #1's outputs and the ptxas "
-                         "report to it and its dense run equal to this one")
+                    help="a checkout of the parent commit: also time its kernels #1, #2 and #4 "
+                         "and split pairs on this run's inputs, hold #1's and #4's outputs and "
+                         "the ptxas report to it and its dense run equal to this one")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--no-dense", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
@@ -2105,8 +2292,8 @@ def main() -> int:
         cp = compact_phase(torch, fm, fk, fs, ds, report)
         fp = fused_step_phase(torch, fm, fk, fs, ds, tr, cp, report)
         bt = bwd_trained_phase(torch, fm, cp["shipped"]["result"].state, fp, report)
-        bc = bwd_compare_phase(torch, fm, tr, fp, bt, args.parent, report, kb)
         ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
+        bc = bwd_compare_phase(torch, fm, tr, fp, bt, ep, args.parent, report, kb)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
@@ -2184,6 +2371,22 @@ def main() -> int:
             "paired_parts_ms": paired_parts.get(f"trained: {k}"),
             "parent_parts_ms": parent_parts.get(f"trained: {k}")}
         for k, r in bt["rows"].items()}
+    enc_parent = bc.get("parent", {})
+    enc_paired = bc.get("paired", {})
+    enc_row = next(r for r in rows if r["name"] == "fused_mlp_enc_bwd")
+    enc_row["random_g"] = {k: dict(ms=v, paired_ms=enc_paired.get("enc_bwd_ms", {}).get(k),
+                                   parent_ms=enc_parent.get("enc_bwd_ms", {}).get(k),
+                                   paired_parts_ms=enc_paired.get("enc_bwd_parts_ms", {}).get(k),
+                                   parent_parts_ms=enc_parent.get("enc_bwd_parts_ms", {}).get(k))
+                           for k, v in bc["enc_ms"].items() if k.startswith("random")}
+    enc_row["trained_state"] = {
+        k: {**{q: r[q] for q in ("P", "active_tile_share", "active_point_share", "ms",
+                                 "plain_ms", "bound_ms", "bound_by", "floor_ms")},
+            **{f"{side}_{q}": src.get(f"enc_bwd_{q}", {}).get(f"trained: fourier, {k}")
+               for side, src in (("paired", enc_paired), ("parent", enc_parent))
+               for q in ("ms", "parts_ms")}}
+        for k, r in ep["trained"].items()}
+    enc_row["vs_parent"] = bc.get("enc_vs_parent")
     rows[0]["hgmma"] = kb["hgmma_total"]
     rows[0]["ptxas"] = {k: v for k, v in kb["ptxas"]["fused_mlp"].items()
                         if "wgmma_fwd_kernel" in k}

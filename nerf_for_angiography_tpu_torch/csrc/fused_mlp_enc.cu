@@ -17,27 +17,40 @@
 // caller forms dcoeff_j = 2 pi (dA[sin j] + dA[cos j]) as the JAX package does.
 //
 // Design: the chain, its kernels and the fixed-order partial sum are
-// mlp_chain.cuh's, with the input EncX<KE>: each lane forms its own A
-// fragment's features in registers from the three coordinates (one sincosf
-// per point and band serves the sin and the cos feature: W_in's columns are
-// staged in pair order, see EncX), so the encoded block never touches device
-// memory in the forward or the chain.  The weight-gradient kernel forms the
-// bf16 features again for dW_in = enc^T dz_0 (15 sincosf a point at L = 5)
-// instead of storing them (P x 48 bf16, 162 MB at the training shape, beside
-// the 4.3 GB of activations): recomputing costs no device memory and is
-// bit-identical to the chain's values.  The dA terms are summed per lane over
-// its tiles, per warp by shuffles in a fixed order, written per (block,
-// warp) and summed in slot order: no float atomics, bit-deterministic for a
-// given card.
+// mlp_chain.cuh's.  The forward's input is EncX<KE>: each lane forms its own
+// A fragment's features in registers from the three coordinates (one
+// sincosf per point and band serves the sin and the cos feature: W_in's
+// columns are staged in pair order, see EncX), so the encoded block never
+// touches device memory in the forward or the chain.  The backward's input
+// is GatedEncX<KE> (BwdX below), as kernel #2's is GatedX: a point is
+// active where g != 0, and a 16-point tile with no active point is skipped
+// by the chain (no recompute, no sincosf, no stores; dx stays the caller's
+// 0 and the tile's dA terms stay 0).  The chain stores its scratch in the
+// tile-fragment layout (scratch_rows), and each weight-gradient stage holds
+// the chunk's next four active tiles.  The chain also stores each active
+// tile's bf16 features, the A fragments its input layer multiplied (P x KE
+// bf16: 162 MB at the training shape, beside the 4.3 GB of activations),
+// and the weight gradients read them back for dW_in = enc^T dz_0 (forming
+// them again there costs that kernel its second block an SM: see
+// wgrad_kernel).  The skipped points add exact zeros to every output, so
+// the result equals the ungated one bit for bit but for the sign of a
+// zero.  The dA terms are summed per lane over its tiles, per warp by
+// shuffles in a fixed order, written per (block, warp) by every warp (a
+// warp without an active tile writes zeros) and summed in slot order: no
+// float atomics, bit-deterministic for a given card.
 //
 // Bound: at F = 128, n_hidden = 4, E = 3 + 6 L = 33, a point costs 2 (33 F +
 // 4 F^2 + F) = 139,776 FLOP forward (0.2385 ms at P = 1,687,500 on 989
-// TFLOP/s bf16) and about three times that backward (0.72 ms), against 16
-// bytes of input/output a point: compute-bound on the tensor cores.  The
-// kernels do 48 columns of input product where the function needs 33.  The
-// 15 sincosf a point (forward; the backward chain and the weight-gradient
-// kernel each form them again) run on the CUDA cores: ~45 a point in all,
-// ~0.1 ms of FP32 issue at the training shape, small beside the tensor work.
+// TFLOP/s bf16) and about three times that backward (0.72 ms with every
+// point active), against 16 bytes of input/output a point: compute-bound on
+// the tensor cores.  The backward's scratch round trip (8 (n_hidden + 1) F
+// + 4 KE bytes a point, 2.68 ms at that P on 3.35 TB/s) makes it
+// bytes-bound, and both figures scale with the active tiles, not with P.
+// The kernels do 48 columns of input product where the function needs 33.
+// The 15 sincosf a point (forward; the backward chain forms them again, for
+// the active tiles, and for dx and dA) run on the CUDA cores: ~45 a point
+// in all, ~0.1 ms of FP32 issue at the training shape, small beside the
+// tensor work.
 
 #include "mlp_chain.cuh"
 
@@ -59,18 +72,25 @@ int enc_fwd(const EncX<KE>& x, long long P, const Params& prm, int nh, float* ou
   }
 }
 
-template <int F, int KE>
-int enc_bwd(const EncX<KE>& x, const float* g, long long P, const Params& prm, int nh,
-            const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, float* da,
-            cudaStream_t st) {
-  if constexpr (KE > F) {
+// the backward's input: gated on g, in the tile-fragment scratch layout
+// with active-tile weight-gradient stages and the chain's stored features
+// (FRAG = false: row-major scratch, stages skipped only where all four
+// tiles are inactive, the features formed again)
+constexpr bool ENC_FRAG_SCRATCH = true;
+template <int KE>
+using BwdX = GatedEncX<KE, ENC_FRAG_SCRATCH>;
+
+template <int F, class X>
+int enc_bwd(const X& x, const float* g, long long P, const Params& prm, int nh, const DxOut& dx,
+            const BwdScratch& s, int n_sms, float* grads, float* da, cudaStream_t st) {
+  if constexpr (X::KI > F) {
     return (int)cudaErrorInvalidValue;
   } else {
-    const int e = launch_bwd<F, EncX<KE>>(x, g, P, prm, nh, dx, s, n_sms, grads, st);
+    const int e = launch_bwd<F, X>(x, g, P, prm, nh, dx, s, n_sms, grads, st);
     if (e != (int)cudaSuccess) return e;
     // dA: the chain's per-warp sums, in slot order
     const int slots = P > 0 ? bwd_grid(P, n_sms) * BWD_WARPS : 0;
-    reduce_partials<<<1, 64, 0, st>>>(dx.da, slots, KE, KE, da);
+    reduce_partials<<<1, 64, 0, st>>>(dx.da, slots, X::KI, X::KI, da);
     return (int)cudaGetLastError();
   }
 }
@@ -98,9 +118,10 @@ int dispatch_fwd(int KE, const StridedX& xs, const float* a, const float* w, int
 template <int F>
 int dispatch_bwd(int KE, const StridedX& xs, const float* a, const float* w, int n_enc,
                  const float* g, long long P, const Params& prm, int nh, const DxOut& dx,
-                 const BwdScratch& s, int n_sms, float* grads, float* da, cudaStream_t st) {
-  ENC_DISPATCH_KE(KE, enc_bwd<F, KK>(EncX<KK>{xs, a, w, n_enc}, g, P, prm, nh, dx, s, n_sms,
-                                     grads, da, st))
+                 const BwdScratch& s, bf16* feat, int n_sms, float* grads, float* da,
+                 cudaStream_t st) {
+  ENC_DISPATCH_KE(KE, enc_bwd<F>(BwdX<KK>{{xs, a, w, n_enc}, g, feat}, g, P, prm, nh, dx, s,
+                                 n_sms, grads, da, st))
 }
 
 extern "C" {
@@ -120,6 +141,10 @@ void fused_mlp_enc_sizes(int F, int nh, int KE, int n_enc, int n_sms, long long*
   out[5] = (long long)n_sms * BWD_WARPS * KE;
 }
 
+// rows of each layer block of the backward's acts/dzs scratch (P rounded up
+// to whole tiles in the tile-fragment layout)
+long long fused_mlp_enc_scratch_rows(long long P) { return scratch_rows<BwdX<16>>(P); }
+
 // x: (P, 3) f32; a, w: (n_enc,) f32; w_in: (F, KE) bf16 with its columns in
 // EncX's pair order
 int fused_mlp_enc_fwd(const float* x, long long P, const float* a, const float* w, int n_enc,
@@ -134,8 +159,11 @@ int fused_mlp_enc_fwd(const float* x, long long P, const float* a, const float* 
   MLP_CHAIN_DISPATCH_F(F, dispatch_fwd<FF>(KE, xs, a, w, n_enc, P, prm, nh, out, n_sms, st))
 }
 
-// as fused_mlp_bwd (csrc/fused_mlp.cu) for x (P, 3), plus: dx (P, 3) f32
-// out; da_slots: out[5] floats of scratch; da: (KE,) f32 out, dA per
+// as fused_mlp_bwd (csrc/fused_mlp.cu) for x (P, 3), acts/dzs of
+// fused_mlp_enc_scratch_rows rows a layer, plus: dx (P, 3) f32, zeroed by
+// the caller (a tile whose g is all zero is skipped); da_slots: out[5]
+// floats of scratch; feat: (fused_mlp_enc_scratch_rows, KE) bf16 scratch
+// for the features of the active tiles; da: (KE,) f32 out, dA per
 // feature in pair order (entries 2m, 2m + 1 of pair m >= 2: the sin and cos
 // rows' sums of dv x_c; the others 0)
 int fused_mlp_enc_bwd(const float* x, const float* g, long long P, const float* a,
@@ -143,18 +171,19 @@ int fused_mlp_enc_bwd(const float* x, const float* g, long long P, const float* 
                       const float* bias, const float* w_out, const float* b_out, int F, int nh,
                       void* acts, void* dzs, void* masks, float* partials, int n_chunks,
                       long long chunk, int n_sms, float* grads, float* dx, float* da_slots,
-                      float* da, void* stream) {
+                      float* da, void* feat, void* stream) {
   const BwdScratch s{static_cast<bf16*>(acts), static_cast<bf16*>(dzs),
                      static_cast<uint2*>(masks), partials, n_chunks, chunk};
-  if (!enc_dims_ok(F, nh, KE, n_enc) || !scratch_ok(s, P, n_sms) || da_slots == nullptr)
+  if (!enc_dims_ok(F, nh, KE, n_enc) || !scratch_ok(s, P, n_sms) || da_slots == nullptr ||
+      feat == nullptr)
     return (int)cudaErrorInvalidValue;
   const Params prm{static_cast<const bf16*>(w_in), static_cast<const bf16*>(w_hid), bias, w_out,
                    b_out};
   const StridedX xs{x, 3, 1};
   const DxOut dxo{dx, 3, 1, da_slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MLP_CHAIN_DISPATCH_F(F, dispatch_bwd<FF>(KE, xs, a, w, n_enc, g, P, prm, nh, dxo, s, n_sms,
-                                           grads, da, st))
+  MLP_CHAIN_DISPATCH_F(F, dispatch_bwd<FF>(KE, xs, a, w, n_enc, g, P, prm, nh, dxo, s,
+                                           static_cast<bf16*>(feat), n_sms, grads, da, st))
 }
 
 }  // extern "C"

@@ -32,9 +32,11 @@
 //    a template parameter: a (P, 3) or (3, P) array read through strides
 //    (StridedX), or a march's o + d * t_mid formed in the kernel (MarchX).
 //    The input type also fixes the input width KI (X::KI): 16 for the
-//    coordinates, KE = 16, 32, 48 or 64 for an encoded input (EncX), whose
-//    features each lane forms in registers; its backward adds dx through
-//    the encode and per-warp sums of dA (no float atomics).
+//    coordinates, KE = 16, 32, 48 or 64 for an encoded input (EncX,
+//    GatedEncX), whose features each lane forms in registers; its backward
+//    adds dx through the encode and per-warp sums of dA (no float atomics),
+//    and its weight gradients form dW_in's features again from x (EncX) or
+//    read the ones its chain stored (GatedEncX).
 //  * The ragged edge is masked in the kernel: rows >= P read x = 0 and g = 0
 //    and are never stored.
 //  * Backward (three launches): (1) per tile, recompute the forward, store
@@ -52,14 +54,16 @@
 //    chunking follows the SM count).  The activations and dz cost
 //    2 x (n_hidden + 1) x P x F bf16 of device scratch (4.3 GB at the
 //    training shape), allocated by the caller.
-//  * Kernel #2 (the split path's MLP backward, input GatedX) works only on
-//    tiles that carry a gradient: a point is active where g != 0, and a
-//    16-point tile with no active point is skipped by the chain (no
-//    recompute, no stores; dx stays the caller's 0) and by the weight
-//    gradients, by the same tile rule: their stages hold the chunk's active
-//    tiles only.  Such points add exact zeros to every gradient, so the
+//  * Kernels #2 and #4 (the split path's MLP backward, inputs GatedX and,
+//    over the encoding, GatedEncX) work only on tiles that carry a
+//    gradient: a point is active where g != 0, and a 16-point tile with no
+//    active point is skipped by the chain (no recompute, no sincosf, no
+//    stores; dx stays the caller's 0, #4's dA terms stay 0) and by the
+//    weight gradients, by the same tile rule: their stages hold the chunk's
+//    active tiles only (#4's chain stores those tiles' encoded features for
+//    them).  Such points add exact zeros to every gradient, so the
 //    result equals the unskipped one bit for bit but for the sign of a
-//    zero.  Its chain stores its scratch in
+//    zero.  Their chain stores its scratch in
 //    the tile-fragment layout (scratch_rows): a warp writes a tile's layer
 //    block with 4 F / 16 stores of 128 contiguous bytes (a whole-sector
 //    store each, where row-major fragment stores cover half sectors), and
@@ -244,6 +248,8 @@ __device__ __forceinline__ bool tile_active(const X& x, long long p0, long long 
 // this order, so one sincosf serves a point's sin and cos feature of band j.
 // sincosf is the full-precision one: |v| reaches ~100 rad (fourier
 // coefficients at 3 sigma of 5, times 2 pi), where __sinf is far off.
+// Every point is active (the forward, kernel #3, computes every point;
+// kernel #4's input is GatedEncX).
 template <int KE>
 struct EncX {
   static constexpr int KI = KE;
@@ -300,6 +306,24 @@ struct EncX {
     else dx2 += dxc;
     return make_float2(__fmul_rn(dvs, xc), __fmul_rn(dvc, xc));
   }
+};
+
+// kernel #4's input: the points of an EncX, active where the upstream
+// gradient g[p] != 0 (-0 counts as zero), as GatedX gates kernel #2's.  A
+// point with g = 0 has dz = 0 in every layer and adds exact zeros to every
+// weight gradient, to dA and to dx: the chain skips a tile with no active
+// point, the weight-gradient kernel leaves it out, and the caller hands in
+// a zeroed dx.  FRAG picks the scratch layout (FRAG_SCRATCH above);
+// csrc/fused_mlp_enc.cu ships one.  With FRAG the chain also stores each
+// active tile's bf16 features (the A fragments of its input layer) to
+// feat, scratch_rows x KE in the tile-fragment layout, and the weight
+// gradients read them back for dW_in; without it they form them again.
+template <int KE, bool FRAG>
+struct GatedEncX : EncX<KE> {
+  static constexpr bool FRAG_SCRATCH = FRAG;
+  const float* g;
+  bf16* feat;
+  __device__ __forceinline__ bool active(long long p) const { return g[p] != 0.0f; }
 };
 
 // where the backward chain writes dx (dx == nullptr: not at all) and, for
@@ -536,6 +560,15 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
         ax[kt][2 * h + 1] = pack2(u1.x, u1.y);
       }
     }
+    if constexpr (X::FRAG_SCRATCH) {
+      // kernel #4's chain: the tile's features for the weight gradients'
+      // dW_in, in the tile-fragment layout (store_layer's, KI wide)
+      if (acts) {
+        uint32_t* d = reinterpret_cast<uint32_t*>(x.feat + size_t(p0) * X::KI) + lane;
+#pragma unroll
+        for (int i = 0; i < KT * 4; ++i) d[i * 32] = ax[i >> 2][i & 3];
+      }
+    }
   } else {
     // A fragment of x: thread t = 0 holds columns 0, 1; t = 1 holds 2 (and a zero 3)
     float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f, v3 = 0.0f;
@@ -761,7 +794,8 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
 
 // backward, part 2: one block per (chunk of points, job).  Job l <= nh:
 // dW_l = A_l^T dz_l (A_0 = bf16(x) padded to 16 columns, or the encoded
-// input's KI features formed again from x; A_l = a_{l-1}) and
+// input's KI features, formed again from x or read back from the chain's
+// feat; A_l = a_{l-1}) and
 // db_l = 1^T dz_l; job nh + 1: dw_out = a_nh^T g, db_out = sum g in f32.
 // Warp w < M/16 owns rows 16w.. of dW_l; the last warp computes db_l.
 // Stages of KB points with no active tile are skipped; inside a stage the
@@ -770,12 +804,15 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
 // active tiles, so no inactive tile is multiplied: the active tiles meet
 // the accumulators in the same order and an inactive one added exact
 // zeros, so the result is the same bit for bit but for the sign of a zero.
+// An encoded FRAG_SCRATCH input's job 0 reads the features its chain
+// stored: forming them here again (15 sincosf a point) took this kernel
+// from 96 to 125 registers at F = 128, and two blocks of nine warps fit an
+// SM only at <= 96 (a two-block launch bound made it spill).
 template <int F, class X>
 __global__ void __launch_bounds__(32 * (F / 16 + 1))
 wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
              const bf16* __restrict__ dzs, long long P, int nh, long long chunk,
              float* __restrict__ partials, long long stride) {
-  static_assert(!(X::FRAG_SCRATCH && X::ENCODED), "a FRAG_SCRATCH input has 3 coordinates");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LD = F + 8;
   constexpr int NWARPS = F / 16 + 1;
@@ -855,10 +892,25 @@ wgrad_kernel(X x, const float* __restrict__ gr, const bf16* __restrict__ acts,
         if (asrc) cp_async16(As + (s * KB + row) * LD + c, asrc + off, in ? 16 : 0);
       }
       if (!head && job == 0) {
-        for (int i = threadIdx.x; i < KB * KIN; i += blockDim.x) {
-          const int row = i / KIN, c = i % KIN;
-          const long long p = tile_p0(row / TILE) + row % TILE;
-          As[(s * KB + row) * LD + c] = __float2bfloat16_rn(c < 3 && p < p_hi ? x(p, c) : 0.0f);
+        if constexpr (X::ENCODED) {
+          // the features the chain stored for the active tiles, KI wide,
+          // each 16-byte chunk into its row-major place as above
+          for (int i = threadIdx.x; i < KB * X::KI / 8; i += blockDim.x) {
+            const int tt = i / (2 * X::KI), ch = i % (2 * X::KI);
+            const int rt = (ch & 7) + 8 * ((ch >> 3) & 1);
+            const int c = (ch >> 5) * 16 + 8 * ((ch >> 4) & 1);
+            const long long t0 = tile_p0(tt);
+            const bool in = t0 + rt < p_hi;
+            const size_t off =
+                in ? size_t(t0) * X::KI + size_t(ch) * 8 : size_t(p_lo) * X::KI;
+            cp_async16(As + (s * KB + tt * TILE + rt) * LD + c, x.feat + off, in ? 16 : 0);
+          }
+        } else {
+          for (int i = threadIdx.x; i < KB * KIN; i += blockDim.x) {
+            const int row = i / KIN, c = i % KIN;
+            const long long p = tile_p0(row / TILE) + row % TILE;
+            As[(s * KB + row) * LD + c] = __float2bfloat16_rn(c < 3 && p < p_hi ? x(p, c) : 0.0f);
+          }
         }
       }
       if (head) {

@@ -6,10 +6,11 @@ Replaces the TPU kernels ``nerf_for_angiography_tpu/ops/pallas/fused_mlp.py``
 through ``fused_mlp_enc_raw`` (line 699), whose signature and custom VJP
 (lines 714-759) ``fused_mlp_enc_raw`` here keeps. The CUDA C++ source is
 ``csrc/fused_mlp_enc.cu`` over the layer chain of ``csrc/mlp_chain.cuh``
-with the encoded input ``EncX``; its header states the bound and the
-design. A module of its own (not a section of ``fused_mlp.py``): its own
-library builds beside the other three in parallel, and its launch counters
-stay apart from kernels #1/#2's, so a run shows which pair it went through.
+with the encoded inputs ``EncX`` (forward) and ``GatedEncX`` (backward);
+its header states the bound and the design. A module of its own (not a
+section of ``fused_mlp.py``): its own library builds beside the other three
+in parallel, and its launch counters stay apart from kernels #1/#2's, so a
+run shows which pair it went through.
 
 The function, at the TPU kernels' cast points: v_j = a_j x_{j%3} (one f32
 product; a_j = 2 pi coeff_j for fourier, 2^{j//3} pi for BARF); the encoded
@@ -26,6 +27,13 @@ The kernels take the encoded block's columns in pair order (``EncX`` in
 0...] padded to KE = 16 ceil((4 + 6L) / 16) columns (48 at L = 5), so one
 sincosf serves both features of a band; ``pack_enc_params`` permutes W_in's
 rows into that order and the gradients are permuted back.
+
+The backward kernel (#4) works only on 16-point tiles whose upstream
+gradient g is not all zero, as kernel #2 does: the other points add exact
+zeros to every gradient and to dA, and their dx stays 0. Its scratch (2 x
+(n_hidden + 1) x P x F bf16 of activations and dz, and P x KE bf16 of the
+encoded features its chain multiplied, P rounded up to whole tiles) is
+written for the active tiles alone, and its weight gradients read it back.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel (building it with ``nvcc`` on first use) or raises.
@@ -168,9 +176,11 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_enc_fwd.restype = i32
         lib.fused_mlp_enc_bwd.argtypes = [
             vp, vp, ll, vp, vp, i32, i32, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll,
-            i32, vp, vp, vp, vp, vp,
+            i32, vp, vp, vp, vp, vp, vp,
         ]
         lib.fused_mlp_enc_bwd.restype = i32
+        lib.fused_mlp_enc_scratch_rows.argtypes = [ll]
+        lib.fused_mlp_enc_scratch_rows.restype = ll
         _lib = lib
         return lib
 
@@ -230,8 +240,8 @@ def fused_mlp_enc_fwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor) -> torch
 
 def fused_mlp_enc_bwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor, g: torch.Tensor):
     """Launch the backward (the chain with dx and the per-warp dA sums, the
-    weight gradients, the fixed-order partial sums); returns what
-    fused_mlp_enc_bwd_reference returns."""
+    weight gradients, the fixed-order partial sums) over the tiles whose g
+    is not all zero; returns what fused_mlp_enc_bwd_reference returns."""
     global enc_bwd_launches
     lib = _load_lib()
     dev = x.device
@@ -241,16 +251,20 @@ def fused_mlp_enc_bwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor, g: torch
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError("g must be contiguous (P,) float32")
     f, nh, ke = packed.width, packed.n_hidden, packed.w_in.shape[1]
-    s = fm.BwdScratch.make(p, f, nh, n_sms, stride, mask_slots, quantum, dev)
+    rows = lib.fused_mlp_enc_scratch_rows(p)
+    s = fm.BwdScratch.make(p, f, nh, n_sms, stride, mask_slots, quantum, dev, rows=rows)
+    # the chain's stored features of the active tiles, read by dW_in
+    feat = torch.empty((rows, ke), dtype=torch.bfloat16, device=dev)
     flat = torch.empty((grad_n,), dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
+    # the kernel skips 16-point tiles whose g is all zero: their dx stays 0
+    dx = torch.zeros_like(x)
     da_slots = torch.empty((da_n,), dtype=torch.float32, device=dev)
     da = torch.empty((ke,), dtype=torch.float32, device=dev)
     code = lib.fused_mlp_enc_bwd(
         x.data_ptr(), g.data_ptr(), p, a.data_ptr(), w.data_ptr(), a.shape[0], ke,
         packed.w_in.data_ptr(), packed.w_hid.data_ptr(), packed.bias.data_ptr(),
         packed.w_out.data_ptr(), packed.b_out.data_ptr(), f, nh, *s.args(), n_sms,
-        flat.data_ptr(), dx.data_ptr(), da_slots.data_ptr(), da.data_ptr(),
+        flat.data_ptr(), dx.data_ptr(), da_slots.data_ptr(), da.data_ptr(), feat.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(code, "fused_mlp_enc backward")

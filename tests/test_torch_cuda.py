@@ -539,6 +539,98 @@ def test_enc_backward_is_deterministic(dev, kind):
                        fe.fused_mlp_enc_fwd_cuda(packed, a, w, x))
 
 
+# (n_basis, KE): every encoded input width the kernels take
+_ENC_WIDTHS = [(2, 16), (4, 32), (5, 48), (10, 64)]
+
+
+@pytest.mark.parametrize("zero_share", [0.3, 0.7])
+@pytest.mark.parametrize("n_basis,ke", _ENC_WIDTHS)
+def test_enc_backward_skips_zero_gradient_tiles(dev, n_basis, ke, zero_share):
+    """Kernel #4 on a g zero on whole tiles (-0 on some points; P ragged):
+    within the plain version's limits (as kernel #2's test), dx exactly 0 on
+    the zero tiles, two launches bit-identical, and within 1e-5 of each
+    gradient's and dA's max of the kernel on the active points alone
+    (other chunks, so another f32 summation order), dx there equal."""
+    _, packed, a, w = _enc_model(4, 128, "fourier", n_basis, dev)
+    assert packed.w_in.shape[1] == ke
+    p = 64 * 300 + 5
+    gen = torch.Generator().manual_seed(2)
+    x = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    g, zero = _zero_tiled_g(p, zero_share, dev)
+    grads_k, da_k, dx_k = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+    grads_k2, da_k2, dx_k2 = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+    grads_p, da_p, dx_p = fe.fused_mlp_enc_bwd_reference(packed, a, w, x, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for a_, b_ in zip(grads_k, grads_k2) for u, v in zip(a_, b_))
+    assert torch.equal(da_k, da_k2) and torch.equal(dx_k, dx_k2)
+    assert bool((dx_k[zero] == 0).all())
+    for u, v in [*((u, v) for pk, pp in zip(grads_k, grads_p) for u, v in zip(pk, pp)),
+                 (da_k, da_p)]:
+        scale = max(float(v.abs().max()), 1e-12)
+        torch.testing.assert_close(u / scale, v.reshape(u.shape) / scale, atol=3e-2, rtol=0)
+    rel = float(torch.linalg.norm(dx_k - dx_p) / torch.linalg.norm(dx_p))
+    assert rel < 3e-2
+    bad = ((dx_k - dx_p).abs() > 3e-2 * dx_p.abs().max()).any(dim=1)
+    enc, _ = fe.encode(x[bad], a, w, ke)
+    assert bool((_min_abs_preact(packed, enc) < 1e-3).all())
+    act = ~zero
+    grads_a, da_a, dx_a = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x[act].contiguous(),
+                                                    g[act].contiguous())
+    for u, v in [*((u, v) for pk, pa in zip(grads_k, grads_a) for u, v in zip(pk, pa)),
+                 (da_k, da_a)]:
+        scale = max(float(v.abs().max()), 1e-30)
+        torch.testing.assert_close(u / scale, v / scale, atol=1e-5, rtol=0)
+    assert torch.equal(dx_k[act], dx_a)
+
+
+@pytest.mark.parametrize("kind", ["fourier", "barf"])
+def test_enc_backward_all_zero_g_gives_zero_outputs(dev, kind):
+    """Every tile skipped: kernel #4's gradients, dA and dx are all 0."""
+    _, packed, a, w = _enc_model(4, 128, kind, 5, dev)
+    p = 64 * 41 + 63
+    x = torch.rand((p, 3), device=dev) * 2 - 1
+    g = torch.zeros((p,), device=dev)
+    g[::3] = -0.0
+    grads, da, dx = fe.fused_mlp_enc_bwd_cuda(packed, a, w, x, g)
+    torch.cuda.synchronize()
+    assert all(bool((t == 0).all()) for pair in grads for t in pair)
+    assert bool((da == 0).all()) and bool((dx == 0).all())
+
+
+def test_enc_backward_failure_raises(dev, monkeypatch):
+    """No fallback for kernel #4: a launch that fails and a build that
+    cannot run both raise, and the plain version never runs on the card."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import build
+
+    def plain_refused(*args, **kwargs):
+        raise AssertionError("the plain encoded backward ran on the card")
+
+    monkeypatch.setattr(fe, "fused_mlp_enc_bwd_reference", plain_refused)
+    _, packed, a, w = _enc_model(2, 64, "fourier", 5, dev)
+    x = torch.rand((1000, 3), device=dev) * 2 - 1
+    g, _ = _zero_tiled_g(1000, 0.5, dev)
+    lib = fe._load_lib()
+
+    class FailingLaunch:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def fused_mlp_enc_bwd(self, *args):
+            return 1  # cudaErrorInvalidValue
+
+    fe.reset_counts()
+    monkeypatch.setattr(fe, "_lib", FailingLaunch())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fe.fused_mlp_enc_bwd(packed, a, w, x, g)
+    monkeypatch.setattr(fe, "_lib", None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "Path", lambda p: type("P", (), {"exists": lambda self: False})())
+    monkeypatch.setattr(build, "source_tag", lambda source: "not-built")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_mlp_enc_bwd(packed, a, w, x, g)
+    assert fe.enc_bwd_launches == 0
+
+
 def test_enc_autograd_launches_the_kernels(dev):
     model, _, _, _ = _enc_model(2, 64, "fourier", 5, dev)
     fe.reset_counts()

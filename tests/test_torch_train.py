@@ -179,7 +179,7 @@ def _imports(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(
     [*(ROOT / "nerf_for_angiography_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "tools" / "torch_fwd_variants.py"]
+     ROOT / "tools" / "torch_fwd_variants.py", ROOT / "tools" / "torch_enc_bwd_variants.py"]
 ), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax(path):
     for mod in _imports(path):
