@@ -34,8 +34,12 @@ Phases:
   5. the whole-step kernel (fused_train_step): held against its plain
      version at the dense, lattice and two bucket shapes on the trained
      grid's marches with random and trained weights, two launches
-     bit-identical, timed beside its bound and the split pair (MLP forward,
-     PyTorch composite, MLP backward) for the same function; the fused step
+     bit-identical, its composite scan bit-identical to a one-thread-a-ray
+     scan, the shares of 16-sample tiles active by mask and by draw, timed
+     beside its bound (also over the tiles it computes, with the scratch
+     traffic floor), its launches profiled, and the split pair (MLP
+     forward, PyTorch composite, MLP backward) for the same function; the
+     fused step
      against the split step at one trained state; 60 dense and 600
      shipped-default steps with ``fused_train_step='on'`` (one launch per
      rectangular march, no split backward); the fused step profiled at the
@@ -58,15 +62,16 @@ Phases:
      share below 1, the rest as for #2 above); 16 fourier compacted steps
      profiled (#4's chain and weight gradients and their share);
   7. kernels #2 and #4 at random g (#4: fourier at two point counts, BARF
-     at each alpha); with ``--parent DIR`` also kernels #1, #2 and #4 and
-     the split pairs of the parent checkout and of this one on the same
+     at each alpha); with ``--parent DIR`` also kernels #1, #2, #4 and #6
+     and the split pairs of the parent checkout and of this one on the same
      inputs, each twice in fresh processes (parent, this, this, parent),
-     #2's and #4's chain and weight-gradient device times profiled, #1's
-     outputs against the parent's, #4's equal to the parent's bit for bit
-     but for the sign of a zero, the parent's ptxas registers and spills
-     (every kernel but #4's must keep them; #4's at F = 128, KE = 48 may
-     not spill more), and the parent's dense run, which must equal this one
-     where #1's outputs equal the parent's;
+     #2's, #4's and #6's parts' device times profiled, #1's outputs against
+     the parent's, #4's and #6's equal to the parent's bit for bit but for
+     the sign of a zero (#6 at the four shapes with both weight sets, its
+     pixels bit for bit), the parent's ptxas registers and spills (every
+     kernel but #6's must keep them; #6's at F = 128 may not spill more),
+     and the parent's dense run, which must equal this one where #1's
+     outputs equal the parent's;
   8. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
@@ -259,8 +264,9 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
     regs, frames, spills = {}, {}, []
     for mangled, (n_regs, frame, stores, _) in ptxas_table(log).items():
         short = re.search(
-            r"(wgmma_fwd_kernel|fwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials"
-            r"|first_k_kernel|scan_kernel)", mangled)
+            r"(wgmma_march_fwd_kernel|wgmma_fwd_kernel|fwd_kernel|bwd_chain_kernel|wgrad_kernel"
+            r"|reduce_partials|first_k_kernel|tile_list_kernel|scan_serial_kernel|scan_kernel)",
+            mangled)
         width_arg = re.search(r"ILi(\d+)E", mangled)
         ke_arg = re.search(r"EncXILi(\d+)E", mangled)
         cur = (short.group(1) if short else mangled) + (
@@ -1306,18 +1312,38 @@ def eps_tie_dist(torch, fm, packed, o, d, t_mid, mask, kw):
     return torch.where(mask > 0, dist, torch.full_like(dist, float("inf"))).amin(dim=1)
 
 
+def tile_count(torch, flags) -> tuple[int, int]:
+    """(16-sample tiles of the flat march holding a True sample, tiles)."""
+    flat = flags.reshape(-1)
+    t = torch.nn.functional.pad(flat, (0, (-flat.numel()) % 16)).reshape(-1, 16).any(dim=1)
+    return int(t.sum()), t.numel()
+
+
 def check_fused_step(torch, fm, fs, model, blk, kw, label: str, timed: bool) -> dict:
     """The whole-step kernel against its plain version on one march block
     (limits FS_PIX_MAX / FS_PIX_MEDIAN / FS_GRAD_NORM), two launches
-    bit-identical; with ``timed``: kernel, plain and split-pair times and
-    the bound."""
+    bit-identical, its composite scan bit-identical to the one-thread-a-ray
+    scan on the plain forward's sigma; the shares of 16-sample tiles active
+    by the mask (the forward's) and by the draw (the backward's); with
+    ``timed``: kernel, plain and split-pair times, the bound, and over the
+    draw-active tiles the tensor bound and the scratch traffic floor, and
+    the kernel's launches profiled."""
     packed = fm.pack_params(fm.cppn_params_to_list(model))
     o, d, t_mid, mask, tgt = blk
     r, k = t_mid.shape
     got = fs.fused_step_grads_cuda(packed, *blk, **kw)
     again = fs.fused_step_grads_cuda(packed, *blk, **kw)
-    want = fs.fused_step_grads_reference(packed, *blk, **kw)
+    px_p, draw, xb, acts = fs.draws_reference(packed, *blk, **kw)
+    want = (px_p, fm.backward_from_acts(packed, xb, acts, draw.reshape(-1))[0])
+    sigma = torch.sigmoid(fm._head(packed, acts)).reshape(r, k).contiguous()
+    skw = dict(step=kw["step"], early_stop_eps=kw["early_stop_eps"],
+               n_rays_loss=kw["n_rays_loss"])
+    scan = fs.fused_step_scan_cuda(sigma, mask, tgt, **skw)
+    serial = fs.fused_step_scan_cuda(sigma, mask, tgt, serial=True, **skw)
     torch.cuda.synchronize()
+    scan_same = torch.equal(scan[0], serial[0]) and torch.equal(scan[1], serial[1])
+    mask_tiles, n_tiles = tile_count(torch, mask != 0)
+    draw_tiles, _ = tile_count(torch, draw != 0)
     c = fs_compare(torch, got, want)
     same = torch.equal(got[0], again[0]) and all(
         torch.equal(u, v) for a, b in zip(got[1], again[1]) for u, v in zip(a, b))
@@ -1329,14 +1355,20 @@ def check_fused_step(torch, fm, fs, model, blk, kw, label: str, timed: bool) -> 
                              and bool((tie < FS_EPS_TIE).all()))
     ok = (c["finite"] and ties_ok and c["pix_median"] <= FS_PIX_MEDIAN
           and c["grad_norm"] <= FS_GRAD_NORM)
-    out = dict(label=label, R=r, k=k, actives=int(mask.sum()), **c, rays_beyond=n_bad,
-               deterministic=same)
-    line = (f"fused_step {label} (R={r}, k={k}, P={r * k}, {out['actives']} active samples): "
+    out = dict(label=label, R=r, k=k, actives=int((mask != 0).sum()),
+               draw_actives=int((draw != 0).sum()), tiles=n_tiles,
+               mask_tile_share=mask_tiles / n_tiles, draw_tile_share=draw_tiles / n_tiles, **c,
+               rays_beyond=n_bad, deterministic=same, scan_equal_serial=scan_same)
+    line = (f"fused_step {label} (R={r}, k={k}, P={r * k}, {out['actives']} active samples, "
+            f"{out['draw_actives']} with draw != 0; tiles active by mask {mask_tiles} of "
+            f"{n_tiles} ({out['mask_tile_share']:.4f}), by draw {draw_tiles} "
+            f"({out['draw_tile_share']:.4f})): "
             f"pixels max_abs_err {c['pix_max']:.3e} (limit {FS_PIX_MAX} except at eps ties: "
             f"{n_bad} rays beyond it"
             + (f", each within {float(tie.max()):.3e} of eps (limit {FS_EPS_TIE})" if n_bad else "")
             + f") median {c['pix_median']:.3e} (limit {FS_PIX_MEDIAN}); max normalised grad err "
-            f"{c['grad_norm']:.3e} (limit {FS_GRAD_NORM}); two launches bit-identical {same}")
+            f"{c['grad_norm']:.3e} (limit {FS_GRAD_NORM}); two launches bit-identical {same}; "
+            f"scan equal to the one-thread-a-ray scan bit for bit {scan_same}")
     if timed:
         f, nh = packed.width, packed.n_hidden
         pbytes = sum(t.numel() * t.element_size() for t in packed)
@@ -1354,14 +1386,28 @@ def check_fused_step(torch, fm, fs, model, blk, kw, label: str, timed: bool) -> 
             t.numel() for pair in got[1] for t in pair)
         b_ms, b_by = bound_ms(3 * mlp_flops(out["actives"], f, nh)[0], nbytes)
         i_ms, _ = bound_ms(3 * mlp_flops(r * k, f, nh)[0], nbytes)
+        # at the kernel's grain: the forward over the mask-active tiles, the
+        # recompute, dW and dh products over the draw-active tiles, and the
+        # chain's scratch (activations and dz, written once and read once)
+        t_ms, t_by = bound_ms(mlp_flops(16 * mask_tiles, f, nh)[0]
+                              + mlp_flops(16 * draw_tiles, f, nh)[1], nbytes)
+        floor = scratch_floor_ms(16 * draw_tiles, f, nh)
+        parts = device_parts_ms(torch, lambda: fs.fused_step_grads_cuda(packed, *blk, **kw),
+                                FS_PARTS)
         out.update(ms=k_ms, plain_ms=p_ms, split_pair_ms=s_ms, bound_ms=b_ms, bound_by=b_by,
-                   interface_bound_ms=i_ms)
+                   interface_bound_ms=i_ms, tile_bound_ms=t_ms, tile_bound_by=t_by,
+                   floor_ms=floor, parts_ms=parts)
         line += (f"; kernel_ms {k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, the active samples; "
                  f"{i_ms:.4f} over all {r * k}) plain_ms {p_ms:.4f} split_pair_ms {s_ms:.4f} "
-                 f"library_ms null (no single PyTorch call computes the train-step gradient)")
+                 f"library_ms null (no single PyTorch call computes the train-step gradient); "
+                 f"over the tiles it computes (forward: by mask, backward: by draw) bound_ms "
+                 f"{t_ms:.4f} ({t_by}) and scratch traffic floor {floor:.4f} ms; device ms a "
+                 f"launch by part (profiled): " + parts_line(parts))
     print(line)
     check(ok, f"fused_step disagrees with its plain version: {label}")
     check(same, f"fused_step gradients differ between two launches: {label}")
+    check(scan_same, f"fused_step's scan differs from the one-thread-a-ray scan: {label}")
+    check(draw_tiles <= mask_tiles, f"more tiles active by draw than by mask: {label}")
     return out
 
 
@@ -1461,7 +1507,7 @@ def fused_step_phase(torch, fm, fk, fs, ds, tr: dict, cp: dict, report: dict) ->
             random=check_fused_step(torch, fm, fs, rnd_model, blk, kw,
                                     f"{name}, random weights", timed=True),
             trained=check_fused_step(torch, fm, fs, state.model, blk, kw,
-                                     f"{name}, trained weights", timed=False),
+                                     f"{name}, trained weights", timed=True),
         )
     wiring = [fused_wiring(torch, fm, state, batch, dataclasses.replace(cfg, compact_samples=0),
                            "dense", [blocks["dense"]], kw),
@@ -1579,12 +1625,21 @@ def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
     return dict(rows=out, inputs=inputs, plist=plist)
 
 
-def bwd_parts_ms(torch, launch, n: int = 5) -> dict:
-    """Device ms a call of ``launch`` (one MLP backward, kernel #2 or #4)
-    in its parts, traced with torch.profiler over ``n`` calls: the chain,
-    the weight gradients and the rest (the partial sums and, where the
-    wrapper zeroes dx, that fill); None where the profiler saw no device
-    time (not measured)."""
+# the parts of a launch by kernel name (the first name a kernel's holds):
+# an MLP backward (kernel #2 or #4; the rest is the partial sums and, where
+# the wrapper zeroes dx, that fill), and the whole-step kernel #6 (an
+# earlier design's forward is mlp_chain.cuh's fwd_kernel, and the scan of
+# either design is scan_kernel)
+BWD_PARTS = (("chain", "bwd_chain_kernel"), ("wgrad", "wgrad_kernel"))
+FS_PARTS = (("list", "tile_list_kernel"), ("fwd", "fwd_kernel"), ("scan", "scan_kernel"),
+            ("chain", "bwd_chain_kernel"), ("wgrad", "wgrad_kernel"),
+            ("reduce", "reduce_partials"))
+
+
+def device_parts_ms(torch, launch, parts, n: int = 5) -> dict:
+    """Device ms a call of ``launch`` in its ``parts`` (name, kernel name)
+    and the rest, traced with torch.profiler over ``n`` calls; None where
+    the profiler saw no device time (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1594,21 +1649,26 @@ def bwd_parts_ms(torch, launch, n: int = 5) -> dict:
         for _ in range(n):
             launch()
         torch.cuda.synchronize()
-    out = dict(chain=0.0, wgrad=0.0, rest=0.0)
+    out = {name: 0.0 for name, _ in parts}
+    out["rest"] = 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        part = ("chain" if "bwd_chain_kernel" in ev.key
-                else "wgrad" if "wgrad_kernel" in ev.key else "rest")
+        part = next((name for name, key in parts if key in ev.key), "rest")
         out[part] += dev_us / 1e3 / n
     return out if any(out.values()) else None
 
 
+def parts_line(parts) -> str:
+    return (" / ".join(f"{k} {v:.4f}" for k, v in parts.items()) if parts
+            else "not measured")
+
+
 def mean_parts(*runs):
-    """The mean of kernel #2's profiled parts over the runs that measured
+    """The mean of a launch's profiled parts over the runs that measured
     them, None where none did."""
     have = [r for r in runs if r]
     return {q: sum(r[q] for r in have) / len(have) for q in have[0]} if have else None
@@ -1618,10 +1678,10 @@ def saved_times(root: str, path: str, dense: bool, ptxas: bool = False) -> dict:
     """Run this script with ``--time-saved`` against the package of the
     checkout ``root`` in a process of its own, on the inputs saved at
     ``path``: its kernel #1 (back to back and one launch at a time), kernel
-    #2, kernel #4 and split-pair times on them, the files of its kernel #1
-    outputs at the dense shape and of its kernel #4 outputs, with ``dense``
-    its dense 60-step run and with ``ptxas``
-    the ptxas tables of its four libraries (built first, in that process)."""
+    #2, kernel #4, kernel #6 and split-pair times on them, the files of its
+    kernel #1 outputs at the dense shape and of its kernel #4 and #6
+    outputs, with ``dense`` its dense 60-step run and with ``ptxas`` the
+    ptxas tables of its four libraries (built first, in that process)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
                            "--root", os.path.abspath(root)] + ([] if dense else ["--no-dense"])
@@ -1640,9 +1700,9 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     inputs, each in fresh processes, in the order parent, this, this, parent
     (so a drift of the card or the host cancels): (parent, this), each with
     its two readings of every time under ``runs`` and their mean in place
-    (also of kernels #2 and #4's profiled parts), and the dense run, kernel
-    #1's and #4's outputs and (the parent's) ptxas tables of each side's
-    first process."""
+    (also of kernels #2, #4 and #6's profiled parts), and the dense run,
+    kernel #1's, #4's and #6's outputs and (the parent's) ptxas tables of
+    each side's first process."""
     path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
@@ -1651,19 +1711,25 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     sides = []
     for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
         side = dict(dense=a["dense"], fwd_out=a["fwd_out"], enc_out=a["enc_out"],
-                    ptxas=a.get("ptxas"))
-        for key in ("bwd_ms", "enc_bwd_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms"):
+                    fs_out=a["fs_out"], ptxas=a.get("ptxas"))
+        for key in ("bwd_ms", "enc_bwd_ms", "fs_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
             side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
-        for key in ("bwd_parts_ms", "enc_bwd_parts_ms"):
+        for key in ("bwd_parts_ms", "enc_bwd_parts_ms", "fs_parts_ms"):
             side[key] = {k: mean_parts(v, b[key][k]) for k, v in a[key].items()}
         sides.append(side)
     return sides[0], sides[1]
 
 
-# kernel #4's kernels in the encoded library's ptxas report (its chain and
-# weight gradients; the forward's fwd_kernel and reduce_partials are shared)
+# kernel #4's kernels in the encoded library (its chain and weight
+# gradients; the forward's fwd_kernel and reduce_partials are shared)
 ENC_BWD_KERNELS = ("bwd_chain_kernel", "wgrad_kernel")
+# kernel #6's kernels in the fused_step library, whose design the parent
+# comparison does not hold fixed: the forward, list, scans, chain and
+# weight gradients of either design (reduce_partials is the shared one and
+# is compared)
+FS_KERNELS = ("fwd_kernel", "tile_list_kernel", "scan_kernel", "scan_serial_kernel",
+              "bwd_chain_kernel", "wgrad_kernel")
 
 
 def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
@@ -1671,9 +1737,10 @@ def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
     the dense shape, with the random and the trained weights (each side's
     first fresh process): equal bit for bit, else the largest and the
     median |raw difference|, held to the forward limits; then the ptxas
-    report: every kernel of the parent's four libraries but kernel #4's
-    keeps its registers, stack frame and spills here, and #4's gated
-    kernels at F = 128, KE = 48 spill no more than the parent's."""
+    report: every kernel of the parent's four libraries but kernel #6's
+    keeps its registers, stack frame and spills here, and #6's kernels at F
+    = 128 spill no more than the parent's of the same part (chain, weight
+    gradients; forward, scan and list: none)."""
     mine_raw, theirs_raw = torch.load(own["fwd_out"]), torch.load(par["fwd_out"])
     out = {}
     for k, b in theirs_raw.items():
@@ -1698,30 +1765,38 @@ def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
     compared, differ = 0, []
     for lib, table in theirs.items():
         for name, v in table.items():
-            if lib == "fused_mlp_enc" and any(k in name for k in ENC_BWD_KERNELS):
-                continue  # kernel #4's, replaced by its gated instantiations
+            if lib == "fused_step" and any(k in name for k in FS_KERNELS):
+                continue  # kernel #6's, redesigned
             compared += 1
             if tuple(mine[lib].get(name, ())) != tuple(v):
                 differ.append(f"{lib} {name}: parent {v}, this {mine[lib].get(name)}")
     print(f"ptxas against the parent commit: {compared} kernels of the four libraries (all but "
-          f"kernel #4's) compared on (registers, stack frame, spill stores, spill loads): "
+          f"kernel #6's) compared on (registers, stack frame, spill stores, spill loads): "
           f"{len(differ)} differ" + ("".join(f"\n  {d}" for d in differ)))
     check(compared > 0 and not differ,
-          "a kernel other than kernel #4 changed its ptxas registers or spills")
+          "a kernel other than kernel #6 changed its ptxas registers or spills")
     out["ptxas_compared"] = compared
-    # kernel #4 at F = 128, KE = 48: its gated kernels may spill no more
-    # than the ungated ones they replaced
-    for kind in ENC_BWD_KERNELS:
-        found = [[v for n, v in t["fused_mlp_enc"].items()
-                  if kind in n and "ILi128E" in n and "EncXILi48E" in n] for t in (mine, theirs)]
-        check(all(len(v) == 1 for v in found),
-              f"kernel #4's {kind} at F=128, KE=48 is not in both ptxas reports once")
-        new, old = (v[0] for v in found)
-        print(f"ptxas {kind} of kernel #4 at F=128, KE=48 (registers, stack frame, spill "
-              f"stores, spill loads): this {tuple(new)}, parent commit {tuple(old)}")
+    # kernel #6 at F = 128: no part spills more than the parent's part that
+    # did its work (the parent's weight gradients spilled 12 bytes); the
+    # tile list, which the parent had not, spills nothing
+    def at128(table, kind):
+        found = [v for n, v in table["fused_step"].items()
+                 if re.search(rf"\d{kind}", n) and ("ILi128E" in n or "ILi" not in n)]
+        check(len(found) == 1, f"kernel #6's {kind} at F=128 is not in a ptxas report once")
+        return found[0]
+
+    for kind, old_kind in (("bwd_chain_kernel", "bwd_chain_kernel"),
+                           ("wgrad_kernel", "wgrad_kernel"),
+                           ("wgmma_march_fwd_kernel", "fwd_kernel"),
+                           ("scan_kernel", "scan_kernel"), ("tile_list_kernel", None)):
+        new = at128(mine, kind)
+        old = at128(theirs, old_kind) if old_kind else (0, 0, 0, 0)
+        print(f"ptxas {kind} of kernel #6 at F=128 (registers, stack frame, spill stores, spill "
+              f"loads): this {tuple(new)}, parent commit's {old_kind}: "
+              + (f"{tuple(old)}" if old_kind else "none (new)"))
         check(new[2] <= old[2] and new[3] <= old[3],
-              f"kernel #4's {kind} spills more than the parent's at F=128, KE=48")
-        out[f"enc_{kind}_ptxas"] = dict(this=list(new), parent=list(old))
+              f"kernel #6's {kind} spills more than the parent's at F=128")
+        out[f"fs_{kind}_ptxas"] = dict(this=list(new), parent=list(old) if old_kind else None)
     return out
 
 
@@ -1791,6 +1866,27 @@ def enc_vs_parent(torch, par: dict, own: dict) -> dict:
     return out
 
 
+def fs_vs_parent(torch, par: dict, own: dict) -> dict:
+    """Kernel #6 of this checkout against the parent's at the four march
+    shapes with the random and the trained weights (each side's first fresh
+    process): pixels equal bit for bit, gradients equal bit for bit but for
+    the sign of a zero."""
+    mine, theirs = torch.load(own["fs_out"]), torch.load(par["fs_out"])
+    out = {}
+    for case, b in theirs.items():
+        a = mine[case]
+        px = torch.equal(a["pixels"], b["pixels"])
+        grads = all(torch.equal(u, v) for u, v in zip(a["grads"], b["grads"]))
+        worst = max(float((u - v).abs().max()) for u, v in zip(a["grads"], b["grads"]))
+        out[case] = dict(pixels=px, grads=grads, max_abs_grad_diff=worst)
+        print(f"fused_step against the parent commit's, {case}: pixels equal bit for bit {px}; "
+              f"gradients equal bit for bit but for the sign of a zero {grads} (largest "
+              f"difference {worst:.3e})")
+    check(len(out) == 8 and all(r["pixels"] and r["grads"] for r in out.values()),
+          "kernel #6's pixels or gradients differ from the parent commit's")
+    return out
+
+
 def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent: str | None,
                       report: dict, kb: dict) -> dict:
     """Kernel #2 at random g (all tiles active) beside the scratch traffic
@@ -1799,7 +1895,9 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     trained-state inputs and the split pairs on the same march blocks, of
     the parent and of this checkout alike in fresh processes (paired_times)
     with kernel #1 beside them (fwd_vs_parent), #4's outputs against the
-    parent's (enc_vs_parent), and the parent's dense 60-step run, whose
+    parent's (enc_vs_parent), kernel #6 on the march blocks with both weight
+    sets, its outputs against the parent's (fs_vs_parent), and the parent's
+    dense 60-step run, whose
     train loss and held-out PSNR this tree's must equal bit for bit where
     kernel #1 gives the parent's outputs bit for bit (kernel #2's skipped
     tiles add exact zeros)."""
@@ -1841,6 +1939,7 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
         out.update(parent=par, paired=own)
         out["fwd_vs_parent"] = fwd_vs_parent(torch, par, own, kb)
         out["enc_vs_parent"] = enc_vs_parent(torch, par, own)
+        out["fs_vs_parent"] = fs_vs_parent(torch, par, own)
 
     def vs_parent(key: str, k: str) -> str:
         if not par:
@@ -1865,6 +1964,11 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     for k, v in enc_ms.items():
         print(f"fused_mlp_enc_bwd {k}: kernel_ms {v:.4f}" + vs_parent("enc_bwd_ms", k)
               + parts("enc_bwd_parts_ms", k))
+    for k in (own or {}).get("fs_ms", {}):
+        print(f"fused_step {k}" + vs_parent("fs_ms", k)
+              + f"; device ms a launch by part (profiled, fresh): this "
+              + parts_line(own["fs_parts_ms"][k]) + ", parent commit "
+              + parts_line(par["fs_parts_ms"][k]))
     for k, v in split.items():
         print(f"split pair {k}: {v:.4f} ms" + vs_parent("split_pair_ms", k))
     for k in (own or {}).get("fwd_ms", {}):
@@ -1894,13 +1998,17 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
     the split pair of this process's package on the saved inputs (CUDA-event
     medians), kernel #4 (and its profiled parts) on the saved encoded cases
     (enc_compare_inputs) with its outputs (canonical_outputs) saved to a
-    file beside ``path``, and, with ``dense``, the dense 60-step run's train
-    loss and held-out PSNR (full precision)."""
+    file beside ``path``, kernel #6 (and its profiled parts) on the saved
+    march blocks with the random and the trained weights, its pixels and
+    gradients (-0 made +0) saved to a file beside ``path``, and, with
+    ``dense``, the dense 60-step run's train loss and held-out PSNR (full
+    precision)."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
     out = {"bwd_ms": {}, "bwd_parts_ms": {}, "enc_bwd_ms": {}, "enc_bwd_parts_ms": {},
-           "split_pair_ms": {}, "fwd_ms": {}, "fwd_one_ms": {}}
+           "fs_ms": {}, "fs_parts_ms": {}, "split_pair_ms": {}, "fwd_ms": {}, "fwd_one_ms": {}}
     if mods:
         libs = (fm, *mods)
         with ThreadPoolExecutor(len(libs)) as ex:
@@ -1929,8 +2037,8 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
             x, g = x.to(dev), g.to(dev)
             out["bwd_ms"][f"{key}: {name}"] = time_ms(
                 torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
-            out["bwd_parts_ms"][f"{key}: {name}"] = bwd_parts_ms(
-                torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
+            out["bwd_parts_ms"][f"{key}: {name}"] = device_parts_ms(
+                torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g), BWD_PARTS)
     enc = dict(saved["enc"], models={
         k: (tuple(t.to(dev) for t in pk), a.to(dev), w.to(dev))
         for k, (pk, a, w) in saved["enc"]["models"].items()},
@@ -1939,13 +2047,29 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
     for case in enc["cases"]:
         launch = enc_launch(fm, fe, enc, case)
         out["enc_bwd_ms"][case] = time_ms(torch, launch)
-        out["enc_bwd_parts_ms"][case] = bwd_parts_ms(torch, launch)
+        out["enc_bwd_parts_ms"][case] = device_parts_ms(torch, launch, BWD_PARTS)
         enc_out[case] = canonical_outputs(torch, launch())
     out["enc_out"] = f"{path}.enc.{os.getpid()}.pt"
     torch.save(enc_out, out["enc_out"])
+    blocks = {name: tuple(t.to(dev) for t in blk) for name, blk in saved["blocks"].items()}
+    fs_out = {}
+    for weights in ("random", "trained"):
+        packed = fm.pack_params(to_dev(saved[weights + "_plist"]))
+        for name, blk in blocks.items():
+            case = f"{name}, {weights} weights"
+
+            def launch(blk=blk, packed=packed):
+                return fs.fused_step_grads_cuda(packed, *blk, **saved["kw"])
+
+            out["fs_ms"][case] = time_ms(torch, launch)
+            out["fs_parts_ms"][case] = device_parts_ms(torch, launch, FS_PARTS)
+            px, grads = launch()
+            fs_out[case] = dict(pixels=px.cpu(),
+                                grads=[(t + 0.0).cpu() for pair in grads for t in pair])
+    out["fs_out"] = f"{path}.fs.{os.getpid()}.pt"
+    torch.save(fs_out, out["fs_out"])
     plist = to_dev(saved["random_plist"])
-    for name, blk in saved["blocks"].items():
-        blk = tuple(t.to(dev) for t in blk)
+    for name, blk in blocks.items():
         out["split_pair_ms"][name] = time_ms(
             torch, lambda: split_pair(torch, fm, plist, *blk, saved["kw"]), reps=5, warmup=2)
     if not dense:
@@ -2243,9 +2367,10 @@ def main() -> int:
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: also time its kernels #1, #2 and #4 "
-                         "and split pairs on this run's inputs, hold #1's and #4's outputs and "
-                         "the ptxas report to it and its dense run equal to this one")
+                    help="a checkout of the parent commit: also time its kernels #1, #2, #4 "
+                         "and #6 and split pairs on this run's inputs, hold #1's, #4's and #6's "
+                         "outputs and the ptxas report to it and its dense run equal to this "
+                         "one")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--no-dense", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
@@ -2341,6 +2466,19 @@ def main() -> int:
                                                     "split_pair_ms")}
                 for name, v in fp["shapes"].items()},
     ))
+    # both weight sets at every shape: tile shares, the bounds over the tiles
+    # the kernel computes, its parts, and with --parent the paired times
+    fs_paired, fs_parent = (bc.get(side, {}) for side in ("paired", "parent"))
+    rows[-1]["cases"] = {
+        f"{name}, {w} weights": {
+            **{q: v[w][q] for q in ("actives", "draw_actives", "mask_tile_share",
+                                    "draw_tile_share", "ms", "plain_ms", "bound_ms",
+                                    "tile_bound_ms", "floor_ms", "parts_ms", "max_abs_err")},
+            **{f"{side}_{q}": src.get(f"fs_{q}", {}).get(f"{name}, {w} weights")
+               for side, src in (("paired", fs_paired), ("parent", fs_parent))
+               for q in ("ms", "parts_ms")}}
+        for name, v in fp["shapes"].items() for w in ("random", "trained")}
+    rows[-1]["vs_parent"] = bc.get("fs_vs_parent")
     rows += ep["rows"]
     for row in rows:
         row["launches"] = sum(by_path[row["name"]].values())

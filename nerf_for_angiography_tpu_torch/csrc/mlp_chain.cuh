@@ -14,9 +14,9 @@
 // activations, dW/db accumulate in f32 and dx is f32.
 //
 // Design (of the kernels here; kernel #1, the forward over a (P, 3) or
-// (3, P) input, is mlp_wgmma.cuh's warpgroup-MMA kernel, built on these
-// pieces; fwd_kernel here serves the encoded forward and the whole-step
-// kernel's first launch):
+// (3, P) input, and the whole-step kernel #6's forward over a march are
+// mlp_wgmma.cuh's warpgroup-MMA kernels, built on these pieces; fwd_kernel
+// here serves the encoded forward):
 //  * Every weight of the MLP is staged once per block into shared memory in
 //    (out, in) orientation (148 KB at F = 128, n_hidden = 4) and stays there;
 //    one persistent block per SM, 16 warps forward, 8 in the backward chain.
@@ -55,7 +55,8 @@
 //    2 x (n_hidden + 1) x P x F bf16 of device scratch (4.3 GB at the
 //    training shape), allocated by the caller.
 //  * Kernels #2 and #4 (the split path's MLP backward, inputs GatedX and,
-//    over the encoding, GatedEncX) work only on tiles that carry a
+//    over the encoding, GatedEncX) and #6's backward (GatedMarchX, on the
+//    draws its composite scan hands it) work only on tiles that carry a
 //    gradient: a point is active where g != 0, and a 16-point tile with no
 //    active point is skipped by the chain (no recompute, no sincosf, no
 //    stores; dx stays the caller's 0, #4's dA terms stay 0) and by the
@@ -79,10 +80,9 @@
 //    bytes-bound.  With the skip both figures scale with the active tiles,
 //    not with P.
 //  * These kernels read every layer's B operand from shared memory once per
-//    16-point tile (ldmatrix); mlp_wgmma.cuh's forward reads it once per 64
-//    points.  The encoded forward, the whole-step kernel and the backward
-//    can adopt wgmma the same way; TMA tensor maps and a warp-specialised
-//    pipeline are later work.
+//    16-point tile (ldmatrix); mlp_wgmma.cuh's forwards read it once per 64
+//    points.  The encoded forward and the backward can adopt wgmma the same
+//    way; TMA tensor maps and a warp-specialised pipeline are later work.
 
 #pragma once
 
@@ -208,7 +208,8 @@ struct GatedX : StridedX {
 // p = r * k + j is x = (o_r * s) + (d_r * s) * t_mid[r, j], every product
 // and sum rounded on its own (no fused multiply-add), as the plain version
 // computes it.  A sample with mask 0 adds nothing to the pixel or to the
-// gradients (its draw is 0), so only samples with mask != 0 are active.
+// gradients (its draw is 0), so only samples with mask != 0 are active:
+// kernel #6's forward (mlp_wgmma.cuh's march forward) computes those.
 struct MarchX {
   static constexpr int KI = KIN;
   static constexpr bool ENCODED = false;
@@ -219,12 +220,28 @@ struct MarchX {
   const float* mask;  // (R, k) {0, 1}
   int k;
   float s;            // input_scale
+  // p < 2^31 (the caller checks R k): a 32-bit division, where a 64-bit
+  // one is a call that takes a stack frame
   __device__ __forceinline__ float operator()(long long p, int c) const {
-    const long long r = p / k;
+    const unsigned r = unsigned(p) / unsigned(k);
     const float oc = __fmul_rn(o[r * 3 + c], s), dc = __fmul_rn(d[r * 3 + c], s);
     return __fadd_rn(oc, __fmul_rn(dc, tm[p]));
   }
   __device__ __forceinline__ bool active(long long p) const { return mask[p] != 0.0f; }
+};
+
+// kernel #6's backward input: the samples of a MarchX, active where the
+// draw (the gradient the composite hands the MLP) is not zero (-0 counts as
+// zero), as GatedX gates kernel #2's on g.  A sample with draw 0 has dz = 0
+// in every layer and adds exact zeros to every gradient: masked samples,
+// samples after the early stop (keep 0) and those with sigma (1 - sigma) =
+// 0, so this gate skips at least what the mask gate skips.  The chain skips
+// a tile with no active sample, the weight-gradient stages hold the active
+// tiles only, and the scratch is stored in the tile-fragment layout.
+struct GatedMarchX : MarchX {
+  static constexpr bool FRAG_SCRATCH = true;
+  const float* draw;  // (R, k)
+  __device__ __forceinline__ bool active(long long p) const { return draw[p] != 0.0f; }
 };
 
 // warp-collective: does the 16-point tile at p0 hold an active point (< P)?

@@ -6,8 +6,10 @@
 //
 // Replaces the TPU kernel nerf_for_angiography_tpu/ops/pallas/fused_mlp.py
 // ::_fwd_kernel (line 142) as fused_mlp_raw and fused_mlp_raw_fm reach it;
-// csrc/fused_mlp.cu::fused_mlp_fwd launches it.  The encoded forward (#3,
-// EncX) and the whole-step kernel's first launch (#6, MarchX) keep
+// csrc/fused_mlp.cu::fused_mlp_fwd launches it.  The whole-step kernel's
+// forward (#6, csrc/fused_step.cu) is wgmma_march_fwd_kernel below: the
+// same chain over a march's samples, on a list of the 16-point tiles that
+// hold an active sample.  The encoded forward (#3, EncX) keeps
 // mlp_chain.cuh's mma.sync fwd_kernel.
 //
 // Bound: at F = 128, n_hidden = 4 a point costs 132,096 FLOP against 16
@@ -375,8 +377,8 @@ __device__ void wg_stage_weights(unsigned char* smem, const WgLayout& L, const P
 
 // this lane's part of the x fragment of the 16 rows at p0 (rows >= P read
 // 0): thread t = 0 holds columns 0, 1 of rows g and g + 8, t = 1 column 2
-__device__ __forceinline__ void wg_load_x(float (&v)[4], const StridedX& x, long long p0,
-                                          long long P) {
+template <class X>
+__device__ __forceinline__ void wg_load_x(float (&v)[4], const X& x, long long p0, long long P) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long r0 = p0 + g, r1 = r0 + 8;
   v[0] = v[1] = v[2] = v[3] = 0.0f;
@@ -390,6 +392,43 @@ __device__ __forceinline__ void wg_load_x(float (&v)[4], const StridedX& x, long
       if (t == 0) v[3] = x(r1, 1);
     }
   }
+}
+
+// the layer chain of a warpgroup's 64 rows (per warp ax, its 16 rows' x
+// fragment) and the head's dot with w_out before b_out, summed over this
+// thread's columns and then across the four threads of a row: (s0, s1) for
+// rows g and g + 8 of this warp.  wgmma_fwd_kernel keeps its own copy of
+// these lines: calling this moved its registers at F = 32 (50 -> 58).
+template <int F, bool SW128>
+__device__ __forceinline__ void wg_chain_head(float& s0, float& s1, uint32_t (&ax)[1][4],
+                                              uint32_t s_in, uint32_t s_hid, const float* bias,
+                                              const float* wo, int nh) {
+  const int t = threadIdx.x & 3;
+  float acc[F / 8][4];
+  uint32_t a[F / 16][4];
+  wg_layer<F, 1, false>(acc, ax, s_in);
+  wg_bias_relu_pack<F>(a, acc, bias);
+  for (int l = 0; l < nh; ++l) {
+    wg_layer<F, F / 16, SW128>(acc, a, s_hid + uint32_t(l) * F * F * sizeof(bf16));
+    wg_bias_relu_pack<F>(a, acc, bias + (l + 1) * F);
+  }
+  // head: f32 products of the bf16 activation with w_out
+  s0 = 0.0f;
+  s1 = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < F / 16; ++kt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = kt * 16 + h * 8 + 2 * t;
+      const float2 u0 = unpack2(a[kt][h * 2]), u1 = unpack2(a[kt][h * 2 + 1]);
+      s0 += u0.x * wo[c] + u0.y * wo[c + 1];
+      s1 += u1.x * wo[c] + u1.y * wo[c + 1];
+    }
+  }
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
 }
 
 // out[p] = raw(p), one 64-point tile a warpgroup at a time
@@ -450,6 +489,64 @@ wgmma_fwd_kernel(StridedX x, long long P, Params prm, int nh, float* __restrict_
   }
 }
 
+// Kernel #6's forward: sigma[p] = sigmoid(raw(p)) at the samples of a
+// march (MarchX), computed only on the 16-point tiles of ``list`` (``*count``
+// tile indices, in any order: the tiles holding a sample with mask != 0).
+// Warp w of a warpgroup forms x for list entry 4 i + w, so the 64 rows of a
+// wgmma are four active tiles, not 64 consecutive points; a warp past the
+// list's end feeds rows of zeros and stores nothing.  The chain, its cast
+// points and the head are wgmma_fwd_kernel's, then the sigmoid of
+// mlp_chain.cuh's fwd_kernel, so sigma is the same bit for bit.
+template <int F, bool SW128 = (F % 64 == 0)>
+__global__ void __launch_bounds__(WG_COUNT * 128, 1)
+wgmma_march_fwd_kernel(MarchX x, const int* __restrict__ list, const int* __restrict__ count,
+                       long long P, Params prm, int nh, float* __restrict__ sigma) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const WgLayout L = wg_layout(F, nh);
+  wg_stage_weights<F, SW128>(smem, L, prm, nh);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const float b_out = prm.b_out[0];
+  const float* bias = reinterpret_cast<const float*>(smem + L.bias);
+  const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
+  const uint32_t s_hid = smem_u32(smem + L.w_hid), s_in = smem_u32(smem + L.w_in);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = *count;
+  const int n_items = (n + 3) / 4;  // four tiles a warpgroup item
+  const int step = gridDim.x * WG_COUNT;
+  // the first point of this warp's tile of item i; P (rows read as zeros,
+  // never stored) past the list's end
+  auto tile_p0 = [&](int i) {
+    const int e = 4 * i + warp;
+    return e < n ? (long long)list[e] * TILE : P;
+  };
+  int item = blockIdx.x * WG_COUNT + wg;  // uniform over the warpgroup
+  long long p0 = P;
+  float v[4];
+  if (item < n_items) {
+    p0 = tile_p0(item);
+    wg_load_x(v, x, p0, P);
+  }
+  for (; item < n_items; item += step) {
+    const long long q0 = p0;
+    uint32_t ax[1][4] = {{pack2(v[0], v[1]), pack2(v[2], v[3]), 0u, 0u}};
+    if (item + step < n_items) {
+      p0 = tile_p0(item + step);
+      wg_load_x(v, x, p0, P);
+    }
+    float s0, s1;
+    wg_chain_head<F, SW128>(s0, s1, ax, s_in, s_hid, bias, wo, nh);
+    if (t == 0) {
+      s0 += b_out;
+      s1 += b_out;
+      if (q0 + g < P) sigma[q0 + g] = 1.0f / (1.0f + expf(-s0));
+      if (q0 + g + 8 < P) sigma[q0 + g + 8] = 1.0f / (1.0f + expf(-s1));
+    }
+  }
+}
+
 template <int F>
 int launch_wgmma_fwd(const StridedX& x, long long P, const Params& prm, int nh, float* out,
                      int n_sms, cudaStream_t st) {
@@ -461,6 +558,24 @@ int launch_wgmma_fwd(const StridedX& x, long long P, const Params& prm, int nh, 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   wgmma_fwd_kernel<F><<<grid, WG_COUNT * 128, smem, st>>>(x, P, prm, nh, out);
+  return (int)cudaGetLastError();
+}
+
+// kernel #6's forward over the active tiles of a march of P < 2^31 samples
+// (list, count in device memory, written earlier on the stream); the grid
+// covers the case where every tile is active
+template <int F>
+int launch_wgmma_march_fwd(const MarchX& x, const int* list, const int* count, long long P,
+                           const Params& prm, int nh, float* sigma, int n_sms, cudaStream_t st) {
+  if (P <= 0) return (int)cudaSuccess;
+  const long long items = ((P + TILE - 1) / TILE + 3) / 4;
+  const int grid = (int)std::min<long long>((items + WG_COUNT - 1) / WG_COUNT, n_sms);
+  const size_t smem = wg_layout(F, nh).total;
+  cudaError_t e = cudaFuncSetAttribute(wgmma_march_fwd_kernel<F>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_march_fwd_kernel<F><<<grid, WG_COUNT * 128, smem, st>>>(x, list, count, P, prm, nh,
+                                                                sigma);
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,16 @@ Hopper kernel and its plain PyTorch version.
 
 Replaces the TPU kernel ``nerf_for_angiography_tpu/ops/pallas/fused_step.py``
 ``_fs_kernel`` (line 79), reached through ``fused_step_grads`` (line 202).
-The CUDA C++ source is ``csrc/fused_step.cu`` over the layer chain of
-``csrc/mlp_chain.cuh``; its header states the bound and the design (a
-sample-parallel forward keeping sigma, a per-ray composite scan, the MLP
-backward of the draws; five launches in one call, no float atomics).
+The CUDA C++ source is ``csrc/fused_step.cu`` over the layer chains of
+``csrc/mlp_chain.cuh`` and ``csrc/mlp_wgmma.cuh``; its header states the
+bound and the design: a list of the 16-point tiles holding a sample with
+mask != 0, the forward over those tiles on warpgroup MMA keeping sigma, a
+per-ray composite scan over rows staged in shared memory, and the MLP
+backward of the draws, which works only on tiles holding a sample with draw
+!= 0 and stores its scratch in the tile-fragment layout. Six launches and a
+memset in one call, no float atomics. The list of active tiles lives in the
+backward's dz scratch, which the chain overwrites only after the forward has
+read it.
 
 The function (the TPU kernel's cast points): x = bf16(o s + (d s) t_mid);
 the bf16 layer chain and the f32 head; sigma = sigmoid(raw); keep = mask *
@@ -35,6 +41,9 @@ from .build import load_library, raise_on
 fused_step_launches = 0
 shapes: set[tuple[int, int]] = set()
 
+# the kernel forms sample indices in 32 bits
+_MAX_SAMPLES = 1 << 31
+
 _lib = None
 _lib_lock = threading.Lock()
 # nvcc's output of the last build (ptxas register report)
@@ -56,11 +65,12 @@ def _check_march(origins, directions, t_mid, mask, targets) -> tuple[int, int]:
     return r, k
 
 
-def fused_step_grads_reference(
+def draws_reference(
     packed: fm.PackedMLP, origins, directions, t_mid, mask, targets, *,
     step: float, early_stop_eps: float, n_rays_loss: int, input_scale: float = 1.0,
 ):
-    """The plain version: (pixels (R,) f32, grads in the plist layout).
+    """The plain forward and composite: (pixels (R,), draws (R, k) f32 =
+    dL/draw of every sample, bf16 input (R k, 3), bf16 activations).
 
     origins/directions (R, 3), t_mid/mask (R, k) depth-ascending, targets
     (R,); ``step`` is every sample's dist, ``n_rays_loss`` the loss mean's
@@ -85,6 +95,18 @@ def fused_step_grads_reference(
     g_scale = 2.0 / float(n_rays_loss)
     coef = -(g_scale * (pixel - targets.float())) * pixel * step
     draw = coef[:, None] * keep * sigma * (1.0 - sigma)
+    return pixel, draw, xb, acts
+
+
+def fused_step_grads_reference(
+    packed: fm.PackedMLP, origins, directions, t_mid, mask, targets, *,
+    step: float, early_stop_eps: float, n_rays_loss: int, input_scale: float = 1.0,
+):
+    """The plain version: (pixels (R,) f32, grads in the plist layout), for
+    draws_reference's inputs."""
+    pixel, draw, xb, acts = draws_reference(
+        packed, origins, directions, t_mid, mask, targets, step=step,
+        early_stop_eps=early_stop_eps, n_rays_loss=n_rays_loss, input_scale=input_scale)
     grads, _ = fm.backward_from_acts(packed, xb, acts, draw.reshape(-1))
     return pixel, grads
 
@@ -105,6 +127,10 @@ def _load_lib() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, i32, ll, i32, vp, vp,
         ]
         lib.fused_step_grads.restype = i32
+        lib.fused_step_scratch_rows.argtypes = [ll]
+        lib.fused_step_scratch_rows.restype = ll
+        lib.fused_step_scan.argtypes = [vp, vp, vp, ll, i32, f32, f32, f32, vp, vp, i32, vp]
+        lib.fused_step_scan.restype = i32
         _lib = lib
         return lib
 
@@ -123,8 +149,8 @@ def fused_step_grads_cuda(
                        (origins, directions, t_mid, mask, targets)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{name} must be contiguous float32 on {dev}")
-    if k < 1:
-        raise ValueError("fused_step_grads needs k >= 1 samples a ray")
+    if k < 1 or r * k >= _MAX_SAMPLES:
+        raise ValueError(f"fused_step_grads needs 1 <= k and R k < 2^31, got R={r}, k={k}")
     f, nh = packed.width, packed.n_hidden
     n_sms = fm._num_sms(dev)
     sizes = (ctypes.c_longlong * 5)()
@@ -132,7 +158,8 @@ def fused_step_grads_cuda(
     smem, stride, n_grad, mask_slots, quantum = list(sizes)
     fm.check_packed(packed, dev, smem)
     p = r * k
-    s = fm.BwdScratch.make(p, f, nh, n_sms, stride, mask_slots, quantum, dev)
+    s = fm.BwdScratch.make(p, f, nh, n_sms, stride, mask_slots, quantum, dev,
+                           rows=lib.fused_step_scratch_rows(p))
     sigma = torch.empty((p,), dtype=torch.float32, device=dev)
     draw = torch.empty((p,), dtype=torch.float32, device=dev)
     pixel = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -149,6 +176,32 @@ def fused_step_grads_cuda(
     fused_step_launches += 1
     shapes.add((r, k))
     return pixel, fm._unflatten_grads(flat, f, nh)
+
+
+def fused_step_scan_cuda(sigma, mask, targets, *, step: float, early_stop_eps: float,
+                         n_rays_loss: int, serial: bool = False):
+    """The kernel's composite scan alone on the card, for checks: sigma and
+    mask (R, k), targets (R,) f32 -> (pixels (R,), draws (R, k)); with
+    ``serial`` the one-thread-a-ray reference it is held to bit for bit.
+    sigma is used only where mask != 0. Not counted in
+    fused_step_launches."""
+    lib = _load_lib()
+    r, k = sigma.shape
+    dev = sigma.device
+    for name, t, shape in (("sigma", sigma, (r, k)), ("mask", mask, (r, k)),
+                           ("targets", targets, (r,))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}")
+    pixel = torch.empty((r,), dtype=torch.float32, device=dev)
+    draw = torch.empty((r, k), dtype=torch.float32, device=dev)
+    code = lib.fused_step_scan(
+        sigma.data_ptr(), mask.data_ptr(), targets.data_ptr(), r, k, step, early_stop_eps,
+        2.0 / float(n_rays_loss), pixel.data_ptr(), draw.data_ptr(), int(serial),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(code, "fused_step scan")
+    return pixel, draw
 
 
 def fused_step_grads(

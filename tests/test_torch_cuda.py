@@ -396,6 +396,145 @@ def test_fused_train_step_on_card_launches_the_kernel(dev, monkeypatch, cfg_kw, 
     assert fs.fused_step_launches == 2 * steps_per_call and fm.bwd_launches == 0
 
 
+def _skip_march(r, k, step, dev, seed=0):
+    """A march that exercises kernel #6's skips (tests/test_torch_fused_step_skip.py's):
+    midpoints one ``step`` apart, a 70% mask with a third of the flat
+    16-sample tiles and ray 0 all zero, targets; numpy seed."""
+    rng = np.random.default_rng(seed)
+    o = (rng.standard_normal((r, 3)) * 0.3).astype(np.float32)
+    d = rng.standard_normal((r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start = rng.integers(0, 5, (r, 1)).astype(np.float32)
+    t_mid = (2.0 + (start + np.arange(k, dtype=np.float32) + 0.5) * step).astype(np.float32)
+    mask = (rng.uniform(size=(r, k)) < 0.7).astype(np.float32)
+    flat = mask.reshape(-1)
+    n_tiles = -(-flat.size // 16)
+    for tile in rng.permutation(n_tiles)[: n_tiles // 3]:
+        flat[tile * 16:(tile + 1) * 16] = 0.0
+    mask[0] = 0.0
+    tgt = rng.uniform(size=r).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (o, d, t_mid, mask, tgt)]
+
+
+# (R, k, step): R k ragged (% 16 = 8, 12, 10), tiles across ray boundaries
+_SKIP_MARCHES = [(37, 56, 0.4), (29, 300, 0.06), (1409, 90, 0.1)]
+
+
+@pytest.mark.parametrize("n_hidden,width", [(2, 32), (4, 128)])
+@pytest.mark.parametrize("r,k,step", _SKIP_MARCHES)
+def test_fused_step_skips_match_plain(dev, n_hidden, width, r, k, step):
+    """Kernel #6 on marches with whole masked tiles, rays cut short by the
+    early stop (output bias 2: sigma ~ 0.9) and an all-zero ray: within the
+    step limits against its plain version, two launches bit-identical, the
+    all-zero ray at 1 exactly, and more tiles active by the mask than by the
+    draw (the backward skips the rest)."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    model, _ = _packed(n_hidden, width, dev)
+    with torch.no_grad():
+        model.linears()[-1].bias.fill_(2.0)
+    packed = fm.pack_params(fm.cppn_params_to_list(model))
+    o, d, t_mid, mask, tgt = _skip_march(r, k, step, dev)
+    kw = dict(step=step, early_stop_eps=1e-2, n_rays_loss=r, input_scale=1.0)
+    fs.reset_counts()
+    got = fs.fused_step_grads_cuda(packed, o, d, t_mid, mask, tgt, **kw)
+    again = fs.fused_step_grads_cuda(packed, o, d, t_mid, mask, tgt, **kw)
+    want = fs.fused_step_grads_reference(packed, o, d, t_mid, mask, tgt, **kw)
+    _, draw, _, _ = fs.draws_reference(packed, o, d, t_mid, mask, tgt, **kw)
+    torch.cuda.synchronize()
+    assert fs.fused_step_launches == 2
+    _assert_fused_step_close(got, want, packed, (o, d, t_mid, mask), kw)
+    assert torch.equal(got[0], again[0])
+    assert all(torch.equal(u, v) for a, b in zip(got[1], again[1]) for u, v in zip(a, b))
+    assert float(got[0][0]) == 1.0
+
+    def tiles(flags):
+        flat = torch.nn.functional.pad(flags.reshape(-1), (0, (-r * k) % 16))
+        return flat.reshape(-1, 16).any(dim=1)
+
+    by_mask, by_draw = tiles(mask != 0), tiles(draw != 0)
+    assert not bool((by_draw & ~by_mask).any())
+    assert int((by_mask & ~by_draw).sum()) > 0
+
+
+@pytest.mark.parametrize("r,k", [(37, 56), (29, 300), (1, 1)])
+def test_fused_step_all_masked_ragged(dev, r, k):
+    """An all-zero mask at a ragged R k: no tile is listed, every pixel is 1
+    and every gradient 0."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    _, packed = _packed(4, 128, dev)
+    o, d, t_mid, mask, _ = _skip_march(r, k, 0.1, dev)
+    px, grads = fs.fused_step_grads_cuda(packed, o, d, t_mid, torch.zeros_like(mask),
+                                         torch.rand((r,), device=dev), step=0.1,
+                                         early_stop_eps=1e-2, n_rays_loss=r)
+    torch.cuda.synchronize()
+    assert bool((px == 1.0).all())
+    assert all(float(t.abs().max()) == 0.0 for pair in grads for t in pair)
+
+
+@pytest.mark.parametrize("r,k,eps", [
+    (5625, 160, 1e-2), (4218, 56, 1e-2), (1407, 96, 0.5), (33, 300, 1e-2), (5, 1, 0.0),
+    (100, 65, 0.2),
+])
+def test_fused_step_scan_matches_one_thread_a_ray(dev, r, k, eps):
+    """Kernel #6's composite scan (rows staged in shared memory, 32 rays a
+    block) gives the pixels and draws of the one-thread-a-ray scan over
+    device memory bit for bit, with masked-out samples holding NaN sigma
+    (never read) and rays that stop early."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    gen = torch.Generator().manual_seed(r + k)
+    sigma = torch.rand((r, k), generator=gen)
+    mask = (torch.rand((r, k), generator=gen) < 0.6).float()
+    sigma[mask == 0] = float("nan")
+    tgt = torch.rand((r,), generator=gen)
+    args = [t.to(dev) for t in (sigma, mask, tgt)]
+    kw = dict(step=0.3, early_stop_eps=eps, n_rays_loss=r)
+    px, draw = fs.fused_step_scan_cuda(*args, **kw)
+    px_s, draw_s = fs.fused_step_scan_cuda(*args, serial=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(px, px_s) and torch.equal(draw, draw_s)
+    assert bool(torch.isfinite(draw).all()) and bool((draw[mask.to(dev) == 0] == 0).all())
+
+
+def test_fused_step_failure_raises(dev, monkeypatch):
+    """No fallback for kernel #6: a launch that fails and a build that
+    cannot run both raise, and the plain version never runs on the card."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import build
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    def plain_refused(*args, **kwargs):
+        raise AssertionError("the plain whole-step version ran on the card")
+
+    monkeypatch.setattr(fs, "fused_step_grads_reference", plain_refused)
+    monkeypatch.setattr(fs, "draws_reference", plain_refused)
+    model, _ = _packed(2, 64, dev)
+    plist = fm.cppn_params_to_list(model)
+    o, d, t_mid, mask, tgt = _skip_march(37, 56, 0.4, dev)
+    kw = dict(step=0.4, early_stop_eps=1e-2, n_rays_loss=37)
+    lib = fs._load_lib()
+
+    class FailingLaunch:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def fused_step_grads(self, *args):
+            return 1  # cudaErrorInvalidValue
+
+    fs.reset_counts()
+    monkeypatch.setattr(fs, "_lib", FailingLaunch())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fs.fused_step_grads(plist, o, d, t_mid, mask, tgt, **kw)
+    monkeypatch.setattr(fs, "_lib", None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "Path", lambda p: type("P", (), {"exists": lambda self: False})())
+    monkeypatch.setattr(build, "source_tag", lambda source: "not-built")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fs.fused_step_grads(plist, o, d, t_mid, mask, tgt, **kw)
+    assert fs.fused_step_launches == 0
+
+
 # ---------------------------------------------------------------------------
 # kernel #1: the warpgroup-MMA forward at every width it takes
 # ---------------------------------------------------------------------------
