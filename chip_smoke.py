@@ -9,8 +9,10 @@
 Phases:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. every kernel library (four) built from ``csrc/`` (one nvcc per source,
-     all started together), the HGMMA instructions of the wgmma forward
-     (kernel #1) counted in the built library's SASS, and the fused-MLP
+     all started together), the HGMMA instructions of the wgmma forwards
+     (kernel #1 at its 8 widths, the encoded kernel #3 at its 26 (F, KE)
+     instantiations) counted in the built libraries' SASS, #3's ptxas at F =
+     128, KE = 48 (no spill), and the fused-MLP
      kernels held against their plain PyTorch versions on the card at the
      dense path's shapes and timed (CUDA events): the forward at the dense,
      lattice, grid-EMA, eval and a ragged point count, its feature-major
@@ -60,18 +62,21 @@ Phases:
      composite hands it at the fourier run's trained state, at the final
      Tuning's marches and any two-bucket Tuning the run reached (active-tile
      share below 1, the rest as for #2 above); 16 fourier compacted steps
-     profiled (#4's chain and weight gradients and their share);
+     profiled (#3's forward, #4's chain and weight gradients and their
+     share);
   7. kernels #2 and #4 at random g (#4: fourier at two point counts, BARF
-     at each alpha); with ``--parent DIR`` also kernels #1, #2, #4 and #6
-     and the split pairs of the parent checkout and of this one on the same
-     inputs, each twice in fresh processes (parent, this, this, parent),
-     #2's, #4's and #6's parts' device times profiled, #1's outputs against
-     the parent's, #4's and #6's equal to the parent's bit for bit but for
-     the sign of a zero (#6 at the four shapes with both weight sets, its
+     at each alpha); with ``--parent DIR`` also kernels #1, #2, #3, #4 and
+     #6 and the split pairs of the parent checkout and of this one on the
+     same inputs, each twice in fresh processes (parent, this, this,
+     parent), #2's, #4's and #6's parts' device times profiled, #1's and
+     #3's outputs against the parent's (#3: fourier at four point counts,
+     BARF at each alpha, the trained fourier model at its compacted point
+     count), #4's and #6's equal to the parent's bit for bit but for the
+     sign of a zero (#6 at the four shapes with both weight sets, its
      pixels bit for bit), the parent's ptxas registers and spills (every
-     kernel but #6's must keep them; #6's at F = 128 may not spill more),
-     and the parent's dense run, which must equal this one where #1's
-     outputs equal the parent's;
+     kernel but #3's forward must keep them), and the parent's dense runs,
+     which must equal this checkout's where #1's outputs (split run) and
+     #3's (fourier run, in the first two processes) equal the parent's;
   8. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
@@ -264,13 +269,17 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
     regs, frames, spills = {}, {}, []
     for mangled, (n_regs, frame, stores, _) in ptxas_table(log).items():
         short = re.search(
-            r"(wgmma_march_fwd_kernel|wgmma_fwd_kernel|fwd_kernel|bwd_chain_kernel|wgrad_kernel"
-            r"|reduce_partials|first_k_kernel|tile_list_kernel|scan_serial_kernel|scan_kernel)",
+            r"(wgmma_enc_fwd_kernel|wgmma_march_fwd_kernel|wgmma_fwd_kernel|fwd_kernel"
+            r"|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel|tile_list_kernel"
+            r"|scan_serial_kernel|scan_kernel)",
             mangled)
         width_arg = re.search(r"ILi(\d+)E", mangled)
-        ke_arg = re.search(r"EncXILi(\d+)E", mangled)
+        # the encoded input width: an EncX template argument, or the second
+        # int argument of kernel #3's wgmma_enc_fwd_kernel<F, KE>
+        ke_arg = re.search(r"EncXILi(\d+)E|enc_fwd_kernelILi\d+ELi(\d+)E", mangled)
         cur = (short.group(1) if short else mangled) + (
-            f"<{width_arg.group(1)}" + (f",KE{ke_arg.group(1)}" if ke_arg else "") + ">"
+            f"<{width_arg.group(1)}"
+            + (f",KE{ke_arg.group(1) or ke_arg.group(2)}" if ke_arg else "") + ">"
             if width_arg else "")
         regs[cur], frames[cur] = n_regs, frame
         if stores > 0:
@@ -336,9 +345,32 @@ def build_kernels(fm, fk, fs, fe) -> dict:
           f"{sum(hg.values())} over its {len(hg)} widths, {wide[0] if wide else 0} at F=128")
     check(len(hg) == 8 and all(v > 0 for v in hg.values()),
           "the wgmma forward's SASS holds no HGMMA instruction at some width")
-    return dict(hgmma=hg, hgmma_total=sum(hg.values()),
+    # kernel #3: the encoded library's forward at its 26 (F, KE) instantiations
+    hg_enc = {k: v for k, v in sass_hgmma(fe._lib._name).items() if "wgmma_enc_fwd_kernel" in k}
+    enc_wide = [v for k, v in hg_enc.items() if "ILi128ELi48E" in k]
+    print(f"HGMMA instructions in the encoded forward's SASS (fused_mlp_enc library): "
+          f"{sum(hg_enc.values())} over its {len(hg_enc)} (F, KE) instantiations, "
+          f"{enc_wide[0] if enc_wide else 0} at F=128, KE=48")
+    check(len(hg_enc) == 26 and all(v > 0 for v in hg_enc.values()),
+          "the encoded forward's SASS holds no HGMMA instruction at some (F, KE)")
+    enc_ptxas = enc_fwd_ptxas(ptxas_table(fe.build_log))
+    if enc_ptxas:
+        print(f"ptxas wgmma_enc_fwd_kernel at F=128, KE=48 (registers, stack frame, spill "
+              f"stores, spill loads): {enc_ptxas}")
+        check(enc_ptxas[2] == 0 and enc_ptxas[3] == 0,
+              "kernel #3 spills at F=128, KE=48")
+    return dict(hgmma=hg, hgmma_total=sum(hg.values()), hgmma_enc=hg_enc,
+                hgmma_enc_total=sum(hg_enc.values()), enc_fwd_ptxas=enc_ptxas,
                 ptxas={mod.__name__.rsplit(".", 1)[-1]: ptxas_table(mod.build_log)
                        for mod in mods})
+
+
+def enc_fwd_ptxas(table: dict):
+    """Kernel #3's (registers, stack frame, spill stores, spill loads) at F =
+    128, KE = 48 from the encoded library's ptxas table; None without a
+    report (an earlier build was loaded)."""
+    found = [v for k, v in table.items() if "wgmma_enc_fwd_kernelILi128ELi48E" in k]
+    return tuple(found[0]) if found else None
 
 
 def mlp_pair(fm, packed, enc=None) -> dict:
@@ -1674,18 +1706,17 @@ def mean_parts(*runs):
     return {q: sum(r[q] for r in have) / len(have) for q in have[0]} if have else None
 
 
-def saved_times(root: str, path: str, dense: bool, ptxas: bool = False) -> dict:
+def saved_times(root: str, path: str, ptxas: bool = False) -> dict:
     """Run this script with ``--time-saved`` against the package of the
     checkout ``root`` in a process of its own, on the inputs saved at
     ``path``: its kernel #1 (back to back and one launch at a time), kernel
-    #2, kernel #4, kernel #6 and split-pair times on them, the files of its
-    kernel #1 outputs at the dense shape and of its kernel #4 and #6
-    outputs, with ``dense`` its dense 60-step run and with ``ptxas`` the
-    ptxas tables of its four libraries (built first, in that process)."""
+    #2, #3, #4, #6 and split-pair times on them, the files of its kernel #1
+    outputs at the dense shape and of its kernel #3, #4 and #6 outputs, its
+    dense 60-step split and fourier runs, and with ``ptxas`` the ptxas
+    tables of its four libraries (built first, in that process)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-saved", path,
-                           "--root", os.path.abspath(root)] + ([] if dense else ["--no-dense"])
-                          + (["--ptxas"] if ptxas else []),
+                           "--root", os.path.abspath(root)] + (["--ptxas"] if ptxas else []),
                           capture_output=True, text=True, timeout=900)
     lines = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and lines,
@@ -1700,21 +1731,25 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     inputs, each in fresh processes, in the order parent, this, this, parent
     (so a drift of the card or the host cancels): (parent, this), each with
     its two readings of every time under ``runs`` and their mean in place
-    (also of kernels #2, #4 and #6's profiled parts), and the dense run,
-    kernel #1's, #4's and #6's outputs and (the parent's) ptxas tables of
-    each side's first process."""
+    (also of kernels #2, #4 and #6's profiled parts), and the dense runs
+    (split and fourier), kernel #1's, #3's, #4's and #6's outputs and (the
+    parent's) ptxas tables of each side's first process."""
     path = os.path.join(HERE, "smoke_out", "parent_inputs.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
-    runs = [saved_times(root, path, dense=i < 2, ptxas=i == 0)
+    runs = [saved_times(root, path, ptxas=i == 0)
             for i, root in enumerate((parent, HERE, HERE, parent))]
     sides = []
     for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
-        side = dict(dense=a["dense"], fwd_out=a["fwd_out"], enc_out=a["enc_out"],
-                    fs_out=a["fs_out"], ptxas=a.get("ptxas"))
-        for key in ("bwd_ms", "enc_bwd_ms", "fs_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms"):
+        side = dict(dense=a["dense"], dense_fourier=a["dense_fourier"], fwd_out=a["fwd_out"],
+                    enc_out=a["enc_out"], enc_fwd_out=a["enc_fwd_out"], fs_out=a["fs_out"],
+                    ptxas=a.get("ptxas"))
+        for key in ("bwd_ms", "enc_bwd_ms", "fs_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms",
+                    "enc_fwd_ms", "enc_fwd_one_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
             side[key + "_runs"] = {k: [v, b[key][k]] for k, v in a[key].items()}
+        for key in ("dense", "dense_fourier"):
+            side[key + "_ms_runs"] = [r[key]["ms_per_step"] for r in (a, b)]
         for key in ("bwd_parts_ms", "enc_bwd_parts_ms", "fs_parts_ms"):
             side[key] = {k: mean_parts(v, b[key][k]) for k, v in a[key].items()}
         sides.append(side)
@@ -1722,14 +1757,11 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
 
 
 # kernel #4's kernels in the encoded library (its chain and weight
-# gradients; the forward's fwd_kernel and reduce_partials are shared)
+# gradients; reduce_partials is shared with the dA slot sum)
 ENC_BWD_KERNELS = ("bwd_chain_kernel", "wgrad_kernel")
-# kernel #6's kernels in the fused_step library, whose design the parent
-# comparison does not hold fixed: the forward, list, scans, chain and
-# weight gradients of either design (reduce_partials is the shared one and
-# is compared)
-FS_KERNELS = ("fwd_kernel", "tile_list_kernel", "scan_kernel", "scan_serial_kernel",
-              "bwd_chain_kernel", "wgrad_kernel")
+# kernel #3 in a profile (the parent's mma.sync forward was fwd_kernel<F,
+# EncX<KE>, false>)
+ENC_FWD_KERNEL = "wgmma_enc_fwd_kernel"
 
 
 def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
@@ -1737,10 +1769,9 @@ def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
     the dense shape, with the random and the trained weights (each side's
     first fresh process): equal bit for bit, else the largest and the
     median |raw difference|, held to the forward limits; then the ptxas
-    report: every kernel of the parent's four libraries but kernel #6's
-    keeps its registers, stack frame and spills here, and #6's kernels at F
-    = 128 spill no more than the parent's of the same part (chain, weight
-    gradients; forward, scan and list: none)."""
+    report: every kernel of the parent's four libraries but kernel #3's
+    forward keeps its registers, stack frame and spills here, and #3's at F
+    = 128, KE = 48 is shown beside the parent's."""
     mine_raw, theirs_raw = torch.load(own["fwd_out"]), torch.load(par["fwd_out"])
     out = {}
     for k, b in theirs_raw.items():
@@ -1765,38 +1796,26 @@ def fwd_vs_parent(torch, par: dict, own: dict, kb: dict) -> dict:
     compared, differ = 0, []
     for lib, table in theirs.items():
         for name, v in table.items():
-            if lib == "fused_step" and any(k in name for k in FS_KERNELS):
-                continue  # kernel #6's, redesigned
+            if lib == "fused_mlp_enc" and re.search(r"\dfwd_kernel", name):
+                continue  # kernel #3's forward, redesigned
             compared += 1
             if tuple(mine[lib].get(name, ())) != tuple(v):
                 differ.append(f"{lib} {name}: parent {v}, this {mine[lib].get(name)}")
     print(f"ptxas against the parent commit: {compared} kernels of the four libraries (all but "
-          f"kernel #6's) compared on (registers, stack frame, spill stores, spill loads): "
-          f"{len(differ)} differ" + ("".join(f"\n  {d}" for d in differ)))
+          f"kernel #3's forward) compared on (registers, stack frame, spill stores, spill "
+          f"loads): {len(differ)} differ" + ("".join(f"\n  {d}" for d in differ)))
     check(compared > 0 and not differ,
-          "a kernel other than kernel #6 changed its ptxas registers or spills")
+          "a kernel other than kernel #3's forward changed its ptxas registers or spills")
     out["ptxas_compared"] = compared
-    # kernel #6 at F = 128: no part spills more than the parent's part that
-    # did its work (the parent's weight gradients spilled 12 bytes); the
-    # tile list, which the parent had not, spills nothing
-    def at128(table, kind):
-        found = [v for n, v in table["fused_step"].items()
-                 if re.search(rf"\d{kind}", n) and ("ILi128E" in n or "ILi" not in n)]
-        check(len(found) == 1, f"kernel #6's {kind} at F=128 is not in a ptxas report once")
-        return found[0]
-
-    for kind, old_kind in (("bwd_chain_kernel", "bwd_chain_kernel"),
-                           ("wgrad_kernel", "wgrad_kernel"),
-                           ("wgmma_march_fwd_kernel", "fwd_kernel"),
-                           ("scan_kernel", "scan_kernel"), ("tile_list_kernel", None)):
-        new = at128(mine, kind)
-        old = at128(theirs, old_kind) if old_kind else (0, 0, 0, 0)
-        print(f"ptxas {kind} of kernel #6 at F=128 (registers, stack frame, spill stores, spill "
-              f"loads): this {tuple(new)}, parent commit's {old_kind}: "
-              + (f"{tuple(old)}" if old_kind else "none (new)"))
-        check(new[2] <= old[2] and new[3] <= old[3],
-              f"kernel #6's {kind} spills more than the parent's at F=128")
-        out[f"fs_{kind}_ptxas"] = dict(this=list(new), parent=list(old) if old_kind else None)
+    # kernel #3 at F = 128, KE = 48: the parent's mma.sync forward beside the
+    # wgmma one (whose spill build_kernels checks)
+    old = [v for n, v in theirs["fused_mlp_enc"].items()
+           if re.search(r"\dfwd_kernelILi128ENS_4EncXILi48E", n)]
+    new = enc_fwd_ptxas(mine["fused_mlp_enc"])
+    print(f"ptxas of kernel #3 at F=128, KE=48 (registers, stack frame, spill stores, spill "
+          f"loads): this {new}, parent commit's {tuple(old[0]) if old else None}")
+    out["enc_fwd_ptxas"] = dict(this=list(new) if new else None,
+                                parent=list(old[0]) if old else None)
     return out
 
 
@@ -1866,6 +1885,56 @@ def enc_vs_parent(torch, par: dict, own: dict) -> dict:
     return out
 
 
+def enc_fwd_cases(ep: dict) -> dict:
+    """Kernel #3's cases in the paired fresh processes, by name: (the model
+    of enc_compare_inputs, P): the random fourier model at FWD1_PAIRED, the
+    random BARF model at each of BARF_ALPHAS at TRAIN_P, the fourier run's
+    trained model at its compacted point count."""
+    cases = {f"fourier, P={p}": ("fourier", p) for p in FWD1_PAIRED}
+    cases.update({f"barf alpha {a}, P={TRAIN_P}": (f"barf alpha {a}", TRAIN_P)
+                  for a in BARF_ALPHAS})
+    cases[f"trained fourier, P={ep['compact_p']}"] = ("trained fourier", ep["compact_p"])
+    return cases
+
+
+def enc_fwd_vs_parent(torch, par: dict, own: dict) -> dict:
+    """Kernel #3 of this checkout against the parent's at every case of
+    enc_fwd_cases (each side's first fresh process): equal bit for bit, else
+    the largest and the median |raw difference|, held to the forward
+    limits; where every case is equal, the dense 60-step fourier runs of the
+    first two processes must end with equal train loss and held-out PSNR."""
+    mine, theirs = torch.load(own["enc_fwd_out"]), torch.load(par["enc_fwd_out"])
+    out = {}
+    for case, b in theirs.items():
+        a = mine[case]
+        d = (a - b).abs()
+        scale = max(1.0, float(b.abs().max()))
+        row = dict(equal=torch.equal(a, b), max_abs_diff=float(d.max()),
+                   median_abs_diff=float(d.median()), output_scale=scale)
+        print(f"fused_mlp_enc_fwd against the parent commit's, {case}: equal bit for bit "
+              f"{row['equal']}, max |raw difference| {row['max_abs_diff']:.3e}, median "
+              f"{row['median_abs_diff']:.3e} (output scale {scale:.3f})")
+        check(row["max_abs_diff"] <= FWD_MAX_REL * scale
+              and row["median_abs_diff"] <= FWD_MEDIAN_REL * scale,
+              f"kernel #3 differs from the parent commit's beyond the forward limits ({case})")
+        out[case] = row
+    equal = all(r["equal"] for r in out.values())
+    d, pd = own["dense_fourier"], par["dense_fourier"]
+    same = d["train_loss"] == pd["train_loss"] and d["heldout_psnr"] == pd["heldout_psnr"]
+    mine_ms, theirs_ms = own["dense_fourier_ms_runs"], par["dense_fourier_ms_runs"]
+    print(f"dense {DENSE_ITERS}-step fourier run (first two fresh processes): train loss "
+          f"{d['train_loss']!r}, held-out PSNR {d['heldout_psnr']!r}; parent commit "
+          f"{pd['train_loss']!r}, {pd['heldout_psnr']!r}; equal bit for bit {same}; steady "
+          f"ms/step (host clock) in the fresh processes (parent, this, this, parent): this "
+          f"{mine_ms[0]:.3f} / {mine_ms[1]:.3f}, parent commit {theirs_ms[0]:.3f} / "
+          f"{theirs_ms[1]:.3f} (this / parent {sum(mine_ms) / sum(theirs_ms):.3f})")
+    if equal:
+        check(same, "the dense fourier run differs from the parent commit's, though kernel #3 "
+                    "gives the parent's outputs bit for bit")
+    return dict(cases=out, equal=equal, dense_fourier_equal=same,
+                dense_fourier_ms_per_step=dict(this=mine_ms, parent=theirs_ms))
+
+
 def fs_vs_parent(torch, par: dict, own: dict) -> dict:
     """Kernel #6 of this checkout against the parent's at the four march
     shapes with the random and the trained weights (each side's first fresh
@@ -1896,11 +1965,12 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     the parent and of this checkout alike in fresh processes (paired_times)
     with kernel #1 beside them (fwd_vs_parent), #4's outputs against the
     parent's (enc_vs_parent), kernel #6 on the march blocks with both weight
-    sets, its outputs against the parent's (fs_vs_parent), and the parent's
-    dense 60-step run, whose
-    train loss and held-out PSNR this tree's must equal bit for bit where
-    kernel #1 gives the parent's outputs bit for bit (kernel #2's skipped
-    tiles add exact zeros)."""
+    sets, its outputs against the parent's (fs_vs_parent), kernel #3 and
+    its outputs against the parent's (enc_fwd_vs_parent), and the parent's
+    dense 60-step run, whose train loss and held-out PSNR this tree's must
+    equal bit for bit where kernel #1 gives the parent's outputs bit for bit
+    (kernel #2's skipped tiles add exact zeros), with both sides' steady
+    ms/step."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
 
     model, gen = random_cppn(torch)
@@ -1935,11 +2005,13 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
             enc=dict(models={k: (tuple(t.cpu() for t in pk), a.cpu(), w.cpu())
                              for k, (pk, a, w) in enc["models"].items()},
                      inputs={k: (x.cpu(), g.cpu()) for k, (x, g) in enc["inputs"].items()},
-                     cases=enc["cases"])))
+                     cases=enc["cases"]),
+            enc_fwd=enc_fwd_cases(ep)))
         out.update(parent=par, paired=own)
         out["fwd_vs_parent"] = fwd_vs_parent(torch, par, own, kb)
         out["enc_vs_parent"] = enc_vs_parent(torch, par, own)
         out["fs_vs_parent"] = fs_vs_parent(torch, par, own)
+        out["enc_fwd_vs_parent"] = enc_fwd_vs_parent(torch, par, own)
 
     def vs_parent(key: str, k: str) -> str:
         if not par:
@@ -1974,13 +2046,19 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     for k in (own or {}).get("fwd_ms", {}):
         print(f"fused_mlp_fwd {k}, random weights, back to back" + vs_parent("fwd_ms", k))
         print(f"fused_mlp_fwd {k}, random weights, one launch" + vs_parent("fwd_one_ms", k))
+    for k in (own or {}).get("enc_fwd_ms", {}):
+        print(f"fused_mlp_enc_fwd {k}, back to back" + vs_parent("enc_fwd_ms", k))
+        print(f"fused_mlp_enc_fwd {k}, one launch" + vs_parent("enc_fwd_one_ms", k))
     d = out["dense"]
     same = bool(par) and (d["train_loss"] == par["dense"]["train_loss"]
                           and d["heldout_psnr"] == par["dense"]["heldout_psnr"])
     print(f"dense {DENSE_ITERS}-step split run: train loss {d['train_loss']!r}, held-out PSNR "
           f"{d['heldout_psnr']!r}"
           + (f"; parent commit {par['dense']['train_loss']!r}, {par['dense']['heldout_psnr']!r}; "
-             f"equal bit for bit {same}" if par else ""))
+             f"equal bit for bit {same}; steady ms/step (host clock) in the fresh processes "
+             f"(parent, this, this, parent): this " + " / ".join(
+                 f"{v:.3f}" for v in own["dense_ms_runs"]) + ", parent commit " + " / ".join(
+                 f"{v:.3f}" for v in par["dense_ms_runs"]) if par else ""))
     out["dense_equal_parent"] = same if par else None
     if par and out["fwd_vs_parent"]["equal"]:
         check(same, "the dense split run differs from the parent commit's, though kernel #1 "
@@ -1989,7 +2067,7 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     return out
 
 
-def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
+def time_saved(torch, fm, path: str, mods=None) -> dict:
     """The ``--time-saved`` run: with ``mods`` (the other three kernel
     modules) first every library built at once and its ptxas table; kernel
     #1 at FWD1_PAIRED on seeded inputs with the saved random weights, and
@@ -1998,17 +2076,20 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
     the split pair of this process's package on the saved inputs (CUDA-event
     medians), kernel #4 (and its profiled parts) on the saved encoded cases
     (enc_compare_inputs) with its outputs (canonical_outputs) saved to a
+    file beside ``path``, kernel #3 on the saved encoded models at the saved
+    point counts (back to back and one launch) with its outputs saved to a
     file beside ``path``, kernel #6 (and its profiled parts) on the saved
     march blocks with the random and the trained weights, its pixels and
     gradients (-0 made +0) saved to a file beside ``path``, and, with
-    ``dense``, the dense 60-step run's train loss and held-out PSNR (full
-    precision)."""
+    the dense 60-step split and fourier runs' train loss and held-out PSNR
+    (full precision) and steady ms/step."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
     out = {"bwd_ms": {}, "bwd_parts_ms": {}, "enc_bwd_ms": {}, "enc_bwd_parts_ms": {},
-           "fs_ms": {}, "fs_parts_ms": {}, "split_pair_ms": {}, "fwd_ms": {}, "fwd_one_ms": {}}
+           "fs_ms": {}, "fs_parts_ms": {}, "split_pair_ms": {}, "fwd_ms": {}, "fwd_one_ms": {},
+           "enc_fwd_ms": {}, "enc_fwd_one_ms": {}}
     if mods:
         libs = (fm, *mods)
         with ThreadPoolExecutor(len(libs)) as ex:
@@ -2051,6 +2132,21 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
         enc_out[case] = canonical_outputs(torch, launch())
     out["enc_out"] = f"{path}.enc.{os.getpid()}.pt"
     torch.save(enc_out, out["enc_out"])
+    # kernel #3 on the saved encoded models at the saved point counts (x
+    # seeded by P), back to back and one launch, and its outputs
+    enc_fwd_out = {}
+    for case, (mk, p) in saved["enc_fwd"].items():
+        packed, a, w = enc["models"][mk]
+        x = (torch.rand((p, 3), generator=torch.Generator().manual_seed(p)) * 2.0 - 1.0).to(dev)
+
+        def launch(packed=fm.PackedMLP(*packed), a=a, w=w, x=x):
+            return fe.fused_mlp_enc_fwd_cuda(packed, a, w, x)
+
+        out["enc_fwd_ms"][case] = time_ms_b2b(torch, launch)
+        out["enc_fwd_one_ms"][case] = time_ms(torch, launch)
+        enc_fwd_out[case] = launch().cpu()
+    out["enc_fwd_out"] = f"{path}.encfwd.{os.getpid()}.pt"
+    torch.save(enc_fwd_out, out["enc_fwd_out"])
     blocks = {name: tuple(t.to(dev) for t in blk) for name, blk in saved["blocks"].items()}
     fs_out = {}
     for weights in ("random", "trained"):
@@ -2072,13 +2168,16 @@ def time_saved(torch, fm, path: str, dense: bool = True, mods=None) -> dict:
     for name, blk in blocks.items():
         out["split_pair_ms"][name] = time_ms(
             torch, lambda: split_pair(torch, fm, plist, *blk, saved["kw"]), reps=5, warmup=2)
-    if not dense:
-        return out
     ds = make_dataset(torch)
     cfg = TrainConfig(compact_samples=0, n_iters=DENSE_ITERS, display_every=30)
-    res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
-    out["dense"] = dict(train_loss=train_loss(torch, res.state, ds.rays, cfg)[0],
-                        heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr)
+    # the split run, and the same run of a fourier model (kernels #3 and #4
+    # on every step): the fourier run's steady ms/step is the end-to-end time
+    # #3 moves, the split run's a control that #3 never runs
+    for key, c in (("dense", cfg), ("dense_fourier", dataclasses.replace(cfg, pos_enc="fourier"))):
+        res = train(c, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
+        out[key] = dict(train_loss=train_loss(torch, res.state, ds.rays, c)[0],
+                        heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
+                        ms_per_step=1e3 * res.timing["step_dense"] / c.n_iters)
     return out
 
 
@@ -2216,21 +2315,37 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
         f"{prof['enc_bwd_kernels_ms']['wgrad_kernel']:.4f} ms/step, "
         f"{enc_ms / prof['device_ms_per_step']:.3f} of the step's device time"
         if prof["device_ms_per_step"] else "not measured (no device time in the profile)"))
+    prof["enc_fwd_kernel_ms"] = sum(r["ms_per_step"] for r in prof["top"]
+                                    if ENC_FWD_KERNEL in r["name"])
+    print("  kernel #3 in the fourier step: " + (
+        f"{ENC_FWD_KERNEL} {prof['enc_fwd_kernel_ms']:.4f} ms/step, "
+        f"{prof['enc_fwd_kernel_ms'] / prof['device_ms_per_step']:.3f} of the step's device time"
+        if prof["device_ms_per_step"] else "not measured (no device time in the profile)"))
     for run in (fourier, barf):
         run.pop("result")
     out = dict(checks=checks, fourier_shipped=fourier, barf_anneal=barf, compact_p=p,
                final=final, profile=prof, trained=t_rows)
     report["encoded"] = out
-    src = "nerf_for_angiography_tpu_torch/csrc/fused_mlp_enc.cu"
+    src = "nerf_for_angiography_tpu_torch/csrc/"
     rows = []
-    for name, r, line in (("fused_mlp_enc_fwd", checks["fourier_fwd"][0], 539),
-                          ("fused_mlp_enc_bwd", checks["fourier_bwd"], 551)):
+    for name, r, line, file in (("fused_mlp_enc_fwd", checks["fourier_fwd"][0], 539,
+                                 "mlp_wgmma.cuh"),
+                                ("fused_mlp_enc_bwd", checks["fourier_bwd"], 551,
+                                 "fused_mlp_enc.cu")):
         rows.append(dict(
-            name=name, route="cuda", source=src,
+            name=name, route="cuda", source=src + file,
             replaces=f"nerf_for_angiography_tpu/ops/pallas/fused_mlp.py:{line}",
             launches=0, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         ))
+    rows[0]["ms_back_to_back"] = checks["fourier_fwd"][0]["ms_back_to_back"]
+    rows[0]["shapes"] = {r["label"]: {k: r[k] for k in ("P", "ms", "ms_back_to_back", "plain_ms",
+                                                       "bound_ms", "max_abs_err",
+                                                       "median_abs_err")}
+                         for r in [*checks["fourier_fwd"], checks["compact_fwd_trained"],
+                                   *(v["fwd"] for k, v in checks.items()
+                                     if k.startswith("barf_"))]}
+    rows[0]["fourier_step_profile_ms"] = prof["enc_fwd_kernel_ms"]
     rows[1]["compact_path"] = {k: checks["compact_bwd"][k]
                                for k in ("P", "ms", "plain_ms", "bound_ms", "bound_by")}
     return dict(out, rows=rows, trained_inputs=t_inputs,
@@ -2367,12 +2482,11 @@ def main() -> int:
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: also time its kernels #1, #2, #4 "
-                         "and #6 and split pairs on this run's inputs, hold #1's, #4's and #6's "
-                         "outputs and the ptxas report to it and its dense run equal to this "
-                         "one")
+                    help="a checkout of the parent commit: also time its kernels #1, #2, #3, "
+                         "#4 and #6 and split pairs on this run's inputs, hold #1's, #3's, #4's "
+                         "and #6's outputs and the ptxas report to it and its dense runs equal "
+                         "to this one's")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--no-dense", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2397,7 +2511,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run f32 products
     torch.backends.cudnn.allow_tf32 = False
     if args.time_saved:
-        print(json.dumps(time_saved(torch, fm, args.time_saved, dense=not args.no_dense,
+        print(json.dumps(time_saved(torch, fm, args.time_saved,
                                     mods=(fk, fs, fe) if args.ptxas else None)))
         return 0
     smi = nvidia_smi_line()
@@ -2534,6 +2648,13 @@ def main() -> int:
     rows[0]["paired_one_launch_ms"] = bc.get("paired", {}).get("fwd_one_ms")
     rows[0]["parent_one_launch_ms"] = bc.get("parent", {}).get("fwd_one_ms")
     rows[0]["vs_parent"] = bc.get("fwd_vs_parent")
+    enc_fwd_row = next(r for r in rows if r["name"] == "fused_mlp_enc_fwd")
+    enc_fwd_row["hgmma"] = kb["hgmma_enc_total"]
+    enc_fwd_row["ptxas_128_ke48"] = kb["enc_fwd_ptxas"]
+    for key, q in (("paired_ms", "paired"), ("parent_ms", "parent")):
+        enc_fwd_row[key] = bc.get(q, {}).get("enc_fwd_ms")
+        enc_fwd_row[key.replace("_ms", "_one_launch_ms")] = bc.get(q, {}).get("enc_fwd_one_ms")
+    enc_fwd_row["vs_parent"] = bc.get("enc_fwd_vs_parent")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -16,12 +16,16 @@
 // the points of dv x_c (x in f32) -- the two entries of dA from which the
 // caller forms dcoeff_j = 2 pi (dA[sin j] + dA[cos j]) as the JAX package does.
 //
-// Design: the chain, its kernels and the fixed-order partial sum are
-// mlp_chain.cuh's.  The forward's input is EncX<KE>: each lane forms its own
-// A fragment's features in registers from the three coordinates (one
-// sincosf per point and band serves the sin and the cos feature: W_in's
-// columns are staged in pair order, see EncX), so the encoded block never
-// touches device memory in the forward or the chain.  The backward's input
+// Design: the forward is mlp_wgmma.cuh's wgmma_enc_fwd_kernel (warpgroup
+// MMA, 64-point tiles, every weight staged once per block in wgmma's
+// layouts); its input is EncX<KE>: each lane forms its own A fragment's
+// features in registers from the three coordinates (one sincosf per point
+// and band serves the sin and the cos feature: W_in's columns are staged in
+// pair order, see EncX), and those registers are the first layer's wgmma A
+// operand, so the encoded block never touches shared or device memory in
+// the forward.  The backward's chain, its kernels and the fixed-order
+// partial sum are mlp_chain.cuh's, and it too forms the features in
+// registers (warp_forward).  The backward's input
 // is GatedEncX<KE> (BwdX below), as kernel #2's is GatedX: a point is
 // active where g != 0, and a 16-point tile with no active point is skipped
 // by the chain (no recompute, no sincosf, no stores; dx stays the caller's
@@ -43,9 +47,12 @@
 // 4 F^2 + F) = 139,776 FLOP forward (0.2385 ms at P = 1,687,500 on 989
 // TFLOP/s bf16) and about three times that backward (0.72 ms with every
 // point active), against 16 bytes of input/output a point: compute-bound on
-// the tensor cores.  The backward's scratch round trip (8 (n_hidden + 1) F
-// + 4 KE bytes a point, 2.68 ms at that P on 3.35 TB/s) makes it
-// bytes-bound, and both figures scale with the active tiles, not with P.
+// the tensor cores.  The forward reads each layer's B operand from shared
+// memory once per 64 points (wgmma), where an mma.sync chain reads it once
+// per 16-point warp tile and is paced by shared memory.  The backward's
+// scratch round trip (8 (n_hidden + 1) F + 4 KE bytes a point, 2.68 ms at
+// that P on 3.35 TB/s) makes it bytes-bound, and both figures scale with
+// the active tiles, not with P.
 // The kernels do 48 columns of input product where the function needs 33.
 // The 15 sincosf a point (forward; the backward chain forms them again, for
 // the active tiles, and for dx and dA) run on the CUDA cores: ~45 a point
@@ -53,6 +60,7 @@
 // tensor work.
 
 #include "mlp_chain.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace {
 
@@ -68,7 +76,7 @@ int enc_fwd(const EncX<KE>& x, long long P, const Params& prm, int nh, float* ou
   if constexpr (KE > F) {
     return (int)cudaErrorInvalidValue;
   } else {
-    return launch_fwd<F, EncX<KE>, false>(x, P, prm, nh, out, n_sms, st);
+    return launch_wgmma_enc_fwd<F, KE>(x, P, prm, nh, out, n_sms, st);
   }
 }
 
@@ -127,13 +135,15 @@ int dispatch_bwd(int KE, const StridedX& xs, const float* a, const float* w, int
 extern "C" {
 
 // sizes the caller allocates by: out[0] dynamic shared memory of the
-// forward/chain launches (0 for unsupported dimensions), out[1] floats per
-// chunk partial, out[2] floats in the flat gradient, out[3] 8-byte relu-mask
-// slots, out[4] points per weight-gradient stage (chunks are multiples),
-// out[5] floats of the per-warp dA slots
+// forward or the chain launch, whichever is larger (0 for unsupported
+// dimensions), out[1] floats per chunk partial, out[2] floats in the flat
+// gradient, out[3] 8-byte relu-mask slots, out[4] points per weight-gradient
+// stage (chunks are multiples), out[5] floats of the per-warp dA slots
 void fused_mlp_enc_sizes(int F, int nh, int KE, int n_enc, int n_sms, long long* out) {
   const bool ok = enc_dims_ok(F, nh, KE, n_enc);
-  out[0] = ok ? (long long)weight_layout(F, nh, KE).total : 0;
+  out[0] = ok ? (long long)std::max(weight_layout(F, nh, KE).total,
+                                     wg_enc_layout(F, nh, KE).total)
+              : 0;
   out[1] = ok ? (long long)grad_layout(F, nh, KE).stride : 0;
   out[2] = ok ? (long long)grad_layout(F, nh, KE).n : 0;
   out[3] = mask_slots(n_sms, nh);

@@ -13,13 +13,13 @@
 // dh is rounded to bf16, the relu mask comes from the recomputed bf16
 // activations, dW/db accumulate in f32 and dx is f32.
 //
-// Design (of the kernels here; kernel #1, the forward over a (P, 3) or
-// (3, P) input, and the whole-step kernel #6's forward over a march are
-// mlp_wgmma.cuh's warpgroup-MMA kernels, built on these pieces; fwd_kernel
-// here serves the encoded forward):
+// Design (of the backward kernels here; every forward -- kernel #1 over a
+// (P, 3) or (3, P) input, #3 over its encoding, #6's over a march -- is an
+// mlp_wgmma.cuh warpgroup-MMA kernel built on these pieces, and the
+// backward chains recompute the forward through warp_forward):
 //  * Every weight of the MLP is staged once per block into shared memory in
 //    (out, in) orientation (148 KB at F = 128, n_hidden = 4) and stays there;
-//    one persistent block per SM, 16 warps forward, 8 in the backward chain.
+//    one persistent block per SM, 8 warps in the backward chain.
 //  * Each warp owns 16-point tiles and runs the whole layer chain in
 //    registers with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The f32
 //    accumulator of one layer has the register layout of the next layer's
@@ -33,7 +33,8 @@
 //    (StridedX), or a march's o + d * t_mid formed in the kernel (MarchX).
 //    The input type also fixes the input width KI (X::KI): 16 for the
 //    coordinates, KE = 16, 32, 48 or 64 for an encoded input (EncX,
-//    GatedEncX), whose features each lane forms in registers; its backward
+//    GatedEncX), whose features each lane forms in registers (the encoded
+//    forward, mlp_wgmma.cuh's, forms them the same way); its backward
 //    adds dx through the encode and per-warp sums of dA (no float atomics),
 //    and its weight gradients form dW_in's features again from x (EncX) or
 //    read the ones its chain stored (GatedEncX).
@@ -81,8 +82,8 @@
 //    not with P.
 //  * These kernels read every layer's B operand from shared memory once per
 //    16-point tile (ldmatrix); mlp_wgmma.cuh's forwards read it once per 64
-//    points.  The encoded forward and the backward can adopt wgmma the same
-//    way; TMA tensor maps and a warp-specialised pipeline are later work.
+//    points.  The backward can adopt wgmma the same way; TMA tensor maps and
+//    a warp-specialised pipeline are later work.
 
 #pragma once
 
@@ -97,7 +98,6 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int KIN = 16;          // input features (3 coords) padded to one k-step
-constexpr int FWD_WARPS = 16;    // forward: warps per block (at most 128 registers a thread)
 constexpr int BWD_WARPS = 8;     // backward chain: warps per block (at most 255)
 constexpr int TILE = 16;         // points per warp tile
 constexpr int KB = 64;           // weight gradients: points per pipeline stage
@@ -107,7 +107,7 @@ __host__ __device__ constexpr int ldw(int F) { return F + 8; }  // conflict-free
 __host__ __device__ constexpr int ldin(int KI) { return KI + 8; }
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// shared-memory carve-up of the staged weights (forward and backward)
+// shared-memory carve-up of the backward chain's staged weights
 struct WLayout {
   size_t w_in, w_hid, bias, w_out, total;
 };
@@ -169,9 +169,8 @@ struct Params {
 // ---------------------------------------------------------------------------
 
 // Each input also says which points carry work: a 16-point tile with no
-// active point is skipped by the forward and the backward chain (nothing
-// is stored for it), and the weight-gradient kernel reads it as zeros or
-// leaves it out.
+// active point is skipped by the backward chain (nothing is stored for
+// it), and the weight-gradient kernel reads it as zeros or leaves it out.
 
 // An input with FRAG_SCRATCH also fixes how the backward stores its scratch,
 // in the tile-fragment layout (store_layer below), and the weight-gradient
@@ -626,54 +625,6 @@ __device__ __forceinline__ void warp_forward(uint32_t (&a)[F / 16][4], const X& 
 // kernels
 // ---------------------------------------------------------------------------
 
-// forward: out[p] = raw(p), or sigmoid(raw(p)) with SIGMOID
-template <int F, class X, bool SIGMOID>
-__global__ void __launch_bounds__(FWD_WARPS * 32, 1)
-fwd_kernel(X x, long long P, Params prm, int nh, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const WLayout L = weight_layout(F, nh, X::KI);
-  stage_weights<X::KI>(smem, L, prm, F, nh);
-  __syncthreads();
-  const float b_out = prm.b_out[0];
-  const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long n_tiles = (P + TILE - 1) / TILE;
-  for (long long tile = (long long)blockIdx.x * FWD_WARPS + warp; tile < n_tiles;
-       tile += (long long)gridDim.x * FWD_WARPS) {
-    const long long p0 = tile * TILE;
-    if (!tile_active(x, p0, P)) continue;  // its outputs are never read
-    uint32_t a[F / 16][4];
-    warp_forward<F>(a, x, p0, P, smem, L, nh, nullptr, nullptr);
-    // head: f32 products of the bf16 activation with w_out, summed over
-    // this thread's columns and then across the four threads of a row
-    float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-    for (int kt = 0; kt < F / 16; ++kt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = kt * 16 + h * 8 + 2 * t;
-        const float2 u0 = unpack2(a[kt][h * 2]), u1 = unpack2(a[kt][h * 2 + 1]);
-        s0 += u0.x * wo[c] + u0.y * wo[c + 1];
-        s1 += u1.x * wo[c] + u1.y * wo[c + 1];
-      }
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    s0 += b_out;
-    s1 += b_out;
-    if (SIGMOID) {
-      s0 = 1.0f / (1.0f + expf(-s0));
-      s1 = 1.0f / (1.0f + expf(-s1));
-    }
-    if (t == 0) {
-      if (p0 + g < P) out[p0 + g] = s0;
-      if (p0 + g + 8 < P) out[p0 + g + 8] = s1;
-    }
-  }
-}
-
 // backward, part 1: recompute, store activations, backpropagate dz, dx
 // (and, for an encoded input, each warp's dA sums)
 template <int F, class X>
@@ -1057,20 +1008,6 @@ __global__ void reduce_partials(const float* __restrict__ partials, int n_chunks
 }
 
 inline bool dims_ok(int F, int nh) { return F >= 16 && F <= 128 && F % 16 == 0 && nh >= 0; }
-
-template <int F, class X, bool SIGMOID>
-int launch_fwd(const X& x, long long P, const Params& prm, int nh, float* out, int n_sms,
-               cudaStream_t st) {
-  if (P <= 0) return (int)cudaSuccess;
-  const long long tiles = (P + TILE - 1) / TILE;
-  const int grid = (int)std::min<long long>((tiles + FWD_WARPS - 1) / FWD_WARPS, n_sms);
-  const size_t smem = weight_layout(F, nh, X::KI).total;
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<F, X, SIGMOID>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  fwd_kernel<F, X, SIGMOID><<<grid, FWD_WARPS * 32, smem, st>>>(x, P, prm, nh, out);
-  return (int)cudaGetLastError();
-}
 
 // the backward's scratch and partials, as the caller allocated them
 struct BwdScratch {

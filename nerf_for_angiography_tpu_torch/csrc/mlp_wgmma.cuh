@@ -9,16 +9,18 @@
 // csrc/fused_mlp.cu::fused_mlp_fwd launches it.  The whole-step kernel's
 // forward (#6, csrc/fused_step.cu) is wgmma_march_fwd_kernel below: the
 // same chain over a march's samples, on a list of the 16-point tiles that
-// hold an active sample.  The encoded forward (#3, EncX) keeps
-// mlp_chain.cuh's mma.sync fwd_kernel.
+// hold an active sample.  The encoded forward (#3, csrc/fused_mlp_enc.cu)
+// is wgmma_enc_fwd_kernel below: the same chain over the fourier / BARF
+// features of EncX, formed in registers as the first layer's A operand.
 //
 // Bound: at F = 128, n_hidden = 4 a point costs 132,096 FLOP against 16
 // bytes of input and output, so the forward is bound by the bf16 tensor
-// cores.  mlp_chain.cuh's fwd_kernel gives each warp a 16-point tile and
-// reads every layer's whole B operand from shared memory by ldmatrix for
-// each tile: ~8 KB a point at F = 128, 13.8 GB a launch at P = 1,687,500,
-// against the ~30 TB/s the card's shared memory moves (128 bytes a clock an
-// SM), so shared memory, not the tensor cores, set its pace.
+// cores.  The mma.sync forward these kernels replaced gave each warp a
+// 16-point tile and read every layer's whole B operand from shared memory
+// by ldmatrix for each tile: ~8 KB a point at F = 128, 13.8 GB a launch at
+// P = 1,687,500, against the ~30 TB/s the card's shared memory moves (128
+// bytes a clock an SM), so shared memory, not the tensor cores, set its
+// pace.
 //
 // Design:
 //  * One persistent block per SM stages every weight once into shared memory
@@ -27,7 +29,8 @@
 //    128-byte swizzle where F % 64 == 0 (64-wide K panels, 8-row atoms of
 //    1024 bytes, 16-byte chunk c of row n at c ^ (n % 8)), the interleaved
 //    no-swizzle layout (8 x 16-byte core matrices) at the other widths and
-//    for W_in (F x 16, inputs 3..15 zero, so the padding adds exact zeros).
+//    for W_in (F x 16, inputs 3..15 zero, so the padding adds exact zeros;
+//    #3's is F x KE, its columns in EncX's pair order).
 //  * Each warpgroup (4 warps) owns 64-point tiles; warp w holds rows
 //    16 w .. 16 w + 15.  A layer is F / 16 wgmma.m64nFk16 with A from
 //    registers and B from shared memory, so each B byte feeds 64 points
@@ -58,14 +61,32 @@ struct WgLayout {
   size_t w_hid, w_in, bias, w_out, total;
 };
 
-__host__ __device__ inline WgLayout wg_layout(int F, int nh) {
+__host__ __device__ inline WgLayout wg_layout(int F, int nh, int KI = KIN) {
   WgLayout l;
   size_t off = 0;
   l.w_hid = off; off += size_t(nh) * F * F * sizeof(bf16);  // whole 1024-byte atoms when swizzled
-  l.w_in = off;  off = align16(off + size_t(F) * KIN * sizeof(bf16));
+  l.w_in = off;  off = align16(off + size_t(F) * KI * sizeof(bf16));
   l.bias = off;  off = align16(off + size_t(nh + 1) * F * sizeof(float));
   l.w_out = off; off = align16(off + size_t(F) * sizeof(float));
   l.total = off + 1024;
+  return l;
+}
+
+constexpr int ENC_MAX = 32;  // a_j / w_j the encoded forward stages (n_enc <= 30)
+
+// the encoded forward's shared memory: wg_layout's with W_in KE wide, then
+// ENC_MAX floats each of a_j and w_j
+struct WgEncLayout {
+  WgLayout weights;
+  size_t enc_a, enc_w, total;
+};
+
+__host__ __device__ inline WgEncLayout wg_enc_layout(int F, int nh, int KE) {
+  WgEncLayout l;
+  l.weights = wg_layout(F, nh, KE);
+  l.enc_a = l.weights.total - 1024;  // wg_layout's end, before its alignment slack
+  l.enc_w = l.enc_a + ENC_MAX * sizeof(float);
+  l.total = l.weights.total + 2 * ENC_MAX * sizeof(float);
   return l;
 }
 
@@ -354,7 +375,8 @@ __device__ __forceinline__ void wg_bias_relu_pack(uint32_t (&a)[F / 16][4],
   }
 }
 
-template <int F, bool SW128>
+// every weight into the layouts of wg_layout(F, nh, KI): W_in is (F x KI)
+template <int F, bool SW128, int KI = KIN>
 __device__ void wg_stage_weights(unsigned char* smem, const WgLayout& L, const Params& prm,
                                  int nh) {
   constexpr int VEC = F / 8;  // 16-byte chunks a hidden row
@@ -364,10 +386,10 @@ __device__ void wg_stage_weights(unsigned char* smem, const WgLayout& L, const P
                               wg_chunk_offset<SW128>(n, k, F, F)) =
         *reinterpret_cast<const uint4*>(prm.w_hid + (size_t(l) * F + n) * F + k);
   }
-  for (int i = threadIdx.x; i < F * (KIN / 8); i += blockDim.x) {
-    const int n = i / (KIN / 8), k = (i % (KIN / 8)) * 8;
-    *reinterpret_cast<uint4*>(smem + L.w_in + wg_chunk_offset<false>(n, k, KIN, F)) =
-        *reinterpret_cast<const uint4*>(prm.w_in + n * KIN + k);
+  for (int i = threadIdx.x; i < F * (KI / 8); i += blockDim.x) {
+    const int n = i / (KI / 8), k = (i % (KI / 8)) * 8;
+    *reinterpret_cast<uint4*>(smem + L.w_in + wg_chunk_offset<false>(n, k, KI, F)) =
+        *reinterpret_cast<const uint4*>(prm.w_in + n * KI + k);
   }
   float* b = reinterpret_cast<float*>(smem + L.bias);
   for (int i = threadIdx.x; i < (nh + 1) * F; i += blockDim.x) b[i] = prm.bias[i];
@@ -547,6 +569,104 @@ wgmma_march_fwd_kernel(MarchX x, const int* __restrict__ list, const int* __rest
   }
 }
 
+// Kernel #3: out[p] = raw(p) over the fourier / BARF encoding of x (EncX),
+// one 64-point tile a warpgroup at a time.  Each warp forms its 16 rows' KE
+// / 16 A fragments in registers as warp_forward does (register q of k-step
+// kt holds row g + 8 (q & 1), pair 8 kt + 4 (q >> 1) + t in EncX's pair
+// order), which is wgmma's per-warp A layout, so the first layer is KE / 16
+// wgmma.m64nFk16 from registers over W_in (F x KE, its columns in pair
+// order, staged K-major without swizzle) and the features never touch
+// shared or device memory.  a_j and w_j are staged beside the weights and
+// EncX::pair forms each pair from them: full-precision sincosf of one f32
+// product, times w_j in f32, rounded to bf16 where it enters the product.
+// The hidden chain and the head are wgmma_fwd_kernel's lines, written out
+// again (not a helper #1 would share).  A warpgroup loads its next tile's
+// coordinates (six floats a lane) before it runs the current tile's chain.
+// Rows >= P read the coordinates of a zero point and are never stored.
+template <int F, int KE, bool SW128 = (F % 64 == 0)>
+__global__ void __launch_bounds__(WG_COUNT * 128, 1)
+wgmma_enc_fwd_kernel(EncX<KE> x, long long P, Params prm, int nh, float* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const WgEncLayout E = wg_enc_layout(F, nh, KE);
+  const WgLayout& L = E.weights;
+  wg_stage_weights<F, SW128, KE>(smem, L, prm, nh);
+  float* sa = reinterpret_cast<float*>(smem + E.enc_a);
+  float* sw = reinterpret_cast<float*>(smem + E.enc_w);
+  for (int i = threadIdx.x; i < x.n_enc; i += blockDim.x) {
+    sa[i] = x.a[i];
+    sw[i] = x.w[i];
+  }
+  // the generic-proxy stores must be visible to wgmma's reads (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  EncX<KE> xe = x;  // its pairs from the staged a_j, w_j
+  xe.a = sa;
+  xe.w = sw;
+  const float b_out = prm.b_out[0];
+  const float* bias = reinterpret_cast<const float*>(smem + L.bias);
+  const float* wo = reinterpret_cast<const float*>(smem + L.w_out);
+  const uint32_t s_hid = smem_u32(smem + L.w_hid), s_in = smem_u32(smem + L.w_in);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long n_tiles = (P + WG_ROWS - 1) / WG_ROWS;
+  const long long step = (long long)gridDim.x * WG_COUNT;
+  long long tile = (long long)blockIdx.x * WG_COUNT + wg;  // uniform over the warpgroup
+  // this lane's rows g and g + 8 of the warp's 16 at q0
+  const float3 zero = make_float3(0.0f, 0.0f, 0.0f);
+  float3 c0 = zero, c1 = zero;
+  auto load_coords = [&](long long q0) {
+    c0 = q0 + g < P ? x.coords(q0 + g) : zero;
+    c1 = q0 + g + 8 < P ? x.coords(q0 + g + 8) : zero;
+  };
+  if (tile < n_tiles) load_coords(tile * WG_ROWS + warp * 16);
+  for (; tile < n_tiles; tile += step) {
+    const long long p0 = tile * WG_ROWS + warp * 16;
+    constexpr int KT = KE / 16;
+    uint32_t ax[KT][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * kt + 4 * h + t;
+        const float2 u0 = xe.pair(c0, m), u1 = xe.pair(c1, m);
+        ax[kt][2 * h] = pack2(u0.x, u0.y);
+        ax[kt][2 * h + 1] = pack2(u1.x, u1.y);
+      }
+    }
+    if (tile + step < n_tiles) load_coords(p0 + step * WG_ROWS);
+    float acc[F / 8][4];
+    uint32_t a[F / 16][4];
+    wg_layer<F, KT, false>(acc, ax, s_in);
+    wg_bias_relu_pack<F>(a, acc, bias);
+    for (int l = 0; l < nh; ++l) {
+      wg_layer<F, F / 16, SW128>(acc, a, s_hid + uint32_t(l) * F * F * sizeof(bf16));
+      wg_bias_relu_pack<F>(a, acc, bias + (l + 1) * F);
+    }
+    // head: f32 products of the bf16 activation with w_out, summed over
+    // this thread's columns and then across the four threads of a row
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < F / 16; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = kt * 16 + h * 8 + 2 * t;
+        const float2 u0 = unpack2(a[kt][h * 2]), u1 = unpack2(a[kt][h * 2 + 1]);
+        s0 += u0.x * wo[c] + u0.y * wo[c + 1];
+        s1 += u1.x * wo[c] + u1.y * wo[c + 1];
+      }
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (t == 0) {
+      if (p0 + g < P) out[p0 + g] = s0 + b_out;
+      if (p0 + g + 8 < P) out[p0 + g + 8] = s1 + b_out;
+    }
+  }
+}
+
 template <int F>
 int launch_wgmma_fwd(const StridedX& x, long long P, const Params& prm, int nh, float* out,
                      int n_sms, cudaStream_t st) {
@@ -576,6 +696,22 @@ int launch_wgmma_march_fwd(const MarchX& x, const int* list, const int* count, l
   if (e != cudaSuccess) return (int)e;
   wgmma_march_fwd_kernel<F><<<grid, WG_COUNT * 128, smem, st>>>(x, list, count, P, prm, nh,
                                                                 sigma);
+  return (int)cudaGetLastError();
+}
+
+// kernel #3 over P points of an encoded input (KE <= F, n_enc <= ENC_MAX)
+template <int F, int KE>
+int launch_wgmma_enc_fwd(const EncX<KE>& x, long long P, const Params& prm, int nh, float* out,
+                         int n_sms, cudaStream_t st) {
+  if (P <= 0) return (int)cudaSuccess;
+  if (x.n_enc > ENC_MAX) return (int)cudaErrorInvalidValue;
+  const long long tiles = (P + WG_ROWS - 1) / WG_ROWS;
+  const int grid = (int)std::min<long long>((tiles + WG_COUNT - 1) / WG_COUNT, n_sms);
+  const size_t smem = wg_enc_layout(F, nh, KE).total;
+  cudaError_t e = cudaFuncSetAttribute(wgmma_enc_fwd_kernel<F, KE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_enc_fwd_kernel<F, KE><<<grid, WG_COUNT * 128, smem, st>>>(x, P, prm, nh, out);
   return (int)cudaGetLastError();
 }
 

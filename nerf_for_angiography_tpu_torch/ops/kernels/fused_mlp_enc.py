@@ -5,9 +5,11 @@ Replaces the TPU kernels ``nerf_for_angiography_tpu/ops/pallas/fused_mlp.py``
 ``_fwd_kernel_enc`` (line 539) and ``_bwd_kernel_enc`` (line 551), reached
 through ``fused_mlp_enc_raw`` (line 699), whose signature and custom VJP
 (lines 714-759) ``fused_mlp_enc_raw`` here keeps. The CUDA C++ source is
-``csrc/fused_mlp_enc.cu`` over the layer chain of ``csrc/mlp_chain.cuh``
-with the encoded inputs ``EncX`` (forward) and ``GatedEncX`` (backward);
-its header states the bound and the design. A module of its own (not a
+``csrc/fused_mlp_enc.cu``: the forward (#3) is ``csrc/mlp_wgmma.cuh``'s
+``wgmma_enc_fwd_kernel`` (warpgroup MMA, the features of ``EncX`` formed in
+registers as the first layer's A operand), the backward (#4) the layer
+chain of ``csrc/mlp_chain.cuh`` over ``GatedEncX``; its header states the
+bound and the design. A module of its own (not a
 section of ``fused_mlp.py``): its own library builds beside the other three
 in parallel, and its launch counters stay apart from kernels #1/#2's, so a
 run shows which pair it went through.

@@ -827,3 +827,107 @@ def test_encoded_train_step_on_card(dev, monkeypatch, kind):
     assert fe.enc_fwd_launches == 3 and fe.enc_bwd_launches == 2  # grid update at step 0
     assert fm.fwd_launches == fm.bwd_launches == fs.fused_step_launches == 0
     assert float(metrics["barf-coarse"]) == (1.25 if kind == "barf" else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# kernel #3: the warpgroup-MMA encoded forward at every (F, KE) it takes
+# ---------------------------------------------------------------------------
+
+# every (width, n_basis) whose KE = 16 ceil((4 + 6 L) / 16) <= width: the 26
+# (F, KE) instantiations of csrc/fused_mlp_enc.cu
+_ENC_FWD_CASES = [(width, n_basis) for width in (16, 32, 48, 64, 80, 96, 112, 128)
+                  for n_basis, ke in _ENC_WIDTHS if ke <= width]
+
+
+def _enc_fwd_check(packed, a, w, x):
+    """The encoded forward kernel on x within the forward limits of its plain
+    version (max abs <= 2e-2 s, median <= 1e-3 s, s = max(1, max |raw|)) and
+    two launches bit-identical; returns the kernel's output."""
+    got = fe.fused_mlp_enc_fwd_cuda(packed, a, w, x)
+    again = fe.fused_mlp_enc_fwd_cuda(packed, a, w, x)
+    want = fe.fused_mlp_enc_fwd_reference(packed, a, w, x)
+    torch.cuda.synchronize()
+    p = x.shape[0]
+    s = max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    assert got.shape == (p,) and bool(torch.isfinite(got).all())
+    assert float(err.max()) <= 2e-2 * s and float(err.median()) <= 1e-3 * s, p
+    assert torch.equal(got, again), p
+    return got
+
+
+@pytest.mark.parametrize("width,n_basis", _ENC_FWD_CASES)
+def test_wgmma_enc_forward_matches_plain(dev, width, n_basis):
+    """Kernel #3 at every (F, KE), fourier and BARF (alpha 2.7), with 0 / 2
+    hidden layers, at ragged P and P below one 64-point tile."""
+    for i, kind in enumerate(("fourier", "barf")):
+        _, packed, a, w = _enc_model(2 * i, width, kind, n_basis, dev, seed=width + n_basis)
+        gen = torch.Generator().manual_seed(4 + i)
+        for p in _WGMMA_PS:
+            _enc_fwd_check(packed, a, w, (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev))
+
+
+@pytest.mark.parametrize("p", [1, 63, 65, 64 * 300 + 5])
+@pytest.mark.parametrize("kind", ["fourier", "barf"])
+def test_wgmma_enc_forward_ragged(dev, kind, p):
+    """Kernel #3 at 4 x 128, L = 5 on a ragged last tile: rows past P are
+    never stored (the output is exactly P long and matches the plain
+    version), and the first P rows of a longer input give the same values."""
+    _, packed, a, w = _enc_model(4, 128, kind, 5, dev)
+    x = (torch.rand((p + 64, 3), generator=torch.Generator().manual_seed(p)) * 2 - 1).to(dev)
+    got = _enc_fwd_check(packed, a, w, x[:p].contiguous())
+    assert torch.equal(got, fe.fused_mlp_enc_fwd_cuda(packed, a, w, x)[:p])
+
+
+def test_wgmma_enc_forward_barf_alpha_zero(dev):
+    """BARF at alpha 0: every sin / cos feature is 0, so the kernel's output
+    does not depend on W_in's sin / cos columns (bit for bit) and lies within
+    the forward limits of kernel #1 on the coordinates alone."""
+    model, packed, a, w = _enc_model(4, 128, "barf", 5, dev, alpha=0.0)
+    assert bool((w == 0).all())
+    x = (torch.rand((64 * 41 + 63, 3), generator=torch.Generator().manual_seed(5)) * 2
+         - 1).to(dev)
+    got = _enc_fwd_check(packed, a, w, x)
+    w_in = packed.w_in.clone()
+    w_in[:, 3:] = torch.randn(w_in[:, 3:].shape, generator=torch.Generator().manual_seed(6)).to(
+        dev, torch.bfloat16)
+    assert torch.equal(got, fe.fused_mlp_enc_fwd_cuda(packed._replace(w_in=w_in), a, w, x))
+    (w_x, b_in), *rest = fm.cppn_params_to_list(model)
+    coords = fm.pack_params([(w_x[:3], b_in), *rest])
+    want = fm.fused_mlp_fwd_cuda(coords, x)
+    s = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 2e-2 * s
+    assert float((got - want).abs().median()) <= 1e-3 * s
+
+
+def test_enc_forward_failure_raises(dev, monkeypatch):
+    """No fallback for kernel #3: a launch that fails and a build that
+    cannot run both raise, and the plain version never runs on the card."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import build
+
+    def plain_refused(*args, **kwargs):
+        raise AssertionError("the plain encoded forward ran on the card")
+
+    monkeypatch.setattr(fe, "fused_mlp_enc_fwd_reference", plain_refused)
+    _, packed, a, w = _enc_model(2, 64, "barf", 5, dev)
+    x = torch.rand((1000, 3), device=dev) * 2 - 1
+    lib = fe._load_lib()
+
+    class FailingLaunch:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def fused_mlp_enc_fwd(self, *args):
+            return 1  # cudaErrorInvalidValue
+
+    fe.reset_counts()
+    monkeypatch.setattr(fe, "_lib", FailingLaunch())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fe.fused_mlp_enc_fwd(packed, a, w, x)
+    monkeypatch.setattr(fe, "_lib", None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "Path", lambda p: type("P", (), {"exists": lambda self: False})())
+    monkeypatch.setattr(build, "source_tag", lambda source: "not-built")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_mlp_enc_fwd(packed, a, w, x)
+    assert fe.enc_fwd_launches == 0
