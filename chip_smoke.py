@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # the checks below
     python3 chip_smoke.py --determinism      # also: run-to-run reproducibility
     python3 chip_smoke.py --protocol 20000   # also: one 20k-step shipped run
+    python3 chip_smoke.py --lca-protocol 20000   # also: the LCA anchor's 20k protocol
     python3 chip_smoke.py --parent DIR       # also: the parent checkout's numbers
 
 Phases:
@@ -77,7 +78,21 @@ Phases:
      kernel but #3's forward must keep them), and the parent's dense runs,
      which must equal this checkout's where #1's outputs (split run) and
      #3's (fourier run, in the first two processes) equal the parent's;
-  8. one JSON line with the kernel table, the card's name/power line, and the
+  8. the LCA (SDF) family: the dataset at full size (make_lca_sdf_volume
+     through sdf_datagen_config: 26 views of 150x162, 2,000 depth samples a
+     ray, mode='sdf'), one view's DRR on the card against the CPU's, 600
+     steps at the shipped defaults with compact_engage_max 192 and the
+     source at z = 4000, with log_dir and checkpoint_every (all six launch
+     counters read around the run: #1 and #2 launched, #5 as often as the
+     compacted steps' Tunings make it, #3, #4 and #6 never), then
+     highmodel.npz read back bit-equal to the best model and re-rendering
+     the reported best held-out PSNR, the grid VTKs read back equal, the
+     newest resume checkpoint restored equal to what was saved, and a
+     second train() on the same log_dir that resumes at step 601 without
+     carving; with ``--lca-protocol N`` also the JAX LCA anchor's protocol
+     for N steps (best-checkpoint held-out PSNR at least 29.3 dB, and with
+     ``--protocol`` the CT run's at least 48.4 dB);
+  9. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -92,6 +107,7 @@ import contextlib
 import dataclasses
 import hashlib
 import importlib
+import io
 import json
 import math
 import os
@@ -100,6 +116,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -152,6 +169,16 @@ RELU_TIE = 1e-3
 FK_SHAPES = ((5625, 300, 96), (5625, 300, 192), (5625, 224, 128), (4218, 48, 56),
              (1407, 160, 96))
 SRC_Z = 1500.0  # the phantom's source distance (bench.py's datagen)
+# the LCA phase (the SDF datagen preset puts the source at z = 4000): 600
+# steps at the shipped defaults with compact_engage_max 192, the resume
+# state every 300 iterations (the loop writes it at the evals on that
+# cadence, so the evals come every 300 too), then a resumed run to 660
+LCA_SRC_Z = 4000.0
+LCA_ITERS, LCA_RESUME_ITERS, LCA_EVERY = 600, 660, 300
+LCA_CPU_VIEW = 24  # the (25, 25) view, the sweep's far corner
+LCA_SHAPE = (26, 162, 150, 2000)  # views, height, width, depth samples a ray
+LCA_FLOOR_DB = 29.3  # the JAX anchor's 30.12 dB less its 0.8 dB plateau wobble
+CT_FLOOR_DB = 48.4  # the JAX 20k protocol's band, 48.4-50.0 dB over 6 seeds
 COMPACT_ITERS, HYBRID_ITERS, DENSE_ITERS = 600, 300, 60
 ENC_FOURIER_ITERS, ENC_BARF_ITERS = 600, 300  # the encoded runs (phase 6)
 DEVICE = "cuda"
@@ -629,7 +656,7 @@ def make_dataset(torch):
     return ds
 
 
-def train_loss(torch, state, rays, cfg) -> tuple[float, list]:
+def train_loss(torch, state, rays, cfg, src_z: float = SRC_Z) -> tuple[float, list]:
     """Loss of the trained model on one training batch (not part of the
     run), and the rendered pixels' shape."""
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
@@ -639,7 +666,7 @@ def train_loss(torch, state, rays, cfg) -> tuple[float, list]:
     dense = dataclasses.replace(cfg, compact_samples=0)
     with torch.no_grad():
         batch = sample_pixel_rays(state.generator, rays, cfg.img_sample_size, impl="gumbel")
-        near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+        near, far = src_z - cfg.outside, src_z + cfg.outside
         pix, _, _ = render_rays(state.model, state.grid, batch.origins, batch.directions,
                                 dense, near, far, _barf_alpha(cfg, state.step))
         loss = float(torch.mean((pix - batch.pixel_values) ** 2))
@@ -801,29 +828,30 @@ def tuning_cfg(cfg, t: dict):
     )
 
 
-def first_k_calls_per_step(fk, cfg, t: dict, grid, batch) -> int:
+def first_k_calls_per_step(fk, cfg, t: dict, grid, batch, src_z: float = SRC_Z) -> int:
     """First-k launches one step of Tuning ``t`` makes: read off one march
     of that Tuning on a training batch (outside every counted run)."""
     from nerf_for_angiography_tpu_torch.training.train import _march_for
 
     fk.reset_counts()
     _march_for(tuning_cfg(cfg, t), grid, batch.origins, batch.directions,
-               SRC_Z - cfg.outside, SRC_Z + cfg.outside)
+               src_z - cfg.outside, src_z + cfg.outside)
     return fk.launches
 
 
-def marches_per_step(cfg, t: dict, grid, batch) -> int:
+def marches_per_step(cfg, t: dict, grid, batch, src_z: float = SRC_Z) -> int:
     """Rectangular marches one step of Tuning ``t`` runs (2 on a two-bucket
     march): the fused step's launches per step."""
     from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
     from nerf_for_angiography_tpu_torch.training.train import _march_for
 
     m = _march_for(tuning_cfg(cfg, t), grid, batch.origins, batch.directions,
-                   SRC_Z - cfg.outside, SRC_Z + cfg.outside)
+                   src_z - cfg.outside, src_z + cfg.outside)
     return 2 if isinstance(m, BucketedRays) else 1
 
 
-def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
+def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
+                  **train_kw) -> dict:
     """One train() run with all six launch counters set to 0 just before it
     and read just after; the first-k launches must equal the compacted steps
     times the launches a step of their Tuning makes. With
@@ -833,7 +861,8 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
     encoded model kernel #4, whose forward #3 then launches exactly once a
     step, once a grid pass and once an eval (every_n_step_pair makes one
     sigma call per update, eval one render of the held-out view), with #1,
-    #2 and #6 never. ``barf_alphas`` collects every step's "barf-coarse"."""
+    #2 and #6 never. ``barf_alphas`` collects every step's "barf-coarse".
+    ``train_kw`` (log_dir, checkpoint_every) go to train()."""
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
     from nerf_for_angiography_tpu_torch.training import train
 
@@ -843,7 +872,7 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
           f"fused_train_step={cfg.fused_train_step}, pos_enc={cfg.pos_enc}")
     reset_all(fm, fk, fs)
     with recorded_barf_alphas() as barf_alphas, recorded_schedule(barf_alphas) as sched:
-        res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
+        res = train(cfg, ds.rays, src_pt_z=src_z, verbose=True, device=DEVICE, **train_kw)
     torch.cuda.synchronize()
     counts, fk_shapes = read_counts(fm, fk, fs), set(fk.shapes)
     fwd_n, bwd_n = counts["fwd_launches"], counts["bwd_launches"]
@@ -853,14 +882,15 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
     t = res.timing
     phases = t["steady_phases"]
     batch = sample_pixel_rays(res.state.generator, ds.rays, cfg.img_sample_size, impl="gumbel")
-    per_step = [first_k_calls_per_step(fk, cfg, p, res.state.grid, batch) for p in phases]
+    per_step = [first_k_calls_per_step(fk, cfg, p, res.state.grid, batch, src_z)
+                for p in phases]
     expected_fk = sum(n * p["steps"] for n, p in zip(per_step, phases))
     compact_steps = sum(p["steps"] for p in phases)
-    rect = [marches_per_step(cfg, p, res.state.grid, batch) for p in phases]
+    rect = [marches_per_step(cfg, p, res.state.grid, batch, src_z) for p in phases]
     expected_fs = (steps - compact_steps) + sum(n * p["steps"] for n, p in zip(rect, phases))
     grid_updates = sum(1 for s in range(steps) if s % cfg.grid_update_every == 0)
     evals = sum(1 for s in range(steps) if s % cfg.display_every == 0)
-    loss, _ = train_loss(torch, res.state, ds.rays, cfg)
+    loss, _ = train_loss(torch, res.state, ds.rays, cfg, src_z)
     out = dict(
         label=label, steps=steps, compact_steps=compact_steps, **counts,
         first_k_expected=expected_fk, fused_step_expected=expected_fs if fused else 0,
@@ -895,7 +925,8 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str) -> dict:
              if cfg.pos_enc == "barf" else ""))
     check(math.isfinite(loss) and math.isfinite(res.last_psnr), f"{label}: loss/PSNR not finite")
     check(len(barf_alphas) == steps, f"{label}: {len(barf_alphas)} step metrics for {steps} steps")
-    out["schedule"] = check_schedule(sched, cfg, label)
+    out["schedule"] = check_schedule(sched, cfg, label, logged=bool(train_kw.get("log_dir")),
+                                     checkpoint_every=train_kw.get("checkpoint_every"))
     check(fk_n == expected_fk, f"{label}: first_k launches {fk_n} != expected {expected_fk}")
     out["result"] = res
     if encoded:
@@ -980,19 +1011,24 @@ def recorded_schedule(issued: list):
         loop.PressureTuner = base
 
 
-def check_schedule(log: dict, cfg, label: str) -> dict:
+def check_schedule(log: dict, cfg, label: str, logged: bool = False,
+                   checkpoint_every: int | None = None) -> dict:
     """The JAX loop's pressure latency (JAX training/loop.py:411-538): a
     full chunk's pressure reaches the tuner once the next chunk is issued
     (m + chunk + 1 steps), and at its own boundary (m + 1 steps) exactly
-    where that loop drains: a re-check boundary of the k then running, an
-    armed fire, a display boundary, the last iteration, or a partial chunk
-    next."""
+    where that loop drains: a logging boundary (every 100 with a log_dir),
+    a re-check boundary of the k then running, an armed fire, a display
+    boundary, the last iteration, or a partial chunk next. The chunk
+    divides checkpoint_every too."""
     chunk = math.gcd(100, cfg.display_every)
+    if checkpoint_every:
+        chunk = math.gcd(chunk, checkpoint_every)
     check_every = max(chunk, -(-cfg.compact_check_every // chunk) * chunk)
     deferred = 0
     for m, issued, k, fire, _ in log["observe"]:
         recheck = check_every if k > cfg.compact_samples else cfg.display_every
         at_once = (m % recheck == 0 or fire or m % cfg.display_every == 0
+                   or (logged and m % 100 == 0)
                    or m >= cfg.n_iters or m + chunk > cfg.n_iters or m % chunk != 0)
         want = m + 1 if at_once else m + chunk + 1
         deferred += not at_once
@@ -2453,6 +2489,253 @@ def nondeterministic_ops(torch, ds, n: int = 20) -> dict:
     return out
 
 
+def make_lca_dataset(torch) -> tuple:
+    """The LCA dataset at full size, as the JAX LCA anchor made it
+    (cli/datagen.py --data_name LCA --volume phantom:lca): the analytic LCA
+    SDF volume through sdf_datagen_config, 26 views of 150 x 162, 2,000
+    depth samples a ray, mode='sdf' DRRs, per-image normalization."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.data import generate_dataset, make_lca_sdf_volume
+    from nerf_for_angiography_tpu_torch.data.datasets import sdf_datagen_config
+
+    volume, dcfg = make_lca_sdf_volume(), sdf_datagen_config()
+    t0 = time.perf_counter()
+    ds = generate_dataset(volume, dcfg, device=DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = dict(datagen_s=secs, rays=ds.rays.num_rays, views=int(ds.images.shape[0]),
+               height=int(ds.images.shape[1]), width=int(ds.images.shape[2]),
+               depth_samples=dcfg.depth_samples_per_ray, image_min=float(ds.images.min()),
+               image_max=float(ds.images.max()), below_1=float((ds.images < 1.0).mean()))
+    print(f"LCA datagen: {out['rays']} rays, {out['views']} views of {out['width']}x"
+          f"{out['height']}, {out['depth_samples']} depth samples a ray, {secs:.2f} s; image "
+          f"min {out['image_min']:.6f} max {out['image_max']:.6f}, share of pixels below 1 "
+          f"{out['below_1']:.4f}")
+    shape = (out["views"], out["height"], out["width"], out["depth_samples"])
+    check(shape == LCA_SHAPE, f"the LCA dataset is {shape}, not {LCA_SHAPE} (views, height, "
+                              "width, depth samples)")
+    check(bool(np.isfinite(ds.images).all()) and out["image_min"] == 0.0
+          and out["image_max"] == 1.0 and 0.0 < out["below_1"] < 1.0,
+          "the LCA images are not finite, jointly normalized, with the tree in view")
+    return ds, volume, dcfg, out
+
+
+def lca_cpu_check(torch, volume, dcfg, angles) -> dict:
+    """One view's SDF DRR on the card against device='cpu' on the same
+    volume, rays and depths: within 1e-5."""
+    from nerf_for_angiography_tpu_torch.data import render_drr
+    from nerf_for_angiography_tpu_torch.geometry import get_ray_values, linspace_depths
+
+    theta, phi = (float(a) for a in angles[LCA_CPU_VIEW])
+    o, d, _ = get_ray_values(theta, phi, dcfg.larm, dcfg.src_pt, dcfg.img_width,
+                             dcfg.img_height, dcfg.focal_length, device=DEVICE)
+    z = linspace_depths(dcfg.near_thresh, dcfg.far_thresh, dcfg.depth_samples_per_ray, DEVICE)
+    card = render_drr(volume.to(DEVICE), o, d, z, "sdf").cpu()
+    t0 = time.perf_counter()
+    cpu = render_drr(volume.to("cpu"), o.cpu(), d.cpu(), z.cpu(), "sdf")
+    err = float((card - cpu).abs().max())
+    out = dict(view=[theta, phi], max_abs_err=err, cpu_s=time.perf_counter() - t0,
+               min=float(cpu.min()), max=float(cpu.max()))
+    print(f"LCA view ({theta}, {phi}): card against CPU max abs {err:.3e} (limit 1e-5), "
+          f"pixels {out['min']:.6f}..{out['max']:.6f}, CPU render {out['cpu_s']:.1f} s")
+    check(err <= 1e-5, f"the card's SDF DRR differs from the CPU's by {err}")
+    return out
+
+
+def state_tensors(torch, state) -> dict:
+    """Every tensor of a TrainState, copied to the host: parameters, Adam
+    state, both grids, the generator state."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    for name in ("grid", "vessel_grid"):
+        out.update({f"{name}.{k}": v for k, v in getattr(state, name)._asdict().items()
+                    if v is not None})
+    out["generator"] = state.generator.get_state()
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def recorded_artifacts(torch):
+    """Within the block, train() records what it writes: the best model's
+    parameters at each highmodel.npz, the grids at each high*grid.vtk, and
+    every tensor of the state at each resume checkpoint, copied at the
+    moment of writing."""
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    rec: dict = {"high_params": None, "high_grids": None, "ckpt": {}}
+    save_model, export_grids, mgr = loop.save_model, loop._export_grids, loop.CheckpointManager
+
+    def saving_model(path, definition, model, info=None):
+        if path.endswith("highmodel.npz"):
+            rec["high_params"] = {k: v.detach().cpu().clone()
+                                  for k, v in model.state_dict().items()}
+        return save_model(path, definition, model, info)
+
+    def exporting(writer, log_dir, prefix, state):
+        if prefix == "high":
+            rec["high_grids"] = {"grid": state.grid.binary.cpu().clone(),
+                                 "vesselgrid": state.vessel_grid.binary.cpu().clone(),
+                                 "aabb": state.grid.aabb.cpu().clone()}
+        return export_grids(writer, log_dir, prefix, state)
+
+    class Recording(mgr):
+        def save(self, step, state):
+            rec["ckpt"][step] = state_tensors(torch, state)
+            return super().save(step, state)
+
+    loop.save_model, loop._export_grids, loop.CheckpointManager = saving_model, exporting, Recording
+    try:
+        yield rec
+    finally:
+        loop.save_model, loop._export_grids, loop.CheckpointManager = save_model, export_grids, mgr
+
+
+def check_lca_artifacts(torch, ds, cfg, log_dir: str, res, rec: dict) -> dict:
+    """highmodel.npz read back with load_model equals the best model bit for
+    bit and re-renders the held-out view at the reported best held-out
+    PSNR; high*grid.vtk read back equal to the grids written; the newest
+    resume checkpoint restored into a fresh state equal to what was saved."""
+    from nerf_for_angiography_tpu_torch.convert import cppn_params_from_jax
+    from nerf_for_angiography_tpu_torch.models import CPPN
+    from nerf_for_angiography_tpu_torch.training import (
+        CheckpointManager, create_train_state, load_grid_vtk, load_model, make_eval_step,
+        make_test_view,
+    )
+
+    check(rec["high_params"] is not None, "LCA: no highmodel.npz was written")
+    meta, params = load_model(os.path.join(log_dir, "highmodel.npz"))
+    sd = cppn_params_from_jax(params)
+    check(set(sd) == set(rec["high_params"])
+          and all(torch.equal(sd[k], rec["high_params"][k]) for k in sd),
+          "LCA: highmodel.npz is not the best model bit for bit")
+    check(meta["training_information"]["step"] == res.best_iter,
+          f"LCA: highmodel.npz is from iteration {meta['training_information']['step']}, the "
+          f"best is {res.best_iter}")
+    grids = {}
+    for name in ("grid", "vesselgrid"):
+        g = load_grid_vtk(os.path.join(log_dir, f"high{name}.vtk"), rec["high_grids"]["aabb"],
+                          device=DEVICE)
+        grids[name] = g
+        check(torch.equal(g.binary.cpu(), rec["high_grids"][name]),
+              f"LCA: high{name}.vtk does not read back as the grid it was written from")
+    model = CPPN(cfg.model_config()).to(DEVICE)
+    model.load_state_dict(sd)
+    n_views = int(ds.rays.image_ids.max()) + 1
+    test = make_test_view(ds.rays, n_views - 1, ds.rays.num_rays // n_views)
+    dense = dataclasses.replace(cfg, compact_samples=0)
+    near, far = LCA_SRC_Z - cfg.outside, LCA_SRC_Z + cfg.outside
+    best = types.SimpleNamespace(grid=grids["grid"], step=res.best_iter + 1)
+    metrics, _ = make_eval_step(model, dense, near, far)(best, test)
+    psnr = float(metrics["psnr/test-coarse"])
+    d_psnr = psnr - res.best_heldout_psnr
+    print(f"LCA artifacts: highmodel.npz (iteration {res.best_iter}) equals the best model bit "
+          f"for bit; re-rendered held-out PSNR {psnr:.6f} dB against the reported "
+          f"{res.best_heldout_psnr:.6f} (difference {d_psnr:.2e}, limit 1e-4); highgrid.vtk and "
+          f"highvesselgrid.vtk read back equal")
+    check(abs(d_psnr) <= 1e-4, f"LCA: the bundle re-renders at {psnr} dB, the run reported "
+                               f"{res.best_heldout_psnr}")
+
+    mgr = CheckpointManager(os.path.join(log_dir, "ckpt"))
+    steps = mgr.all_steps()
+    check(steps == [LCA_EVERY, LCA_ITERS] and sorted(rec["ckpt"]) == steps,
+          f"LCA: checkpoints {steps}, saved {sorted(rec['ckpt'])}, expected "
+          f"{[LCA_EVERY, LCA_ITERS]}")
+    _, fresh = create_train_state(cfg, seed=cfg.seed + 7, device=DEVICE)
+    restored = mgr.restore(fresh)
+    got, want = state_tensors(torch, restored), rec["ckpt"][steps[-1]]
+    bad = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    print(f"LCA restore: {len(want)} tensors and the generator state of the step-{steps[-1]} "
+          f"checkpoint (state.step {restored.step}) restored equal; unequal: {bad}")
+    check(not bad and set(got) == set(want), f"LCA: restored tensors differ from the saved: {bad}")
+    return dict(high_iter=res.best_iter, rerender_psnr=psnr, reported_psnr=res.best_heldout_psnr,
+                checkpoints=steps, restored_step=restored.step, restored_tensors=len(want))
+
+
+def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
+    """The LCA dataset at full size, one view against the CPU, 600 steps
+    with log_dir and checkpoint_every (all six launch counters read around
+    the run), the artifacts read back, and a resumed run."""
+    import shutil
+
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+
+    ds, volume, dcfg, data = make_lca_dataset(torch)
+    cpu = lca_cpu_check(torch, volume, dcfg, ds.angles)
+    log_dir = os.path.join(HERE, "smoke_out", "lca_run")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg = TrainConfig(n_iters=LCA_ITERS, compact_engage_max=192, display_every=LCA_EVERY,
+                      data_name="LCA")
+    with recorded_artifacts(torch) as rec:
+        run = compacted_run(torch, fm, fk, fs, ds, cfg, "lca", src_z=LCA_SRC_Z, log_dir=log_dir,
+                            checkpoint_every=LCA_EVERY)
+    res = run.pop("result")
+    print(f"lca: the chooser {'engaged' if run['compact_steps'] else 'never engaged'}: "
+          f"first-k launched {run['first_k_launches']} times = {run['compact_steps']} compacted "
+          f"steps x their Tunings' launches a step ({run['first_k_expected']} expected)")
+    check(run["fwd_launches"] > 0 and run["bwd_launches"] > 0,
+          "lca: kernel #1 or #2 never launched")
+    check(run["fused_step_launches"] == 0 and run["enc_fwd_launches"] == 0
+          and run["enc_bwd_launches"] == 0, "lca: kernel #3, #4 or #6 launched")
+    names = sorted(os.listdir(log_dir))
+    print(f"lca artifacts: {names}")
+    arts = check_lca_artifacts(torch, ds, cfg, log_dir, res, rec)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res2 = train(dataclasses.replace(cfg, n_iters=LCA_RESUME_ITERS), ds.rays,
+                     src_pt_z=LCA_SRC_Z, log_dir=log_dir, checkpoint_every=LCA_EVERY,
+                     verbose=True, device=DEVICE)
+    out2 = buf.getvalue()
+    print(out2, end="")
+    want = f"resumed from checkpoint at step {LCA_ITERS + 1}"
+    check(want in out2, f"lca resume: '{want}' not printed")
+    check("carve_init:" not in out2, "lca resume: the resumed run carved its grids")
+    check(res2.state.step == LCA_RESUME_ITERS + 1,
+          f"lca resume: state.step {res2.state.step} != {LCA_RESUME_ITERS + 1}")
+    print(f"lca resume: '{want}', no carve, state.step {res2.state.step} after iterations "
+          f"{LCA_ITERS + 1}..{LCA_RESUME_ITERS}")
+    out = dict(data=data, cpu_check=cpu, run=run, artifacts=arts, files=names,
+               resume=dict(printed=want, carved=False, final_step=res2.state.step))
+    report["lca"] = out
+    return ds, run
+
+
+def lca_protocol_phase(torch, ds, iters: int, report: dict) -> None:
+    """The JAX LCA anchor's protocol (tools/lca_anchor.sh: cli/train.py
+    --data_name LCA --n_iters N --display_every 1000 --compact_engage_max
+    192, log_dir and checkpoint_every = save_every) on the in-memory dataset:
+    the best-checkpoint held-out PSNR, its iteration, the last PSNR, the
+    steady and end-to-end rates and the Tuning history."""
+    import shutil
+
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+
+    cfg = TrainConfig(n_iters=iters, compact_engage_max=192, display_every=1000,
+                      data_name="LCA")
+    log_dir = os.path.join(HERE, "smoke_out", "lca_protocol")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with recorded_barf_alphas() as issued, recorded_schedule(issued) as sched:
+        res = train(cfg, ds.rays, src_pt_z=LCA_SRC_Z, log_dir=log_dir,
+                    checkpoint_every=cfg.save_every, verbose=True, device=DEVICE)
+    t = res.timing
+    tunings = [(kind, n, tt) for kind, n, tt in sched["tunings"]]
+    out = dict(iters=iters, best_heldout_psnr=res.best_heldout_psnr, best_iter=res.best_iter,
+               best_vessel_psnr=res.best_psnr, last_psnr=res.last_psnr,
+               steady_rays_per_sec=t["steady_rays_per_sec"], rays_per_sec=res.rays_per_sec,
+               total_s=t["total"], timing={k: v for k, v in t.items()
+                                           if isinstance(v, (int, float))},
+               tunings=tunings, steady_phases=t["steady_phases"],
+               files=sorted(os.listdir(log_dir)))
+    print(f"LCA protocol {iters} steps: best-checkpoint held-out PSNR "
+          f"{res.best_heldout_psnr:.3f} dB (iter {res.best_iter}; vessel {res.best_psnr:.3f}), "
+          f"last {res.last_psnr:.3f} dB, steady {t['steady_rays_per_sec']:.0f} rays/s, end to "
+          f"end {res.rays_per_sec:.0f} rays/s, {t['total']:.1f} s; Tunings (kind, iteration, "
+          f"k) {[(kind, n, tt['k']) for kind, n, tt in tunings]}")
+    report["lca_protocol"] = out
+    check(math.isfinite(res.best_heldout_psnr), "LCA protocol: held-out PSNR not finite")
+
+
 def protocol_phase(torch, ds, iters: int, report: dict) -> None:
     """One shipped-default run of ``iters`` steps, as bench.py runs the
     protocol: the best-checkpoint held-out PSNR and the steady rate."""
@@ -2481,6 +2764,9 @@ def main() -> int:
                          "algorithms and report the ops that warn")
     ap.add_argument("--protocol", type=int, default=0,
                     help="also run one shipped-default training of this many steps")
+    ap.add_argument("--lca-protocol", type=int, default=0,
+                    help="also run the LCA anchor's protocol (compact_engage_max 192, "
+                         "display_every 1000, log_dir) for this many steps")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: also time its kernels #1, #2, #3, "
                          "#4 and #6 and split pairs on this run's inputs, hold #1's, #3's, #4's "
@@ -2533,10 +2819,22 @@ def main() -> int:
         bt = bwd_trained_phase(torch, fm, cp["shipped"]["result"].state, fp, report)
         ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
         bc = bwd_compare_phase(torch, fm, tr, fp, bt, ep, args.parent, report, kb)
+        lca_ds, lca = lca_phase(torch, fm, fk, fs, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
             protocol_phase(torch, ds, args.protocol, report)
+        if args.lca_protocol:
+            lca_protocol_phase(torch, lca_ds, args.lca_protocol, report)
+        # the quality bars, held once both protocol runs have their numbers
+        if args.protocol:
+            best = report["protocol"]["best_heldout_psnr"]
+            check(best >= CT_FLOOR_DB, f"CT protocol: best held-out PSNR {best:.3f} dB below "
+                                       f"the JAX band's {CT_FLOOR_DB}")
+        if args.lca_protocol:
+            best = report["lca_protocol"]["best_heldout_psnr"]
+            check(best >= LCA_FLOOR_DB, f"LCA protocol: best held-out PSNR {best:.3f} dB below "
+                                        f"{LCA_FLOOR_DB} (the JAX anchor 30.12 less 0.8)")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2548,7 +2846,8 @@ def main() -> int:
             "forced_hybrid": cp["hybrid"], "two_bucket_steps": cp["two_bucket"],
             "fused_dense": fp["fused_dense"], "fused_shipped_defaults": fp["fused_shipped"],
             "feature_major_dense": fp["feature_major_dense"],
-            "fourier_shipped": ep["fourier_shipped"], "barf_anneal": ep["barf_anneal"]}
+            "fourier_shipped": ep["fourier_shipped"], "barf_anneal": ep["barf_anneal"],
+            "lca": lca}
     # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}

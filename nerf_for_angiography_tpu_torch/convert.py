@@ -1,9 +1,9 @@
-"""Carry CPPN weights from the JAX package's flax params to the port.
+"""Carry CPPN weights between the JAX package's flax params and the port.
 
-The input is the flax params pytree converted to numpy (``jax.tree.map(
-np.asarray, params)``), so this module needs neither JAX nor flax. Flax
-``Dense`` stores ``kernel`` as (in, out); ``nn.Linear`` stores ``weight``
-as (out, in).
+The flax side is the params pytree as numpy (``jax.tree.map(np.asarray,
+params)``, ``{"params": {layer: {"kernel", "bias"}, name: array}}``), so
+this module needs neither JAX nor flax. Flax ``Dense`` stores ``kernel`` as
+(in, out); ``nn.Linear`` stores ``weight`` as (out, in).
 """
 
 from __future__ import annotations
@@ -23,3 +23,20 @@ def cppn_params_from_jax(flax_params_as_numpy: dict) -> dict[str, torch.Tensor]:
         else:
             out[name] = torch.from_numpy(np.array(leaf, np.float32))
     return out
+
+
+def cppn_params_to_jax(state_dict) -> dict:
+    """The port CPPN's ``state_dict`` -> flax-named params as numpy f32,
+    ``{"params": ...}`` as the JAX TrainState holds them (the inverse of
+    ``cppn_params_from_jax``)."""
+    p: dict = {}
+    for name, t in state_dict.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        layer, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            p.setdefault(layer, {})["kernel"] = np.ascontiguousarray(a.T)
+        elif leaf == "bias":
+            p.setdefault(layer, {})["bias"] = a.copy()
+        else:
+            p[name] = a.copy()
+    return {"params": p}

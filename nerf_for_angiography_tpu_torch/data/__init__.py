@@ -1,6 +1,12 @@
 from .datasets import DatagenConfig, GeneratedDataset, angle_grid, generate_dataset
 from .drr import render_drr, render_view
-from .phantoms import make_sphere_volume, make_vessel_volume
+from .phantoms import (
+    make_lca_sdf_volume,
+    make_sphere_volume,
+    make_vessel_volume,
+    sphere_line_integral,
+)
+from .transfer import rev_sigmoid, transfer_func_ct
 from .weights import frangi, get_weighted_img
 
 __all__ = [
@@ -10,8 +16,12 @@ __all__ = [
     "frangi",
     "generate_dataset",
     "get_weighted_img",
+    "make_lca_sdf_volume",
     "make_sphere_volume",
     "make_vessel_volume",
     "render_drr",
     "render_view",
+    "rev_sigmoid",
+    "sphere_line_integral",
+    "transfer_func_ct",
 ]

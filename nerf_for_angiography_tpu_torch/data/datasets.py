@@ -2,8 +2,10 @@
 ``nerf_for_angiography_tpu/data/datasets.py``; the reference's
 phantomdata/cttoray.py flow).
 
-This slice covers ``angle_mode='ct'`` without pose shifts and returns rays,
-images, weight maps and angles. The ``proj`` table, the CSV writers and
+It covers the CT sweep (cttoray.py) and the SDF/LCA sweep (sdftoray.py:
+``angle_mode='sdf'``, ``mode='sdf'`` DRRs, ``per_image_normalize``, and
+``resize_to`` at identity) without pose shifts, and returns rays, images,
+weight maps and angles. The ``proj`` table, the CSV writers and
 ``load_data`` arrive with the datagen/CLI slice.
 """
 
@@ -47,9 +49,10 @@ class DatagenConfig:
     max_shift_rotation: float = 0.0
     max_shift_translation: float = 0.0
     rays_from_nominal: bool = False
-    angle_mode: str = "ct"
-    per_image_normalize: bool = False
-    resize_to: tuple[int, int] | None = None
+    # sdftoray.py differences (SURVEY.md section 2.7):
+    angle_mode: str = "ct"  # 'ct': centered grid; 'sdf': arange(0, limited+1)
+    per_image_normalize: bool = False  # sdftoray.py:125-127
+    resize_to: tuple[int, int] | None = None  # (H, W) post-resize (sdftoray.py:132-133)
 
     @property
     def src_pt(self) -> np.ndarray:
@@ -89,6 +92,39 @@ def angle_grid(
     return np.append(angles, [list(custom_angle)], axis=0)
 
 
+def sdf_angle_grid(
+    limited_size: float, number_angles: float, custom_angle=(112.5, 112.5)
+) -> np.ndarray:
+    """The SDF/LCA sweep: arange(0, limited+1, step) x same + one custom
+    test angle (sdftoray.py:47-57)."""
+    step = limited_size / number_angles
+    th = np.arange(0.0, limited_size + 1, step)
+    angles = np.array([list(v) for v in itertools.product(th, th)])
+    return np.append(angles, [list(custom_angle)], axis=0)
+
+
+def sdf_datagen_config(**kw) -> DatagenConfig:
+    """LCA/SDF datagen preset (sdftoray.py:16-45): focal 4000, source at
+    [0,0,4000], 1000-unit sampling band, 2000 depth samples, 150x162 images,
+    uncentered angle grid, per-image normalization."""
+    base = dict(
+        limited_size=25.0,
+        number_angles=4.0,
+        focal_length=4000.0,
+        src_z_offset=0.0,
+        sample_outside=1000.0,
+        img_width=150,
+        img_height=162,
+        custom_angle=(112.5, 112.5),
+        mode="sdf",
+        angle_mode="sdf",
+        per_image_normalize=True,
+        sampling_strategy="segmentation",  # apply_frangi=False (sdftoray.py:24)
+    )
+    base.update(kw)
+    return DatagenConfig(**base)
+
+
 class GeneratedDataset(NamedTuple):
     rays: RayDataset  # dense per-ray arrays on the device
     images: np.ndarray  # (V, H, W) jointly normalized DRRs
@@ -97,12 +133,8 @@ class GeneratedDataset(NamedTuple):
 
 
 def _check_ported(config: DatagenConfig) -> None:
-    if config.angle_mode != "ct" or config.mode != "ct":
-        raise NotImplementedError("SDF/LCA datagen arrives with the datagen/CLI slice")
     if config.max_shift_rotation > 0 or config.max_shift_translation > 0:
         raise NotImplementedError("pose-shift datagen arrives with the pose-refinement slice")
-    if config.per_image_normalize or config.resize_to is not None:
-        raise NotImplementedError("SDF/LCA datagen options arrive with the datagen/CLI slice")
 
 
 def generate_dataset(
@@ -114,10 +146,18 @@ def generate_dataset(
     _check_ported(config)
     device = resolve_device(device)
     volume = volume.to(device)
-    angles = angle_grid(
-        config.limited_size, config.number_angles, config.center_point, config.custom_angle
-    )
+    if config.angle_mode == "sdf":
+        angles = sdf_angle_grid(config.limited_size, config.number_angles, config.custom_angle)
+    else:
+        angles = angle_grid(
+            config.limited_size, config.number_angles, config.center_point, config.custom_angle
+        )
     H, W = config.img_height, config.img_width
+    if config.resize_to is not None and tuple(config.resize_to) != (H, W):
+        # the reference's resize is only shape-consistent at identity scale
+        # (sdftoray.py:40-45); there the JAX package's linear resize returns
+        # its input up to one rounding, and the port skips it
+        raise ValueError("resize_to must equal (img_height, img_width)")
     depth_base = linspace_depths(
         config.near_thresh, config.far_thresh, config.depth_samples_per_ray, device
     )
@@ -131,7 +171,11 @@ def generate_dataset(
             float(theta), float(phi), config.larm, config.src_pt, W, H,
             config.focal_length, device=device,
         )
-        img_np = render_drr(volume, origins, directions, depth_values).cpu().numpy()
+        img_np = render_drr(volume, origins, directions, depth_values, config.mode).cpu().numpy()
+        if config.per_image_normalize:  # sdftoray.py:125-127
+            img_np = img_np - img_np.min()
+            if img_np.max() > 0:
+                img_np = img_np / img_np.max()
         # weight map (host, cold path) — cttoray.py:210-221
         img_to_transf = img_np.copy()
         if not config.binary:

@@ -1,10 +1,12 @@
-"""Analytic phantoms (numpy; port of the sphere and vessel phantoms of
-``nerf_for_angiography_tpu/data/phantoms.py``): a constant-density sphere and
-a capsule coronary-tree phantom with vessel-like DRRs."""
+"""Analytic phantoms (numpy; port of ``nerf_for_angiography_tpu/data/
+phantoms.py``): a constant-density sphere with its closed-form line
+integral, a capsule coronary-tree phantom with vessel-like DRRs, and the
+tree's signed distance through the SDF transfer (the LCA stand-in)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.interpolation import RegularGrid
 
@@ -64,3 +66,43 @@ def make_vessel_volume(
         vals.reshape(res, res, res), origin=(-extent,) * 3, spacing=(spacing,) * 3,
         fill_value=0.0, device=device,
     )
+
+
+def make_lca_sdf_volume(
+    res: int = 96, extent: float = 60.0, c1: float = 2.0, device=None
+) -> RegularGrid:
+    """Analytic LCA stand-in for the reference's SDF-LCA.vtk asset: the
+    signed distance to the capsule coronary tree through the same
+    ``rev_sigmoid`` transfer the reference applies to the real file
+    (helpers.py:72-100), for the SDF datagen (``sdf_datagen_config``,
+    ``render_drr(mode='sdf')``)."""
+    from .transfer import rev_sigmoid
+
+    pts = _grid_coords(res, extent).reshape(-1, 3)
+    sdf = np.full(pts.shape[0], np.inf, np.float32)
+    for a, b, radius in _VESSEL_SEGMENTS:
+        d = _capsule_distance(pts, np.asarray(a, np.float32), np.asarray(b, np.float32))
+        sdf = np.minimum(sdf, d - radius)
+    vals = rev_sigmoid(torch.from_numpy(sdf), c1=c1).numpy()
+    spacing = 2 * extent / (res - 1)
+    return RegularGrid.create(
+        vals.reshape(res, res, res), origin=(-extent,) * 3, spacing=(spacing,) * 3,
+        fill_value=0.0, device=device,
+    )
+
+
+def sphere_line_integral(
+    origin: np.ndarray, direction: np.ndarray, radius: float, mu: float
+) -> float:
+    """Closed-form Beer-Lambert pixel for the sphere phantom:
+    exp(-mu * chord_length)."""
+    o = np.asarray(origin, np.float64)
+    d = np.asarray(direction, np.float64)
+    d = d / np.linalg.norm(d)
+    b = o @ d
+    c = o @ o - radius**2
+    disc = b * b - c
+    if disc <= 0:
+        return 1.0
+    chord = 2.0 * np.sqrt(disc)
+    return float(np.exp(-mu * chord))

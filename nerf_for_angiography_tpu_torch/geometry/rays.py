@@ -72,5 +72,10 @@ def query_points(
     origins: torch.Tensor, directions: torch.Tensor, depth_values: torch.Tensor
 ) -> torch.Tensor:
     """o + d * z: (..., 3) rays, depths broadcastable to (..., n) ->
-    (..., n, 3). Ref: proj_helpers.py:30."""
-    return origins[..., None, :] + directions[..., None, :] * depth_values[..., :, None]
+    (..., n, 3). Ref: proj_helpers.py:30. One rounding per coordinate
+    (``addcmul``), as the JAX DRR's compiled o + d z, which XLA contracts
+    into a fused multiply-add: at the SDF source distance (z ~ 4000) a
+    second rounding moves the coordinate by up to 2^-11 and a pixel by
+    ~1e-5."""
+    return torch.addcmul(origins[..., None, :], directions[..., None, :],
+                         depth_values[..., :, None])

@@ -61,6 +61,26 @@ class CPPNConfig:
             return c + c * 2 * self.pos_enc_basis
         return c
 
+    def to_model_definition(self) -> dict:
+        """The reference's model_definition dict, the model bundles'
+        metadata (CPPN.py:261-276), as the JAX package writes it."""
+        return {
+            "num_early_layers": self.num_early_layers,
+            "num_late_layers": self.num_late_layers,
+            "num_filters": self.num_filters,
+            "num_input_channels": self.num_input_channels,
+            "num_input_channels_views": self.num_input_channels_views,
+            "num_output_channels": self.num_output_channels,
+            "use_bias": self.use_bias,
+            "pos_enc": self.pos_enc,
+            "pos_enc_basis": self.pos_enc_basis,
+            "pos_enc_basis_views": self.pos_enc_basis_views,
+            "act_func": self.act_func,
+            "sine_weights": self.sine_w0,
+            "fourier_sigma": self.fourier_sigma,
+            "num_img": self.num_img,
+        }
+
 
 def barf_k_values(pos_enc_basis: int, num_channels: int, device=None) -> torch.Tensor:
     """k index per encoded channel: repeat_interleave(arange(L), C).

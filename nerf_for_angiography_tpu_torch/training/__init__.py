@@ -1,4 +1,12 @@
+from .checkpoint import (
+    CheckpointManager,
+    load_grid_vtk,
+    load_model,
+    save_grid_vtk,
+    save_model,
+)
 from .config import REFERENCE_STRICT_OVERRIDES, TrainConfig, categories_for
+from .logging import ExperimentLogger
 from .loop import TrainResult, build_page_data, train
 from .train import (
     TestView,
@@ -15,6 +23,8 @@ from .train import (
 )
 
 __all__ = [
+    "CheckpointManager",
+    "ExperimentLogger",
     "REFERENCE_STRICT_OVERRIDES",
     "TestView",
     "TrainConfig",
@@ -26,10 +36,14 @@ __all__ = [
     "create_train_state",
     "density_raw",
     "drop_test_view",
+    "load_grid_vtk",
+    "load_model",
     "make_eval_step",
     "make_optimizer",
     "make_test_view",
     "make_train_step",
     "render_rays",
+    "save_grid_vtk",
+    "save_model",
     "train",
 ]

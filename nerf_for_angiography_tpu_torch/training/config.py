@@ -32,7 +32,7 @@ class TrainConfig:
     n_iters: int = 500_000
     early_stop_iters: int = 50_000
     display_every: int = 500
-    save_every_factor: int = 100  # checkpoint cadence factor (checkpoints slice)
+    save_every_factor: int = 100  # save_every = display_every * 100
     depth_samples_per_ray: int = 300
     coarse_lr: float = 1e-4
     decay_rate: float = 0.1
@@ -131,6 +131,11 @@ class TrainConfig:
     @property
     def img_sample_size(self) -> int:
         return self.sample_size**2
+
+    @property
+    def save_every(self) -> int:
+        """coarsemodel.npz cadence (and the CLI's checkpoint_every)."""
+        return self.display_every * self.save_every_factor
 
     def model_config(self) -> CPPNConfig:
         """The reference's model params dict (run_nerf_acc.py:168-183)."""

@@ -20,18 +20,31 @@ vectors stay on the device and are reduced and copied to the host once per
 chunk. The tuner sees them with the JAX loop's latency: a full chunk's
 pressure waits in a one-entry queue until the next chunk's steps have been
 issued, and the queue drains early only where the JAX loop drains it
-(before a new step callable's first chunk or a partial chunk, at a
-compaction check, a re-check boundary, an armed fire, a display boundary
-and the last iteration); a partial chunk is observed at once. So a fire in
-the chunk ending at 100 retunes at 200 in both loops.
-Checkpoints, TensorBoard logging and VTK export arrive with the
-checkpoints/logging slice.
+(before a new step callable's first chunk or a partial chunk, at a logging
+boundary when logging, a compaction check, a re-check boundary, an armed
+fire, a display boundary and the last iteration); a partial chunk is
+observed at once. So a fire in the chunk ending at 100 retunes at 200 in
+both loops.
+
+With ``log_dir`` the loop writes the JAX loop's artifacts there:
+TensorBoard scalars and images (training/logging.py), the occupancy grids
+as VTK at every eval (``grid_export``; written by a background thread from
+host copies, the newest write of a name wins), ``highmodel.npz``,
+``highgrid.vtk``, ``highvesselgrid.vtk`` and ``readme.txt`` at each new
+best, ``coarsemodel.npz`` every ``save_every`` and, with
+``checkpoint_every``, the resume state under ``ckpt/``
+(training/checkpoint.py) at the evals that fall on its cadence. A run
+whose ``log_dir/ckpt`` holds a checkpoint resumes from it at
+``state.step``. Neither a resumed run nor one given ``initial_state`` is
+carved.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import threading
 import time
 from datetime import datetime
 from typing import Any
@@ -40,11 +53,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.occupancy import carve_feasible, with_coarse
+from ..ops.occupancy import OccupancyGrid, carve_feasible, with_coarse
 from ..ops.sampling import RayDataset, build_sampling_table
+from .checkpoint import CheckpointManager, save_grid_vtk, save_model
 from .config import TrainConfig, categories_for
+from .logging import ExperimentLogger
 from .pressure import PressureTuner, Tuning
 from .train import (
+    TestView,
     check_ported,
     choose_compact_mode,
     create_train_state,
@@ -60,6 +76,59 @@ _PRESSURE_KEYS = (
     "march/over_k", "march/over_k_lo", "march/edge_rays",
     "march/ac", "march/ac_lo",
 )
+
+
+class _AsyncWriter:
+    """Daemon artifact writer: the newest write of a tag wins, and the step
+    never waits for it (the two 128^3 grid exports take tenths of a second
+    of host time each). Thunks close over host (numpy) data only."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._pending: dict[str, Any] = {}
+        self._open = True
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def submit(self, tag: str, thunk) -> None:
+        with self._cv:
+            self._pending[tag] = thunk  # a newer write for a tag wins
+            self._cv.notify()
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while self._open and not self._pending:
+                    self._cv.wait()
+                if not self._pending:
+                    return
+                tag, thunk = self._pending.popitem()
+            try:
+                thunk()
+            except Exception as e:  # noqa: BLE001 — an export never stops training
+                print(f"async write '{tag}' failed: {e}")
+
+    def close(self) -> None:
+        """Flush all pending writes and stop the thread."""
+        with self._cv:
+            self._open = False
+            self._cv.notify()
+        self._thread.join(timeout=120)
+
+
+def _grid_snapshot(grid: OccupancyGrid) -> OccupancyGrid:
+    """Host copy of a grid's binary and aabb for the async VTK export."""
+    b = grid.binary.cpu().numpy()
+    return OccupancyGrid(occs=b, binary=b, aabb=grid.aabb.cpu().numpy())
+
+
+def _assemble_image(test: TestView, pixel_values: torch.Tensor) -> np.ndarray:
+    """Scatter per-ray values into the (W, H) test image layout of the
+    reference (test_img[x_positions, y_positions], run_nerf_acc.py:97-99)."""
+    img = np.zeros((test.img_width, test.img_height), np.float32)
+    img[test.x_positions.cpu().numpy(), test.y_positions.cpu().numpy()] = (
+        pixel_values.detach().cpu().numpy())
+    return img
 
 
 @dataclasses.dataclass
@@ -111,6 +180,27 @@ def _sizes(choice, tuning: Tuning) -> str:
     )
 
 
+def _export_grids(writer: _AsyncWriter, log_dir: str, prefix: str, state) -> None:
+    """Queue ``<prefix>grid.vtk`` and ``<prefix>vesselgrid.vtk`` from host
+    copies of the state's two grids."""
+    for name, grid in (("grid", state.grid), ("vesselgrid", state.vessel_grid)):
+        snap = _grid_snapshot(grid)
+        path = os.path.join(log_dir, f"{prefix}{name}.vtk")
+        writer.submit(f"{prefix}{name}", lambda p=path, g=snap: save_grid_vtk(p, g))
+
+
+def _write_readme(log_dir: str, page_data: dict, psnr: float, vessel_psnr: float) -> None:
+    """readme.txt: the experiment's page_data at the new best, as the JAX
+    loop writes it."""
+    page_data["Date end"] = datetime.now().astimezone().isoformat()
+    page_data["PSNR"] = round(psnr, 2)
+    page_data["Vessel PSNR"] = round(vessel_psnr, 2)
+    with open(os.path.join(log_dir, "readme.txt"), "w") as f:
+        for k, v in page_data.items():
+            f.write(f"{k}={v}\n")
+        f.write(f"PSNR={psnr} end={datetime.now().astimezone().strftime('%Y-%m-%d-%H%M')}")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -124,16 +214,16 @@ def train(
     test_view_index: int | None = None,
     rays_per_view: int | None = None,
     verbose: bool = True,
+    checkpoint_every: int | None = None,
+    initial_state=None,
     device: str | torch.device = "cuda",
 ) -> TrainResult:
     """Train one reconstruction. ``rays`` holds every view's pixels; the
     test view (default: the last) is held out (run_nerf_acc.py:84-86).
-    near/far = src_pt_z -+ outside (run_nerf_acc.py:131-134)."""
+    near/far = src_pt_z -+ outside (run_nerf_acc.py:131-134).
+    ``initial_state`` (a ``TrainState`` of this configuration) replaces the
+    fresh state: a warm start, never carved."""
     check_ported(cfg)
-    if log_dir is not None:
-        raise NotImplementedError(
-            "log_dir (checkpoints, logging, VTK export) arrives with the checkpoints/logging slice"
-        )
     device = resolve_device(device)
     rays = rays.to(device)
     near = src_pt_z - cfg.outside
@@ -163,7 +253,17 @@ def train(
         train_rays = train_rays._replace(sampling_table=build_sampling_table(train_rays.weights))
 
     model, state = create_train_state(cfg, num_views=n_views, device=device)
-    if cfg.carve_init:
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+    ckpt_mgr = (CheckpointManager(os.path.join(log_dir, "ckpt"))
+                if log_dir and checkpoint_every else None)
+    # resume-on-preemption: the restored state replaces the carved one in
+    # the JAX loop, so a run that resumes does not carve
+    resume = ckpt_mgr is not None and ckpt_mgr.latest_step() is not None
+    if initial_state is not None:  # warm start / state injection
+        state = initial_state
+        model = state.model
+    elif cfg.carve_init and not cfg.pose_refine and not resume:
         # space-carving grid init from the TRAIN rays only (no test leakage)
         feas = carve_feasible(
             train_rays.origins, train_rays.directions, train_rays.pixel_values,
@@ -180,6 +280,7 @@ def train(
             state.vessel_grid._replace(feasible=vfeas, binary=state.vessel_grid.binary & vfeas)
         )
 
+    model_definition = cfg.model_config().to_model_definition()
     # the dense stepper and eval always march the dense lattice
     dense_cfg = dataclasses.replace(cfg, compact_samples=0)
     dense_step = make_train_step(model, dense_cfg, near, far)
@@ -206,6 +307,8 @@ def train(
 
     # steps between boundaries, as the JAX loop's scan chunks
     chunk_c = math.gcd(100, cfg.display_every)
+    if checkpoint_every:
+        chunk_c = math.gcd(chunk_c, checkpoint_every)
     # compaction-readiness cadence, rounded up to a chunk boundary so the
     # check fires (the loop only observes boundary iterations)
     if chunk_c > 1:
@@ -213,9 +316,18 @@ def train(
     else:
         check_every = max(1, cfg.compact_check_every)
 
+    writer = _AsyncWriter() if log_dir else None
     page_data = build_page_data(cfg, datetime.now().astimezone().strftime("%Y-%m-%d-%H%M"))
+    logger = ExperimentLogger(log_dir) if log_dir else None
+    start_iter = 0
+    if resume:
+        state = ckpt_mgr.restore(state)
+        start_iter = int(state.step)
+        if verbose:
+            print(f"resumed from checkpoint at step {start_iter}")
+
     highest_psnr = -np.inf
-    highest_iter = 0
+    highest_iter = start_iter
     best_heldout = float("nan")
     last_psnr = float("nan")
     rays_done = 0
@@ -248,7 +360,7 @@ def train(
 
     t_start = time.perf_counter()
 
-    n_iter = 0
+    n_iter = start_iter
     metrics: dict = {}
     while n_iter <= cfg.n_iters:
         # run up to (and including) the next boundary iteration
@@ -262,7 +374,7 @@ def train(
             drain()  # a new step callable's first chunk, a partial chunk
         t0 = time.perf_counter()
         for i in range(count):
-            state, metrics, _, _ = step(state, train_rays)
+            state, metrics, pred_pix, target_pix = step(state, train_rays)
             if "march/over_k" in metrics:  # a compacted step (k < depth)
                 pressure.append(torch.stack([metrics[k] for k in _PRESSURE_KEYS]))
             if first and i == 0:
@@ -304,12 +416,21 @@ def train(
         recheck = check_every if tuning.k > cfg.compact_samples else cfg.display_every
         # drain where a consumer below reads tuner state (JAX loop.py:528-538)
         if (
-            (want_compact and not using_compact and n_iter % check_every == 0)
+            (logger is not None and n_iter % 100 == 0)
+            or (want_compact and not using_compact and n_iter % check_every == 0)
             or (want_compact and using_compact and (n_iter % recheck == 0 or tuner.fire))
             or n_iter % cfg.display_every == 0
             or n_iter >= cfg.n_iters
         ):
             drain()
+
+        if logger and n_iter % 100 == 0:
+            t0 = time.perf_counter()
+            logger.scalars({k: v for k, v in metrics.items() if k != "barf-coarse"}, n_iter)
+            side = (cfg.sample_size, cfg.sample_size)
+            logger.train_images(pred_pix.cpu().numpy().reshape(side),
+                                target_pix.cpu().numpy().reshape(side), n_iter)
+            timing["log"] += time.perf_counter() - t0
 
         # compaction-readiness check at its own cadence (iteration 0
         # included: with carve_init the grid can fit at once)
@@ -353,7 +474,7 @@ def train(
             if using_compact:
                 tuner.decay_if_quiet(n_iter)
             t0 = time.perf_counter()
-            test_metrics, _ = eval_step(state, test)
+            test_metrics, test_pixels = eval_step(state, test)
             psnr = float(test_metrics["psnr/test-coarse"])
             vessel_psnr = float(test_metrics["psnr/vessel-test-coarse"])
             timing["compile" if first_eval else "eval"] += time.perf_counter() - t0
@@ -368,10 +489,33 @@ def train(
                     f"PSNR coarse: {psnr:.3f}  Vessel coarse: {vessel_psnr:.3f}  "
                     f"({it_time*1000:.2f} ms/iter)"
                 )
+            if logger and n_iter % (cfg.display_every * 2) == 0:
+                t0 = time.perf_counter()
+                logger.scalars(test_metrics, n_iter)
+                logger.test_images(_assemble_image(test, test_pixels),
+                                   _assemble_image(test, test.pixel_values), n_iter)
+                timing["log"] += time.perf_counter() - t0
+
+            t_exp = time.perf_counter()
+            if log_dir and cfg.grid_export:
+                _export_grids(writer, log_dir, "coarse", state)
             if check >= highest_psnr and n_iter > 0:
                 highest_psnr = check
                 highest_iter = n_iter
                 best_heldout = psnr
+                if log_dir:
+                    save_model(os.path.join(log_dir, "highmodel.npz"), model_definition,
+                               state.model,
+                               {"step": n_iter, "psnr": psnr, "vessel_psnr": vessel_psnr})
+                    _export_grids(writer, log_dir, "high", state)
+                    _write_readme(log_dir, page_data, psnr, vessel_psnr)
+            if log_dir and n_iter % cfg.save_every == 0:
+                save_model(os.path.join(log_dir, "coarsemodel.npz"), model_definition,
+                           state.model, {"step": n_iter})
+            if ckpt_mgr and n_iter % checkpoint_every == 0 and n_iter > 0:
+                ckpt_mgr.save(n_iter, state)
+            timing["export"] += time.perf_counter() - t_exp
+
             if n_iter - highest_iter >= cfg.early_stop_iters:
                 if verbose:
                     print(f"Early stop = {n_iter}")
@@ -407,6 +551,12 @@ def train(
             )
             + f"  steady={timing['steady_rays_per_sec']:.0f} rays/s"
         )
+    if writer:
+        writer.close()  # flush pending VTK exports before reporting done
+    if logger:
+        logger.close()
+    if ckpt_mgr:
+        ckpt_mgr.close()
     return TrainResult(
         state=state,
         best_psnr=float(highest_psnr),

@@ -1,7 +1,8 @@
 """Port on the card: the CUDA kernels against their plain versions at small
 and ragged shapes, the launch counters, one dense and one compacted train
 step, the whole-step kernel's train steps, the feature-major layout and the
-encoded (fourier / BARF) kernels and train steps. Skipped without a GPU; on
+encoded (fourier / BARF) kernels and train steps, the SDF DRR against the CPU
+and a resume checkpoint of CUDA tensors. Skipped without a GPU; on
 the card run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (this file imports torch only)."""
@@ -931,3 +932,71 @@ def test_enc_forward_failure_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_mlp_enc_fwd(packed, a, w, x)
     assert fe.enc_fwd_launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the LCA slice on the card: SDF DRRs, the resume checkpoint of CUDA tensors
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("theta,phi", [(0.0, 0.0), (25.0, 25.0), (112.5, 112.5)])
+def test_sdf_render_drr_card_matches_cpu(dev, theta, phi):
+    """render_drr(mode='sdf') on the card against device='cpu' on the same
+    LCA volume, rays and depths (the source at z = 4000): within 1e-5."""
+    from nerf_for_angiography_tpu_torch.data import make_lca_sdf_volume, render_drr
+    from nerf_for_angiography_tpu_torch.data.datasets import sdf_datagen_config
+    from nerf_for_angiography_tpu_torch.geometry import get_ray_values, linspace_depths
+
+    cfg = sdf_datagen_config(img_width=40, img_height=36)
+    vol = make_lca_sdf_volume(res=48)
+    o, d, _ = get_ray_values(theta, phi, 0.0, cfg.src_pt, 40, 36, cfg.focal_length, device=dev)
+    z = linspace_depths(cfg.near_thresh, cfg.far_thresh, cfg.depth_samples_per_ray, dev)
+    card = render_drr(vol.to(dev), o, d, z, "sdf")
+    assert card.is_cuda and card.shape == (36, 40)
+    cpu = render_drr(vol, o.cpu(), d.cpu(), z.cpu(), "sdf")
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-5
+    assert float(cpu.min()) < 0.5 < float(cpu.max())
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
+    """CheckpointManager saves a trained state of CUDA tensors and restores
+    it into a fresh state on the card: every tensor and the generator state
+    equal, and the next step of both bit for bit the same."""
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_sphere_volume,
+    )
+    from nerf_for_angiography_tpu_torch.training import (
+        CheckpointManager, TrainConfig, create_train_state, make_train_step,
+    )
+
+    ds = generate_dataset(
+        make_sphere_volume(res=32), DatagenConfig(limited_size=90.0, number_angles=1.0,
+                                                  img_width=16, img_height=16,
+                                                  sample_outside=100.0), device=dev,
+    )
+    cfg = TrainConfig(compact_samples=0, sample_size=16, depth_samples_per_ray=64,
+                      grid_resolution=32)
+    model, state = create_train_state(cfg, device=dev)
+    step = make_train_step(model, cfg, 1400.0, 1600.0)
+    for _ in range(3):
+        state, *_ = step(state, ds.rays)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(3, state)
+    model2, fresh = create_train_state(cfg, seed=11, device=dev)
+    restored = mgr.restore(fresh)
+    assert restored.step == 3 and restored.grid.occs.is_cuda
+    pairs = [(restored.model.state_dict(), state.model.state_dict())]
+    for name in ("grid", "vessel_grid"):
+        pairs.append(({k: v for k, v in getattr(restored, name)._asdict().items() if v is not None},
+                      {k: v for k, v in getattr(state, name)._asdict().items() if v is not None}))
+    for got, want in pairs:
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].device == want[k].device and torch.equal(got[k], want[k]), k
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            assert torch.equal(restored.optimizer.state_dict()["state"][i][k], v), (i, k)
+    assert torch.equal(restored.generator.get_state(), state.generator.get_state())
+    _, _, p_a, _ = step(state, ds.rays)
+    _, _, p_b, _ = make_train_step(model2, cfg, 1400.0, 1600.0)(restored, ds.rays)
+    assert torch.equal(p_a, p_b)

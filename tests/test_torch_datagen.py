@@ -100,11 +100,20 @@ def test_angle_grid_and_sphere():
     assert float(vol.values.max()) == pytest.approx(0.02)
 
 
-@pytest.mark.parametrize("kw", [dict(angle_mode="sdf"), dict(max_shift_translation=0.1),
-                                dict(per_image_normalize=True)])
+# the SDF options (angle_mode 'sdf', per_image_normalize) are ported; the
+# pose shifts stay refused, and a non-identity resize_to is a ValueError
+# (test_resize_to_must_be_identity)
+@pytest.mark.parametrize("kw", [dict(max_shift_rotation=1.0), dict(max_shift_translation=0.1),
+                                dict(max_shift_rotation=1.0, max_shift_translation=0.1)])
 def test_unported_datagen_raises(kw):
     with pytest.raises(NotImplementedError):
         generate_dataset(make_sphere_volume(res=8), DatagenConfig(**kw), device="cpu")
+
+
+def test_resize_to_must_be_identity():
+    cfg = DatagenConfig(number_angles=1.0, img_width=8, img_height=8, resize_to=(4, 8))
+    with pytest.raises(ValueError, match="resize_to"):
+        generate_dataset(make_sphere_volume(res=8), cfg, device="cpu")
 
 
 def test_cuda_default_raises_without_a_card():

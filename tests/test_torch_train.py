@@ -150,12 +150,17 @@ def test_forced_fused_step_on_an_ineligible_config_raises(kw):
 
 
 def test_log_dir_raises(tmp_path):
+    """log_dir is ported (tests/test_torch_checkpoint.py holds its
+    artifacts); a log_dir that names an existing file raises before the
+    first step."""
     rays = _to_torch(jax.tree.map(np.asarray, RayDatasetJ(
         *(np.zeros((4, 3), np.float32),) * 2, *(np.ones(4, np.float32),) * 2,
         *(np.zeros(4, np.int32),) * 3,
     )))
-    with pytest.raises(NotImplementedError):
-        train(TrainConfig(**SMALL), rays, 1500.0, log_dir=str(tmp_path), device="cpu")
+    not_a_dir = tmp_path / "file"
+    not_a_dir.write_text("")
+    with pytest.raises(FileExistsError):
+        train(TrainConfig(**SMALL), rays, 1500.0, log_dir=str(not_a_dir), device="cpu")
 
 
 def test_cuda_default_raises_without_a_card():
@@ -179,7 +184,8 @@ def _imports(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(
     [*(ROOT / "nerf_for_angiography_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "tools" / "torch_fwd_variants.py", ROOT / "tools" / "torch_enc_bwd_variants.py"]
+     ROOT / "tools" / "torch_fwd_variants.py", ROOT / "tools" / "torch_enc_bwd_variants.py",
+     ROOT / "tools" / "torch_lca_variants.py"]
 ), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax(path):
     for mod in _imports(path):
