@@ -169,11 +169,10 @@ RELU_TIE = 1e-3
 FK_SHAPES = ((5625, 300, 96), (5625, 300, 192), (5625, 224, 128), (4218, 48, 56),
              (1407, 160, 96))
 SRC_Z = 1500.0  # the phantom's source distance (bench.py's datagen)
-# the LCA phase (the SDF datagen preset puts the source at z = 4000): 600
-# steps at the shipped defaults with compact_engage_max 192, the resume
-# state every 300 iterations (the loop writes it at the evals on that
-# cadence, so the evals come every 300 too), then a resumed run to 660
-LCA_SRC_Z = 4000.0
+# the LCA phase (training.lca_protocol: the anchor's configuration and the
+# SDF preset's source distance): 600 steps, the resume state every 300
+# iterations (the loop writes it at the evals on that cadence, so the evals
+# come every 300 too), then a resumed run to 660
 LCA_ITERS, LCA_RESUME_ITERS, LCA_EVERY = 600, 660, 300
 LCA_CPU_VIEW = 24  # the (25, 25) view, the sweep's far corner
 LCA_SHAPE = (26, 162, 150, 2000)  # views, height, width, depth samples a ray
@@ -1043,7 +1042,7 @@ def check_schedule(log: dict, cfg, label: str, logged: bool = False,
                 observed=[o[:2] for o in log["observe"]], deferred=deferred)
 
 
-def fk_masks(torch, grid, cfg, batch, rows: int, w: int):
+def fk_masks(torch, grid, cfg, batch, rows: int, w: int, src_z: float = SRC_Z):
     """(rows, w) first-k input masks from the marches of the trained grid: the
     dense lattice (w = depth) or the hybrid window mask at width w of the
     whole batch, its lo bucket or its hi bucket (the span-sorted split),
@@ -1052,7 +1051,7 @@ def fk_masks(torch, grid, cfg, batch, rows: int, w: int):
         _span_sorted, coarse_window, hybrid_window_mask, march_rays, safe_occ_stride,
     )
 
-    n, near, far = cfg.depth_samples_per_ray, SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    n, near, far = cfg.depth_samples_per_ray, src_z - cfg.outside, src_z + cfg.outside
     stride = safe_occ_stride(cfg.occ_stride, n, near, far, 2 * cfg.outside, cfg.grid_resolution)
     o, d = batch.origins, batch.directions
     if w == n:
@@ -1108,12 +1107,12 @@ def fk_kernel_ms(torch, fk, mask, k: int, n: int = 50) -> float:
     return time_ms(torch, launches, reps=10, warmup=2) / n
 
 
-def check_first_k(torch, fk, grid, cfg, batch, shapes) -> list[dict]:
+def check_first_k(torch, fk, grid, cfg, batch, shapes, src_z: float = SRC_Z) -> list[dict]:
     """The kernel against its plain version, bit for bit, at each shape, with
     its time, the plain version's, a two-call composite's and the bound."""
     out = []
     for rows, w, k in shapes:
-        mask = fk_masks(torch, grid, cfg, batch, rows, w)
+        mask = fk_masks(torch, grid, cfg, batch, rows, w, src_z)
         sel, mk = fk.first_k_active_cuda(mask, k)
         want_sel, want_mk = fk.first_k_active_reference(mask, k)
         torch.cuda.synchronize()
@@ -2557,6 +2556,34 @@ def state_tensors(torch, state) -> dict:
 
 
 @contextlib.contextmanager
+def recorded_evals(loop=None):
+    """Within the block, every held-out eval that train() runs appends
+    (iteration, held-out PSNR, vessel PSNR) to the yielded list; ``loop``
+    is the training loop module whose make_eval_step is wrapped (the
+    port's by default)."""
+    loop = loop or importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    evals: list = []
+    make = loop.make_eval_step
+
+    def recording(*args, **kwargs):
+        ev = make(*args, **kwargs)
+
+        def run_eval(state, test):
+            m, px = ev(state, test)
+            evals.append((int(state.step) - 1, float(m["psnr/test-coarse"]),
+                          float(m["psnr/vessel-test-coarse"])))
+            return m, px
+
+        return run_eval
+
+    loop.make_eval_step = recording
+    try:
+        yield evals
+    finally:
+        loop.make_eval_step = make
+
+
+@contextlib.contextmanager
 def recorded_artifacts(torch):
     """Within the block, train() records what it writes: the best model's
     parameters at each highmodel.npz, the grids at each high*grid.vtk, and
@@ -2591,7 +2618,7 @@ def recorded_artifacts(torch):
         loop.save_model, loop._export_grids, loop.CheckpointManager = save_model, export_grids, mgr
 
 
-def check_lca_artifacts(torch, ds, cfg, log_dir: str, res, rec: dict) -> dict:
+def check_lca_artifacts(torch, ds, cfg, src_z: float, log_dir: str, res, rec: dict) -> dict:
     """highmodel.npz read back with load_model equals the best model bit for
     bit and re-renders the held-out view at the reported best held-out
     PSNR; high*grid.vtk read back equal to the grids written; the newest
@@ -2624,7 +2651,7 @@ def check_lca_artifacts(torch, ds, cfg, log_dir: str, res, rec: dict) -> dict:
     n_views = int(ds.rays.image_ids.max()) + 1
     test = make_test_view(ds.rays, n_views - 1, ds.rays.num_rays // n_views)
     dense = dataclasses.replace(cfg, compact_samples=0)
-    near, far = LCA_SRC_Z - cfg.outside, LCA_SRC_Z + cfg.outside
+    near, far = src_z - cfg.outside, src_z + cfg.outside
     best = types.SimpleNamespace(grid=grids["grid"], step=res.best_iter + 1)
     metrics, _ = make_eval_step(model, dense, near, far)(best, test)
     psnr = float(metrics["psnr/test-coarse"])
@@ -2652,22 +2679,90 @@ def check_lca_artifacts(torch, ds, cfg, log_dir: str, res, rec: dict) -> dict:
                 checkpoints=steps, restored_step=restored.step, restored_tensors=len(want))
 
 
+# the settled Tuning of the 20k LCA protocol (--lca-protocol): the default
+# LCA run's 600 steps stop at lattice k = 192, so the kernels are also held
+# at this Tuning's march of that run's trained grid
+LCA_TWO_BUCKET = dict(mode="hybrid", k=192, w_cap=224, w_lo=160, k_lo=80)
+
+
+def lca_kernel_checks(torch, fm, fk, cfg, src_z: float, state, rays, tunings: list,
+                      label: str) -> dict:
+    """Kernels #1, #2 and #5 against their plain versions at the shapes the
+    LCA path gives them on ``state``, a trained LCA state: #1 at the
+    held-out eval's dense render of the last view (one launch); for each
+    distinct Tuning of ``tunings``, its step on a training batch marched on
+    the trained grid (a two-bucket march's buckets concatenated, lo first,
+    as the step's one MLP call takes them): #1 with random and the trained
+    weights, #2 at random g and on the gradient the split composite hands it
+    at the trained state (check_fwd's and check_bwd's limits), and #5 bit
+    for bit on masks of the trained grid at every (R, w, k) the march
+    launched."""
+    from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
+    from nerf_for_angiography_tpu_torch.training import make_test_view
+    from nerf_for_angiography_tpu_torch.training.train import _flat_positions, _march_for
+
+    near, far = src_z - cfg.outside, src_z + cfg.outside
+    packed, pbytes, gen = random_mlp(torch, fm)
+    t_packed, t_pbytes = packed_of(torch, fm, state.model)
+    n_views = int(rays.image_ids.max()) + 1
+    test = make_test_view(rays, n_views - 1, rays.num_rays // n_views)
+    p_eval = _flat_positions(_march_for(dataclasses.replace(cfg, compact_samples=0), state.grid,
+                                        test.origins, test.directions, near, far)).shape[0]
+    fwd = [check_fwd(torch, fm, packed, p_eval, gen, pbytes, f"{label} eval"),
+           check_fwd(torch, fm, t_packed, p_eval, gen, t_pbytes,
+                     f"{label} eval, trained weights")]
+    bwd, fk_shapes = [], []
+    batch = sample_pixel_rays(state.generator, rays, cfg.img_sample_size, impl="gumbel")
+    plist = fm.cppn_params_to_list(state.model)
+    kw = dict(step=(2 * cfg.outside) / cfg.depth_samples_per_ray,
+              early_stop_eps=cfg.early_stop_eps, n_rays_loss=cfg.img_sample_size,
+              input_scale=state.model.config.input_scale)
+    keys = ("mode", "k", "w_cap", "w_lo", "k_lo")
+    distinct = [t for i, t in enumerate(tunings)
+                if all(any(t[q] != u[q] for q in keys) for u in tunings[:i])]
+    for t in distinct:
+        name = f"{label} " + (f"{t['mode']} k={t['k']}" if t["k"] else "dense") + (
+            f" w_cap={t['w_cap']} w_lo={t['w_lo']} k_lo={t['k_lo']}" if t["w_lo"] else "")
+        fk.reset_counts()
+        m = _march_for(tuning_cfg(cfg, t), state.grid, batch.origins, batch.directions, near, far)
+        fk_shapes += [s for s in sorted(fk.shapes) if s not in fk_shapes]
+        xg = [split_raw_grad(torch, lambda x: fm.fused_mlp_raw(plist, x), *b, kw)
+              for b in rect_blocks(m, batch.origins, batch.directions, batch.pixel_values)]
+        x, g = torch.cat([a for a, _ in xg]), torch.cat([b for _, b in xg])
+        p = _flat_positions(m).shape[0]
+        check(x.shape[0] == p, f"{name}: the march blocks hold {x.shape[0]} points, the step {p}")
+        fwd += [check_fwd(torch, fm, packed, p, gen, pbytes, f"{name} step"),
+                check_fwd(torch, fm, t_packed, p, gen, t_pbytes, f"{name} step, trained weights")]
+        tiles = torch.nn.functional.pad(g != 0, (0, (-p) % 16)).reshape(-1, 16).any(dim=1)
+        share = float(tiles.float().mean())
+        print(f"{name} step, trained state: {share:.4f} of the 16-point tiles have a non-zero g")
+        bwd += [check_bwd(torch, fm, packed, p, gen, pbytes, f"{name} step"),
+                dict(check_bwd(torch, fm, t_packed, p, None, t_pbytes,
+                               f"{name} step, trained state", xg=(x, g)),
+                     active_tile_share=share)]
+    first_k = check_first_k(torch, fk, state.grid, cfg, batch, fk_shapes, src_z)
+    for r in fwd:
+        r.pop("x")
+    print(f"{label}: kernel #1 held at {sorted({r['P'] for r in fwd})} points, #2 at "
+          f"{sorted({r['P'] for r in bwd})}, #5 at {fk_shapes}")
+    return dict(eval_p=p_eval, fwd=fwd, bwd=bwd, first_k=first_k)
+
+
 def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
     """The LCA dataset at full size, one view against the CPU, 600 steps
     with log_dir and checkpoint_every (all six launch counters read around
     the run), the artifacts read back, and a resumed run."""
     import shutil
 
-    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+    from nerf_for_angiography_tpu_torch.training import lca_protocol, train
 
     ds, volume, dcfg, data = make_lca_dataset(torch)
     cpu = lca_cpu_check(torch, volume, dcfg, ds.angles)
     log_dir = os.path.join(HERE, "smoke_out", "lca_run")
     shutil.rmtree(log_dir, ignore_errors=True)
-    cfg = TrainConfig(n_iters=LCA_ITERS, compact_engage_max=192, display_every=LCA_EVERY,
-                      data_name="LCA")
+    cfg, src_z = lca_protocol(n_iters=LCA_ITERS, display_every=LCA_EVERY)
     with recorded_artifacts(torch) as rec:
-        run = compacted_run(torch, fm, fk, fs, ds, cfg, "lca", src_z=LCA_SRC_Z, log_dir=log_dir,
+        run = compacted_run(torch, fm, fk, fs, ds, cfg, "lca", src_z=src_z, log_dir=log_dir,
                             checkpoint_every=LCA_EVERY)
     res = run.pop("result")
     print(f"lca: the chooser {'engaged' if run['compact_steps'] else 'never engaged'}: "
@@ -2679,12 +2774,19 @@ def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
           and run["enc_bwd_launches"] == 0, "lca: kernel #3, #4 or #6 launched")
     names = sorted(os.listdir(log_dir))
     print(f"lca artifacts: {names}")
-    arts = check_lca_artifacts(torch, ds, cfg, log_dir, res, rec)
+    arts = check_lca_artifacts(torch, ds, cfg, src_z, log_dir, res, rec)
+    # the run's own Tunings (a dense step where the chooser had not engaged),
+    # and the protocol's settled two-bucket one
+    dense = [dict(mode=cfg.march_mode, k=0, w_cap=0, w_lo=0, k_lo=0)]
+    tunings = ((dense if run["compact_steps"] < run["steps"] else [])
+               + [{q: p[q] for q in ("mode", "k", "w_cap", "w_lo", "k_lo")}
+                  for p in run["phases"]] + [LCA_TWO_BUCKET])
+    kernels = lca_kernel_checks(torch, fm, fk, cfg, src_z, res.state, ds.rays, tunings, "lca")
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         res2 = train(dataclasses.replace(cfg, n_iters=LCA_RESUME_ITERS), ds.rays,
-                     src_pt_z=LCA_SRC_Z, log_dir=log_dir, checkpoint_every=LCA_EVERY,
+                     src_pt_z=src_z, log_dir=log_dir, checkpoint_every=LCA_EVERY,
                      verbose=True, device=DEVICE)
     out2 = buf.getvalue()
     print(out2, end="")
@@ -2695,28 +2797,30 @@ def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
           f"lca resume: state.step {res2.state.step} != {LCA_RESUME_ITERS + 1}")
     print(f"lca resume: '{want}', no carve, state.step {res2.state.step} after iterations "
           f"{LCA_ITERS + 1}..{LCA_RESUME_ITERS}")
-    out = dict(data=data, cpu_check=cpu, run=run, artifacts=arts, files=names,
+    out = dict(data=data, cpu_check=cpu, run=run, artifacts=arts, files=names, kernels=kernels,
                resume=dict(printed=want, carved=False, final_step=res2.state.step))
     report["lca"] = out
     return ds, run
 
 
-def lca_protocol_phase(torch, ds, iters: int, report: dict) -> None:
+def lca_protocol_phase(torch, fm, fk, ds, iters: int, report: dict) -> None:
     """The JAX LCA anchor's protocol (tools/lca_anchor.sh: cli/train.py
     --data_name LCA --n_iters N --display_every 1000 --compact_engage_max
     192, log_dir and checkpoint_every = save_every) on the in-memory dataset:
     the best-checkpoint held-out PSNR, its iteration, the last PSNR, the
-    steady and end-to-end rates and the Tuning history."""
+    steady and end-to-end rates and the Tuning history; then kernels #1, #2
+    and #5 at the shapes its final state gives them under every Tuning of
+    that history (lca_kernel_checks)."""
     import shutil
 
-    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+    from nerf_for_angiography_tpu_torch.training import lca_protocol, train
 
-    cfg = TrainConfig(n_iters=iters, compact_engage_max=192, display_every=1000,
-                      data_name="LCA")
+    cfg, src_z = lca_protocol(n_iters=iters)
     log_dir = os.path.join(HERE, "smoke_out", "lca_protocol")
     shutil.rmtree(log_dir, ignore_errors=True)
-    with recorded_barf_alphas() as issued, recorded_schedule(issued) as sched:
-        res = train(cfg, ds.rays, src_pt_z=LCA_SRC_Z, log_dir=log_dir,
+    with (recorded_barf_alphas() as issued, recorded_schedule(issued) as sched,
+          recorded_evals() as evals):
+        res = train(cfg, ds.rays, src_pt_z=src_z, log_dir=log_dir,
                     checkpoint_every=cfg.save_every, verbose=True, device=DEVICE)
     t = res.timing
     tunings = [(kind, n, tt) for kind, n, tt in sched["tunings"]]
@@ -2725,15 +2829,19 @@ def lca_protocol_phase(torch, ds, iters: int, report: dict) -> None:
                steady_rays_per_sec=t["steady_rays_per_sec"], rays_per_sec=res.rays_per_sec,
                total_s=t["total"], timing={k: v for k, v in t.items()
                                            if isinstance(v, (int, float))},
-               tunings=tunings, steady_phases=t["steady_phases"],
+               tunings=tunings, steady_phases=t["steady_phases"], evals=evals,
                files=sorted(os.listdir(log_dir)))
+    print(f"LCA protocol held-out PSNR by eval (iteration, dB): "
+          f"{[(i, round(p, 3)) for i, p, _ in evals]}")
     print(f"LCA protocol {iters} steps: best-checkpoint held-out PSNR "
           f"{res.best_heldout_psnr:.3f} dB (iter {res.best_iter}; vessel {res.best_psnr:.3f}), "
           f"last {res.last_psnr:.3f} dB, steady {t['steady_rays_per_sec']:.0f} rays/s, end to "
           f"end {res.rays_per_sec:.0f} rays/s, {t['total']:.1f} s; Tunings (kind, iteration, "
           f"k) {[(kind, n, tt['k']) for kind, n, tt in tunings]}")
-    report["lca_protocol"] = out
     check(math.isfinite(res.best_heldout_psnr), "LCA protocol: held-out PSNR not finite")
+    out["kernels"] = lca_kernel_checks(torch, fm, fk, cfg, src_z, res.state, ds.rays,
+                                       [tt for _, _, tt in tunings], "lca protocol")
+    report["lca_protocol"] = out
 
 
 def protocol_phase(torch, ds, iters: int, report: dict) -> None:
@@ -2825,7 +2933,7 @@ def main() -> int:
         if args.protocol:
             protocol_phase(torch, ds, args.protocol, report)
         if args.lca_protocol:
-            lca_protocol_phase(torch, lca_ds, args.lca_protocol, report)
+            lca_protocol_phase(torch, fm, fk, lca_ds, args.lca_protocol, report)
         # the quality bars, held once both protocol runs have their numbers
         if args.protocol:
             best = report["protocol"]["best_heldout_psnr"]
@@ -2954,6 +3062,23 @@ def main() -> int:
         enc_fwd_row[key] = bc.get(q, {}).get("enc_fwd_ms")
         enc_fwd_row[key.replace("_ms", "_one_launch_ms")] = bc.get(q, {}).get("enc_fwd_one_ms")
     enc_fwd_row["vs_parent"] = bc.get("enc_fwd_vs_parent")
+    # kernels #1, #2 and #5 at the LCA path's shapes (lca_kernel_checks)
+    fk_table_row = next(r for r in rows if r["name"] == "first_k_active")
+    rows[1]["lca"], fk_table_row["lca"] = {}, {}
+    for phase in ("lca", "lca_protocol"):
+        lk = report.get(phase, {}).get("kernels")
+        if lk is None:
+            continue
+        rows[0]["shapes"].update({r["label"]: {k: r[k] for k in (
+            "P", "ms", "ms_back_to_back", "plain_ms", "bound_ms", "max_abs_err", "median_abs_err",
+            "feature_major_equal")} for r in lk["fwd"]})
+        rows[1]["lca"].update({r["label"]: {k: r.get(k) for k in (
+            "P", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "dx_bad_share",
+            "active_tile_share")} for r in lk["bwd"]})
+        fk_table_row["lca"].update({
+            f"{phase}: R={r['R']} w={r['w']} k={r['k']}": {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for r in lk["first_k"]})
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

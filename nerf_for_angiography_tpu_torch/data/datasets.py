@@ -142,9 +142,14 @@ def generate_dataset(
     device: str | torch.device = "cuda",
 ) -> GeneratedDataset:
     """Run the datagen sweep (cttoray.py:189-267): per view rays and a DRR
-    on the device, the weight map on the host."""
+    on the device, the weight map on the host. The stratified depths draw
+    from ``generator``; without one, from a generator seeded with 0, so
+    that a sweep is the same in every process, as the JAX package's
+    default key PRNGKey(0) makes it."""
     _check_ported(config)
     device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
     volume = volume.to(device)
     if config.angle_mode == "sdf":
         angles = sdf_angle_grid(config.limited_size, config.number_angles, config.custom_angle)

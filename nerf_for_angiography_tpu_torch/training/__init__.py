@@ -5,7 +5,7 @@ from .checkpoint import (
     save_grid_vtk,
     save_model,
 )
-from .config import REFERENCE_STRICT_OVERRIDES, TrainConfig, categories_for
+from .config import REFERENCE_STRICT_OVERRIDES, TrainConfig, categories_for, lca_protocol
 from .logging import ExperimentLogger
 from .loop import TrainResult, build_page_data, train
 from .train import (
@@ -37,6 +37,7 @@ __all__ = [
     "density_raw",
     "drop_test_view",
     "load_grid_vtk",
+    "lca_protocol",
     "load_model",
     "make_eval_step",
     "make_optimizer",

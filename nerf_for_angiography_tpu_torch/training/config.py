@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from ..data.datasets import sdf_datagen_config
 from ..models import CPPNConfig
 
 
@@ -166,6 +167,16 @@ REFERENCE_STRICT_OVERRIDES = dict(
     hybrid_split=0.0,
     hybrid_bucket_k=False,
 )
+
+
+def lca_protocol(**kw) -> tuple[TrainConfig, float]:
+    """The JAX LCA anchor's protocol (benchmarks/LCA.md: cli/train.py
+    --data_name LCA --display_every 1000 --compact_engage_max 192): its
+    TrainConfig with ``kw`` on top, and the ``src_pt_z`` that train() takes
+    for the rays of ``sdf_datagen_config()`` (the source at focal_length +
+    src_z_offset, z = 4000)."""
+    base = dict(compact_engage_max=192, display_every=1000, data_name="LCA")
+    return TrainConfig(**{**base, **kw}), float(sdf_datagen_config().src_pt[2])
 
 
 def categories_for(cfg: TrainConfig) -> list[str]:

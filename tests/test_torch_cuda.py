@@ -958,6 +958,22 @@ def test_sdf_render_drr_card_matches_cpu(dev, theta, phi):
     assert float(cpu.min()) < 0.5 < float(cpu.max())
 
 
+def test_stratified_lca_sweep_is_the_same_every_call_on_the_card(dev):
+    """The stratified LCA sweep on the card without a generator: the same
+    images and rays in two calls, with the global CUDA RNG drawn from in
+    between (the default generator is seeded with 0)."""
+    from nerf_for_angiography_tpu_torch.data import generate_dataset, make_lca_sdf_volume
+    from nerf_for_angiography_tpu_torch.data.datasets import sdf_datagen_config
+
+    vol, cfg = make_lca_sdf_volume(res=48), sdf_datagen_config(img_width=40, img_height=36)
+    a = generate_dataset(vol, cfg, device=dev)
+    torch.rand(1000, device=dev)
+    b = generate_dataset(vol, cfg, device=dev)
+    np.testing.assert_array_equal(a.images, b.images)
+    assert torch.equal(a.rays.pixel_values, b.rays.pixel_values)
+    assert torch.equal(a.rays.weights, b.rays.weights)
+
+
 def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
     """CheckpointManager saves a trained state of CUDA tensors and restores
     it into a fresh state on the card: every tensor and the generator state

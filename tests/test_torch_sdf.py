@@ -34,7 +34,7 @@ from nerf_for_angiography_tpu_torch.data import (
 )
 from nerf_for_angiography_tpu_torch.data.datasets import sdf_angle_grid, sdf_datagen_config
 from nerf_for_angiography_tpu_torch.ops.interpolation import RegularGrid
-from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+from nerf_for_angiography_tpu_torch.training import TrainConfig, lca_protocol, train
 
 # the small LCA sweep: 26 views of 20 x 18 pixels, 200 depths a ray
 SMALL_LCA = dict(img_width=20, img_height=18, sample_outside=100.0, stratified_depths=False)
@@ -213,6 +213,40 @@ def test_csv_round_trip_keeps_f32_rays_exact(lca_pair, tmp_path):
             got, want = np.asarray(getattr(loaded.rays, name)), np.asarray(getattr(ds_j.rays, name))
             assert got.dtype == want.dtype, name
             np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_stratified_sweep_is_the_same_every_call():
+    """Without a key the JAX sweep draws its stratified depths from
+    PRNGKey(0), so two calls give the same dataset; without a generator
+    the port's draws from one seeded with 0, whatever the global RNG holds
+    (an unseeded draw gave each process another LCA dataset). A generator
+    passed in still sets the draw."""
+    kw = dict(SMALL_LCA, stratified_depths=True)
+    vol_j, vol_t = make_lca_sdf_volume_j(res=24), make_lca_sdf_volume(res=24)
+    a_j, b_j = (generate_dataset_j(vol_j, sdf_datagen_config_j(**kw)) for _ in range(2))
+    np.testing.assert_array_equal(np.asarray(a_j.images), np.asarray(b_j.images))
+    a = generate_dataset(vol_t, sdf_datagen_config(**kw), device="cpu")
+    torch.rand(1000)
+    b = generate_dataset(vol_t, sdf_datagen_config(**kw), device="cpu")
+    np.testing.assert_array_equal(a.images, b.images)
+    assert torch.equal(a.rays.pixel_values, b.rays.pixel_values)
+    c = generate_dataset(vol_t, sdf_datagen_config(**kw),
+                         generator=torch.Generator().manual_seed(1), device="cpu")
+    assert not np.array_equal(a.images, c.images)
+
+
+def test_lca_protocol_is_the_anchors_configuration():
+    """lca_protocol gives the TrainConfig the JAX LCA anchor trained with
+    (cli/train.py --data_name LCA --display_every 1000 --compact_engage_max
+    192), overrides on top, and the source distance of the JAX SDF preset."""
+    from nerf_for_angiography_tpu.training import TrainConfig as TrainConfigJ
+
+    cfg, src_z = lca_protocol(n_iters=7, seed=3)
+    want = TrainConfigJ(compact_engage_max=192, display_every=1000, data_name="LCA", n_iters=7,
+                        seed=3)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert cfg.save_every == want.save_every == 100_000
+    assert src_z == float(np.asarray(sdf_datagen_config_j().src_pt)[2]) == 4000.0
 
 
 def test_tiny_lca_train_runs_on_cpu(lca_pair):

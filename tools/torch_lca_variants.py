@@ -7,8 +7,7 @@ to locate where the port's LCA quality parts from the JAX anchor's.
 Needs an NVIDIA GPU. Builds the LCA dataset at full size
 (``make_lca_sdf_volume()`` through ``sdf_datagen_config()``) once, then runs
 ``train()`` for each variant of the anchor's configuration
-(``TrainConfig(compact_engage_max=192, display_every=1000,
-data_name="LCA")``, source at z = 4000) in turn, and prints one line a
+(``training.lca_protocol``) in turn, and prints one line a
 variant: the held-out PSNR at every eval, the best-checkpoint held-out PSNR
 and its iteration, the steady rate and the Tunings. The report goes to
 ``smoke_out/lca_variants.json``.
@@ -17,7 +16,6 @@ and its iteration, the steady rate and the Tunings. The report goes to
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import subprocess
@@ -25,7 +23,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_Z = 4000.0
 DEVICE = "cuda"
 
 # the anchor's configuration and one change each
@@ -42,32 +39,14 @@ VARIANTS = {
 
 
 def run(torch, ds, name: str, overrides: dict, iters: int) -> dict:
-    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+    from chip_smoke import recorded_evals
+    from nerf_for_angiography_tpu_torch.training import lca_protocol, train
 
-    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
-    evals: list = []
-    make = loop.make_eval_step
-
-    def recording(*args, **kwargs):
-        ev = make(*args, **kwargs)
-
-        def run_eval(state, test):
-            m, px = ev(state, test)
-            evals.append((state.step - 1, float(m["psnr/test-coarse"]),
-                          float(m["psnr/vessel-test-coarse"])))
-            return m, px
-
-        return run_eval
-
-    cfg = TrainConfig(**{**dict(n_iters=iters, compact_engage_max=192, display_every=1000,
-                                data_name="LCA"), **overrides})
-    loop.make_eval_step = recording
-    try:
+    cfg, src_z = lca_protocol(n_iters=iters, **overrides)
+    with recorded_evals() as evals:
         t0 = time.perf_counter()
-        res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
+        res = train(cfg, ds.rays, src_pt_z=src_z, verbose=False, device=DEVICE)
         wall = time.perf_counter() - t0
-    finally:
-        loop.make_eval_step = make
     phases = [(p["mode"], p["k"], p["w_cap"], p["w_lo"], p["k_lo"], p["steps"])
               for p in res.timing["steady_phases"]]
     out = dict(name=name, overrides=overrides, iters=iters, evals=evals,
