@@ -23,7 +23,9 @@ Phases:
      rays x 300 samples, two 128^3 grids, carve_init) on the vessel
      phantom, the launch counters read around the run, then 16 more steps
      timed and traced with ``torch.profiler`` (device time by kernel, the
-     device's busy share);
+     device's busy share). Every ``train()`` run of this script steps its
+     full chunks through ``make_train_chunk`` (one CUDA-graph replay a
+     step) and reports the graphs it captured and its peak device memory;
   4. compacted training at the shipped ``TrainConfig()`` defaults (600
      steps: dense until the chooser engages, then the compacted stepper the
      chooser and the pressure tuner pick), and 300 steps with
@@ -65,7 +67,13 @@ Phases:
      share below 1, the rest as for #2 above); 16 fourier compacted steps
      profiled (#3's forward, #4's chain and weight gradients and their
      share);
-  7. kernels #2 and #4 at random g (#4: fourier at two point counts, BARF
+  7. the graph phase: for the dense, lattice, two-bucket, fused, fourier
+     and BARF steps, 144 steps replayed from captured CUDA graphs against
+     144 eager steps from copies of one trained state (every tensor a
+     step writes, the metrics and pixels bit for bit, the launch counts
+     equal, across dense grid updates, step 256 and two slab kinds
+     replayed), then 16 replayed steps profiled beside 16 eager ones;
+  8. kernels #2 and #4 at random g (#4: fourier at two point counts, BARF
      at each alpha); with ``--parent DIR`` also kernels #1, #2, #3, #4 and
      #6 and the split pairs of the parent checkout and of this one on the
      same inputs, each twice in fresh processes (parent, this, this,
@@ -77,8 +85,10 @@ Phases:
      pixels bit for bit), the parent's ptxas registers and spills (every
      kernel but #3's forward must keep them), and the parent's dense runs,
      which must equal this checkout's where #1's outputs (split run) and
-     #3's (fourier run, in the first two processes) equal the parent's;
-  8. the LCA (SDF) family: the dataset at full size (make_lca_sdf_volume
+     #3's (fourier run, in the first two processes) equal the parent's and
+     both sides' Adam reads the same lr, and the shipped and fourier
+     600-step runs' steady rays/s of both checkouts;
+  9. the LCA (SDF) family: the dataset at full size (make_lca_sdf_volume
      through sdf_datagen_config: 26 views of 150x162, 2,000 depth samples a
      ray, mode='sdf'), one view's DRR on the card against the CPU's, 600
      steps at the shipped defaults with compact_engage_max 192 and the
@@ -92,7 +102,7 @@ Phases:
      carving; with ``--lca-protocol N`` also the JAX LCA anchor's protocol
      for N steps (best-checkpoint held-out PSNR at least 29.3 dB, and with
      ``--protocol`` the CT run's at least 48.4 dB);
-  9. one JSON line with the kernel table, the card's name/power line, and the
+  10. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -658,16 +668,18 @@ def make_dataset(torch):
 def train_loss(torch, state, rays, cfg, src_z: float = SRC_Z) -> tuple[float, list]:
     """Loss of the trained model on one training batch (not part of the
     run), and the rendered pixels' shape."""
+    from nerf_for_angiography_tpu_torch.models import barf_alpha_schedule
     from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
     from nerf_for_angiography_tpu_torch.training import render_rays
-    from nerf_for_angiography_tpu_torch.training.train import _barf_alpha
 
     dense = dataclasses.replace(cfg, compact_samples=0)
+    alpha = (barf_alpha_schedule(state.step, cfg.pos_enc_basis, cfg.barf_start, cfg.barf_stop)
+             if cfg.pos_enc == "barf" else 0.0)
     with torch.no_grad():
         batch = sample_pixel_rays(state.generator, rays, cfg.img_sample_size, impl="gumbel")
         near, far = src_z - cfg.outside, src_z + cfg.outside
         pix, _, _ = render_rays(state.model, state.grid, batch.origins, batch.directions,
-                                dense, near, far, _barf_alpha(cfg, state.step))
+                                dense, near, far, alpha)
         loss = float(torch.mean((pix - batch.pixel_values) ** 2))
     check(tuple(pix.shape) == (cfg.img_sample_size,) and bool(torch.isfinite(pix).all()),
           "rendered pixels have the wrong shape or are not finite")
@@ -710,7 +722,8 @@ def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     evals = sum(1 for s in range(steps) if s % cfg.display_every == 0)
 
     reset_all(fm, fk, fs)
-    res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
+    with recorded_chunks() as chunks:
+        res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE)
     torch.cuda.synchronize()
     counts = read_counts(fm, fk, fs)
     fwd_n, bwd_n = counts["fwd_launches"], counts["bwd_launches"]
@@ -728,8 +741,10 @@ def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
         timing={k: v for k, v in t.items() if isinstance(v, (int, float))},
         pix_shape=pix_shape,
     )
+    out["graphs"] = sum(c.captures for c in chunks)
     print(
-        f"training: {steps} steps, {ms_step:.3f} ms/step, {rays_s:.0f} rays/s steady, "
+        f"training: {steps} steps ({out['graphs']} CUDA graphs captured), {ms_step:.3f} ms/step, "
+        f"{rays_s:.0f} rays/s steady, "
         f"train loss {loss:.6f}, held-out PSNR {res.last_psnr:.3f} dB "
         f"(best-checkpoint {res.best_heldout_psnr:.3f}), launches fwd {fwd_n} bwd {bwd_n} "
         f"first_k {counts['first_k_launches']} fused_step {counts['fused_step_launches']} "
@@ -747,32 +762,51 @@ def training_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     return out
 
 
-def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
+# chunk calls of 16 steps that warm a replayed-step profile: 128 steps meet
+# every grid-update kind (none, dense or each of 4 slabs) at least twice, so
+# each kind's graph is captured before the timed steps
+GRAPH_WARM_CALLS = 8
+
+
+def step_profile(torch, state, rays, cfg, n_steps: int = 16, graph: bool = False) -> dict:
     """Where a training step's time goes: ``n_steps`` more steps of the
     trained state at ``cfg`` (one grid update among them, as in the run),
     timed on the host clock without the profiler (also the time the host
     takes to issue them, up to the final synchronize), then traced with
     ``torch.profiler`` for device time by kernel, the device's busy share
     and the host's waits for the device (stream syncs, device-to-host
-    copies)."""
+    copies). With ``graph`` the steps are one make_train_chunk call, each
+    step a replay of its captured CUDA graph (warmed by GRAPH_WARM_CALLS
+    calls first); else the eager step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
-    from nerf_for_angiography_tpu_torch.training import make_train_step
+    from nerf_for_angiography_tpu_torch.training import make_train_chunk, make_train_step
 
     rays = rays._replace(sampling_table=build_sampling_table(rays.weights))
-    step = make_train_step(state.model, cfg, SRC_Z - cfg.outside, SRC_Z + cfg.outside)
+    near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    if graph:
+        chunk = make_train_chunk(state.model, cfg, near, far, n_steps)
+
+        def issue():
+            chunk(state, rays)
+    else:
+        step = make_train_step(state.model, cfg, near, far)
+
+        def issue():
+            for _ in range(n_steps):
+                step(state, rays)
 
     def run() -> float:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            step(state, rays)
+        issue()
         issued = time.perf_counter()
         torch.cuda.synchronize()
         return issued - t0
 
-    run()  # warm
+    for _ in range(GRAPH_WARM_CALLS if graph else 1):  # warm
+        run()
     t0 = time.perf_counter()
     issue_ms = 1e3 * run() / n_steps
     wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
@@ -795,7 +829,8 @@ def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    out = dict(wall_ms_per_step=wall_ms, host_issue_ms_per_step=issue_ms,
+    out = dict(graph=graph, graphs=chunk.captures if graph else 0,
+               wall_ms_per_step=wall_ms, host_issue_ms_per_step=issue_ms,
                host_waits_per_step=host_waits / n_steps,
                device_ms_per_step=device_ms, device_ops_per_step=launches,
                busy_share=device_ms / wall_ms if rows else None,
@@ -805,7 +840,8 @@ def step_profile(torch, state, rays, cfg, n_steps: int = 16) -> dict:
     if not rows:
         print("step profile: the profiler saw no device time (not measured)")
         return out
-    print(f"step profile ({n_steps} steps): wall {wall_ms:.3f} ms/step without the profiler "
+    print(f"step profile ({n_steps} {'replayed' if graph else 'eager'} steps): wall "
+          f"{wall_ms:.3f} ms/step without the profiler "
           f"(host done issuing after {issue_ms:.3f} ms/step, {host_waits / n_steps:.2f} waits "
           f"for the device per step), device {device_ms:.3f} ms/step in {launches:.1f} "
           f"kernels and copies per step, busy share {device_ms / wall_ms:.3f}")
@@ -869,10 +905,18 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
     encoded = cfg.pos_enc != "none"
     print(f"--- {label}: {cfg.n_iters + 1} steps, march_mode={cfg.march_mode}, "
           f"fused_train_step={cfg.fused_train_step}, pos_enc={cfg.pos_enc}")
-    reset_all(fm, fk, fs)
-    with recorded_barf_alphas() as barf_alphas, recorded_schedule(barf_alphas) as sched:
-        res = train(cfg, ds.rays, src_pt_z=src_z, verbose=True, device=DEVICE, **train_kw)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the reserved peak is this run's
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(fm, fk, fs)
+    with (recorded_chunks() as chunks, recorded_barf_alphas() as barf_alphas,
+          recorded_schedule(barf_alphas) as sched):
+        res = train(cfg, ds.rays, src_pt_z=src_z, verbose=True, device=DEVICE, **train_kw)
+    graphs = sum(c.captures for c in chunks)
+    torch.cuda.synchronize()
+    memory = dict(before_gib=mem0 / 2**30, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
     counts, fk_shapes = read_counts(fm, fk, fs), set(fk.shapes)
     fwd_n, bwd_n = counts["fwd_launches"], counts["bwd_launches"]
     fk_n, fs_n = counts["first_k_launches"], counts["fused_step_launches"]
@@ -903,13 +947,17 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
         train_loss=loss, heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
         rays_per_s_incl_first=res.rays_per_sec, grid_updates=grid_updates, evals=evals,
         barf_coarse_first=float(barf_alphas[0]), barf_coarse_last=float(barf_alphas[-1]),
+        graphs=graphs, memory=memory,
     )
     print(f"{label}: final Tuning {t['tuning_final']}, steady_rays_per_sec "
           f"{t['steady_rays_per_sec']:.0f}, step_compact {t['step_compact']:.3f} s, "
           f"step_dense {t['step_dense']:.3f} s, choose {t['choose']:.3f} s, compile "
           f"{t['compile']:.3f} s, total {t['total']:.3f} s; pressure fired "
           f"{t['pressure_fired']} muted {t['pressure_muted']} decay bounces "
-          f"{t['decay_bounces']}")
+          f"{t['decay_bounces']}; {graphs} CUDA graphs captured; device memory "
+          f"{memory['before_gib']:.3f} GiB allocated before the run, peak "
+          f"{memory['peak_allocated_gib']:.3f} GiB allocated and "
+          f"{memory['peak_reserved_gib']:.3f} GiB reserved")
     for p, n in zip(phases, per_step):
         print(f"  phase {p['mode']} k={p['k']} w_cap={p['w_cap']} w_lo={p['w_lo']} "
               f"k_lo={p['k_lo']}: {p['steps']} steps ({p['rays']} steady rays in "
@@ -950,29 +998,68 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
 
 
 @contextlib.contextmanager
+def recorded_chunks():
+    """Within the block, every chunk that train() makes (make_train_chunk)
+    is appended to the yielded list (their ``captures`` count the CUDA
+    graphs); a package without chunks yields an empty list."""
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    chunks: list = []
+    make = getattr(loop, "make_train_chunk", None)
+    if make is None:
+        yield chunks
+        return
+
+    def recording(*args, **kwargs):
+        chunks.append(make(*args, **kwargs))
+        return chunks[-1]
+
+    loop.make_train_chunk = recording
+    try:
+        yield chunks
+    finally:
+        loop.make_train_chunk = make
+
+
+@contextlib.contextmanager
 def recorded_barf_alphas():
-    """Within the block, every train step that train() builds appends its
-    "barf-coarse" metric (a device scalar, read after the run: no host
-    wait inside it) to the yielded list."""
+    """Within the block, every train step that train() runs, eager or a step
+    of a chunk, appends a copy of its "barf-coarse" metric (a device
+    scalar, read after the run: no host wait inside it; a copy, since a
+    replayed graph rewrites its outputs) to the yielded list."""
     loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
     seen: list = []
-    make = loop.make_train_step
+    make, make_chunk = loop.make_train_step, loop.make_train_chunk
 
-    def make_recording(*args, **kwargs):
-        step = make(*args, **kwargs)
-
+    def recorded(step):
         def run(state, rays):
             out = step(state, rays)
-            seen.append(out[1]["barf-coarse"])
+            seen.append(out[1]["barf-coarse"].clone())
             return out
 
         return run
 
+    def make_recording(*args, **kwargs):
+        return recorded(make(*args, **kwargs))
+
+    wrapped: list = []
+
+    def make_chunk_recording(*args, **kwargs):
+        chunk = make_chunk(*args, **kwargs)
+        chunk.step = recorded(chunk.step)
+        wrapped.append(chunk)
+        return chunk
+
     loop.make_train_step = make_recording
+    loop.make_train_chunk = make_chunk_recording
     try:
         yield seen
     finally:
         loop.make_train_step = make
+        loop.make_train_chunk = make_chunk
+        # the wrapper holds its chunk: drop it, so the chunk and its graphs
+        # are freed with the run, not by a later cyclic collection
+        for chunk in wrapped:
+            del chunk.step
 
 
 @contextlib.contextmanager
@@ -1220,28 +1307,29 @@ TWO_BUCKET_STEPS = 50
 
 def two_bucket_steps(torch, fm, fk, fs, state, rays, cfg, batch) -> dict:
     """TWO_BUCKET_STEPS steps of the trained state at the fixed two-bucket
-    Tuning, launch counts read around them (two first-k launches a step),
-    then that step's profile."""
+    Tuning as one make_train_chunk call (replayed graphs after one eager
+    step of each grid-update kind), launch counts read around them (two
+    first-k launches a step), then that step's profile."""
     from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
     from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
-    from nerf_for_angiography_tpu_torch.training import make_train_step
+    from nerf_for_angiography_tpu_torch.training import make_train_chunk
     from nerf_for_angiography_tpu_torch.training.train import _march_for
 
     tcfg = tuning_cfg(cfg, TWO_BUCKET)
     near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
     m = _march_for(tcfg, state.grid, batch.origins, batch.directions, near, far)
     check(isinstance(m, BucketedRays), f"{TWO_BUCKET} does not march two buckets")
-    step = make_train_step(state.model, tcfg, near, far)
+    chunk = make_train_chunk(state.model, tcfg, near, far, TWO_BUCKET_STEPS)
     rays = rays._replace(sampling_table=build_sampling_table(rays.weights))
     reset_all(fm, fk, fs)
-    for _ in range(TWO_BUCKET_STEPS):
-        _, metrics, _, _ = step(state, rays)
+    _, metrics, _, _ = chunk(state, rays)
     torch.cuda.synchronize()
     counts = read_counts(fm, fk, fs)
-    out = dict(tuning=TWO_BUCKET, steps=TWO_BUCKET_STEPS, **counts,
+    out = dict(tuning=TWO_BUCKET, steps=TWO_BUCKET_STEPS, graphs=chunk.captures, **counts,
                first_k_shapes=sorted(fk.shapes),
                pressure={k: int(v) for k, v in metrics.items() if k.startswith("march/")})
-    print(f"two-bucket steps {TWO_BUCKET}: {TWO_BUCKET_STEPS} steps, launches fwd "
+    print(f"two-bucket steps {TWO_BUCKET}: {TWO_BUCKET_STEPS} steps ({chunk.captures} graphs "
+          f"captured), launches fwd "
           f"{counts['fwd_launches']} bwd {counts['bwd_launches']} first_k "
           f"{counts['first_k_launches']} (shapes {sorted(fk.shapes)}) fused_step "
           f"{counts['fused_step_launches']}, last step's pressure {out['pressure']}")
@@ -1778,7 +1866,9 @@ def paired_times(torch, parent: str, saved: dict) -> tuple[dict, dict]:
     for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
         side = dict(dense=a["dense"], dense_fourier=a["dense_fourier"], fwd_out=a["fwd_out"],
                     enc_out=a["enc_out"], enc_fwd_out=a["enc_fwd_out"], fs_out=a["fs_out"],
-                    ptxas=a.get("ptxas"))
+                    ptxas=a.get("ptxas"), lr=a["lr"],
+                    shipped_runs=[r["shipped"] for r in (a, b)],
+                    fourier_shipped_runs=[r["fourier_shipped"] for r in (a, b)])
         for key in ("bwd_ms", "enc_bwd_ms", "fs_ms", "split_pair_ms", "fwd_ms", "fwd_one_ms",
                     "enc_fwd_ms", "enc_fwd_one_ms"):
             side[key] = {k: (v + b[key][k]) / 2 for k, v in a[key].items()}
@@ -1936,8 +2026,9 @@ def enc_fwd_vs_parent(torch, par: dict, own: dict) -> dict:
     """Kernel #3 of this checkout against the parent's at every case of
     enc_fwd_cases (each side's first fresh process): equal bit for bit, else
     the largest and the median |raw difference|, held to the forward
-    limits; where every case is equal, the dense 60-step fourier runs of the
-    first two processes must end with equal train loss and held-out PSNR."""
+    limits; where every case is equal and both sides' Adam reads the same
+    lr (lr_schedule), the dense 60-step fourier runs of the first two
+    processes must end with equal train loss and held-out PSNR."""
     mine, theirs = torch.load(own["enc_fwd_out"]), torch.load(par["enc_fwd_out"])
     out = {}
     for case, b in theirs.items():
@@ -1963,9 +2054,9 @@ def enc_fwd_vs_parent(torch, par: dict, own: dict) -> dict:
           f"ms/step (host clock) in the fresh processes (parent, this, this, parent): this "
           f"{mine_ms[0]:.3f} / {mine_ms[1]:.3f}, parent commit {theirs_ms[0]:.3f} / "
           f"{theirs_ms[1]:.3f} (this / parent {sum(mine_ms) / sum(theirs_ms):.3f})")
-    if equal:
+    if equal and own["lr"] == par["lr"]:
         check(same, "the dense fourier run differs from the parent commit's, though kernel #3 "
-                    "gives the parent's outputs bit for bit")
+                    "gives the parent's outputs bit for bit and Adam reads the same lr")
     return dict(cases=out, equal=equal, dense_fourier_equal=same,
                 dense_fourier_ms_per_step=dict(this=mine_ms, parent=theirs_ms))
 
@@ -2004,8 +2095,9 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     its outputs against the parent's (enc_fwd_vs_parent), and the parent's
     dense 60-step run, whose train loss and held-out PSNR this tree's must
     equal bit for bit where kernel #1 gives the parent's outputs bit for bit
-    (kernel #2's skipped tiles add exact zeros), with both sides' steady
-    ms/step."""
+    (kernel #2's skipped tiles add exact zeros) and both sides' Adam reads
+    the same lr (lr_schedule), with both sides' steady ms/step; and the
+    shipped and fourier 600-step runs' steady rays/s of both sides."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
 
     model, gen = random_cppn(torch)
@@ -2087,6 +2179,28 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     d = out["dense"]
     same = bool(par) and (d["train_loss"] == par["dense"]["train_loss"]
                           and d["heldout_psnr"] == par["dense"]["heldout_psnr"])
+    # the runs can be equal only where both packages' Adam reads the same lr
+    lr_same = bool(par) and own["lr"] == par["lr"]
+    if par:
+        diff = [i for i, (a, b) in enumerate(zip(own["lr"], par["lr"])) if a != b]
+        print(f"lr schedule against the parent commit's at steps 0..{DENSE_ITERS}: "
+              + ("equal bit for bit (f32)" if lr_same else
+                 f"differs at {len(diff)} steps (first at step {diff[0]}: this "
+                 f"{own['lr'][diff[0]]!r}, parent {par['lr'][diff[0]]!r}); the runs are "
+                 "not held equal"))
+        for key, label in (("shipped", "shipped-default"), ("fourier_shipped", "fourier")):
+            a_runs, b_runs = own[key + "_runs"], par[key + "_runs"]
+            a_rs = [r["steady_rays_per_sec"] for r in a_runs]
+            b_rs = [r["steady_rays_per_sec"] for r in b_runs]
+            print(f"{label} run, steady rays/s in the fresh processes (parent, this, this, "
+                  f"parent): this {a_rs[0]:.0f} / {a_rs[1]:.0f}, parent commit {b_rs[0]:.0f} / "
+                  f"{b_rs[1]:.0f} (this / parent {sum(a_rs) / sum(b_rs):.3f}); end to end this "
+                  + " / ".join(f"{r['rays_per_sec']:.0f}" for r in a_runs) + ", parent "
+                  + " / ".join(f"{r['rays_per_sec']:.0f}" for r in b_runs)
+                  + "; best held-out PSNR this "
+                  + " / ".join(f"{r['best_heldout_psnr']:.3f}" for r in a_runs) + ", parent "
+                  + " / ".join(f"{r['best_heldout_psnr']:.3f}" for r in b_runs)
+                  + f"; graphs this {[r['graphs'] for r in a_runs]}")
     print(f"dense {DENSE_ITERS}-step split run: train loss {d['train_loss']!r}, held-out PSNR "
           f"{d['heldout_psnr']!r}"
           + (f"; parent commit {par['dense']['train_loss']!r}, {par['dense']['heldout_psnr']!r}; "
@@ -2095,9 +2209,10 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
                  f"{v:.3f}" for v in own["dense_ms_runs"]) + ", parent commit " + " / ".join(
                  f"{v:.3f}" for v in par["dense_ms_runs"]) if par else ""))
     out["dense_equal_parent"] = same if par else None
-    if par and out["fwd_vs_parent"]["equal"]:
+    out["lr_equal_parent"] = lr_same if par else None
+    if par and out["fwd_vs_parent"]["equal"] and lr_same:
         check(same, "the dense split run differs from the parent commit's, though kernel #1 "
-                    "gives the parent's outputs bit for bit")
+                    "gives the parent's outputs bit for bit and Adam reads the same lr")
     report["bwd_compare"] = out
     return out
 
@@ -2213,6 +2328,38 @@ def time_saved(torch, fm, path: str, mods=None) -> dict:
         out[key] = dict(train_loss=train_loss(torch, res.state, ds.rays, c)[0],
                         heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
                         ms_per_step=1e3 * res.timing["step_dense"] / c.n_iters)
+    out["lr"] = lr_schedule(torch, cfg, DENSE_ITERS + 1)
+    # the shipped run and its fourier twin end to end (the loop's steady
+    # rays/s: compacted steps outside first steps and captures)
+    for key, c in (("shipped", TrainConfig(n_iters=COMPACT_ITERS)),
+                   ("fourier_shipped", TrainConfig(pos_enc="fourier", n_iters=ENC_FOURIER_ITERS,
+                                                   display_every=100))):
+        with recorded_chunks() as chunks:
+            res = train(c, ds.rays, src_pt_z=SRC_Z, verbose=False, device=DEVICE)
+        t = res.timing
+        out[key] = dict(steady_rays_per_sec=t["steady_rays_per_sec"],
+                        rays_per_sec=res.rays_per_sec, total_s=t["total"],
+                        compile_s=t["compile"], step_compact_s=t["step_compact"],
+                        step_dense_s=t["step_dense"], best_heldout_psnr=res.best_heldout_psnr,
+                        graphs=sum(c.captures for c in chunks))
+    return out
+
+
+def lr_schedule(torch, cfg, n: int) -> list[float]:
+    """The f32 lr the package's Adam reads at steps 0..n-1: from its
+    schedule on the device (ExponentialDecayLR.value), or from a host
+    LambdaLR stepped along (a parent checkout's)."""
+    from nerf_for_angiography_tpu_torch.training import make_optimizer
+
+    opt, sched = make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(1, device=DEVICE))])
+    if hasattr(sched, "value"):
+        return [float(sched.value(torch.tensor(s, device=DEVICE))) for s in range(n)]
+    out = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the scheduler stepped without optimizer steps
+        for _ in range(n):
+            out.append(float(torch.tensor(opt.param_groups[0]["lr"], dtype=torch.float32)))
+            sched.step()
     return out
 
 
@@ -2356,8 +2503,7 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
         f"{ENC_FWD_KERNEL} {prof['enc_fwd_kernel_ms']:.4f} ms/step, "
         f"{prof['enc_fwd_kernel_ms'] / prof['device_ms_per_step']:.3f} of the step's device time"
         if prof["device_ms_per_step"] else "not measured (no device time in the profile)"))
-    for run in (fourier, barf):
-        run.pop("result")
+    states = {"fourier": fourier.pop("result").state, "barf": barf.pop("result").state}
     out = dict(checks=checks, fourier_shipped=fourier, barf_anneal=barf, compact_p=p,
                final=final, profile=prof, trained=t_rows)
     report["encoded"] = out
@@ -2384,7 +2530,128 @@ def encoded_phase(torch, fm, fk, fs, fe, ds, report: dict) -> dict:
     rows[1]["compact_path"] = {k: checks["compact_bwd"][k]
                                for k in ("P", "ms", "plain_ms", "bound_ms", "bound_by")}
     return dict(out, rows=rows, trained_inputs=t_inputs,
-                trained_model=(t_packed, t_pbytes, t_enc))
+                trained_model=(t_packed, t_pbytes, t_enc), states=states)
+
+
+# the graph phase's replayed-against-eager window: from step 208, 144 steps
+# meet dense grid updates at 208, 224 and 240, the end of the dense warm-up
+# at 256, then slabs 0, 1, 2, 3, 0 and 1 (every 16 steps): each kind's first
+# step is an eager warm-up, its later steps (dense, slabs 0 and 1, and every
+# step without an update) replays
+GRAPH_START, GRAPH_STEPS = 208, 144
+
+
+def state_tensors_of(state) -> dict:
+    """Every tensor a step writes: parameters, both Adam moments and its
+    step, the lr, both grids, the generator's state and the step counter."""
+    out = {f"param/{n}": p for n, p in state.model.named_parameters()}
+    opt = state.optimizer
+    for i, p in enumerate(opt.param_groups[0]["params"]):
+        out.update({f"adam/{i}/{k}": v for k, v in opt.state[p].items()})
+    out["lr"] = opt.param_groups[0]["lr"]
+    for name in ("grid", "vessel_grid"):
+        out.update({f"{name}/{k}": v for k, v in getattr(state, name)._asdict().items()
+                    if v is not None})
+    out["generator"] = state.generator.get_state()
+    out["step_dev"] = state.step_dev
+    return out
+
+
+def graph_phase(torch, fm, fk, fs, ds, cp: dict, ep: dict, report: dict) -> dict:
+    """Phase 7: the chunked step (make_train_chunk), each step one replay of
+    a captured CUDA graph, against the eager step for each step kind (dense,
+    lattice k=160, the fixed two-bucket Tuning, the fused step at the
+    lattice, fourier at the lattice, and BARF across a rising alpha), from
+    copies of one trained state set to GRAPH_START: GRAPH_STEPS steps each
+    way, the parameters, Adam state, lr, grids, generator, metrics and
+    pixels bit for bit, every launch count the same, and each way's peak
+    device memory; then 16 replayed steps profiled beside 16 eager steps
+    of copies of the trained state (host issue ms/step, device ms/step,
+    busy share)."""
+    from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, copy_state, make_train_chunk, make_train_step,
+    )
+
+    rays = ds.rays._replace(sampling_table=build_sampling_table(ds.rays.weights))
+    base = TrainConfig()
+    shipped = cp["shipped"]["result"].state
+    kinds = {
+        "dense": (shipped, dataclasses.replace(base, compact_samples=0)),
+        "lattice k=160": (shipped, tuning_cfg(base, LATTICE)),
+        "two-bucket": (shipped, tuning_cfg(base, TWO_BUCKET)),
+        "fused lattice k=160": (shipped, dataclasses.replace(tuning_cfg(base, LATTICE),
+                                                               fused_train_step="on")),
+        "fourier lattice k=160": (ep["states"]["fourier"],
+                                  tuning_cfg(TrainConfig(pos_enc="fourier"), LATTICE)),
+        "barf lattice k=160, rising alpha": (
+            ep["states"]["barf"],
+            tuning_cfg(TrainConfig(pos_enc="barf", barf_start=0, barf_stop=400), LATTICE)),
+    }
+    near, far = SRC_Z - base.outside, SRC_Z + base.outside
+    out = {}
+    for name, (src, cfg) in kinds.items():
+        print(f"--- graph phase, {name}: {GRAPH_STEPS} replayed against {GRAPH_STEPS} eager "
+              f"steps from step {GRAPH_START}")
+        runs = {}
+        for way in ("graph", "eager"):
+            st = copy_state(src)
+            st.step = GRAPH_START
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all(fm, fk, fs)
+            t0 = time.perf_counter()
+            if way == "graph":
+                chunk = make_train_chunk(st.model, cfg, near, far, GRAPH_STEPS)
+                _, metrics, pix, tgt = chunk(st, rays)
+            else:
+                step = make_train_step(st.model, cfg, near, far)
+                for _ in range(GRAPH_STEPS):
+                    _, metrics, pix, tgt = step(st, rays)
+            torch.cuda.synchronize()
+            runs[way] = dict(state=st, metrics=metrics, pix=pix, tgt=tgt,
+                             counts=read_counts(fm, fk, fs), wall_s=time.perf_counter() - t0,
+                             peak_gib=(torch.cuda.max_memory_allocated() - mem0) / 2**30)
+        g, e = runs["graph"], runs["eager"]
+        got, want = state_tensors_of(g["state"]), state_tensors_of(e["state"])
+        unequal = [k for k in want if not torch.equal(got[k], want[k])]
+        unequal += [f"metric {k}" for k in e["metrics"]
+                    if not torch.equal(g["metrics"][k], e["metrics"][k])]
+        unequal += [k for k in ("pix", "tgt") if not torch.equal(g[k], e[k])]
+        row = dict(steps=GRAPH_STEPS, start=GRAPH_START, graphs=chunk.captures,
+                   kinds=sorted(map(str, chunk.graphs)), unequal=unequal,
+                   counts=g["counts"], eager_counts=e["counts"],
+                   wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+                   peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
+                   final_step=g["state"].step,
+                   barf_alpha_last=float(g["metrics"]["barf-coarse"]))
+        print(f"{name}: {chunk.captures} graphs (kinds {row['kinds']}); replayed steps equal to "
+              f"the eager steps bit for bit: {not unequal}"
+              + (f" (unequal: {unequal[:8]})" if unequal else "")
+              + f"; launches {g['counts']} (eager {e['counts']}); wall {g['wall_s']:.3f} s "
+              f"(eager {e['wall_s']:.3f} s, first steps and captures included); peak memory "
+              f"above the start {g['peak_gib']:.3f} GiB (eager {e['peak_gib']:.3f} GiB)"
+              + (f"; BARF alpha at the last step {row['barf_alpha_last']}"
+                 if cfg.pos_enc == "barf" else ""))
+        check(not unequal, f"graph phase, {name}: replayed steps differ from the eager steps "
+                           f"({unequal[:8]})")
+        check(g["counts"] == e["counts"], f"graph phase, {name}: launch counts {g['counts']} "
+                                          f"!= the eager steps' {e['counts']}")
+        check(chunk.captures >= 4, f"graph phase, {name}: {chunk.captures} graphs captured")
+        print(f"{name}: eager step profile:")
+        row["eager_profile"] = step_profile(torch, copy_state(src), rays, cfg)
+        print(f"{name}: replayed step profile:")
+        row["profile"] = step_profile(torch, copy_state(src), rays, cfg, graph=True)
+        for key in ("eager_profile", "profile"):
+            check(row[key]["host_waits_per_step"] == 0,
+                  f"graph phase, {name}: a step waits for the device ({key})")
+        pe, pg = row["eager_profile"], row["profile"]
+        print(f"{name}: replayed {profile_row(pg)}; eager {profile_row(pe)}")
+        del runs
+        out[name] = row
+    report["graph"] = out
+    return out
 
 
 def determinism_phase(torch, fm, ds, report: dict) -> None:
@@ -2652,7 +2919,9 @@ def check_lca_artifacts(torch, ds, cfg, src_z: float, log_dir: str, res, rec: di
     test = make_test_view(ds.rays, n_views - 1, ds.rays.num_rays // n_views)
     dense = dataclasses.replace(cfg, compact_samples=0)
     near, far = src_z - cfg.outside, src_z + cfg.outside
-    best = types.SimpleNamespace(grid=grids["grid"], step=res.best_iter + 1)
+    best = types.SimpleNamespace(
+        grid=grids["grid"], step=res.best_iter + 1,
+        step_dev=torch.tensor(res.best_iter + 1, dtype=torch.int32, device=DEVICE))
     metrics, _ = make_eval_step(model, dense, near, far)(best, test)
     psnr = float(metrics["psnr/test-coarse"])
     d_psnr = psnr - res.best_heldout_psnr
@@ -2926,6 +3195,7 @@ def main() -> int:
         fp = fused_step_phase(torch, fm, fk, fs, ds, tr, cp, report)
         bt = bwd_trained_phase(torch, fm, cp["shipped"]["result"].state, fp, report)
         ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
+        graph_phase(torch, fm, fk, fs, ds, cp, ep, report)
         bc = bwd_compare_phase(torch, fm, tr, fp, bt, ep, args.parent, report, kb)
         lca_ds, lca = lca_phase(torch, fm, fk, fs, report)
         if args.determinism:

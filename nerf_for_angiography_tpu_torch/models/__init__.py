@@ -1,6 +1,7 @@
 from .cppn import (
     CPPN,
     CPPNConfig,
+    barf_alpha_device,
     barf_alpha_schedule,
     barf_k_values,
     barf_weights,
@@ -10,6 +11,7 @@ from .cppn import (
 __all__ = [
     "CPPN",
     "CPPNConfig",
+    "barf_alpha_device",
     "barf_alpha_schedule",
     "barf_k_values",
     "barf_weights",

@@ -111,6 +111,16 @@ def barf_alpha_schedule(step: int, pos_enc_basis: int, barf_start: int = 8000,
     return float(np.clip(alpha, np.float32(0.0), np.float32(pos_enc_basis)))
 
 
+def barf_alpha_device(step: torch.Tensor, pos_enc_basis: int, barf_start: int = 8000,
+                      barf_stop: int = 250000) -> torch.Tensor:
+    """barf_alpha_schedule at an integer step tensor, on its device: the
+    same f32 operations (the f32 slope, a subtraction, a product, a clip),
+    so the same value bit for bit."""
+    slope = float(np.float32(pos_enc_basis / float(barf_stop - barf_start)))
+    alpha = (step.to(torch.float32) - float(barf_start)) * slope
+    return torch.clamp(alpha, 0.0, float(pos_enc_basis))
+
+
 def _check_ported(cfg: CPPNConfig) -> None:
     if cfg.pos_enc not in ("none", "fourier", "barf"):
         raise ValueError(f"unknown pos_enc: {cfg.pos_enc!r}")

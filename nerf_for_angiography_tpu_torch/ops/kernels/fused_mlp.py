@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from .build import load_library, raise_on
+from .build import count_launch, load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
 # launch and nowhere else)
@@ -290,7 +290,6 @@ def fused_mlp_fwd_cuda(
 ) -> torch.Tensor:
     """Launch the forward kernel: x (P, 3) f32 on the card, or (3, P) with
     ``feature_major`` -> (P,) f32."""
-    global fwd_launches
     lib = _load_lib()
     p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     out = torch.empty((p,), dtype=torch.float32, device=x.device)
@@ -303,7 +302,7 @@ def fused_mlp_fwd_cuda(
         packed.width, packed.n_hidden, out.data_ptr(), _num_sms(x.device), stream,
     )
     raise_on(code, "fused_mlp forward")
-    fwd_launches += 1
+    count_launch(__name__, "fwd_launches")
     return out
 
 
@@ -312,7 +311,6 @@ def fused_mlp_bwd_cuda(
 ):
     """Launch the backward kernel (+ its fixed-order partial reduction); dx
     comes back in the layout of x."""
-    global bwd_launches
     lib = _load_lib()
     p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
@@ -335,7 +333,7 @@ def fused_mlp_bwd_cuda(
         f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), stream,
     )
     raise_on(code, "fused_mlp backward")
-    bwd_launches += 1
+    count_launch(__name__, "bwd_launches")
     return _unflatten_grads(flat, f, nh), dx
 
 

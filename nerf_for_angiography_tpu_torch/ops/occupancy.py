@@ -78,7 +78,8 @@ def grid_from_numpy(binary, aabb, occs=None, feasible=None, device=None) -> Occu
     0), with its coarse table built."""
 
     def t(a, dtype):
-        return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        # a copy: the grid's tensors are updated in place
+        return None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
     b = t(binary, torch.bool)
     return with_coarse(OccupancyGrid(
@@ -125,11 +126,22 @@ def _jitter(grid: OccupancyGrid, pts: torch.Tensor, generator: torch.Generator |
     return pts + (u - 0.5) * cell_size
 
 
-def _apply(g: OccupancyGrid, occs: torch.Tensor, thre: float) -> OccupancyGrid:
-    thresh = torch.clamp(occs.mean(), max=thre)
-    return with_coarse(OccupancyGrid(
-        occs=occs, binary=_binarize(occs, thresh, g.feasible), aabb=g.aabb, feasible=g.feasible
-    ))
+def _write_pair(grids, occs_new, thres) -> tuple[OccupancyGrid, OccupancyGrid]:
+    """Rebinarize each grid from its new occs, then write occs, binary and
+    the coarse table into the grid's own tensors (``copy_``), so a captured
+    CUDA graph's addresses stay valid. Every new value is formed before the
+    first write, so a grid passed as both members updates once."""
+    new = []
+    for g, occs, thre in zip(grids, occs_new, thres):
+        binary = _binarize(occs, torch.clamp(occs.mean(), max=thre), g.feasible)
+        coarse = None if g.coarse is None else coarse_dilated_grid(binary, g.coarse_factor)[0]
+        new.append((occs, binary, coarse))
+    for g, (occs, binary, coarse) in zip(grids, new):
+        g.occs.copy_(occs)
+        g.binary.copy_(binary)
+        if coarse is not None:
+            g.coarse.copy_(coarse)
+    return grids[0], grids[1]
 
 
 @torch.no_grad()
@@ -139,15 +151,13 @@ def update_grid_pair(
     ema_decay: float = 0.95, generator: torch.Generator | None = None,
 ) -> tuple[OccupancyGrid, OccupancyGrid]:
     """EMA-update the scene and vessel grids from ONE shared sigma pass over
-    every cell center (optionally jittered inside the cell)."""
+    every cell center (optionally jittered inside the cell), in place."""
     res = grid.resolution
     pts = _jitter(grid, cell_centers(grid), generator)
     sigma = sigma_fn(pts).reshape(res, res, res)
-
-    def apply(g, thre):
-        return _apply(g, torch.maximum(g.occs * ema_decay, sigma), thre)
-
-    return apply(grid, occ_thre), apply(vessel_grid, vessel_thre)
+    grids = (grid, vessel_grid)
+    return _write_pair(grids, [torch.maximum(g.occs * ema_decay, sigma) for g in grids],
+                       (occ_thre, vessel_thre))
 
 
 @torch.no_grad()
@@ -157,8 +167,9 @@ def update_grid_pair_slab(
     update_idx: int, n_slabs: int = 4, ema_decay: float = 0.95,
     generator: torch.Generator | None = None,
 ) -> tuple[OccupancyGrid, OccupancyGrid]:
-    """Partial EMA update: every cell decays, one rotating 1/n_slabs x-slab
-    gets fresh sigma maxed in; thresholds use the full-grid mean."""
+    """Partial EMA update, in place: every cell decays, one rotating
+    1/n_slabs x-slab gets fresh sigma maxed in; thresholds use the full-grid
+    mean."""
     res = grid.resolution
     if res % n_slabs:
         raise ValueError(f"resolution {res} not divisible by {n_slabs} slabs")
@@ -167,12 +178,26 @@ def update_grid_pair_slab(
     pts = _jitter(grid, _slab_centers(grid, start, slab), generator)
     sigma = sigma_fn(pts).reshape(slab, res, res)
 
-    def apply(g, thre):
+    def decayed(g):
         occs = g.occs * ema_decay
         occs[start : start + slab] = torch.maximum(occs[start : start + slab], sigma)
-        return _apply(g, occs, thre)
+        return occs
 
-    return apply(grid, occ_thre), apply(vessel_grid, vessel_thre)
+    grids = (grid, vessel_grid)
+    return _write_pair(grids, [decayed(g) for g in grids], (occ_thre, vessel_thre))
+
+
+def grid_update_kind(
+    step: int, resolution: int, n: int = 16, slabs: int = 1, warmup_steps: int = 256
+) -> int | str | None:
+    """What the every-n gate does at ``step``: None (no update), 'dense'
+    (every cell; the warm-up steps, or no slabs) or the slab index it
+    refreshes. A CUDA graph of a step is captured for one of these kinds."""
+    if step % n:
+        return None
+    if slabs <= 1 or resolution % slabs or step < warmup_steps:
+        return "dense"
+    return (step // n) % slabs
 
 
 def every_n_step_pair(
@@ -181,12 +206,13 @@ def every_n_step_pair(
     n: int = 16, ema_decay: float = 0.95, generator: torch.Generator | None = None,
     slabs: int = 1, warmup_steps: int = 256,
 ) -> tuple[OccupancyGrid, OccupancyGrid]:
-    """Every-n gate over the pair update, on the host-side step counter:
-    dense updates during ``warmup_steps``, rotating slabs after it when
-    ``slabs > 1`` divides the resolution."""
-    if step % n:
+    """Every-n gate over the pair update, on the host-side step counter
+    (grid_update_kind): dense updates during ``warmup_steps``, rotating slabs
+    after it when ``slabs > 1`` divides the resolution."""
+    kind = grid_update_kind(step, grid.resolution, n, slabs, warmup_steps)
+    if kind is None:
         return grid, vessel_grid
-    if slabs <= 1 or grid.resolution % slabs or step < warmup_steps:
+    if kind == "dense":
         return update_grid_pair(
             grid, vessel_grid, sigma_fn, occ_thre, vessel_thre, ema_decay, generator
         )

@@ -12,12 +12,14 @@ from .train import (
     TestView,
     TrainState,
     check_ported,
+    copy_state,
     create_train_state,
     density_raw,
     drop_test_view,
     make_eval_step,
     make_optimizer,
     make_test_view,
+    make_train_chunk,
     make_train_step,
     render_rays,
 )
@@ -33,6 +35,7 @@ __all__ = [
     "build_page_data",
     "categories_for",
     "check_ported",
+    "copy_state",
     "create_train_state",
     "density_raw",
     "drop_test_view",
@@ -42,6 +45,7 @@ __all__ = [
     "make_eval_step",
     "make_optimizer",
     "make_test_view",
+    "make_train_chunk",
     "make_train_step",
     "render_rays",
     "save_grid_vtk",

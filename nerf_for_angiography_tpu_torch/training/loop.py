@@ -13,18 +13,22 @@ cadence or when the batch's truncation pressure fires, and a revert to the
 dense stepper if nothing fits any more. Eval always renders the dense
 lattice. One step callable per ``Tuning``, cached.
 
-The JAX loop's ``lax.scan`` chunks become a Python loop of steps between
-the same boundaries, and the host waits for the card only at those
-boundaries: no step reads the device. Each chunk's per-step (5,) pressure
-vectors stay on the device and are reduced and copied to the host once per
-chunk. The tuner sees them with the JAX loop's latency: a full chunk's
-pressure waits in a one-entry queue until the next chunk's steps have been
-issued, and the queue drains early only where the JAX loop drains it
-(before a new step callable's first chunk or a partial chunk, at a logging
-boundary when logging, a compaction check, a re-check boundary, an armed
-fire, a display boundary and the last iteration); a partial chunk is
-observed at once. So a fire in the chunk ending at 100 retunes at 200 in
-both loops.
+The loop steps by the JAX loop's chunks: a full chunk of ``chunk_c`` steps
+is one call of ``make_train_chunk`` for the current step callable (cached
+beside it; on the card each step is one replay of a captured CUDA graph,
+training/graph.py), and a partial chunk, iteration 0 among them, runs the
+eager step, as the JAX loop's single-step path does. All chunks' graphs
+share one memory pool. The host waits for the card only at the chunk
+boundaries: no step reads the device. The steps' truncation pressure is
+reduced on the device into one (5,) int32 running max, reset at the start
+of each chunk and copied to the host once per chunk. The tuner sees it with
+the JAX loop's latency: a full chunk's pressure waits in a one-entry queue
+until the next chunk's steps have been issued, and the queue drains early
+only where the JAX loop drains it (before a new step callable's first chunk
+or a partial chunk, at a logging boundary when logging, a compaction check,
+a re-check boundary, an armed fire, a display boundary and the last
+iteration); a partial chunk is observed at once. So a fire in the chunk
+ending at 100 retunes at 200 in both loops.
 
 With ``log_dir`` the loop writes the JAX loop's artifacts there:
 TensorBoard scalars and images (training/logging.py), the occupancy grids
@@ -61,20 +65,15 @@ from .logging import ExperimentLogger
 from .pressure import PressureTuner, Tuning
 from .train import (
     TestView,
+    accumulate_pressure,
     check_ported,
     choose_compact_mode,
     create_train_state,
     drop_test_view,
     make_eval_step,
     make_test_view,
+    make_train_chunk,
     make_train_step,
-)
-
-# truncation-pressure scalars the tuner observes each chunk, in the order
-# PressureTuner.observe takes them
-_PRESSURE_KEYS = (
-    "march/over_k", "march/over_k_lo", "march/edge_rays",
-    "march/ac", "march/ac_lo",
 )
 
 
@@ -289,26 +288,39 @@ def train(
     # adaptive empty-space skipping: once the grid has pruned far enough
     # that a compacted march renders the held-out view losslessly, switch
     # to the compacted stepper the chooser picks, sized by the tuner. One
-    # step callable per Tuning, cached (a retune may revisit one).
+    # step callable and one chunk per Tuning, cached (a retune may revisit
+    # one; the key None is the dense stepper's).
     want_compact = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
     using_compact = False
     tuning = Tuning()  # the engaged compacted-stepper sizing (cache key)
-    steppers: dict[Tuning, Any] = {}
-
-    def compact_step():
-        step = steppers.get(tuning)
-        if step is None:
-            step_cfg = dataclasses.replace(
-                cfg, march_mode=tuning.mode, compact_samples=tuning.k,
-                hybrid_w_cap=tuning.w_cap, hybrid_w_lo=tuning.w_lo, hybrid_k_lo=tuning.k_lo,
-            )
-            step = steppers[tuning] = make_train_step(model, step_cfg, near, far)
-        return step
+    steppers: dict[Tuning | None, Any] = {None: dense_step}
+    chunkers: dict[Tuning | None, Any] = {}
 
     # steps between boundaries, as the JAX loop's scan chunks
     chunk_c = math.gcd(100, cfg.display_every)
     if checkpoint_every:
         chunk_c = math.gcd(chunk_c, checkpoint_every)
+    # one CUDA graph memory pool for every chunk's graphs, and the running
+    # max of the steps' pressure (JAX _pressure_stats), reset each chunk
+    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    pressure = torch.zeros((5,), dtype=torch.int32, device=device)
+
+    def runner(full_chunk: bool):
+        """The engaged stepper's chunk (a full chunk) or step callable."""
+        key = tuning if using_compact else None
+        cache = chunkers if full_chunk else steppers
+        run = cache.get(key)
+        if run is None:
+            step_cfg = dataclasses.replace(
+                cfg, march_mode=tuning.mode, compact_samples=tuning.k,
+                hybrid_w_cap=tuning.w_cap, hybrid_w_lo=tuning.w_lo, hybrid_k_lo=tuning.k_lo,
+            ) if using_compact else dense_cfg
+            run = cache[key] = (
+                make_train_chunk(model, step_cfg, near, far, chunk_c, pool=pool,
+                                 pressure=pressure)
+                if full_chunk else make_train_step(model, step_cfg, near, far))
+        return run
+
     # compaction-readiness cadence, rounded up to a chunk boundary so the
     # check fires (the loop only observes boundary iterations)
     if chunk_c > 1:
@@ -332,10 +344,11 @@ def train(
     last_psnr = float("nan")
     rays_done = 0
     batch = cfg.img_sample_size
-    # "compile" = the first step of each step callable and the first eval
-    # (kernel builds and first launches; the JAX loop charges its first
-    # compiled chunk); "step_dense" / "step_compact" = every other step,
-    # synchronized at the chunk boundaries
+    # "compile" = the first step of each step callable and chunk, each
+    # chunk's graph captures and the first eval (kernel builds and first
+    # launches; the JAX loop charges its first compiled chunk);
+    # "step_dense" / "step_compact" = every other step, synchronized at the
+    # chunk boundaries
     timing = {
         "step_dense": 0.0, "step_compact": 0.0, "compile": 0.0,
         "eval": 0.0, "choose": 0.0, "log": 0.0, "export": 0.0,
@@ -367,27 +380,34 @@ def train(
         m = min(-(-n_iter // chunk_c) * chunk_c, cfg.n_iters)
         count = m - n_iter + 1
         full_chunk = chunk_c > 1 and count == chunk_c
-        step = compact_step() if using_compact else dense_step
-        pressure = []  # per-step (5,) int32 pressure vectors, on the device
+        step = runner(full_chunk)
         first = id(step) not in seen_steps
         if first or not full_chunk:
             drain()  # a new step callable's first chunk, a partial chunk
+        seen_steps.add(id(step))
         t0 = time.perf_counter()
-        for i in range(count):
+        if full_chunk:
+            compiled = step.compile_s
             state, metrics, pred_pix, target_pix = step(state, train_rays)
-            if "march/over_k" in metrics:  # a compacted step (k < depth)
-                pressure.append(torch.stack([metrics[k] for k in _PRESSURE_KEYS]))
-            if first and i == 0:
-                seen_steps.add(id(step))
-                _sync(device)
-                timing["compile"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-        # one reduction and one device-to-host copy per chunk, complete
-        # after the boundary's synchronize
-        stats = (torch.stack(pressure).amax(dim=0).to("cpu", non_blocking=True)
-                 if pressure else None)
+        else:
+            pressure.zero_()
+            for i in range(count):
+                state, metrics, pred_pix, target_pix = step(state, train_rays)
+                accumulate_pressure(pressure, metrics)
+                if first and i == 0:
+                    _sync(device)
+                    timing["compile"] += time.perf_counter() - t0
+                    t0 = time.perf_counter()
+        # one device-to-host copy per chunk (a copy on the CPU too: the next
+        # chunk reuses the buffer), complete after the boundary's synchronize
+        stats = (pressure.to("cpu", non_blocking=True, copy=True)
+                 if "march/over_k" in metrics else None)  # a compacted step (k < depth)
         _sync(device)
         dt = time.perf_counter() - t0
+        if full_chunk:  # its first step and its captures
+            compiled = step.compile_s - compiled
+            timing["compile"] += compiled
+            dt -= compiled
         steady = count - 1 if first else count
         if using_compact:
             timing["step_compact"] += dt

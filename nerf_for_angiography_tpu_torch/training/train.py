@@ -7,7 +7,7 @@ grids every ``grid_update_every`` steps from one shared sigma pass, march
 (the dense lattice, or with ``0 < compact_samples < depth_samples_per_ray``
 the compacted march ``march_mode`` names), evaluate the MLP (the fused
 kernels on the card: the encoded pair for pos_enc 'fourier' / 'barf', at
-the BARF alpha of the step counter, computed on the host), composite with
+the BARF alpha of the step counter), composite with
 Beer-Lambert under the early-stop keep
 mask, take the MSE and apply Adam with continuous exponential lr decay. A
 compacted step also reports its truncation pressure (march_pressure). With
@@ -21,13 +21,18 @@ held-out view with one device pass reduced to five int32 values, read with
 one device-to-host copy; the loop calls it at chunk boundaries only.
 
 PyTorch runs eagerly, so there is no jit: ``make_train_step`` returns a
-plain callable. The state keeps its step counter on the host, so the grid
-gate never reads the device, and no step reads the device at all: every
-shape is fixed by the configuration.
+plain callable. No step reads the device: every shape is fixed by the
+configuration, and the grid gate reads the state's host-side step counter.
+Nor does a step read a host value that changes from step to step: the lr
+and the BARF alpha are computed on the device from the state's device step
+counter, and the grids are written in place. So ``make_train_chunk`` (the
+JAX package's chunk of steps) can replay each step on the card as one
+captured CUDA graph (training/graph.py).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, NamedTuple
@@ -35,7 +40,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..models import CPPN, barf_alpha_schedule, barf_k_values, barf_weights
+from ..models import CPPN, barf_alpha_device, barf_k_values, barf_weights
 from ..ops.kernels.fused_mlp import cppn_params_to_list, fused_mlp_raw, fused_mlp_raw_fm
 from ..ops.kernels.fused_mlp_enc import fused_mlp_enc_raw
 from ..ops.kernels.fused_step import fused_step_grads
@@ -46,6 +51,7 @@ from ..ops.occupancy import (
     coarse_window,
     create_grid,
     every_n_step_pair,
+    grid_update_kind,
     march_rays,
     march_rays_hybrid,
     march_rays_hybrid2,
@@ -57,6 +63,14 @@ from ..ops.occupancy import (
 from ..ops.rendering import psnr_from_mse
 from ..ops.sampling import RayBatch, RayDataset, sample_pixel_rays
 from .config import TrainConfig
+from .graph import TrainChunk
+
+# truncation-pressure scalars the tuner observes each chunk, in the order
+# PressureTuner.observe takes them
+PRESSURE_KEYS = (
+    "march/over_k", "march/over_k_lo", "march/edge_rays",
+    "march/ac", "march/ac_lo",
+)
 
 
 def check_ported(cfg: TrainConfig) -> None:
@@ -72,8 +86,13 @@ def check_ported(cfg: TrainConfig) -> None:
 @dataclasses.dataclass
 class TrainState:
     """The JAX TrainState in PyTorch form: the module owns the parameters,
-    the optimizer and scheduler own the Adam state and the lr schedule, the
-    step counter lives on the host and ``generator`` replaces the PRNG key."""
+    the optimizer the Adam state, ``scheduler`` the lr schedule
+    (ExponentialDecayLR) and ``generator`` replaces the PRNG key. The step
+    counter is kept twice: ``step`` on the host (the loop's cadences and the
+    grid gate read it) and ``step_dev``, an int32 0-dim tensor on the
+    state's device (the lr and the BARF alpha are computed from it, so a
+    captured step reads no host value that changes). Setting ``step`` sets
+    both; ``advance`` moves both on by one."""
 
     model: CPPN
     optimizer: torch.optim.Optimizer
@@ -82,6 +101,23 @@ class TrainState:
     vessel_grid: OccupancyGrid  # vessel grid, 5e-2 (run_nerf_acc.py:198)
     step: int
     generator: torch.Generator
+    step_dev: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.step_dev is None:
+            self.step_dev = torch.full((), int(self.step), dtype=torch.int32,
+                                       device=self.grid.occs.device)
+
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        if name == "step" and self.__dict__.get("step_dev") is not None:
+            self.step_dev.fill_(int(value))
+
+    def advance(self) -> None:
+        """One step on: the device counter in place (a CUDA graph replays
+        the add), the host counter without a write to the device."""
+        self.step_dev.add_(1)
+        self.__dict__["step"] = self.step + 1
 
 
 class TestView(NamedTuple):
@@ -132,16 +168,54 @@ def drop_test_view(rays: RayDataset, view_index: int, rays_per_view: int) -> Ray
     return RayDataset(**{n: take(getattr(rays, n)) for n in per_ray}, sampling_table=None)
 
 
+class ExponentialDecayLR:
+    """The reference's continuous exponential lr decay lr * 0.1^(step/500k)
+    (run_nerf_acc.py:322-328) as optax's exponential_decay(staircase=False)
+    computes it from its count: init * rate^(f32(count) / f32(steps)), in
+    f32. ``apply(step_dev)`` computes it on the device from the state's step
+    counter and writes it into the optimizer's lr tensor in place, ahead of
+    the Adam step (so a captured step reads it from the device). Its state
+    is its three constants; the count is the state's step."""
+
+    def __init__(self, optimizer, init_value: float, decay_rate: float, transition_steps: int):
+        self.optimizer = optimizer
+        self.init_value = float(init_value)
+        self.decay_rate = float(decay_rate)
+        self.transition_steps = int(transition_steps)
+
+    def value(self, count: torch.Tensor) -> torch.Tensor:
+        """The lr at step ``count`` (an integer tensor), f32 on its device."""
+        def f32(v):
+            return torch.full((), v, dtype=torch.float32, device=count.device)
+
+        p = count.to(torch.float32) / f32(self.transition_steps)
+        return f32(self.init_value) * torch.pow(f32(self.decay_rate), p)
+
+    def apply(self, count: torch.Tensor) -> None:
+        lr = self.value(count)
+        for group in self.optimizer.param_groups:
+            group["lr"].copy_(lr)
+
+    def state_dict(self) -> dict:
+        return {"init_value": self.init_value, "decay_rate": self.decay_rate,
+                "transition_steps": self.transition_steps}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.init_value = float(state["init_value"])
+        self.decay_rate = float(state["decay_rate"])
+        self.transition_steps = int(state["transition_steps"])
+
+
 def make_optimizer(cfg: TrainConfig, params):
-    """Adam (eps 1e-8) with the reference's continuous exponential decay
-    lr * 0.1^(step/500k) (run_nerf_acc.py:322-328), as optax's
-    exponential_decay(staircase=False) from count 0. ``fused`` updates every
-    parameter in one launch: the step is short enough on the card that the
-    host's time to issue it counts."""
-    opt = torch.optim.Adam(params, lr=cfg.coarse_lr, betas=(0.9, 0.999), eps=1e-8, fused=True)
-    rate, steps = cfg.decay_rate, cfg.decay_steps
-    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda s: rate ** (s / steps))
-    return opt, sched
+    """Adam (eps 1e-8) and its lr schedule (ExponentialDecayLR). The lr is
+    an f32 tensor on the parameters' device that the schedule rewrites
+    before each step. ``fused`` updates every parameter in one launch and
+    ``capturable`` lets the step be captured into a CUDA graph."""
+    params = list(params)
+    lr = torch.full((), cfg.coarse_lr, dtype=torch.float32, device=params[0].device)
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, fused=True,
+                           capturable=True)
+    return opt, ExponentialDecayLR(opt, cfg.coarse_lr, cfg.decay_rate, cfg.decay_steps)
 
 
 def create_train_state(
@@ -166,6 +240,25 @@ def create_train_state(
     )
 
 
+def copy_state(state: TrainState) -> TrainState:
+    """A copy of a train state that shares no tensor with it: the module,
+    the optimizer (Adam state and lr), the schedule, both grids, the
+    generator's state and the step."""
+    model = copy.deepcopy(state.model)
+    opt = type(state.optimizer)(model.parameters(), **state.optimizer.defaults)
+    opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    sched = copy.copy(state.scheduler)
+    sched.optimizer = opt
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+
+    def grid_copy(g: OccupancyGrid) -> OccupancyGrid:
+        return OccupancyGrid(*(None if t is None else t.clone() for t in g))
+
+    return TrainState(model=model, optimizer=opt, scheduler=sched, grid=grid_copy(state.grid),
+                      vessel_grid=grid_copy(state.vessel_grid), step=state.step, generator=gen)
+
+
 def _pallas_eligible(model: CPPN) -> bool:
     """The fused kernels cover the relu density stack with pos_enc 'none'
     (fused_mlp_raw) and 'fourier' / 'barf' with pos_enc_basis > 0
@@ -182,13 +275,12 @@ def _pallas_eligible(model: CPPN) -> bool:
     )
 
 
-def _barf_alpha(cfg: TrainConfig, step: int) -> float:
-    """The BARF anneal alpha at ``step`` (run_nerf_acc.py:268-272), 0 for
-    other encodings: an f32 value computed on the host from the host-side
-    step counter, so no step reads the device for it."""
+def barf_alpha_of(cfg: TrainConfig, step_dev: torch.Tensor) -> torch.Tensor:
+    """The BARF anneal alpha (run_nerf_acc.py:268-272) at the device step
+    counter, an f32 0-dim tensor on its device; 0 for other encodings."""
     if cfg.pos_enc != "barf":
-        return 0.0
-    return barf_alpha_schedule(step, cfg.pos_enc_basis, cfg.barf_start, cfg.barf_stop)
+        return torch.zeros((), dtype=torch.float32, device=step_dev.device)
+    return barf_alpha_device(step_dev, cfg.pos_enc_basis, cfg.barf_start, cfg.barf_stop)
 
 
 def density_raw(
@@ -199,7 +291,7 @@ def density_raw(
     'pallas' (the JAX package's name for the fused kernels) and 'auto' on an
     eligible model go through ``fused_mlp_raw`` (pos_enc 'none') or
     ``fused_mlp_enc_raw`` (fourier with the module's coefficients, BARF with
-    the window at ``barf_alpha``, built on the host and copied over once):
+    the window at ``barf_alpha``, a float or a 0-dim tensor on pts' device):
     the CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
     'xla' runs the module's own forward."""
     if backend == "pallas" and not _pallas_eligible(model):
@@ -217,9 +309,8 @@ def density_raw(
             if c.pos_enc == "fourier":
                 enc = {"coeff": model.fourier_coefficients_pts}
             else:  # barf: the window at the current anneal alpha
-                w = barf_weights(barf_alpha, barf_k_values(c.pos_enc_basis, 3))
-                # an asynchronous copy: the host does not wait for the stream
-                enc = {"w": w.to(x.device, non_blocking=True)}
+                enc = {"w": barf_weights(barf_alpha,
+                                         barf_k_values(c.pos_enc_basis, 3, device=x.device))}
             raw = fused_mlp_enc_raw((c.pos_enc, c.pos_enc_basis), plist, enc, x)
         return raw.reshape(pts.shape[:-1])
     if backend not in ("auto", "xla"):
@@ -704,7 +795,8 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     ``train_step(state, rays) -> (state, metrics, pred_pixels,
     target_pixels)``; ``train_step.step_core(state, batch)`` runs one step
     on a given batch. Parameter gradients stay in ``.grad`` after the
-    step."""
+    step. The grids are updated in place, and the lr and BARF alpha are
+    computed on the device from ``state.step_dev``."""
     use_fused_step = _fused_step_eligible(model, cfg)
     check_ported(cfg)
     compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
@@ -716,11 +808,11 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
         )
 
     def step_core(state: TrainState, batch: RayBatch):
-        # BARF alpha anneal (run_nerf_acc.py:268-272), from the host-side
-        # step counter at every call
-        barf_alpha = _barf_alpha(cfg, state.step)
+        # BARF alpha anneal (run_nerf_acc.py:268-272), from the device step
+        # counter at every call
+        barf_alpha = barf_alpha_of(cfg, state.step_dev)
         # occupancy EMA updates every n steps (run_nerf_acc.py:285-286), one
-        # shared sigma pass for both grids
+        # shared sigma pass for both grids, written into the state's grids
         grid, vessel_grid = every_n_step_pair(
             state.grid, state.vessel_grid, state.step,
             _sigma_fn(model, barf_alpha, cfg.mlp_backend),
@@ -746,8 +838,8 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
         # a compacted step reports its truncation pressure; the loop reads
         # it at the chunk boundary (training/loop.py)
         pressure = march_pressure(march) if compacting else {}
+        state.scheduler.apply(state.step_dev)
         state.optimizer.step()
-        state.scheduler.step()
         loss = loss.detach()
         pixels = pixels.detach()
         metrics = {
@@ -755,11 +847,10 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             "psnr/train-coarse": psnr_from_mse(loss),
             "mean/train-pred-coarse": pixels.mean(),
             "mean/train": batch.pixel_values.mean(),
-            "barf-coarse": torch.full((), barf_alpha, dtype=torch.float32, device=loss.device),
+            "barf-coarse": barf_alpha,
             **pressure,
         }
-        state.grid, state.vessel_grid = grid, vessel_grid
-        state.step += 1
+        state.advance()
         return state, metrics, pixels, batch.pixel_values
 
     def train_step(state: TrainState, rays: RayDataset):
@@ -774,6 +865,40 @@ def make_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     return _build_train_step(model, cfg, near, far)
 
 
+def accumulate_pressure(acc: torch.Tensor, metrics: dict) -> None:
+    """acc (5,) int32 <- the elementwise max of acc and a compacted step's
+    pressure scalars (PRESSURE_KEYS order); a dense step reports none. Over
+    a chunk from 0 it is the JAX loop's ``_pressure_stats`` of the chunk
+    (every scalar is >= 0)."""
+    if "march/over_k" in metrics:
+        torch.maximum(acc, torch.stack([metrics[k] for k in PRESSURE_KEYS]), out=acc)
+
+
+def make_train_chunk(model: CPPN, cfg: TrainConfig, near: float, far: float,
+                     steps_per_call: int, pool=None, pressure: torch.Tensor | None = None):
+    """``steps_per_call`` train steps in one call (the JAX package's
+    make_train_chunk, a jitted lax.scan): ``chunk(state, rays) -> (state,
+    metrics, pred, target)`` of the last step (the JAX loop reads the last
+    of its stacked metrics), with ``chunk.pressure`` the running max of the
+    steps' truncation pressure. On the card each step is one replay of a
+    CUDA graph captured for its grid-update kind; on the CPU it is the eager
+    step (training/graph.py). ``pool``: a CUDA graph memory pool shared
+    with other chunks; ``pressure``: the (5,) int32 buffer to reduce into
+    (default: the chunk's own)."""
+    step = _build_train_step(model, cfg, near, far)
+
+    def body(state, rays, acc):
+        out = step(state, rays)
+        accumulate_pressure(acc, out[1])
+        return out
+
+    def kind_of(state) -> int | str | None:
+        return grid_update_kind(state.step, state.grid.resolution, cfg.grid_update_every,
+                                cfg.grid_update_slabs)
+
+    return TrainChunk(body, kind_of, steps_per_call, pool=pool, pressure=pressure)
+
+
 def make_eval_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     """Held-out view evaluation (run_nerf_acc.py:330-380): full-image MSE,
     PSNR and vessel-pixel PSNR, at the BARF alpha of the state's step."""
@@ -782,7 +907,7 @@ def make_eval_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     def eval_step(state: TrainState, test: TestView):
         pixels, _, _ = render_rays(
             model, state.grid, test.origins, test.directions, cfg, near, far,
-            _barf_alpha(cfg, state.step),
+            barf_alpha_of(cfg, state.step_dev),
         )
         mse = torch.mean((pixels - test.pixel_values) ** 2)
         vessel = test.vessel_mask.to(torch.float32)

@@ -7,6 +7,8 @@ the card run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (this file imports torch only)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1016,3 +1018,308 @@ def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
     _, _, p_a, _ = step(state, ds.rays)
     _, _, p_b, _ = make_train_step(model2, cfg, 1400.0, 1600.0)(restored, ds.rays)
     assert torch.equal(p_a, p_b)
+
+
+# ---------------------------------------------------------------------------
+# the chunked train step: each step one replay of a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_KINDS = {
+    "dense": dict(compact_samples=0),
+    "lattice": dict(compact_samples=24, march_mode="lattice"),
+    "two_bucket": dict(march_mode="hybrid", compact_samples=24, hybrid_w_cap=48,
+                       hybrid_w_lo=24, hybrid_k_lo=12),
+    "fused": dict(compact_samples=24, march_mode="lattice", fused_train_step="on"),
+    "fourier": dict(compact_samples=24, march_mode="lattice", pos_enc="fourier"),
+    "barf": dict(compact_samples=0, pos_enc="barf", barf_start=200, barf_stop=300),
+}
+_NEAR, _FAR = 1400.0, 1600.0
+
+
+def _sphere_rays(dev):
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_sphere_volume,
+    )
+
+    return generate_dataset(
+        make_sphere_volume(res=32), DatagenConfig(limited_size=90.0, number_angles=1.0,
+                                                  img_width=16, img_height=16,
+                                                  sample_outside=100.0), device=dev,
+    ).rays
+
+
+def _graph_state(dev, kind, step=244, **cfg_kw):
+    """A small state of ``kind`` after one eager step (the Adam state
+    exists), set to ``step``; grid updates every 4 steps, so 36 steps from
+    244 cross dense updates, step 256 and all four slabs, slabs 0 and 1
+    twice."""
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, create_train_state, make_train_step,
+    )
+
+    rays = _sphere_rays(dev)
+    cfg = TrainConfig(**{**dict(sample_size=16, depth_samples_per_ray=64, grid_resolution=32,
+                                grid_update_every=4), **GRAPH_KINDS[kind], **cfg_kw})
+    model, state = create_train_state(cfg, device=dev)
+    make_train_step(model, cfg, _NEAR, _FAR)(state, rays)
+    state.step = step
+    return cfg, state, rays
+
+
+def _state_tensors(state) -> dict:
+    out = {f"param/{n}": p for n, p in state.model.named_parameters()}
+    opt = state.optimizer
+    for i, p in enumerate(opt.param_groups[0]["params"]):
+        out.update({f"adam/{i}/{k}": v for k, v in opt.state[p].items()})
+    out["lr"] = opt.param_groups[0]["lr"]
+    for name in ("grid", "vessel_grid"):
+        out.update({f"{name}/{k}": v for k, v in getattr(state, name)._asdict().items()
+                    if v is not None})
+    out["generator"] = state.generator.get_state()
+    out["step_dev"] = state.step_dev
+    return out
+
+
+def _all_counts():
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    return (fm.fwd_launches, fm.bwd_launches, fk.launches, fs.fused_step_launches,
+            fe.enc_fwd_launches, fe.enc_bwd_launches)
+
+
+def _reset_counts():
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    for mod in (fm, fk, fs, fe):
+        mod.reset_counts()
+
+
+@pytest.mark.parametrize("kind", sorted(GRAPH_KINDS))
+def test_replayed_steps_equal_eager_steps(dev, kind):
+    """36 steps of make_train_chunk (each a replay of the graph of its grid
+    kind, after one eager warm-up a kind) and 36 eager steps from a copy of
+    the same state: parameters, Adam state, lr, grids, generator, step
+    counters, the last metrics and pixels bit for bit, and every launch
+    counter the same (a replay counts its launches, a capture none)."""
+    from nerf_for_angiography_tpu_torch.training import (
+        copy_state, make_train_chunk, make_train_step,
+    )
+
+    cfg, state, rays = _graph_state(dev, kind)
+    eager = copy_state(state)
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 36)
+    _reset_counts()
+    _, m_g, p_g, t_g = chunk(state, rays)
+    torch.cuda.synchronize()
+    graph_counts = _all_counts()
+    step = make_train_step(eager.model, cfg, _NEAR, _FAR)
+    _reset_counts()
+    for _ in range(36):
+        _, m_e, p_e, t_e = step(eager, rays)
+    torch.cuda.synchronize()
+    assert graph_counts == _all_counts()
+    # one warm-up a kind, then replays: none, dense, slabs 0 and 1 (slabs 2
+    # and 3 come once)
+    assert chunk.captures == 4 and state.step == eager.step == 280
+    assert sorted(map(str, chunk.graphs)) == ["0", "1", "None", "dense"]
+    got, want = _state_tensors(state), _state_tensors(eager)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    assert m_g.keys() == m_e.keys()
+    for k in m_g:
+        assert torch.equal(m_g[k], m_e[k]), k
+    assert torch.equal(p_g, p_e) and torch.equal(t_g, t_e)
+
+
+def test_capture_runs_no_step(dev):
+    """A capture moves nothing: after the warm-up and the capture of one
+    kind, the step, the generator and the counters are where the warm-up
+    left them until the replay; each replay then counts its launches."""
+    from nerf_for_angiography_tpu_torch.training import make_train_chunk
+
+    cfg, state, rays = _graph_state(dev, "lattice", step=245)  # no grid update
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 1)
+    _reset_counts()
+    chunk(state, rays)  # the warm-up
+    torch.cuda.synchronize()
+    one = _all_counts()
+    gen = state.generator.get_state()
+    params = [p.detach().clone() for p in state.model.parameters()]
+    kind = chunk.kind_of(state)
+    chunk.graphs[kind] = chunk._capture(kind, state, rays)
+    torch.cuda.synchronize()
+    assert state.step == 246 and int(state.step_dev) == 246 and _all_counts() == one
+    assert torch.equal(state.generator.get_state(), gen)
+    assert all(torch.equal(a, b) for a, b in zip(params, state.model.parameters()))
+    chunk(state, rays)
+    torch.cuda.synchronize()
+    assert state.step == 247 and _all_counts() == tuple(2 * n for n in one)
+    assert not torch.equal(state.generator.get_state(), gen)
+
+
+def test_broken_capture_raises_and_runs_nothing(dev, monkeypatch):
+    """A launcher that synchronizes cannot be captured: the chunk raises
+    naming the call, runs no step eagerly in its place, and the card stays
+    usable."""
+    from nerf_for_angiography_tpu_torch.training import (
+        copy_state, make_train_chunk, make_train_step,
+    )
+    from nerf_for_angiography_tpu_torch.training.graph import GraphCaptureError
+
+    cfg, state, rays = _graph_state(dev, "dense", step=245)
+    want = copy_state(state)
+    make_train_step(want.model, cfg, _NEAR, _FAR)(want, rays)  # the warm-up alone
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 2)
+    launch = fm.fused_mlp_fwd_cuda
+
+    def syncing(*args, **kwargs):
+        torch.cuda.synchronize()
+        return launch(*args, **kwargs)
+
+    monkeypatch.setattr(fm, "fused_mlp_fwd_cuda", syncing)
+    _reset_counts()
+    with pytest.raises(GraphCaptureError, match="synchronize"):
+        chunk(state, rays)
+    torch.cuda.synchronize()
+    assert state.step == want.step == 246 and not chunk.graphs
+    assert fm.bwd_launches == 1  # the warm-up's
+    got, ref = _state_tensors(state), _state_tensors(want)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    monkeypatch.setattr(fm, "fused_mlp_fwd_cuda", launch)
+    _, metrics, _, _ = make_train_step(state.model, cfg, _NEAR, _FAR)(state, rays)
+    assert torch.isfinite(metrics["loss/train-pixel-coarse"])
+
+
+def test_no_graph_is_freed_inside_a_capture(dev):
+    """A chunk whose last reference goes into a fresh reference cycle in
+    the middle of another chunk's capture, with the collector set to run at
+    nearly every allocation: the capture runs with the collector off, so
+    the old graph is freed after it (freeing it inside would invalidate the
+    capture)."""
+    import gc
+
+    from nerf_for_angiography_tpu_torch.training import make_train_chunk
+
+    # no grid update from 1001 to 1004: one graph kind
+    cfg, state, rays = _graph_state(dev, "dense", step=1001, grid_update_every=1000)
+    old = make_train_chunk(state.model, cfg, _NEAR, _FAR, 2)
+    old(state, rays)  # 1001 warms up, 1002 is captured and replayed
+    assert old.captures == 1
+    doomed = [old]
+    del old
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 2)
+    body = chunk.body
+
+    def body_dropping_a_graph(st, r, acc):
+        if torch.cuda.is_current_stream_capturing() and doomed:
+            box = [doomed.pop()]
+            box.append(box)  # the old chunk now lives in a young cycle only
+            del box
+        return body(st, r, acc)
+
+    chunk.body = body_dropping_a_graph
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        chunk(state, rays)  # 1003 warms up, 1004 is captured
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert chunk.captures == 1 and state.step == 1005 and not doomed
+
+
+def test_kernel_launches_inside_a_capture(dev):
+    """Each kernel's first launch at a shape can be captured (no launcher
+    call that capture forbids); the replay gives the eager launch's result,
+    and the counters count the replays, not the capture."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+    from nerf_for_angiography_tpu_torch.ops.kernels.build import (
+        add_launches, captured_launches,
+    )
+
+    _, packed = _packed(4, 128, dev, seed=5)
+    _, e_packed, a, w = _enc_model(4, 128, "fourier", 5, dev, seed=5)
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.rand((3001, 3), generator=gen) * 2 - 1).to(dev)
+    g = torch.randn((3001,), generator=gen).to(dev)
+    mask = (torch.rand((300, 77), generator=gen) < 0.4).to(torch.float32).to(dev)
+    o, d, t_mid, m, tgt = _march_inputs(211, 40, dev, eps_scale=1.5)
+    kw = dict(step=1.5, early_stop_eps=1e-2, n_rays_loss=211, input_scale=0.9)
+    launches = {
+        "fwd": lambda: fm.fused_mlp_fwd_cuda(packed, x),
+        "bwd": lambda: fm.fused_mlp_bwd_cuda(packed, x, g),
+        "enc_fwd": lambda: fe.fused_mlp_enc_fwd_cuda(e_packed, a, w, x),
+        "enc_bwd": lambda: fe.fused_mlp_enc_bwd_cuda(e_packed, a, w, x, g),
+        "first_k": lambda: fk.first_k_active_cuda(mask, 29),
+        "fused_step": lambda: fs.fused_step_grads_cuda(packed, o, d, t_mid, m, tgt, **kw),
+    }
+
+    def flat(out):
+        if torch.is_tensor(out):
+            return [out]
+        return [t for item in out for t in flat(item)]
+
+    for name, launch in launches.items():
+        graph = torch.cuda.CUDAGraph()
+        _reset_counts()
+        with captured_launches() as tally, torch.cuda.graph(graph):
+            out = launch()
+        assert _all_counts() == (0,) * 6 and sum(tally.values()) == 1, name
+        want = [t.clone() for t in flat(launch())]
+        before = _all_counts()
+        graph.replay()
+        add_launches(tally)
+        torch.cuda.synchronize()
+        assert sum(_all_counts()) == sum(before) + 1, name
+        for got_t, want_t in zip(flat(out), want):
+            assert torch.equal(got_t, want_t), name
+
+
+def test_resumed_run_replays_from_the_restored_state(dev, tmp_path, capsys, monkeypatch):
+    """A run resumed from its checkpoint trains through replayed graphs,
+    and a chunk on a restored state (its Adam state loaded anew) equals the
+    eager steps from another restore of the same checkpoint bit for bit."""
+    from nerf_for_angiography_tpu_torch.training import (
+        CheckpointManager, TrainConfig, create_train_state, make_train_chunk,
+        make_train_step, train,
+    )
+
+    import importlib
+
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    chunks = []
+    make = loop.make_train_chunk
+
+    def recording(*args, **kwargs):
+        chunks.append(make(*args, **kwargs))
+        return chunks[-1]
+
+    monkeypatch.setattr(loop, "make_train_chunk", recording)
+    rays = _sphere_rays(dev)
+    cfg = TrainConfig(sample_size=16, depth_samples_per_ray=64, grid_resolution=32,
+                      compact_samples=24, n_iters=40, display_every=20, early_stop_iters=10**6)
+    log_dir = str(tmp_path / "run")
+    train(cfg, rays, src_pt_z=1500.0, log_dir=log_dir, checkpoint_every=20, device=dev)
+    assert sum(c.captures for c in chunks) > 0
+    chunks.clear()
+    res = train(dataclasses.replace(cfg, n_iters=80), rays, src_pt_z=1500.0, log_dir=log_dir,
+                checkpoint_every=20, device=dev)
+    assert "resumed from checkpoint at step 41" in capsys.readouterr().out
+    assert sum(c.captures for c in chunks) > 0
+    assert res.state.step == 81 and np.isfinite(res.last_psnr)
+    mgr = CheckpointManager(str(tmp_path / "run" / "ckpt"))
+    (_, a), (_, b) = (create_train_state(cfg, seed=s, device=dev) for s in (5, 6))
+    a, b = mgr.restore(a), mgr.restore(b)
+    assert a.step == b.step == 81
+    chunk = make_train_chunk(a.model, cfg, _NEAR, _FAR, 20)
+    _, _, p_a, _ = chunk(a, rays)
+    step = make_train_step(b.model, cfg, _NEAR, _FAR)
+    for _ in range(20):
+        _, _, p_b, _ = step(b, rays)
+    assert chunk.captures > 0 and torch.equal(p_a, p_b)
+    got, want = _state_tensors(a), _state_tensors(b)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -373,25 +373,35 @@ def test_tiny_fourier_train_engages_compaction_on_cpu(vessel_rays, capsys):
 
 
 def test_tiny_barf_train_anneals_alpha(vessel_rays, monkeypatch):
-    """train() with BARF: every step's "barf-coarse" is the schedule at its
-    step (host side), rising from 0 to L and staying there; eval runs at the
-    state's alpha."""
+    """train() with BARF: every step's "barf-coarse" (the eager steps' and
+    each step of the chunks') is the schedule at its step, rising from 0 to
+    L and staying there; eval runs at the state's alpha."""
     seen = []
+
+    def recorded(step):
+        def run(state, rays):
+            out = step(state, rays)
+            seen.append(float(out[1]["barf-coarse"]))
+            return out
+
+        return run
 
     def recording(make):
         def wrapped(*args, **kwargs):
-            step = make(*args, **kwargs)
+            return recorded(make(*args, **kwargs))
 
-            def run(state, rays):
-                out = step(state, rays)
-                seen.append(float(out[1]["barf-coarse"]))
-                return out
+        return wrapped
 
-            return run
+    def recording_chunk(make):
+        def wrapped(*args, **kwargs):
+            chunk = make(*args, **kwargs)
+            chunk.step = recorded(chunk.step)
+            return chunk
 
         return wrapped
 
     monkeypatch.setattr(loop_t, "make_train_step", recording(loop_t.make_train_step))
+    monkeypatch.setattr(loop_t, "make_train_chunk", recording_chunk(loop_t.make_train_chunk))
     cfg = TrainConfig(**TINY, n_iters=12, pos_enc="barf", barf_start=2, barf_stop=10)
     res = train(cfg, vessel_rays, src_pt_z=1500.0, verbose=False, device="cpu")
     want = [float(barf_alpha_schedule_j(s, L, 2, 10)) for s in range(13)]
