@@ -85,8 +85,9 @@ Phases:
      pixels bit for bit), the parent's ptxas registers and spills (every
      kernel but #3's forward must keep them), and the parent's dense runs,
      which must equal this checkout's where #1's outputs (split run) and
-     #3's (fourier run, in the first two processes) equal the parent's and
-     both sides' Adam reads the same lr, and the shipped and fourier
+     #3's (fourier run, in the first two processes) equal the parent's:
+     bit for bit where both sides' Adam reads the same lr, else within
+     LR_ULP_LOSS_REL and LR_ULP_PSNR_DB; and the shipped and fourier
      600-step runs' steady rays/s of both checkouts;
   9. the LCA (SDF) family: the dataset at full size (make_lca_sdf_volume
      through sdf_datagen_config: 26 views of 150x162, 2,000 depth samples a
@@ -158,6 +159,11 @@ FWD_MAX_REL, FWD_MEDIAN_REL, GRAD_NORM_MAX = 2e-2, 1e-3, 3e-2
 # max(1, FS_TIE_SHARE x R) such rays
 FS_PIX_MAX, FS_PIX_MEDIAN, FS_GRAD_NORM = 5e-4, 1e-5, 1e-3
 FS_EPS_TIE, FS_TIE_SHARE = 1e-3, 1e-3
+# the dense 60-step split and fourier runs against the parent commit's where
+# the two lr schedules differ by one f32 ulp at some steps, so the runs part
+# by rounding alone: train loss relative and held-out PSNR in dB, about 10x
+# the largest reading on an H100 80GB HBM3 (9.0e-7 relative, 1.6e-5 dB)
+LR_ULP_LOSS_REL, LR_ULP_PSNR_DB = 1e-5, 2e-4
 # the fused step against the split step, which forms x and the composite at
 # other cast points (x rounded after scaling, dists = t_ends - t_starts): loss
 # relative, pixels max abs and median abs, gradients normalised
@@ -1022,13 +1028,13 @@ def recorded_chunks():
 
 @contextlib.contextmanager
 def recorded_barf_alphas():
-    """Within the block, every train step that train() runs, eager or a step
-    of a chunk, appends a copy of its "barf-coarse" metric (a device
+    """Within the block, every train step that train() runs (each a step of
+    a chunk, eager or replayed) appends a copy of its "barf-coarse" metric (a device
     scalar, read after the run: no host wait inside it; a copy, since a
     replayed graph rewrites its outputs) to the yielded list."""
     loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
     seen: list = []
-    make, make_chunk = loop.make_train_step, loop.make_train_chunk
+    make_chunk = loop.make_train_chunk
 
     def recorded(step):
         def run(state, rays):
@@ -1038,9 +1044,6 @@ def recorded_barf_alphas():
 
         return run
 
-    def make_recording(*args, **kwargs):
-        return recorded(make(*args, **kwargs))
-
     wrapped: list = []
 
     def make_chunk_recording(*args, **kwargs):
@@ -1049,12 +1052,10 @@ def recorded_barf_alphas():
         wrapped.append(chunk)
         return chunk
 
-    loop.make_train_step = make_recording
     loop.make_train_chunk = make_chunk_recording
     try:
         yield seen
     finally:
-        loop.make_train_step = make
         loop.make_train_chunk = make_chunk
         # the wrapper holds its chunk: drop it, so the chunk and its graphs
         # are freed with the run, not by a later cyclic collection
@@ -2022,13 +2023,32 @@ def enc_fwd_cases(ep: dict) -> dict:
     return cases
 
 
+def hold_to_parent(same: bool, d: dict, pd: dict, lr_same: bool, run: str,
+                   kernel: str) -> None:
+    """A dense 60-step run (train loss and held-out PSNR ``d``) against the
+    parent commit's (``pd``), where kernel ``kernel`` gives the parent's
+    outputs bit for bit: equal bit for bit where both sides' Adam reads the
+    same lr, else within LR_ULP_LOSS_REL and LR_ULP_PSNR_DB."""
+    if lr_same:
+        check(same, f"the {run} run differs from the parent commit's, though kernel {kernel} "
+                    "gives the parent's outputs bit for bit and Adam reads the same lr")
+        return
+    loss_rel = abs(d["train_loss"] - pd["train_loss"]) / abs(pd["train_loss"])
+    psnr_db = abs(d["heldout_psnr"] - pd["heldout_psnr"])
+    print(f"{run} run against the parent commit's, lr schedules one f32 ulp apart: train loss "
+          f"{loss_rel:.3e} relative (limit {LR_ULP_LOSS_REL:.0e}), held-out PSNR {psnr_db:.3e} "
+          f"dB (limit {LR_ULP_PSNR_DB:.0e})")
+    check(loss_rel <= LR_ULP_LOSS_REL and psnr_db <= LR_ULP_PSNR_DB,
+          f"the {run} run differs from the parent commit's beyond the limits for lr schedules "
+          f"one f32 ulp apart, though kernel {kernel} gives the parent's outputs bit for bit")
+
+
 def enc_fwd_vs_parent(torch, par: dict, own: dict) -> dict:
     """Kernel #3 of this checkout against the parent's at every case of
     enc_fwd_cases (each side's first fresh process): equal bit for bit, else
     the largest and the median |raw difference|, held to the forward
-    limits; where every case is equal and both sides' Adam reads the same
-    lr (lr_schedule), the dense 60-step fourier runs of the first two
-    processes must end with equal train loss and held-out PSNR."""
+    limits; where every case is equal, the dense 60-step fourier runs of
+    the first two processes are held to each other (hold_to_parent)."""
     mine, theirs = torch.load(own["enc_fwd_out"]), torch.load(par["enc_fwd_out"])
     out = {}
     for case, b in theirs.items():
@@ -2054,9 +2074,8 @@ def enc_fwd_vs_parent(torch, par: dict, own: dict) -> dict:
           f"ms/step (host clock) in the fresh processes (parent, this, this, parent): this "
           f"{mine_ms[0]:.3f} / {mine_ms[1]:.3f}, parent commit {theirs_ms[0]:.3f} / "
           f"{theirs_ms[1]:.3f} (this / parent {sum(mine_ms) / sum(theirs_ms):.3f})")
-    if equal and own["lr"] == par["lr"]:
-        check(same, "the dense fourier run differs from the parent commit's, though kernel #3 "
-                    "gives the parent's outputs bit for bit and Adam reads the same lr")
+    if equal:
+        hold_to_parent(same, d, pd, own["lr"] == par["lr"], "dense fourier", "#3")
     return dict(cases=out, equal=equal, dense_fourier_equal=same,
                 dense_fourier_ms_per_step=dict(this=mine_ms, parent=theirs_ms))
 
@@ -2096,7 +2115,8 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     dense 60-step run, whose train loss and held-out PSNR this tree's must
     equal bit for bit where kernel #1 gives the parent's outputs bit for bit
     (kernel #2's skipped tiles add exact zeros) and both sides' Adam reads
-    the same lr (lr_schedule), with both sides' steady ms/step; and the
+    the same lr (lr_schedule), else come within LR_ULP_LOSS_REL and
+    LR_ULP_PSNR_DB (hold_to_parent), with both sides' steady ms/step; and the
     shipped and fourier 600-step runs' steady rays/s of both sides."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
 
@@ -2187,7 +2207,7 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
               + ("equal bit for bit (f32)" if lr_same else
                  f"differs at {len(diff)} steps (first at step {diff[0]}: this "
                  f"{own['lr'][diff[0]]!r}, parent {par['lr'][diff[0]]!r}); the runs are "
-                 "not held equal"))
+                 "held within LR_ULP_LOSS_REL and LR_ULP_PSNR_DB"))
         for key, label in (("shipped", "shipped-default"), ("fourier_shipped", "fourier")):
             a_runs, b_runs = own[key + "_runs"], par[key + "_runs"]
             a_rs = [r["steady_rays_per_sec"] for r in a_runs]
@@ -2210,9 +2230,8 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
                  f"{v:.3f}" for v in par["dense_ms_runs"]) if par else ""))
     out["dense_equal_parent"] = same if par else None
     out["lr_equal_parent"] = lr_same if par else None
-    if par and out["fwd_vs_parent"]["equal"] and lr_same:
-        check(same, "the dense split run differs from the parent commit's, though kernel #1 "
-                    "gives the parent's outputs bit for bit and Adam reads the same lr")
+    if par and out["fwd_vs_parent"]["equal"]:
+        hold_to_parent(same, d, par["dense"], lr_same, "dense split", "#1")
     report["bwd_compare"] = out
     return out
 

@@ -8,23 +8,16 @@ header is rebuilt and an unchanged one is loaded as it is. A failed build
 raises with nvcc's output. Each library keeps its own lock and its own build
 log (the ptxas register/shared-memory report of ``-Xptxas -v``); two
 libraries can build at the same time.
-
-The launch counters of the wrappers go through ``count_launch``: a launch
-made while a CUDA graph is being captured (inside ``captured_launches``)
-goes to the capture's tally instead, and each replay of that graph adds the
-tally (``add_launches``), so the counters count the launches the card runs.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
-import sys
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
@@ -90,38 +83,3 @@ def raise_on(code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code (cudaGetLastError())."""
     if code != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {code}")
-
-
-# the tally of the CUDA graph capture in progress, {(module, counter): n}
-_capture_tally: dict[tuple[str, str], int] | None = None
-
-
-def count_launch(module: str, counter: str) -> None:
-    """One launch of a kernel: the counter ``counter`` of module ``module``
-    goes up by one, or, during a graph capture, the capture's tally."""
-    if _capture_tally is not None:
-        key = (module, counter)
-        _capture_tally[key] = _capture_tally.get(key, 0) + 1
-        return
-    mod = sys.modules[module]
-    setattr(mod, counter, getattr(mod, counter) + 1)
-
-
-@contextlib.contextmanager
-def captured_launches():
-    """Within the block (a CUDA graph's capture, which runs no kernel) the
-    launches go to the yielded tally, not to the counters."""
-    global _capture_tally
-    tally: dict[tuple[str, str], int] = {}
-    _capture_tally = tally
-    try:
-        yield tally
-    finally:
-        _capture_tally = None
-
-
-def add_launches(tally: dict[tuple[str, str], int]) -> None:
-    """A replay of a captured graph: the launches of its tally."""
-    for (module, counter), n in tally.items():
-        mod = sys.modules[module]
-        setattr(mod, counter, getattr(mod, counter) + n)

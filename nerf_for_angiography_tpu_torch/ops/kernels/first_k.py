@@ -27,7 +27,7 @@ import threading
 
 import torch
 
-from .build import count_launch, load_library, raise_on
+from .build import load_library, raise_on
 
 # launches since the last reset (the wrapper adds one per launch and nowhere
 # else) and the (R, w, k) shapes launched
@@ -76,6 +76,7 @@ def _load_lib() -> ctypes.CDLL:
 def first_k_active_cuda(mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: mask (..., w) float32 on the card -> (sel, mask_k)
     of shape (..., k)."""
+    global launches
     lib = _load_lib()
     if mask.dtype != torch.float32:
         raise ValueError(f"mask must be float32, got {mask.dtype}")
@@ -93,7 +94,7 @@ def first_k_active_cuda(mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch
             flat.data_ptr(), rows, w, k, sel.data_ptr(), mask_k.data_ptr(), stream
         )
         raise_on(code, "first_k_active")
-        count_launch(__name__, "launches")
+        launches += 1
         shapes.add((rows, w, k))
     return sel.reshape(*batch, k), mask_k.reshape(*batch, k)
 

@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from .build import count_launch, load_library, raise_on
+from .build import load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
 # launch and nowhere else)
@@ -290,6 +290,7 @@ def fused_mlp_fwd_cuda(
 ) -> torch.Tensor:
     """Launch the forward kernel: x (P, 3) f32 on the card, or (3, P) with
     ``feature_major`` -> (P,) f32."""
+    global fwd_launches
     lib = _load_lib()
     p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     out = torch.empty((p,), dtype=torch.float32, device=x.device)
@@ -302,7 +303,7 @@ def fused_mlp_fwd_cuda(
         packed.width, packed.n_hidden, out.data_ptr(), _num_sms(x.device), stream,
     )
     raise_on(code, "fused_mlp forward")
-    count_launch(__name__, "fwd_launches")
+    fwd_launches += 1
     return out
 
 
@@ -311,6 +312,7 @@ def fused_mlp_bwd_cuda(
 ):
     """Launch the backward kernel (+ its fixed-order partial reduction); dx
     comes back in the layout of x."""
+    global bwd_launches
     lib = _load_lib()
     p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
@@ -333,7 +335,7 @@ def fused_mlp_bwd_cuda(
         f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), stream,
     )
     raise_on(code, "fused_mlp backward")
-    count_launch(__name__, "bwd_launches")
+    bwd_launches += 1
     return _unflatten_grads(flat, f, nh), dx
 
 

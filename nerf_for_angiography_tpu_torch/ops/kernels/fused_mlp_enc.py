@@ -52,7 +52,7 @@ import threading
 import torch
 
 from . import fused_mlp as fm
-from .build import count_launch, load_library, raise_on
+from .build import load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
 # launch and nowhere else)
@@ -222,6 +222,7 @@ def _num_sms(device: torch.device) -> int:
 
 def fused_mlp_enc_fwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: x (P, 3) f32 on the card -> (P,) f32."""
+    global enc_fwd_launches
     lib = _load_lib()
     n_sms = _num_sms(x.device)
     p, _ = _check_kernel_inputs(packed, a, w, x, lib, n_sms)
@@ -235,7 +236,7 @@ def fused_mlp_enc_fwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor) -> torch
         out.data_ptr(), n_sms, torch.cuda.current_stream(x.device).cuda_stream,
     )
     raise_on(code, "fused_mlp_enc forward")
-    count_launch(__name__, "enc_fwd_launches")
+    enc_fwd_launches += 1
     return out
 
 
@@ -243,6 +244,7 @@ def fused_mlp_enc_bwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor, g: torch
     """Launch the backward (the chain with dx and the per-warp dA sums, the
     weight gradients, the fixed-order partial sums) over the tiles whose g
     is not all zero; returns what fused_mlp_enc_bwd_reference returns."""
+    global enc_bwd_launches
     lib = _load_lib()
     dev = x.device
     n_sms = _num_sms(dev)
@@ -268,7 +270,7 @@ def fused_mlp_enc_bwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor, g: torch
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(code, "fused_mlp_enc backward")
-    count_launch(__name__, "enc_bwd_launches")
+    enc_bwd_launches += 1
     return fm._unflatten_grads(flat, f, nh, k_in=ke, rows=ke), da, dx
 
 

@@ -34,7 +34,7 @@ import threading
 import torch
 
 from . import fused_mlp as fm
-from .build import count_launch, load_library, raise_on
+from .build import load_library, raise_on
 
 # launches since the last reset (the wrapper adds one per launch and nowhere
 # else) and the (R, k) shapes launched
@@ -141,6 +141,7 @@ def fused_step_grads_cuda(
 ):
     """Launch the kernel on the card: the same function and results as
     fused_step_grads_reference."""
+    global fused_step_launches
     lib = _load_lib()
     r, k = _check_march(origins, directions, t_mid, mask, targets)
     dev = t_mid.device
@@ -172,7 +173,7 @@ def fused_step_grads_cuda(
         draw.data_ptr(), pixel.data_ptr(), *s.args(), n_sms, flat.data_ptr(), stream,
     )
     raise_on(code, "fused_step")
-    count_launch(__name__, "fused_step_launches")
+    fused_step_launches += 1
     shapes.add((r, k))
     return pixel, fm._unflatten_grads(flat, f, nh)
 

@@ -17,7 +17,8 @@ The first step of each kind runs eagerly on a side stream (a real step of
 the run), which builds the kernels and creates every lazily made tensor;
 the next step of that kind is captured and replayed, and every later one
 replayed. A capture runs no work: the host-side step and the launch
-counters move only when a graph replays (``ops.kernels.build``). Python's
+counters move only when a graph replays (the launches a capture counted
+are taken back and added on each replay, ``captured_launches``). Python's
 cyclic collector is off during a capture, so no other graph is freed
 inside it. A capture that fails raises; the chunk never falls back to
 eager steps on the card.
@@ -33,6 +34,7 @@ On the CPU a chunk runs the eager step ``steps_per_call`` times.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import time
@@ -41,7 +43,44 @@ from typing import Any, Callable
 
 import torch
 
-from ..ops.kernels.build import add_launches, captured_launches
+from ..ops.kernels import first_k, fused_mlp, fused_mlp_enc, fused_step
+
+# the wrappers' launch counters (each adds one where it launches its kernel)
+_COUNTERS = (
+    (fused_mlp, "fwd_launches"), (fused_mlp, "bwd_launches"),
+    (fused_mlp_enc, "enc_fwd_launches"), (fused_mlp_enc, "enc_bwd_launches"),
+    (first_k, "launches"), (fused_step, "fused_step_launches"),
+)
+
+
+def _counts() -> tuple[int, ...]:
+    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
+
+
+def _restore_counts(counts: tuple[int, ...]) -> None:
+    for (mod, name), n in zip(_COUNTERS, counts):
+        setattr(mod, name, n)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within the block (a CUDA graph's capture, which runs no kernel) the
+    wrappers count as they always do; at its end the launches they counted
+    go to the yielded tally and the counters are set back."""
+    before = _counts()
+    tally: dict = {}
+    try:
+        yield tally
+    finally:
+        after = _counts()
+        tally.update({key: b - a for key, a, b in zip(_COUNTERS, before, after) if b != a})
+        _restore_counts(before)
+
+
+def add_launches(tally: dict) -> None:
+    """A replay of a captured graph: the launches of its tally."""
+    for (mod, name), n in tally.items():
+        setattr(mod, name, getattr(mod, name) + n)
 
 
 class GraphCaptureError(RuntimeError):
@@ -93,7 +132,8 @@ class _Captured:
 
 class TrainChunk:
     """``steps_per_call`` steps of ``body(state, rays, pressure)`` in one
-    call; ``kind_of(state)`` names the graph a step replays. Returns the
+    call (``steps`` others: the loop's partial chunks, which replay the same
+    graphs); ``kind_of(state)`` names the graph a step replays. Returns the
     last step's ``(state, metrics, pred, target)``; ``pressure`` holds the
     running elementwise max of the steps' truncation pressure (reset at the
     start of each call). ``compile_s`` accumulates the host seconds of the
@@ -115,7 +155,7 @@ class TrainChunk:
         self._side = None
         self._first = True
 
-    def __call__(self, state, rays):
+    def __call__(self, state, rays, steps: int | None = None):
         dev = state.step_dev.device
         if self.pressure is None:
             self.pressure = torch.zeros((5,), dtype=torch.int32, device=dev)
@@ -126,7 +166,7 @@ class TrainChunk:
                 self.release()  # graphs of other tensors
                 self._signature = sig
         out = None
-        for _ in range(self.steps_per_call):
+        for _ in range(self.steps_per_call if steps is None else steps):
             out = self.step(state, rays)
         return out
 
@@ -188,6 +228,9 @@ class TrainChunk:
         gen_state = gen.get_state()
         graph.register_generator_state(gen)
         step0 = state.step
+        # the replays queued so far are steps: they finish before the
+        # capture's own time starts (entering the capture synchronizes)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         first_err = None
         # a cyclic collection inside the capture could free another graph

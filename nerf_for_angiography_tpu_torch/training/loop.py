@@ -11,14 +11,17 @@ iteration 0 included), then the compacted stepper at the ``Tuning`` the
 pressure tuner sizes (training/pressure.py), re-chosen at the re-check
 cadence or when the batch's truncation pressure fires, and a revert to the
 dense stepper if nothing fits any more. Eval always renders the dense
-lattice. One step callable per ``Tuning``, cached.
+lattice. One chunk (``make_train_chunk``) per ``Tuning``, cached.
 
 The loop steps by the JAX loop's chunks: a full chunk of ``chunk_c`` steps
-is one call of ``make_train_chunk`` for the current step callable (cached
-beside it; on the card each step is one replay of a captured CUDA graph,
-training/graph.py), and a partial chunk, iteration 0 among them, runs the
-eager step, as the JAX loop's single-step path does. All chunks' graphs
-share one memory pool. The host waits for the card only at the chunk
+is one call of the current ``Tuning``'s chunk, and a partial chunk,
+iteration 0 among them, is a call of the same chunk for fewer steps. On the
+card each step is one replay of a CUDA graph captured for its grid-update
+kind, after one eager step of that kind (training/graph.py). The JAX loop
+runs a partial chunk as single jitted steps because a scan of another
+length would compile anew; a graph is one step, so a replay serves any
+count, and it equals the eager step bit for bit. All chunks' graphs share
+one memory pool. The host waits for the card only at the chunk
 boundaries: no step reads the device. The steps' truncation pressure is
 reduced on the device into one (5,) int32 running max, reset at the start
 of each chunk and copied to the host once per chunk. The tuner sees it with
@@ -65,7 +68,6 @@ from .logging import ExperimentLogger
 from .pressure import PressureTuner, Tuning
 from .train import (
     TestView,
-    accumulate_pressure,
     check_ported,
     choose_compact_mode,
     create_train_state,
@@ -73,7 +75,6 @@ from .train import (
     make_eval_step,
     make_test_view,
     make_train_chunk,
-    make_train_step,
 )
 
 
@@ -282,18 +283,16 @@ def train(
     model_definition = cfg.model_config().to_model_definition()
     # the dense stepper and eval always march the dense lattice
     dense_cfg = dataclasses.replace(cfg, compact_samples=0)
-    dense_step = make_train_step(model, dense_cfg, near, far)
     eval_step = make_eval_step(model, dense_cfg, near, far)
 
     # adaptive empty-space skipping: once the grid has pruned far enough
     # that a compacted march renders the held-out view losslessly, switch
     # to the compacted stepper the chooser picks, sized by the tuner. One
-    # step callable and one chunk per Tuning, cached (a retune may revisit
-    # one; the key None is the dense stepper's).
+    # chunk per Tuning, cached (a retune may revisit one; the key None is
+    # the dense stepper's).
     want_compact = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
     using_compact = False
     tuning = Tuning()  # the engaged compacted-stepper sizing (cache key)
-    steppers: dict[Tuning | None, Any] = {None: dense_step}
     chunkers: dict[Tuning | None, Any] = {}
 
     # steps between boundaries, as the JAX loop's scan chunks
@@ -305,20 +304,17 @@ def train(
     pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
     pressure = torch.zeros((5,), dtype=torch.int32, device=device)
 
-    def runner(full_chunk: bool):
-        """The engaged stepper's chunk (a full chunk) or step callable."""
+    def runner():
+        """The engaged stepper's chunk."""
         key = tuning if using_compact else None
-        cache = chunkers if full_chunk else steppers
-        run = cache.get(key)
+        run = chunkers.get(key)
         if run is None:
             step_cfg = dataclasses.replace(
                 cfg, march_mode=tuning.mode, compact_samples=tuning.k,
                 hybrid_w_cap=tuning.w_cap, hybrid_w_lo=tuning.w_lo, hybrid_k_lo=tuning.k_lo,
             ) if using_compact else dense_cfg
-            run = cache[key] = (
-                make_train_chunk(model, step_cfg, near, far, chunk_c, pool=pool,
-                                 pressure=pressure)
-                if full_chunk else make_train_step(model, step_cfg, near, far))
+            run = chunkers[key] = make_train_chunk(model, step_cfg, near, far, chunk_c,
+                                                   pool=pool, pressure=pressure)
         return run
 
     # compaction-readiness cadence, rounded up to a chunk boundary so the
@@ -344,16 +340,16 @@ def train(
     last_psnr = float("nan")
     rays_done = 0
     batch = cfg.img_sample_size
-    # "compile" = the first step of each step callable and chunk, each
-    # chunk's graph captures and the first eval (kernel builds and first
-    # launches; the JAX loop charges its first compiled chunk);
+    # "compile" = the first step of each chunk, its graph captures and the
+    # first eval (kernel builds and first launches; the JAX loop charges its
+    # first compiled chunk);
     # "step_dense" / "step_compact" = every other step, synchronized at the
     # chunk boundaries
     timing = {
         "step_dense": 0.0, "step_compact": 0.0, "compile": 0.0,
         "eval": 0.0, "choose": 0.0, "log": 0.0, "export": 0.0,
     }
-    seen_steps: set[int] = set()
+    seen_chunks: set[int] = set()
     first_eval = True
     dense_rays = 0  # rays stepped by the dense stepper
     compact_steady_rays = 0  # compacted rays outside first steps
@@ -380,34 +376,23 @@ def train(
         m = min(-(-n_iter // chunk_c) * chunk_c, cfg.n_iters)
         count = m - n_iter + 1
         full_chunk = chunk_c > 1 and count == chunk_c
-        step = runner(full_chunk)
-        first = id(step) not in seen_steps
+        chunk = runner()
+        first = id(chunk) not in seen_chunks
         if first or not full_chunk:
             drain()  # a new step callable's first chunk, a partial chunk
-        seen_steps.add(id(step))
+        seen_chunks.add(id(chunk))
         t0 = time.perf_counter()
-        if full_chunk:
-            compiled = step.compile_s
-            state, metrics, pred_pix, target_pix = step(state, train_rays)
-        else:
-            pressure.zero_()
-            for i in range(count):
-                state, metrics, pred_pix, target_pix = step(state, train_rays)
-                accumulate_pressure(pressure, metrics)
-                if first and i == 0:
-                    _sync(device)
-                    timing["compile"] += time.perf_counter() - t0
-                    t0 = time.perf_counter()
+        compiled = chunk.compile_s
+        state, metrics, pred_pix, target_pix = chunk(state, train_rays, count)
         # one device-to-host copy per chunk (a copy on the CPU too: the next
         # chunk reuses the buffer), complete after the boundary's synchronize
         stats = (pressure.to("cpu", non_blocking=True, copy=True)
                  if "march/over_k" in metrics else None)  # a compacted step (k < depth)
         _sync(device)
         dt = time.perf_counter() - t0
-        if full_chunk:  # its first step and its captures
-            compiled = step.compile_s - compiled
-            timing["compile"] += compiled
-            dt -= compiled
+        compiled = chunk.compile_s - compiled  # its first step and its captures
+        timing["compile"] += compiled
+        dt -= compiled
         steady = count - 1 if first else count
         if using_compact:
             timing["step_compact"] += dt

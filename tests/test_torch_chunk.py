@@ -205,23 +205,21 @@ CHUNK_CFGS = {
 }
 
 
-@pytest.mark.parametrize("kind", sorted(CHUNK_CFGS))
-def test_cpu_chunk_equals_eager_steps(vessel_rays, kind):
-    """make_train_chunk(n=5) on the CPU equals five eager steps from a copy
-    of the same state bit for bit (parameters, Adam state, lr, grids,
-    generator, step counters, the last step's metrics and pixels), across a
-    grid update at step 16."""
+def _chunk_against_eager(vessel_rays, kind: str, steps: int | None) -> None:
+    """A call of make_train_chunk(n=5) for ``steps`` steps (None: all five)
+    from step 14 against as many eager steps from a copy of the state."""
     cfg = TrainConfig(**{**SMALL, "sampling_strategy": "frangi", **CHUNK_CFGS[kind]})
     model, state = create_train_state(cfg, device="cpu")
     state.step = 14
     eager = copy_state(state)
     assert all(a is not b for a, b in zip(_tensors(state).values(), _tensors(eager).values()))
     chunk = make_train_chunk(model, cfg, NEAR, FAR, 5)
-    _, m_c, p_c, t_c = chunk(state, vessel_rays)
+    _, m_c, p_c, t_c = chunk(state, vessel_rays, steps)
     step = make_train_step(eager.model, cfg, NEAR, FAR)
-    for _ in range(5):
+    n = 5 if steps is None else steps
+    for _ in range(n):
         _, m_e, p_e, t_e = step(eager, vessel_rays)
-    assert state.step == eager.step == 19 and chunk.captures == 0
+    assert state.step == eager.step == 14 + n and chunk.captures == 0
     got, want = _tensors(state), _tensors(eager)
     assert got.keys() == want.keys()
     for k in got:
@@ -230,6 +228,23 @@ def test_cpu_chunk_equals_eager_steps(vessel_rays, kind):
     for k in m_c:
         assert torch.equal(m_c[k], m_e[k]), k
     assert torch.equal(p_c, p_e) and torch.equal(t_c, t_e)
+
+
+@pytest.mark.parametrize("kind", sorted(CHUNK_CFGS))
+def test_cpu_chunk_equals_eager_steps(vessel_rays, kind):
+    """make_train_chunk(n=5) on the CPU equals five eager steps from a copy
+    of the same state bit for bit (parameters, Adam state, lr, grids,
+    generator, step counters, the last step's metrics and pixels), across a
+    grid update at step 16."""
+    _chunk_against_eager(vessel_rays, kind, None)
+
+
+@pytest.mark.parametrize("kind", ["dense", "lattice"])
+def test_cpu_partial_chunk_equals_eager_steps(vessel_rays, kind):
+    """A call of the chunk for fewer steps (the loop's partial chunk: three
+    of five, across the grid update at step 16) equals as many eager steps
+    bit for bit."""
+    _chunk_against_eager(vessel_rays, kind, 3)
 
 
 def test_chunk_pressure_is_the_jax_pressure_stats(vessel_rays):

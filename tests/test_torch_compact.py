@@ -460,20 +460,10 @@ def _drive_jax(monkeypatch, width, fires, issued, observed):
 def _drive_torch(monkeypatch, width, fires, issued, observed):
     cfg = TrainConfig(**_SCRIPT_CFG)
 
-    def make_step(model, c, near, far):
-        compacted = 0 < c.compact_samples < c.depth_samples_per_ray
-
-        def step(state, rays):
-            mets = ({k: torch.tensor(v, dtype=torch.int32)
-                     for k, v in zip(tt.PRESSURE_KEYS, _pressure_at(issued[0], fires))}
-                    if compacted else {})
-            issued[0] += 1
-            return state, mets, None, None
-        return step
-
     class Chunk:
-        """n scripted steps in one call, their pressure reduced into the
-        loop's buffer as make_train_chunk reduces it."""
+        """n scripted steps in one call (or ``steps``: a partial chunk),
+        their pressure reduced into the loop's buffer as make_train_chunk
+        reduces it."""
 
         compile_s = 0.0
 
@@ -481,14 +471,15 @@ def _drive_torch(monkeypatch, width, fires, issued, observed):
             self.compacted = 0 < c.compact_samples < c.depth_samples_per_ray
             self.n, self.pressure = n, pressure
 
-        def __call__(self, state, rays):
-            rows = [_pressure_at(i, fires) for i in range(issued[0], issued[0] + self.n)]
+        def __call__(self, state, rays, steps=None):
+            n = self.n if steps is None else steps
+            rows = [_pressure_at(i, fires) for i in range(issued[0], issued[0] + n)]
             mets = {}
             if self.compacted:
                 mets = {k: torch.tensor(v, dtype=torch.int32)
                         for k, v in zip(tt.PRESSURE_KEYS, rows[-1])}
                 self.pressure.copy_(torch.tensor(rows, dtype=torch.int32).amax(dim=0))
-            issued[0] += self.n
+            issued[0] += n
             return state, mets, None, None
 
     def make_chunk(model, c, near, far, n, pool=None, pressure=None):
@@ -502,7 +493,6 @@ def _drive_torch(monkeypatch, width, fires, issued, observed):
     monkeypatch.setattr(loop_t, "make_test_view", lambda *a, **k: type("T", (), {
         "origins": None, "directions": None})())
     monkeypatch.setattr(loop_t, "drop_test_view", lambda r, *a: r)
-    monkeypatch.setattr(loop_t, "make_train_step", make_step)
     monkeypatch.setattr(loop_t, "make_train_chunk", make_chunk)
     monkeypatch.setattr(loop_t, "make_eval_step", lambda *a, **k: lambda s, t: (evals, None))
     monkeypatch.setattr(loop_t, "choose_compact_mode",

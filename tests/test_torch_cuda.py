@@ -1236,7 +1236,7 @@ def test_kernel_launches_inside_a_capture(dev):
     call that capture forbids); the replay gives the eager launch's result,
     and the counters count the replays, not the capture."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
-    from nerf_for_angiography_tpu_torch.ops.kernels.build import (
+    from nerf_for_angiography_tpu_torch.training.graph import (
         add_launches, captured_launches,
     )
 

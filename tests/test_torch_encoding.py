@@ -386,12 +386,6 @@ def test_tiny_barf_train_anneals_alpha(vessel_rays, monkeypatch):
 
         return run
 
-    def recording(make):
-        def wrapped(*args, **kwargs):
-            return recorded(make(*args, **kwargs))
-
-        return wrapped
-
     def recording_chunk(make):
         def wrapped(*args, **kwargs):
             chunk = make(*args, **kwargs)
@@ -400,7 +394,6 @@ def test_tiny_barf_train_anneals_alpha(vessel_rays, monkeypatch):
 
         return wrapped
 
-    monkeypatch.setattr(loop_t, "make_train_step", recording(loop_t.make_train_step))
     monkeypatch.setattr(loop_t, "make_train_chunk", recording_chunk(loop_t.make_train_chunk))
     cfg = TrainConfig(**TINY, n_iters=12, pos_enc="barf", barf_start=2, barf_stop=10)
     res = train(cfg, vessel_rays, src_pt_z=1500.0, verbose=False, device="cpu")
