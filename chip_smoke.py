@@ -103,7 +103,32 @@ Phases:
      carving; with ``--lca-protocol N`` also the JAX LCA anchor's protocol
      for N steps (best-checkpoint held-out PSNR at least 29.3 dB, and with
      ``--protocol`` the CT run's at least 48.4 dB);
-  10. one JSON line with the kernel table, the card's name/power line, and the
+  10. evaluation and export at the JAX defaults: the CT sweep
+     (``EvalConfig()``: 37x37 views of 100x100, 200 samples compacted to
+     k = 96, all eight metrics with LPIPS / DISTS on the uncalibrated
+     backend, GT from the vessel volume) on the best state of phase 4's
+     shipped run, and the LCA sweep (``lca_eval_config()``: 37x37 views of
+     150x162, the dense render, DICE / DOT 3D from the LCA volume) on the
+     best state of a 2,000-step LCA protocol run (the LCA phase's
+     600-step state renders black there) loaded by
+     ``Reconstruction.from_run_dir`` (its render_view equal to
+     render_view_pair bit for bit), each exporting the 201^3 field VTK;
+     before each, one batch rendered on the card against the CPU (pixels
+     and per-view metrics; a share of the compared pixels must lie inside
+     (0.02, 0.98)), kernel #1 at the
+     batch's and the field chunks' point counts and first-k (CT) bit for bit
+     on the batch's march mask; the six launch counters read around each
+     sweep (#1 once a batch and once a field chunk, #5 once a CT batch, the
+     rest never); the seconds by part and peak device memory; every
+     artifact read back (the CSV with JAX's header, every PNG, the summary,
+     the VTK, every heatmap and per-angle JSON, the rotation videos). Where
+     the card lacks PIL
+     or matplotlib, the videos or the heatmap PNGs are left out (printed)
+     and the cag-vis JSONs still written (``export_heatmaps``). With
+     ``--lca-protocol`` also that run's best state swept at
+     benchmarks/LCA.md's 9x9 / 51^3 settings, printed beside the JAX run's
+     summary;
+  11. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -1198,43 +1223,47 @@ def fk_kernel_ms(torch, fk, mask, k: int, n: int = 50) -> float:
 def check_first_k(torch, fk, grid, cfg, batch, shapes, src_z: float = SRC_Z) -> list[dict]:
     """The kernel against its plain version, bit for bit, at each shape, with
     its time, the plain version's, a two-call composite's and the bound."""
-    out = []
-    for rows, w, k in shapes:
-        mask = fk_masks(torch, grid, cfg, batch, rows, w, src_z)
-        sel, mk = fk.first_k_active_cuda(mask, k)
-        want_sel, want_mk = fk.first_k_active_reference(mask, k)
-        torch.cuda.synchronize()
-        equal = torch.equal(sel, want_sel) and torch.equal(mk, want_mk)
-        err = max(float((sel - want_sel).abs().max()), float((mk - want_mk).abs().max()))
-        call_ms = time_ms(torch, lambda: fk.first_k_active_cuda(mask, k), reps=50, warmup=5)
-        k_ms = fk_kernel_ms(torch, fk, mask, k)
-        p_ms = time_ms(torch, lambda: fk.first_k_active_reference(mask, k), reps=10, warmup=2)
-        j = torch.arange(k, dtype=torch.float32, device=mask.device).expand(rows, k).contiguous()
+    return [first_k_row(torch, fk, fk_masks(torch, grid, cfg, batch, rows, w, src_z), k)
+            for rows, w, k in shapes]
 
-        def composite():
-            rank = torch.cumsum(mask, dim=-1)
-            return torch.searchsorted(rank, j, right=True)
 
-        c_ms = time_ms(torch, composite, reps=20, warmup=3)
-        need, iface = fk_bytes(torch, mask, k)
-        b_ms, b_by = bound_ms(0.0, need)
-        i_ms, _ = bound_ms(0.0, iface)
-        actives = mask.sum(dim=-1)
-        print(
-            f"first_k_active R={rows} w={w} k={k}: bit-identical {equal} (max_abs_err {err}) "
-            f"kernel_ms {k_ms:.4f} (one wrapper call {call_ms:.4f}) "
-            f"bound_ms {b_ms:.4f} ({b_by}: {need} B this data needs; "
-            f"{i_ms:.4f} for the {iface} B interface) plain_ms {p_ms:.4f} library_ms null "
-            f"(no single PyTorch call computes it; cumsum + searchsorted(right=True) "
-            f"{c_ms:.4f} ms); actives per row mean {float(actives.mean()):.1f} max "
-            f"{int(actives.max())}"
-        )
-        check(equal, f"first_k_active disagrees with its plain version at {(rows, w, k)}")
-        out.append(dict(R=rows, w=w, k=k, max_abs_err=err, ms=k_ms, call_ms=call_ms,
-                        plain_ms=p_ms,
-                        bound_ms=b_ms, bound_by=b_by, interface_bound_ms=i_ms,
-                        composite_ms=c_ms, bytes_needed=need, bytes_interface=iface))
-    return out
+def first_k_row(torch, fk, mask, k: int) -> dict:
+    """The kernel against its plain version on ``mask`` (R, w) at k, bit for
+    bit, with its time, the plain version's, a two-call composite's and the
+    bound."""
+    rows, w = mask.shape
+    sel, mk = fk.first_k_active_cuda(mask, k)
+    want_sel, want_mk = fk.first_k_active_reference(mask, k)
+    torch.cuda.synchronize()
+    equal = torch.equal(sel, want_sel) and torch.equal(mk, want_mk)
+    err = max(float((sel - want_sel).abs().max()), float((mk - want_mk).abs().max()))
+    call_ms = time_ms(torch, lambda: fk.first_k_active_cuda(mask, k), reps=50, warmup=5)
+    k_ms = fk_kernel_ms(torch, fk, mask, k)
+    p_ms = time_ms(torch, lambda: fk.first_k_active_reference(mask, k), reps=10, warmup=2)
+    j = torch.arange(k, dtype=torch.float32, device=mask.device).expand(rows, k).contiguous()
+
+    def composite():
+        rank = torch.cumsum(mask, dim=-1)
+        return torch.searchsorted(rank, j, right=True)
+
+    c_ms = time_ms(torch, composite, reps=20, warmup=3)
+    need, iface = fk_bytes(torch, mask, k)
+    b_ms, b_by = bound_ms(0.0, need)
+    i_ms, _ = bound_ms(0.0, iface)
+    actives = mask.sum(dim=-1)
+    print(
+        f"first_k_active R={rows} w={w} k={k}: bit-identical {equal} (max_abs_err {err}) "
+        f"kernel_ms {k_ms:.4f} (one wrapper call {call_ms:.4f}) "
+        f"bound_ms {b_ms:.4f} ({b_by}: {need} B this data needs; "
+        f"{i_ms:.4f} for the {iface} B interface) plain_ms {p_ms:.4f} library_ms null "
+        f"(no single PyTorch call computes it; cumsum + searchsorted(right=True) "
+        f"{c_ms:.4f} ms); actives per row mean {float(actives.mean()):.1f} max "
+        f"{int(actives.max())}"
+    )
+    check(equal, f"first_k_active disagrees with its plain version at {(rows, w, k)}")
+    return dict(R=rows, w=w, k=k, max_abs_err=err, ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, interface_bound_ms=i_ms, composite_ms=c_ms,
+                bytes_needed=need, bytes_interface=iface)
 
 
 def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
@@ -1248,7 +1277,10 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     # the shipped display_every (500): between display boundaries the tuner
     # sees a settled k's full chunk once the next is issued, as in the JAX loop
     cfg = TrainConfig(n_iters=COMPACT_ITERS)
-    main = compacted_run(torch, fm, fk, fs, ds, cfg, "shipped defaults")
+    # the state at each held-out eval, for the evaluation phase's CT sweep
+    # on the run's best one
+    with recorded_eval_states(torch) as eval_states:
+        main = compacted_run(torch, fm, fk, fs, ds, cfg, "shipped defaults")
     check(main["compact_steps"] > 0, "the shipped-default run never engaged the compacted stepper")
     hcfg = TrainConfig(n_iters=HYBRID_ITERS, display_every=100, march_mode="hybrid")
     hyb = compacted_run(torch, fm, fk, fs, ds, hcfg, "forced hybrid")
@@ -1297,7 +1329,7 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     out = dict(shipped=main, hybrid=hyb, first_k=fk_rows, first_k_row=fk_row, mlp=mlp,
                profile=prof, compact_p=p, two_bucket=two, final=final)
     report["compact"] = {**out, "shipped": {k: v for k, v in main.items() if k != "result"}}
-    return {**out, "batch": batch}
+    return {**out, "batch": batch, "shipped_best": eval_states[main["result"].best_iter]}
 
 
 # a two-bucket (hybrid2k) Tuning at the shapes of a pruned grid: the chooser
@@ -3039,7 +3071,9 @@ def lca_kernel_checks(torch, fm, fk, cfg, src_z: float, state, rays, tunings: li
 def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
     """The LCA dataset at full size, one view against the CPU, 600 steps
     with log_dir and checkpoint_every (all six launch counters read around
-    the run), the artifacts read back, and a resumed run."""
+    the run), the artifacts read back, and a resumed run. Returns the
+    dataset, the run, and the volume and page_data the evaluation phase
+    sweeps with."""
     import shutil
 
     from nerf_for_angiography_tpu_torch.training import lca_protocol, train
@@ -3088,7 +3122,7 @@ def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
     out = dict(data=data, cpu_check=cpu, run=run, artifacts=arts, files=names, kernels=kernels,
                resume=dict(printed=want, carved=False, final_step=res2.state.step))
     report["lca"] = out
-    return ds, run
+    return ds, run, dict(volume=volume, page_data=res.page_data)
 
 
 def lca_protocol_phase(torch, fm, fk, ds, iters: int, report: dict) -> None:
@@ -3151,6 +3185,585 @@ def protocol_phase(torch, ds, iters: int, report: dict) -> None:
           f"{t['total']:.1f} s")
     check(math.isfinite(res.best_heldout_psnr), "protocol run: held-out PSNR not finite")
     report["protocol"] = out
+
+
+# the evaluation phase (eval_phase): the sweeps run at the JAX defaults
+# (EvalConfig(): 1,369 views of 100x100 in batches of 4, the field on a
+# 201^3 lattice queried in chunks of EVAL_CHUNK points), which set the launch
+# counts: kernel #1 once a batch and once a chunk, first-k (#5) once a CT batch
+EVAL_CHUNK = 262_144
+# the LCA sweep's run: the LCA protocol for this many steps. The LCA phase's
+# 600-step state renders black under lca_eval_config() (the last sample's
+# 1e10 segment; PERF.md section 6, PR 13), where every card-against-CPU
+# limit would hold whatever kernel #1 returned; sweep_kernel_checks checks
+# that this run's batch renders
+LCA_SWEEP_ITERS = 2000
+# one sweep batch rendered on the card against the CPU (a copy of the model
+# and grid, the plain versions); pixels in [0, 1]. The median and the share
+# of pixels beyond 1e-3, per-view PSNR in dB, SSIM / DOT 2D and DICE 2D
+# (1e-3 is 10 of 10,000 binary pixels flipped at exactly 1.0): about 10x
+# the largest readings on an H100 80GB HBM3 (PERF.md section 2). The max:
+# about 10x the readings on rendering batches, CT 3.5e-5, LCA 2.088e-4 (the
+# LCA sweep run's state)
+EVAL_PIX_MAX = {"ct": 5e-4, "lca": 2e-3}
+EVAL_PIX_MEDIAN, EVAL_PIX_SHARE = 1e-4, 1e-2
+# the least share of the CPU batch's image pixels inside (0.02, 0.98), the
+# range the port's card and CPU render tests hold
+EVAL_PIX_LIVE = 1e-2
+EVAL_PSNR_DB, EVAL_METRIC_ABS, EVAL_DICE_ABS = 1e-3, 1e-4, 1e-3
+# a PNG pixel may sit one level off the uint8 of the table's pred_img, which
+# the sweep rounds to 10 decimals after the PNG is written (as JAX does)
+EVAL_PNG_LEVELS = 1
+# the JAX TPU run's full 9x9 LCA sweep after 20k steps (benchmarks/LCA.md:
+# 98-110), printed beside --lca-protocol's sweep as a record, not a gate
+LCA_SWEEP_JAX = {"PSNR mean": (18.27, 18.39), "SSIM mean": 0.921, "DICE 2D mean": 0.886,
+                 "DOT 2D mean": 0.947}
+
+
+@contextlib.contextmanager
+def recorded_eval_states(torch):
+    """Within the block, every held-out eval that train() runs stores the
+    model's parameters and the scene grid's occupancy at that iteration,
+    copied on the card, under the iteration: the state highmodel.npz and
+    highgrid.vtk would hold had the run a log_dir."""
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+    states: dict = {}
+    make = loop.make_eval_step
+
+    def recording(*args, **kwargs):
+        ev = make(*args, **kwargs)
+
+        def run_eval(state, test):
+            out = ev(state, test)
+            states[int(state.step) - 1] = dict(
+                params={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                binary=state.grid.binary.clone(), aabb=state.grid.aabb.clone())
+            return out
+
+        return run_eval
+
+    loop.make_eval_step = recording
+    try:
+        yield states
+    finally:
+        loop.make_eval_step = make
+
+
+def model_and_grid(torch, snap: dict, cfg):
+    """The port CPPN of ``cfg`` with a recorded eval state's parameters, and
+    its grid as load_grid_vtk restores one (occs = binary)."""
+    from nerf_for_angiography_tpu_torch.models import CPPN
+    from nerf_for_angiography_tpu_torch.ops.occupancy import grid_from_numpy
+
+    model = CPPN(cfg.model_config()).to(DEVICE)
+    model.load_state_dict(snap["params"])
+    model.requires_grad_(False)
+    b = snap["binary"].cpu().numpy()
+    return model, grid_from_numpy(b, snap["aabb"].cpu().numpy(), occs=b.astype("float32"),
+                                  device=DEVICE)
+
+
+@contextlib.contextmanager
+def recorded_field():
+    """Within the block, every field the sweep's export_field_vtk returns is
+    appended to the yielded list."""
+    sweep = importlib.import_module("nerf_for_angiography_tpu_torch.evaluation.sweep")
+    fields: list = []
+    export = sweep.export_field_vtk
+
+    def recording(*args, **kwargs):
+        fields.append(export(*args, **kwargs))
+        return fields[-1]
+
+    sweep.export_field_vtk = recording
+    try:
+        yield fields
+    finally:
+        sweep.export_field_vtk = export
+
+
+def grid_to(grid, device):
+    return type(grid)(*(t.to(device) if t is not None else None for t in grid))
+
+
+def view_scores(torch, p3, b3, tgt) -> dict:
+    """The sweep's per-view metrics of a batch, as numpy."""
+    from nerf_for_angiography_tpu_torch.evaluation import metrics as mt
+
+    return {"PSNR": mt.psnr_views(p3, tgt), "SSIM": mt.ssim(p3, tgt),
+            "DICE 2D": mt.dice_micro_views(mt.binarize(b3), mt.binarize(tgt)),
+            "DOT 2D": mt.dot_score_views(p3, tgt)}
+
+
+def sweep_kernel_checks(torch, fm, fk, model, grid, cfg, gt, label: str) -> dict:
+    """The sweep's kernels at its shapes: the first batch of views rendered
+    on the card and on the CPU (copies of the model and grid: the plain
+    versions), pixels and per-view metrics held within the EVAL_* limits;
+    kernel #1 against its plain version at the batch's point count and the
+    field's chunks (random and the loaded weights); the CT branch's first-k
+    (#5) bit for bit on the batch's march mask at k = compact_samples. The
+    per-view metrics score both renders against ``gt``'s targets."""
+    import copy
+
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.evaluation import sweep as st
+    from nerf_for_angiography_tpu_torch.ops.occupancy import march_rays
+    from nerf_for_angiography_tpu_torch.training import TrainConfig
+    from nerf_for_angiography_tpu_torch.training.train import _stride_for
+
+    angles = st.sweep_angles(cfg)
+    t360, p360 = st._angles_360(angles)
+    b = max(1, cfg.chunk_views)
+    H, W = cfg.img_height, cfg.img_width
+    card = st.make_batch_view_renderer(model, grid, cfg)
+    px, bpx, _ = card(grid, t360[:b], p360[:b])
+    # the CPU render: one view for LCA (its plain MLP at the full batch's
+    # 19,440,000 points would hold ~35 GB of activations on the host)
+    n_cpu = b if cfg.data_name == "ct" else 1
+    model_cpu = copy.deepcopy(model).to("cpu")
+    grid_cpu = grid_to(grid, "cpu")
+    t0 = time.perf_counter()
+    cpx, cbpx, _ = st.make_batch_view_renderer(model_cpu, grid_cpu, cfg)(
+        grid_cpu, t360[:n_cpu], p360[:n_cpu])
+    cpu_s = time.perf_counter() - t0
+    pe = torch.cat([(px[:n_cpu].cpu() - cpx).abs().reshape(-1),
+                    (bpx[:n_cpu].cpu() - cbpx).abs().reshape(-1)])
+    pix_max, pix_med = float(pe.max()), float(pe.median())
+    pix_share = float((pe > 1e-3).float().mean())
+    lim_max = EVAL_PIX_MAX[cfg.data_name.lower()]
+    # the compared views must render: on an all-black (or all-white) image
+    # every limit below holds whatever kernel #1 returns. The binary image
+    # may be all white: at the CT defaults no sigma of the vessel phantom
+    # (mu 0.03) reaches binary_thresh 0.05
+    live, blive = (float(((x > 0.02) & (x < 0.98)).float().mean()) for x in (cpx, cbpx))
+    # per-view metrics of both renders against the same targets (the card's GT)
+    tgt = torch.from_numpy(
+        np.stack([np.asarray(gt(t360[i], p360[i]), np.float32).reshape(H, W)
+                  for i in range(n_cpu)]))
+    got = view_scores(torch, px[:n_cpu].cpu().reshape(-1, H, W),
+                      bpx[:n_cpu].cpu().reshape(-1, H, W), tgt)
+    want = view_scores(torch, cpx.reshape(-1, H, W), cbpx.reshape(-1, H, W), tgt)
+    d_metric = {m: float((got[m] - want[m]).abs().max()) for m in got}
+    lim_metric = {"PSNR": EVAL_PSNR_DB, "SSIM": EVAL_METRIC_ABS, "DICE 2D": EVAL_DICE_ABS,
+                  "DOT 2D": EVAL_METRIC_ABS}
+    print(f"{label} sweep batch ({n_cpu} of {b} views on the CPU, {cpu_s:.1f} s): pixels inside "
+          f"(0.02, 0.98) {live:.4f} (at least {EVAL_PIX_LIVE}), binary {blive:.4f}; card against "
+          f"CPU pixels max abs {pix_max:.3e} (limit {lim_max}) median {pix_med:.3e} (limit "
+          f"{EVAL_PIX_MEDIAN}), share beyond 1e-3 {pix_share:.3e} (limit {EVAL_PIX_SHARE}); "
+          f"per-view metric max abs differences "
+          + ", ".join(f"{m} {v:.3e} (limit {lim_metric[m]})" for m, v in d_metric.items()))
+    check(live >= EVAL_PIX_LIVE, f"{label} sweep: the compared batch hardly renders ({live:.4f} "
+                                 f"of its pixels inside (0.02, 0.98))")
+    check(pix_max <= lim_max and pix_med <= EVAL_PIX_MEDIAN and pix_share <= EVAL_PIX_SHARE,
+          f"{label} sweep: the card's batch render differs from the CPU's")
+    check(all(v <= lim_metric[m] for m, v in d_metric.items()),
+          f"{label} sweep: per-view metrics differ between the card and the CPU {d_metric}")
+
+    packed, pbytes, gen = random_mlp(torch, fm)
+    t_packed, t_pbytes = packed_of(torch, fm, model)
+    n = cfg.depth_samples_per_ray
+    if cfg.data_name == "ct":
+        tc = TrainConfig(depth_samples_per_ray=n, outside=cfg.outside,
+                         grid_resolution=grid.resolution, march_mode="lattice")
+        rays = [st.get_ray_values(float(t), float(p), 0.0, cfg.src_pt, W, H, cfg.focal_length,
+                                  device=DEVICE) for t, p in zip(t360[:b], p360[:b])]
+        o = torch.cat([r[0].reshape(-1, 3) for r in rays])
+        d = torch.cat([r[1].reshape(-1, 3) for r in rays])
+        near, far = cfg.near_thresh, cfg.far_thresh
+        mask = march_rays(grid, o, d, n, near, far, occ_stride=_stride_for(tc, near, far)).mask
+        fk_rows = [first_k_row(torch, fk, mask, tc.compact_samples)]
+        p_batch = o.shape[0] * tc.compact_samples
+    else:
+        fk_rows = []
+        p_batch = b * H * W * n
+    n_field = cfg.field_resolution ** 3
+    p_last = n_field - (math.ceil(n_field / EVAL_CHUNK) - 1) * EVAL_CHUNK
+    fwd = []
+    for p, what in ((p_batch, "batch"), (EVAL_CHUNK, "field chunk"), (p_last, "last field chunk")):
+        fwd += [check_fwd(torch, fm, packed, p, gen, pbytes, f"{label} sweep {what}"),
+                check_fwd(torch, fm, t_packed, p, gen, t_pbytes,
+                          f"{label} sweep {what}, loaded weights")]
+    for r in fwd:
+        r.pop("x")
+    return dict(batch_views_cpu=n_cpu, cpu_s=cpu_s, pix_live_share=live,
+                binary_live_share=blive, pix_max_abs=pix_max, pix_median_abs=pix_med,
+                pix_share_beyond_1e3=pix_share, metric_max_abs=d_metric, fwd=fwd, first_k=fk_rows, batch_points=p_batch)
+
+
+def hemisphere_angle_files(table, cfg) -> set:
+    """The per-angle JSON names of the top and bottom X-Z hemispheres."""
+    from nerf_for_angiography_tpu_torch.evaluation import hemisphere_mask
+
+    names = set()
+    for nm in ("top", "bottom"):
+        sel = hemisphere_mask(table["theta"], table["phi"], "X", "Z", nm)
+        names |= {f"{t:.1f}{p:.1f}.json" for t, p in zip(table["theta"][sel],
+                                                          table["phi"][sel])}
+    return names
+
+
+def check_videos(label: str, table: dict, proj: str, cfg) -> int:
+    """The rotation videos run_sweep wrote, read back: for each rotation and
+    kind, the .mp4 that save_video muxes (an ISO-BMFF 'ftyp' box first, one
+    JPEG a view, the first decoding at the view's size) and the .gif beside
+    it (its first frame the uint8 of the first view's image; consecutive
+    equal frames merge, so it holds at most one a view). Returns the number
+    of files checked."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    H, W = cfg.img_height, cfg.img_width
+    u8 = {"gt": lambda i: table["org_img"][i],
+          "pred": lambda i: table["pred_img"][i],
+          "diff": lambda i: np.abs(table["org_img"][i] - table["pred_img"][i]),
+          "binary": lambda i: table["binary_pred_img"][i]}
+    n = 0
+    for title, axis in (("theta-rotation", "phi"), ("phi-rotation", "theta")):
+        rows = np.flatnonzero(table[axis] == 0.0)
+        for kind, img in u8.items():
+            path = os.path.join(proj, f"{title}-{kind}.mp4")
+            check(os.path.exists(path), f"{label}: {path} was not written")
+            with open(path, "rb") as f:
+                data = f.read()
+            check(len(data) > 8 and data[4:8] == b"ftyp", f"{label}: {path} is not an MP4")
+            check(data.count(b"\xff\xd8\xff") == len(rows),
+                  f"{label}: {path} does not hold one JPEG for each of {len(rows)} views")
+            s = data.index(b"\xff\xd8\xff")
+            first = Image.open(io.BytesIO(data[s:data.index(b"\xff\xd9", s) + 2]))
+            check(first.size == (W, H), f"{label}: {path}'s first frame is {first.size}")
+            gif = path[:-4] + ".gif"
+            check(os.path.exists(gif), f"{label}: {gif} was not written")
+            with open(gif, "rb") as f:
+                check(f.read(6) == b"GIF89a", f"{label}: {gif} is not a GIF")
+            g = Image.open(gif)
+            want = (255 * np.clip(img(rows[0]), 0, 1)).astype(np.uint8).reshape(H, W)
+            check(g.size == (W, H) and 1 <= g.n_frames <= len(rows)
+                  and np.array_equal(np.asarray(g.convert("L")), want),
+                  f"{label}: {gif} is not the rotation's {kind} frames")
+            n += 2
+    return n
+
+
+def check_sweep_artifacts(torch, label: str, table: dict, out_dir: str, cfg, field, columns,
+                          heat: list, page_data, calibrated) -> dict:
+    """Every artifact of a sweep read back: the CSV (JAX's header, one row a
+    view), every PNG (its signature, the uint8 of the table's image),
+    metrics-summary.txt's keys, coarse-field.vtk equal to the returned
+    field, each metric's top / bottom JSON and every per-angle JSON of both
+    hemispheres with cag-vis's keys, and with save_videos the rotation
+    videos (check_videos)."""
+    import csv
+
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.evaluation import experiment_naming
+    from nerf_for_angiography_tpu_torch.evaluation.sweep import METRIC_COLUMNS
+    from nerf_for_angiography_tpu_torch.utils import read_png_gray, read_vtk
+
+    t0 = time.perf_counter()
+    n, hw = len(table["theta"]), cfg.img_height * cfg.img_width
+    with open(os.path.join(out_dir, "df-metrics.csv")) as f:
+        rows = list(csv.reader(f, delimiter=";"))
+    header = [""] + list(columns)
+    check(rows[0] == header, f"{label}: df-metrics.csv header {rows[0]} != {header}")
+    check(len(rows) == n + 1 and all(len(r) == len(header) for r in rows[1:]),
+          f"{label}: df-metrics.csv has {len(rows) - 1} rows, not {n}")
+    metric_cols = [c for c in columns if c in METRIC_COLUMNS]
+    for m in metric_cols:
+        v = np.asarray(table[m], float)
+        check(v.shape == (n,) and bool(np.isfinite(v).all()), f"{label}: {m} not finite")
+    for c in ("pred_img", "binary_pred_img", "org_img"):
+        check(table[c].shape == (n, hw) and bool(np.isfinite(table[c]).all()),
+              f"{label}: {c} is not finite of shape {(n, hw)}")
+
+    proj = os.path.join(out_dir, "projections")
+    pngs = sorted(f for f in os.listdir(proj) if f.endswith(".png"))
+    check(len(pngs) == 2 * n, f"{label}: {len(pngs)} projection PNGs, not {2 * n}")
+    off = 0
+    for i, (theta, phi) in enumerate(zip(table["theta"], table["phi"])):
+        for suffix, col in (("", "pred_img"), ("-binary", "binary_pred_img")):
+            path = os.path.join(proj, f"image-{theta}-{phi}-0{suffix}.png")
+            with open(path, "rb") as f:
+                check(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{label}: {path} is not a PNG")
+            img = read_png_gray(path).astype(np.int32)
+            want = (np.clip(table[col][i], 0.0, 1.0) * 255).astype(np.uint8).reshape(img.shape)
+            diff = np.abs(img - want.astype(np.int32))
+            check(int(diff.max()) <= EVAL_PNG_LEVELS, f"{label}: {path} is not the view's image")
+            off += int((diff > 0).sum())
+    videos = check_videos(label, table, proj, cfg) if cfg.save_videos else 0
+
+    summary = dict(ln.split("=", 1)
+                   for ln in open(os.path.join(out_dir, "metrics-summary.txt")).read().splitlines())
+    keys = [f"{m} {q}" for m in metric_cols for q in ("min", "mean", "std")]
+    check(list(summary) == keys, f"{label}: metrics-summary.txt keys {list(summary)} != {keys}")
+
+    g = read_vtk(os.path.join(out_dir, "coarse-field.vtk"))
+    r = cfg.field_resolution
+    check(g.dimensions == (r, r, r) and np.array_equal(g.scalars_3d(), field),
+          f"{label}: coarse-field.vtk does not read back as the returned field")
+
+    exp, name = experiment_naming(page_data or {}, cfg.center_point)
+    folder = os.path.join(out_dir, "jsonData", exp, name)
+    files = set(os.listdir(folder))
+    for m in heat:
+        for nm in ("top", "bottom"):
+            with open(os.path.join(folder, f"{m}-{nm}-X-Z.json")) as f:
+                obj = json.load(f)
+            want_keys = {"rad", "theta", "angles", "vals"} | (
+                {"calibrated"} if m in ("LPIPS", "DISTS") and calibrated is False else set())
+            check(set(obj) == want_keys and len(obj["vals"]) == len(obj["angles"]) > 0
+                  and obj.get("calibrated", False) is False,
+                  f"{label}: {m}-{nm}-X-Z.json keys {sorted(obj)} != {sorted(want_keys)}")
+    angle_files = hemisphere_angle_files(table, cfg)
+    check(angle_files <= files, f"{label}: per-angle JSONs missing: "
+                                f"{sorted(angle_files - files)[:5]}")
+    index = {f"{t:.1f}{p:.1f}.json": i for i, (t, p) in enumerate(zip(table["theta"],
+                                                                       table["phi"]))}
+    for fname in sorted(angle_files):
+        with open(os.path.join(folder, fname)) as f:
+            obj = json.load(f)
+        i = index[fname]
+        check(set(obj) == {"pred", "org", "diff"} and len(obj["pred"]) == hw
+              and obj["pred"] == table["pred_img"][i].astype(float).tolist()
+              and obj["org"] == table["org_img"][i].astype(float).tolist(),
+              f"{label}: {fname} is not the view's pred / org / diff")
+    secs = time.perf_counter() - t0
+    print(f"{label} artifacts: df-metrics.csv {n} rows with JAX's {len(header)}-column header; "
+          f"{len(pngs)} PNGs read back ({off} pixels one level off the rounded table); "
+          f"metrics-summary.txt {len(keys)} keys; coarse-field.vtk {r}^3 equal to the field; "
+          f"{2 * len(heat)} heatmap JSONs ({', '.join(heat)}) and {len(angle_files)} per-angle "
+          f"JSONs with cag-vis's keys; {videos} rotation video files read back; checked in "
+          f"{secs:.1f} s")
+    return dict(csv_rows=n, header=header, pngs=len(pngs), png_pixels_one_level_off=off,
+                summary_keys=len(keys), heatmap_jsons=2 * len(heat),
+                angle_jsons=len(angle_files), video_files=videos, check_s=secs)
+
+
+def sweep_run(torch, fm, fk, fs, label: str, model, grid, cfg, volume, gt, out_dir: str,
+              page_data, perceptual, columns: list) -> dict:
+    """One run_sweep with all six launch counters set to 0 just before it
+    and read just after (kernel #1 once a batch and once a field chunk,
+    first-k once a CT batch, #2/#3/#4/#6 never), its seconds by part and
+    peak device memory; without matplotlib the heatmap JSONs come from
+    export_heatmaps(save_png=False) after it; then every artifact read
+    back. ``volume`` (on the card) samples the GT field, ``gt`` renders
+    the GT views."""
+    import shutil
+
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.evaluation import run_sweep, sweep_angles
+    from nerf_for_angiography_tpu_torch.evaluation.sweep import export_heatmaps
+    from nerf_for_angiography_tpu_torch.ops.interpolation import trilinear
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_views = len(sweep_angles(cfg))
+    batches = math.ceil(n_views / max(1, cfg.chunk_views))
+    chunks = math.ceil(cfg.field_resolution ** 3 / EVAL_CHUNK)
+    want = dict(fwd_launches=batches + chunks,
+                first_k_launches=batches if cfg.data_name == "ct" else 0,
+                bwd_launches=0, fused_step_launches=0, enc_fwd_launches=0, enc_bwd_launches=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timing: dict = {}
+    reset_all(fm, fk, fs)
+    t0 = time.perf_counter()
+    with recorded_field() as fields:
+        table = run_sweep(model, grid, cfg, gt, out_dir, page_data=page_data,
+                          perceptual=perceptual, gt_volume_sampler=lambda p: trilinear(volume, p),
+                          verbose=False, device=DEVICE, timing=timing)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = read_counts(fm, fk, fs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    heat = [c for c in table if c in ("PSNR", "SSIM", "DICE 2D", "DOT 2D", "LPIPS", "DISTS")]
+    if not cfg.save_heatmap:
+        t1 = time.perf_counter()
+        heat = export_heatmaps(table, cfg, out_dir, page_data, perceptual, save_png=False)
+        timing["json"] = time.perf_counter() - t1
+    parts = ", ".join(f"{k} {v:.2f} s" for k, v in timing.items())
+    print(f"{label} sweep: {n_views} views of {cfg.img_width}x{cfg.img_height} in {batches} "
+          f"batches of {cfg.chunk_views}, {cfg.depth_samples_per_ray} samples a ray, field "
+          f"{cfg.field_resolution}^3 in {chunks} chunks: {sweep_s:.2f} s ({parts}); launches "
+          f"fwd {counts['fwd_launches']} (expected {want['fwd_launches']}) first_k "
+          f"{counts['first_k_launches']} (expected {want['first_k_launches']}) bwd "
+          f"{counts['bwd_launches']} fused_step {counts['fused_step_launches']} enc_fwd "
+          f"{counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}; peak device "
+          f"memory {peak:.3f} GiB allocated ({mem0 / 2**30:.3f} GiB before)")
+    check(counts == want, f"{label} sweep: launches {counts} != {want}")
+    check(len(fields) == 1, f"{label} sweep: {len(fields)} field exports, not 1")
+    summary = {m: {q: float(f(np.asarray(table[m], float))) for q, f in
+                   (("min", np.min), ("mean", np.mean), ("std", np.std))} for m in heat}
+    summary.update({m: float(table[m][0]) for m in ("DICE 3D", "DOT 3D") if m in table})
+    print(f"{label} sweep metrics: " + "; ".join(
+        f"{m} " + (f"{v:.6f}" if isinstance(v, float) else
+                   f"min {v['min']:.4f} mean {v['mean']:.4f} std {v['std']:.4f}")
+        for m, v in summary.items()))
+    arts = check_sweep_artifacts(torch, label, table, out_dir, cfg, fields[0], columns, heat,
+                                 page_data, None if perceptual is None else perceptual.calibrated)
+    return dict(**counts, expected=want, views=n_views, batches=batches, field_chunks=chunks,
+                sweep_s=sweep_s, seconds_by_part=timing, peak_allocated_gib=peak,
+                before_gib=mem0 / 2**30, metrics=summary, artifacts=arts)
+
+
+def eval_artifacts_available() -> dict:
+    """Whether the card's Python has PIL (videos) and matplotlib (the
+    heatmap PNGs); the sweeps turn off what it lacks."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib")}
+
+
+SWEEP_COLUMNS = ["image_id", "theta", "phi", "larm", "theta_360", "phi_360", "cam_pose_x",
+                 "cam_pose_y", "cam_pose_z", "PSNR", "SSIM", "DICE 2D", "DOT 2D"]
+
+
+def lca_sweep_run(torch, ds) -> tuple[str, dict]:
+    """The LCA sweep's state: LCA_SWEEP_ITERS steps of the LCA protocol on
+    the LCA dataset ``ds``, written under smoke_out/lca_sweep_run. Returns
+    the run directory and its page_data."""
+    import shutil
+
+    from nerf_for_angiography_tpu_torch.training import lca_protocol, train
+
+    log_dir = os.path.join(HERE, "smoke_out", "lca_sweep_run")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg, src_z = lca_protocol(n_iters=LCA_SWEEP_ITERS)
+    t0 = time.perf_counter()
+    res = train(cfg, ds.rays, src_pt_z=src_z, log_dir=log_dir, verbose=False, device=DEVICE)
+    print(f"lca sweep run: {LCA_SWEEP_ITERS} steps of the LCA protocol in "
+          f"{time.perf_counter() - t0:.1f} s, best held-out PSNR {res.best_heldout_psnr:.3f} dB "
+          f"at iteration {res.best_iter}")
+    return log_dir, res.page_data
+
+
+def eval_phase(torch, fm, fk, fs, ct_best: dict, ct_page: dict, lca_ds, lca_info: dict,
+               report: dict) -> dict:
+    """The evaluation phase: the JAX defaults' CT sweep (EvalConfig(): all
+    eight metrics, LPIPS / DISTS on the uncalibrated backend) on the best
+    state of the shipped 600-step run, with GT from the vessel volume, and
+    the LCA sweep (lca_eval_config(): DICE 3D / DOT 3D from the LCA volume)
+    on the best state of lca_sweep_run loaded by
+    Reconstruction.from_run_dir, whose render_view must equal
+    render_view_pair bit for bit; the sweep's kernels at its shapes before
+    each sweep (sweep_kernel_checks)."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.data import make_vessel_volume
+    from nerf_for_angiography_tpu_torch.evaluation import (
+        EvalConfig, PerceptualMetrics, gt_from_volume, lca_eval_config, render_view_pair,
+    )
+    from nerf_for_angiography_tpu_torch.reconstruction import Reconstruction
+    from nerf_for_angiography_tpu_torch.training import TrainConfig
+
+    have = eval_artifacts_available()
+    flags = dict(save_videos=have["PIL"], save_heatmap=have["matplotlib"])
+    for mod, what in (("PIL", "the rotation videos (save_videos=False)"),
+                      ("matplotlib", "the polar heatmap PNGs (save_heatmap=False; the cag-vis "
+                                     "JSONs come from export_heatmaps(save_png=False))")):
+        print(f"eval: {mod} {'imports' if have[mod] else 'is not installed'}"
+              + ("" if have[mod] else f": skipping {what}"))
+    out = dict(available=have, flags=flags)
+
+    model, grid = model_and_grid(torch, ct_best, TrainConfig())
+    cfg = EvalConfig(**flags)
+    vessel = make_vessel_volume(res=96, device=DEVICE)  # bench.py's phantom, as make_dataset
+    perceptual = PerceptualMetrics.uncalibrated(device=DEVICE)
+    gt = gt_from_volume(vessel, cfg)
+    out["ct_kernels"] = sweep_kernel_checks(torch, fm, fk, model, grid, cfg, gt, "ct")
+    out["ct"] = sweep_run(torch, fm, fk, fs, "ct", model, grid, cfg, vessel, gt,
+                          os.path.join(HERE, "smoke_out", "eval_ct"), ct_page, perceptual,
+                          SWEEP_COLUMNS + ["LPIPS", "DISTS", "DICE 3D", "DOT 3D",
+                                           "perceptual_calibrated"])
+
+    lca_dir, lca_page = lca_sweep_run(torch, lca_ds)
+    rec = Reconstruction.from_run_dir(lca_dir, data_name="LCA",
+                                      eval_config=lca_eval_config(**flags), device=DEVICE)
+    img = rec.render_view(-30.0, 40.0)
+    pair, _, _ = render_view_pair(rec.model, rec.grid, rec.eval_config, 330.0, 40.0,
+                                  device=DEVICE)
+    same = bool(np.array_equal(img, pair))
+    print(f"Reconstruction.from_run_dir({os.path.relpath(lca_dir, HERE)}, "
+          f"data_name='LCA'): render_view(-30, 40) {img.shape} equals render_view_pair(330, 40) "
+          f"bit for bit {same}; pixels {img.min():.4f}..{img.max():.4f}")
+    check(same and bool(np.isfinite(img).all()),
+          "Reconstruction.render_view differs from render_view_pair")
+    out["reconstruction"] = dict(equal=same, shape=list(img.shape))
+    lcfg = rec.eval_config
+    lca_volume = lca_info["volume"].to(DEVICE)
+    gt = gt_from_volume(lca_volume, lcfg)
+    out["lca_kernels"] = sweep_kernel_checks(torch, fm, fk, rec.model, rec.grid, lcfg, gt,
+                                             "lca")
+    out["lca"] = sweep_run(torch, fm, fk, fs, "lca", rec.model, rec.grid, lcfg, lca_volume,
+                           gt, os.path.join(HERE, "smoke_out", "eval_lca"), lca_page, None,
+                           SWEEP_COLUMNS + ["DICE 3D", "DOT 3D"])
+    report["eval"] = out
+    return out
+
+
+def lca_protocol_sweep(torch, fm, fk, fs, lca_info: dict, report: dict) -> None:
+    """With --lca-protocol: the protocol's best state swept at
+    benchmarks/LCA.md:98-130's settings (a 9x9 sweep, 51^3 field), its
+    summary printed beside the JAX TPU run's as a record."""
+    from nerf_for_angiography_tpu_torch.evaluation import gt_from_volume, lca_eval_config
+    from nerf_for_angiography_tpu_torch.reconstruction import Reconstruction
+
+    have = eval_artifacts_available()
+    cfg = lca_eval_config(number_angles_vis=8.0, field_resolution=51,
+                          save_videos=have["PIL"], save_heatmap=have["matplotlib"])
+    rec = Reconstruction.from_run_dir(os.path.join(HERE, "smoke_out", "lca_protocol"),
+                                      data_name="LCA", eval_config=cfg, device=DEVICE)
+    volume = lca_info["volume"].to(DEVICE)
+    run = sweep_run(torch, fm, fk, fs, "lca protocol", rec.model, rec.grid, cfg, volume,
+                    gt_from_volume(volume, cfg), os.path.join(HERE, "smoke_out", "eval_lca_protocol"),
+                    lca_info["page_data"], None, SWEEP_COLUMNS + ["DICE 3D", "DOT 3D"])
+    m = run["metrics"]
+    print(f"LCA protocol 9x9 sweep: PSNR mean {m['PSNR']['mean']:.4f} (JAX TPU run "
+          f"{LCA_SWEEP_JAX['PSNR mean'][0]}-{LCA_SWEEP_JAX['PSNR mean'][1]}), SSIM mean "
+          f"{m['SSIM']['mean']:.4f} ({LCA_SWEEP_JAX['SSIM mean']}), DICE 2D mean "
+          f"{m['DICE 2D']['mean']:.4f} ({LCA_SWEEP_JAX['DICE 2D mean']}), DOT 2D mean "
+          f"{m['DOT 2D']['mean']:.4f} ({LCA_SWEEP_JAX['DOT 2D mean']}); a record, not a gate")
+    report["lca_protocol_sweep"] = run
+
+
+def eval_rows(ev: dict, by_path: dict) -> list[dict]:
+    """The kernels line's rows for the sweeps' shapes: kernel #1 at the CT
+    and LCA batches and the field chunks (random weights; the loaded
+    weights' readings under ``loaded_weights``), first-k at the CT batch;
+    ``launches`` the two sweeps' (``launches_by_path`` per sweep)."""
+    src = "nerf_for_angiography_tpu_torch/csrc/"
+    paths = ("eval_ct", "eval_lca")
+    rows = []
+    for label in ("ct", "lca"):
+        fwd = ev[f"{label}_kernels"]["fwd"]
+        for rnd, loaded in zip(fwd[0::2], fwd[1::2]):
+            if label == "lca" and "field" in rnd["label"]:
+                continue  # the same field chunks as the CT sweep's
+            rows.append(dict(
+                name="fused_mlp_fwd", route="cuda", source=src + "mlp_wgmma.cuh",
+                replaces="nerf_for_angiography_tpu/ops/pallas/fused_mlp.py:142",
+                launches=sum(by_path["fused_mlp_fwd"][p] for p in paths),
+                launches_by_path={p: by_path["fused_mlp_fwd"][p] for p in paths},
+                max_abs_err=rnd["max_abs_err"], ms=rnd["ms"], plain_ms=rnd["plain_ms"],
+                bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"], library_ms=None,
+                path=rnd["label"], P=rnd["P"], ms_back_to_back=rnd["ms_back_to_back"],
+                loaded_weights={k: loaded[k] for k in ("max_abs_err", "median_abs_err", "ms",
+                                                       "plain_ms", "bound_ms")}))
+    for r in ev["ct_kernels"]["first_k"]:
+        rows.append(dict(
+            name="first_k_active", route="cuda", source=src + "first_k.cu",
+            replaces="nerf_for_angiography_tpu/ops/pallas/first_k.py:50",
+            launches=sum(by_path["first_k_active"][p] for p in paths),
+            launches_by_path={p: by_path["first_k_active"][p] for p in paths},
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            path="ct sweep batch", shape=[r["R"], r["w"], r["k"]]))
+    return rows
 
 
 def main() -> int:
@@ -3216,13 +3829,16 @@ def main() -> int:
         ep = encoded_phase(torch, fm, fk, fs, fe, ds, report)
         graph_phase(torch, fm, fk, fs, ds, cp, ep, report)
         bc = bwd_compare_phase(torch, fm, tr, fp, bt, ep, args.parent, report, kb)
-        lca_ds, lca = lca_phase(torch, fm, fk, fs, report)
+        lca_ds, lca, lca_info = lca_phase(torch, fm, fk, fs, report)
+        ev = eval_phase(torch, fm, fk, fs, cp["shipped_best"], cp["shipped"]["result"].page_data,
+                        lca_ds, lca_info, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
             protocol_phase(torch, ds, args.protocol, report)
         if args.lca_protocol:
             lca_protocol_phase(torch, fm, fk, lca_ds, args.lca_protocol, report)
+            lca_protocol_sweep(torch, fm, fk, fs, lca_info, report)
         # the quality bars, held once both protocol runs have their numbers
         if args.protocol:
             best = report["protocol"]["best_heldout_psnr"]
@@ -3244,7 +3860,7 @@ def main() -> int:
             "fused_dense": fp["fused_dense"], "fused_shipped_defaults": fp["fused_shipped"],
             "feature_major_dense": fp["feature_major_dense"],
             "fourier_shipped": ep["fourier_shipped"], "barf_anneal": ep["barf_anneal"],
-            "lca": lca}
+            "lca": lca, "eval_ct": ev["ct"], "eval_lca": ev["lca"]}
     # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}
@@ -3368,6 +3984,7 @@ def main() -> int:
             f"{phase}: R={r['R']} w={r['w']} k={r['k']}": {
                 k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
             for r in lk["first_k"]})
+    rows += eval_rows(ev, by_path)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,4 +1,5 @@
-"""Carry CPPN weights between the JAX package's flax params and the port.
+"""Carry weights between the JAX package and the port: the CPPN's flax params
+and the perceptual metrics' VGG / LPIPS / DISTS weights.
 
 The flax side is the params pytree as numpy (``jax.tree.map(np.asarray,
 params)``, ``{"params": {layer: {"kernel", "bias"}, name: array}}``), so
@@ -40,3 +41,19 @@ def cppn_params_to_jax(state_dict) -> dict:
         else:
             p[name] = a.copy()
     return {"params": p}
+
+
+def perceptual_params_from_jax(vgg_params, lpips_weights, dists_alpha, dists_beta) -> dict:
+    """The JAX ``PerceptualMetrics`` weights (as numpy: VGG convs (w HWIO,
+    b), the LPIPS and DISTS per-stage lists) -> the keyword arguments of the
+    port's ``PerceptualMetrics`` but ``calibrated``: convs as OIHW f32
+    tensors."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    return dict(
+        vgg_params=[(t(np.asarray(w).transpose(3, 2, 0, 1)), t(b)) for w, b in vgg_params],
+        lpips_weights=[t(w) for w in lpips_weights],
+        dists_alpha=[t(a) for a in dists_alpha],
+        dists_beta=[t(b) for b in dists_beta],
+    )

@@ -691,6 +691,27 @@ def render_rays(
     return pixels, sigma, keep
 
 
+def render_rays_with_binary(
+    model: CPPN, grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor,
+    cfg: TrainConfig, near: float, far: float, binary_thresh: float, barf_alpha=0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normal and binary renders from ONE march and MLP evaluation (the two
+    differ only in zeroing sub-threshold densities, visualization.py:343-352).
+    The keep mask comes from the sigma before the threshold. Both pixel sets
+    are in input ray order."""
+    m = _march_for(cfg, grid, origins, directions, near, far)
+    raw = _raw_for(model, m, origins, directions, cfg, barf_alpha)
+    parts, bparts = [], []
+    for mb, sigma in _bucket_sigmas(m, raw):
+        dists, keep = _keep_mask(mb, sigma, cfg)
+        parts.append(torch.exp(-(sigma * keep * dists).sum(dim=-1)))
+        bsigma = torch.where(sigma < binary_thresh, torch.zeros_like(sigma), sigma)
+        bparts.append(torch.exp(-(bsigma * keep * dists).sum(dim=-1)))
+    if isinstance(m, BucketedRays):
+        return torch.cat(parts).index_select(0, m.inv), torch.cat(bparts).index_select(0, m.inv)
+    return parts[0], bparts[0]
+
+
 def _fused_step_eligible(model: CPPN, cfg: TrainConfig) -> bool:
     """Whether the whole-train-step kernel replaces the split forward /
     backward for this model and config: pos_enc 'none' (the encoded models

@@ -1323,3 +1323,132 @@ def test_resumed_run_replays_from_the_restored_state(dev, tmp_path, capsys, monk
     got, want = _state_tensors(a), _state_tensors(b)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# evaluation and export on the card
+# ---------------------------------------------------------------------------
+
+
+def _eval_model_grid(dev, outside=100.0, bias=-5.0, gain=4.0, res=32):
+    """A 4x128 CPPN whose head is shifted and scaled so the sweep's renders
+    are neither black nor white, and a grid of a few occupied balls."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import grid_from_numpy
+
+    gen = torch.Generator().manual_seed(3)
+    model = CPPN(CPPNConfig(num_early_layers=4, num_filters=128, input_scale=1.0 / outside,
+                            dtype=torch.bfloat16), generator=gen)
+    with torch.no_grad():
+        model.output_linear.weight.mul_(gain)
+        model.output_linear.bias.add_(bias)
+    rng = np.random.default_rng(1)
+    idx = np.stack(np.meshgrid(*[np.arange(res) + 0.5] * 3, indexing="ij"), -1)
+    binary = np.zeros((res,) * 3, bool)
+    for _ in range(6):
+        c, r = rng.uniform(0.2, 0.8, 3) * res, rng.uniform(0.1, 0.2) * res
+        binary |= ((idx - c) ** 2).sum(-1) < r * r
+    aabb = [-outside] * 3 + [outside] * 3
+    model.requires_grad_(False)
+    return model.to(dev), grid_from_numpy(binary, aabb, occs=binary.astype(np.float32),
+                                          device=dev)
+
+
+@pytest.mark.parametrize("branch", ["ct", "lca"])
+def test_sweep_batch_on_the_card_matches_the_cpu(dev, branch):
+    """The batch renderer on the card (kernel #1, first-k in the CT branch's
+    compacted lattice march) against the same batch on the CPU (the plain
+    versions): pixels within the port's render tolerance, 2e-2."""
+    import copy
+
+    from nerf_for_angiography_tpu_torch.evaluation import (
+        EvalConfig, lca_eval_config, make_batch_view_renderer,
+    )
+
+    if branch == "ct":
+        cfg = EvalConfig(img_width=24, img_height=20)
+        model, grid = _eval_model_grid(dev)
+    else:
+        cfg = lca_eval_config(img_width=24, img_height=20, depth_samples_per_ray=64)
+        model, grid = _eval_model_grid(dev, outside=80.0, bias=-26.0, gain=20.0)
+    thetas, phis = [30.0, 300.0, 0.0, 180.0], [45.0, 10.0, 0.0, 270.0]
+    fk.reset_counts()
+    fm.reset_counts()
+    px, bpx, c2w = make_batch_view_renderer(model, grid, cfg)(grid, thetas, phis)
+    torch.cuda.synchronize()
+    assert fm.fwd_launches == 1 and fk.launches == (1 if branch == "ct" else 0)
+    grid_cpu = type(grid)(*(t.cpu() if t is not None else None for t in grid))
+    cpx, cbpx, cc2w = make_batch_view_renderer(copy.deepcopy(model).cpu(), grid_cpu, cfg)(
+        grid_cpu, thetas, phis)
+    assert 0.02 < float(cpx.mean()) < 0.98
+    for a, b in ((px, cpx), (bpx, cbpx)):
+        err = (a.cpu() - b).abs()
+        assert float(err.max()) <= 2e-2 and float(err.median()) <= 1e-3
+    torch.testing.assert_close(c2w.cpu(), cc2w)
+
+
+def test_first_k_at_the_ct_sweep_shape(dev):
+    """First-k at the CT sweep's batch shape (4 views of 100x100 rays, 200
+    samples, k = 96) equal to its plain version."""
+    gen = torch.Generator().manual_seed(2)
+    mask = (torch.rand((40_000, 200), generator=gen) < 0.3).float()
+    mask[:100] = 1.0
+    mask[100:200] = 0.0
+    mask = mask.to(dev)
+    sel, mk = fk.first_k_active_cuda(mask, 96)
+    want_sel, want_mk = fk.first_k_active_reference(mask, 96)
+    assert torch.equal(sel, want_sel) and torch.equal(mk, want_mk)
+
+
+def test_sweep_on_the_card_launch_counts(dev, tmp_path):
+    """A small run_sweep on the card: kernel #1 once a batch and once a
+    field chunk, first-k once a CT batch, the other kernels never; every
+    artifact written."""
+    import os
+
+    from nerf_for_angiography_tpu_torch.data import make_sphere_volume
+    from nerf_for_angiography_tpu_torch.evaluation import EvalConfig, gt_from_volume, run_sweep
+    from nerf_for_angiography_tpu_torch.ops.interpolation import trilinear
+    from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
+
+    model, grid = _eval_model_grid(dev)
+    cfg = EvalConfig(limited_size_vis=180.0, number_angles_vis=4.0, img_width=32,
+                     img_height=32, field_resolution=70, save_videos=False,
+                     save_heatmap=False)
+    vol = make_sphere_volume(res=24, device=dev)
+    for mod in (fm, fk, fe, fs):
+        mod.reset_counts()
+    table = run_sweep(model, grid, cfg, gt_from_volume(vol, cfg), str(tmp_path), verbose=False,
+                      gt_volume_sampler=lambda p: trilinear(vol, p), device=dev)
+    torch.cuda.synchronize()
+    # 25 views in 7 batches of 4; 70^3 = 343,000 points in 2 chunks
+    assert (fm.fwd_launches, fk.launches) == (7 + 2, 7)
+    assert (fm.bwd_launches, fe.enc_fwd_launches, fe.enc_bwd_launches,
+            fs.fused_step_launches) == (0, 0, 0, 0)
+    assert table["pred_img"].shape == (25, 32 * 32) and np.isfinite(table["PSNR"]).all()
+    names = set(os.listdir(tmp_path))
+    assert {"df-metrics.csv", "metrics-summary.txt", "coarse-field.vtk", "projections"} <= names
+    assert len(os.listdir(tmp_path / "projections")) == 50
+
+
+def test_reconstruction_on_the_card(dev, tmp_path):
+    """Reconstruction.from_run_dir onto the card: render_view equal to the
+    sweep's render_view_pair bit for bit, and within 2e-2 of the same run
+    directory loaded onto the CPU; the density field within the forward
+    tolerance."""
+    from nerf_for_angiography_tpu_torch.evaluation import EvalConfig, render_view_pair
+    from nerf_for_angiography_tpu_torch.reconstruction import Reconstruction
+    from nerf_for_angiography_tpu_torch.training import save_grid_vtk, save_model
+
+    model, grid = _eval_model_grid(dev)
+    save_model(str(tmp_path / "highmodel.npz"), model.config.to_model_definition(), model)
+    save_grid_vtk(str(tmp_path / "highgrid.vtk"), grid)
+    cfg = EvalConfig(img_width=24, img_height=20)
+    rec = Reconstruction.from_run_dir(str(tmp_path), eval_config=cfg)
+    assert rec.device.type == "cuda"
+    cpu = Reconstruction.from_run_dir(str(tmp_path), eval_config=cfg, device="cpu")
+    img = rec.render_view(-30.0, 45.0)
+    pair, _, _ = render_view_pair(rec.model, rec.grid, cfg, 330.0, 45.0)
+    np.testing.assert_array_equal(img, pair)
+    np.testing.assert_allclose(img, cpu.render_view(-30.0, 45.0), atol=2e-2)
+    np.testing.assert_allclose(rec.density_field(resolution=17),
+                               cpu.density_field(resolution=17), atol=2e-2)
