@@ -10,7 +10,8 @@
 Phases:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. every kernel library (four) built from ``csrc/`` (one nvcc per source,
-     all started together), the HGMMA instructions of the wgmma forwards
+     all started together), then the native host libraries, the HGMMA
+     instructions of the wgmma forwards
      (kernel #1 at its 8 widths, the encoded kernel #3 at its 26 (F, KE)
      instantiations) counted in the built libraries' SASS, #3's ptxas at F =
      128, KE = 48 (no spill), and the fused-MLP
@@ -128,7 +129,22 @@ Phases:
      ``--lca-protocol`` also that run's best state swept at
      benchmarks/LCA.md's 9x9 / 51^3 settings, printed beside the JAX run's
      summary;
-  11. one JSON line with the kernel table, the card's name/power line, and the
+  11. the user pipeline through the entry points (``cli_phase``), in a
+     temporary workspace: the two native host libraries built (phase 2's
+     end) and ``python -m nerf_for_angiography_tpu_torch.cli.<name> --help``
+     for datagen, train, evaluate and analyze in fresh processes; the
+     datagen CLI for CT (``phantom:vessel``, 26 views of 100x100), LCA
+     (``phantom:lca``, the sdf preset) and a STRUCTURED_POINTS CT file, each
+     one's CSVs read back by ``load_data`` equal to the in-memory dataset bit
+     for bit (the file's grid equal to transfer_func_ct of its raw values);
+     the train CLI for 600 steps at the shipped defaults on the CT CSVs
+     (launch counters read around it: #1, #2 and #5 launched, #3, #4 and #6
+     never; its run directory written), its best held-out PSNR and steady
+     rays/s printed beside an in-process train() on the in-memory dataset;
+     the evaluate CLI's full 37x37 sweep of that run (#1 343 + 31, #5 343;
+     1,369 metric rows, 703 per-angle JSONs held to the sweep's images,
+     every other artifact read back); load_experiments reading the run;
+  12. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -3731,13 +3747,279 @@ def lca_protocol_sweep(torch, fm, fk, fs, lca_info: dict, report: dict) -> None:
     report["lca_protocol_sweep"] = run
 
 
+def build_native() -> dict:
+    """Build the two native host libraries (native/csv_loader.cpp,
+    native/json_export.cpp) with the host C++ compiler; seconds of each."""
+    from nerf_for_angiography_tpu_torch import native
+
+    secs = {}
+    for name in ("csvloader", "jsonexport"):
+        t0 = time.perf_counter()
+        native.get_lib(name)
+        secs[name] = time.perf_counter() - t0
+    print("native host library builds: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    return secs
+
+
+CLI_NAMES = ("datagen", "train", "evaluate", "analyze")
+CLI_TRAIN_ARGV = ["--n_iters", "600", "--display_every", "300"]
+CLI_SWEEP = (1369, 703)  # the 37x37 sweep's views and its per-angle JSONs
+CLI_COLUMNS = SWEEP_COLUMNS + ["LPIPS", "DISTS", "DICE 3D", "DOT 3D", "perceptual_calibrated"]
+
+
+def cli_help(root: str) -> dict:
+    """`python -m nerf_for_angiography_tpu_torch.cli.<name> --help` for the
+    four entry points, as four processes started together: each must import
+    (the card has no JAX) and print its usage."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"nerf_for_angiography_tpu_torch.cli.{name}", "--help"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in CLI_NAMES}
+    out = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=300)
+        out[name] = proc.returncode
+        check(proc.returncode == 0 and "usage:" in text,
+              f"cli.{name} --help exited {proc.returncode}:\n{text[-2000:]}")
+    print(f"cli --help: {', '.join(CLI_NAMES)} each start and print their usage "
+          f"({time.perf_counter() - t0:.1f} s, four processes)")
+    return out
+
+
+def check_rays_equal(torch, loaded, ds, label: str) -> None:
+    for f in ("origins", "directions", "pixel_values", "weights", "image_ids", "x_positions",
+              "y_positions"):
+        a, b = getattr(loaded.rays, f), getattr(ds.rays, f)
+        check(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b),
+              f"{label}: the CSVs' {f} differ from the in-memory dataset's")
+
+
+def cli_datagen(torch, argv: list, ds, label: str, tag: str) -> dict:
+    """One datagen CLI run: its files (two CSVs, a gray and a weight-map PNG
+    a view, both VTKs) and the rays load_data reads from its CSVs, which must
+    equal the in-memory dataset ``ds`` of the same configuration bit for
+    bit; the first view's PNGs read back as the writers make them."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.cli import datagen
+    from nerf_for_angiography_tpu_torch.data import load_data
+    from nerf_for_angiography_tpu_torch.utils import (
+        colormap_rgba, read_png_gray, read_png_rgba, read_vtk,
+    )
+
+    t0 = time.perf_counter()
+    paths = datagen.main(argv)
+    secs = time.perf_counter() - t0
+    folder = paths["folder"]
+    check(os.path.basename(paths["proj_csv"]).endswith(f"-{tag}.csv"),
+          f"{label}: {paths['proj_csv']} is not a {tag} CSV")
+    pngs = sorted(os.listdir(os.path.join(folder, "projections")))
+    views = len(ds.angles)
+    n_wmap = sum(p.startswith("image-transform-") for p in pngs)
+    check(len(pngs) == 2 * views and n_wmap == views,
+          f"{label}: {len(pngs)} PNGs ({n_wmap} weight maps) for {views} views")
+    gt = read_vtk(os.path.join(folder, "ground-truth.vtk"))
+    check(gt.dimensions == (200, 200, 200) and os.path.exists(
+        os.path.join(folder, "transferfunc.vtk")), f"{label}: the VTKs were not written")
+    (theta, phi), img, wmap = ds.angles[0], ds.images[0], ds.weight_maps[0]
+    gray = read_png_gray(os.path.join(folder, "projections", f"image-{theta}-{phi}-0.0.png"))
+    rgba = read_png_rgba(os.path.join(folder, "projections",
+                                      f"image-transform-{theta}-{phi}-0.0.png"))
+    check(np.array_equal(gray, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+          and np.array_equal(rgba, colormap_rgba(wmap)),
+          f"{label}: the first view's PNGs are not its image and weight map")
+    t1 = time.perf_counter()
+    loaded = load_data(paths["proj_csv"], paths["rays_csv"], device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    check_rays_equal(torch, loaded, ds, label)
+    sizes = {k: os.path.getsize(paths[k]) / 2**20 for k in ("proj_csv", "rays_csv")}
+    print(f"{label} datagen CLI: {views} views, {ds.rays.num_rays} rays in {secs:.2f} s; "
+          f"{len(pngs)} PNGs, ground-truth.vtk 200^3, transferfunc.vtk; "
+          f"{os.path.basename(paths['proj_csv'])} {sizes['proj_csv']:.1f} MiB, "
+          f"{os.path.basename(paths['rays_csv'])} {sizes['rays_csv']:.1f} MiB; load_data "
+          f"(native) {load_s:.2f} s: every ray array torch.equal to the in-memory dataset")
+    return dict(datagen_s=secs, load_s=load_s, views=views, rays=ds.rays.num_rays, pngs=len(pngs),
+                csv_mib=sizes, proj_csv=paths["proj_csv"], rays_csv=paths["rays_csv"])
+
+
+def cli_vtk_datagen(torch) -> dict:
+    """The datagen CLI on a CT volume read from a STRUCTURED_POINTS file: the
+    grid it loads holds transfer_func_ct of the raw values at every node,
+    and its CSVs load."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.cli import datagen
+    from nerf_for_angiography_tpu_torch.data import load_data, transfer_func_ct
+    from nerf_for_angiography_tpu_torch.data.volumes import load_ct_volume
+    from nerf_for_angiography_tpu_torch.utils import write_structured_points
+
+    rng = np.random.default_rng(0)
+    raw = (rng.random((40, 36, 32)) * 4200 - 100).astype(np.float32)
+    write_structured_points("ct-volume.vtk", raw, origin=(-20.0, -18.0, -16.0),
+                            spacing=(1.0, 1.0, 1.0), name="scalars")
+    paths = datagen.main(["--volume", "ct-volume.vtk", "--out", "data_vtk", "--limited_size",
+                          "90", "--number_angles", "2", "--img_size", "32"])
+    vol = load_ct_volume("ct-volume.vtk", device=DEVICE)
+    want = transfer_func_ct(raw)
+    same = vol.values.device.type == torch.device(DEVICE).type and torch.equal(
+        vol.values.cpu(), want)
+    loaded = load_data(paths["proj_csv"], paths["rays_csv"], device=DEVICE)
+    print(f"VTK datagen CLI: a 40x36x32 STRUCTURED_POINTS CT volume: the loaded grid's nodes "
+          f"equal transfer_func_ct of the raw values {same}; {loaded.num_views} views of "
+          f"{loaded.rays_per_view} rays loaded back")
+    check(same and loaded.num_views == 10 and loaded.rays_per_view == 32 * 32,
+          "VTK datagen: the loaded grid or the CSVs are wrong")
+    return dict(nodes_equal=same, views=loaded.num_views)
+
+
+def cli_phase(torch, fm, fk, fs, ev: dict, lca_ds, report: dict) -> dict:
+    """The user pipeline through the port's entry points in a temporary
+    workspace (cwd, restored after): --help of the four CLIs in fresh
+    processes; the CT, LCA and VTK-file datagens (rays loaded from the CSVs
+    equal to in-memory datasets bit for bit); the train CLI at the shipped
+    defaults for 600 steps (#1, #2 and #5 launched, #3, #4 and #6
+    never; its run directory written), beside an in-process train() on the
+    in-memory dataset; the evaluate CLI's full 37x37 sweep on that run
+    (#1 343 + 31, #5 343; every artifact read back, the per-angle JSONs
+    against the sweep's images); load_experiments of the workspace."""
+    import tempfile
+
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.analysis import load_experiments
+    from nerf_for_angiography_tpu_torch.cli import analyze, evaluate
+    from nerf_for_angiography_tpu_torch.cli import train as train_cli
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_vessel_volume,
+    )
+    from nerf_for_angiography_tpu_torch.evaluation import EvalConfig
+    from nerf_for_angiography_tpu_torch.training import parse_train_args, train
+
+    out = dict(native_build_s=report["native_build"], help=cli_help(HERE))
+    have = eval_artifacts_available()
+    old = os.getcwd()
+    os.makedirs(os.path.join(HERE, "smoke_out"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "smoke_out")) as ws:
+        os.chdir(ws)
+        try:
+            ct_cfg = DatagenConfig(limited_size=180.0, number_angles=4.0, img_width=100,
+                                   img_height=100)
+            ct_ds = generate_dataset(make_vessel_volume(device=DEVICE), ct_cfg, device=DEVICE)
+            out["ct_datagen"] = cli_datagen(
+                torch, ["--volume", "phantom:vessel", "--limited_size", "180", "--number_angles",
+                        "4", "--img_size", "100"], ct_ds, "CT", "cttoproj")
+            out["lca_datagen"] = cli_datagen(
+                torch, ["--data_name", "LCA", "--volume", "phantom:lca"], lca_ds, "LCA",
+                "sdftoproj")
+            out["vtk_datagen"] = cli_vtk_datagen(torch)
+
+            reset_all(fm, fk, fs)
+            res = train_cli.main(CLI_TRAIN_ARGV)
+            torch.cuda.synchronize()
+            counts = read_counts(fm, fk, fs)
+            (rd,) = [os.path.join("cases", "ct", "runs", d)
+                     for d in os.listdir(os.path.join("cases", "ct", "runs"))]
+            written = {f: os.path.exists(os.path.join(rd, f))
+                       for f in ("highmodel.npz", "coarsegrid.vtk", "readme.txt")}
+            # a log_dir as the CLI's: with a logger the loop drains the tuner's
+            # pressure every 100 steps (JAX loop.py:528-538), which moves its
+            # schedule
+            cfg, _ = parse_train_args(CLI_TRAIN_ARGV)
+            same = train(cfg, ct_ds.rays, src_pt_z=float(ct_cfg.src_pt[2]), verbose=False,
+                         log_dir="in_process_run", checkpoint_every=cfg.save_every,
+                         device=DEVICE)
+            t, ts = res.timing, same.timing
+            print(f"train CLI: {res.iters_run + 1} steps at the shipped defaults; launches "
+                  f"fwd {counts['fwd_launches']} bwd {counts['bwd_launches']} first_k "
+                  f"{counts['first_k_launches']} fused_step {counts['fused_step_launches']} "
+                  f"enc_fwd {counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}; "
+                  f"wrote {', '.join(f for f, ok in written.items() if ok)} under {rd}; best "
+                  f"held-out PSNR {res.best_heldout_psnr:.3f} dB, steady "
+                  f"{t['steady_rays_per_sec']:.0f} rays/s (final Tuning {t['tuning_final']}); "
+                  f"in-process train() on the in-memory dataset, same config, seed and a "
+                  f"log_dir: {same.best_heldout_psnr:.3f} dB, {ts['steady_rays_per_sec']:.0f} "
+                  f"rays/s (final Tuning {ts['tuning_final']}); best PSNR equal "
+                  f"{same.best_heldout_psnr == res.best_heldout_psnr} (a record, not a gate)")
+            check(counts["fwd_launches"] > 0 and counts["bwd_launches"] > 0
+                  and counts["first_k_launches"] > 0 and counts["fused_step_launches"] == 0,
+                  f"train CLI: launches {counts}: #1, #2 and #5 must launch, #6 never")
+            check_no_enc(counts, "train CLI")
+            check(all(written.values()), f"train CLI: {rd} lacks {written}")
+            out["train"] = dict(**counts, run_dir=rd, steps=res.iters_run + 1,
+                                best_heldout_psnr=res.best_heldout_psnr,
+                                steady_rays_per_sec=t["steady_rays_per_sec"],
+                                tuning_final=t["tuning_final"],
+                                in_process=dict(best_heldout_psnr=same.best_heldout_psnr,
+                                                steady_rays_per_sec=ts["steady_rays_per_sec"],
+                                                tuning_final=ts["tuning_final"]))
+
+            ecfg = EvalConfig(save_videos=have["PIL"], save_heatmap=have["matplotlib"])
+            argv = ["--run_dir", rd] + ([] if have["PIL"] else ["--no_videos"]) + (
+                [] if have["matplotlib"] else ["--no_heatmap_png"])
+            n_views, n_angle_jsons = CLI_SWEEP
+            batches = math.ceil(n_views / ecfg.chunk_views)
+            want = dict(fwd_launches=batches + math.ceil(ecfg.field_resolution ** 3 / EVAL_CHUNK),
+                        first_k_launches=batches, bwd_launches=0, fused_step_launches=0,
+                        enc_fwd_launches=0, enc_bwd_launches=0)
+            reset_all(fm, fk, fs)
+            t0 = time.perf_counter()
+            with recorded_field() as fields:
+                tables = evaluate.main(argv)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            counts = read_counts(fm, fk, fs)
+            table = tables[rd]
+            print(f"evaluate CLI: the {n_views}-view sweep of {rd} in {eval_s:.2f} s; launches "
+                  f"fwd {counts['fwd_launches']} (expected {want['fwd_launches']}) first_k "
+                  f"{counts['first_k_launches']} (expected {want['first_k_launches']}) bwd "
+                  f"{counts['bwd_launches']} fused_step {counts['fused_step_launches']} enc_fwd "
+                  f"{counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}")
+            check(counts == want, f"evaluate CLI: launches {counts} != {want}")
+            heat = [c for c in table if c in ("PSNR", "SSIM", "DICE 2D", "DOT 2D", "LPIPS",
+                                              "DISTS")]
+            arts = check_sweep_artifacts(torch, "evaluate CLI", table, rd, ecfg, fields[0],
+                                         CLI_COLUMNS, heat, evaluate.read_page_data(rd), False)
+            check(arts["csv_rows"] == n_views and arts["angle_jsons"] == n_angle_jsons,
+                  f"evaluate CLI: {arts['csv_rows']} metric rows and {arts['angle_jsons']} "
+                  f"per-angle JSONs, not {n_views} and {n_angle_jsons}")
+            out["evaluate"] = dict(**counts, expected=want, eval_s=eval_s, artifacts=arts,
+                                   psnr_mean=float(np.mean(table["PSNR"])))
+
+            exps = load_experiments("cases")
+            cols = [c for c in exps if c.endswith((" mean", " min"))]
+            print(f"analysis: load_experiments('cases') reads {len(exps['run'])} run(s) with "
+                  f"{len(cols)} metric columns; PSNR mean {exps['PSNR mean'][0]:.4f}")
+            check(exps["run"] == [os.path.basename(rd)]
+                  and {f"{m} {q}" for m in ("PSNR", "SSIM", "DICE 2D", "LPIPS", "DISTS")
+                       for q in ("mean", "min")} <= set(cols),
+                  "load_experiments did not read the evaluated run back")
+            if have["matplotlib"]:
+                analyze.main(["--out", "plot.png"])
+                check(os.path.getsize("plot.png") > 0, "analyze: no plot written")
+            else:
+                print("analyze: the plot is not drawn: the card has no matplotlib "
+                      "(load_experiments read the run)")
+            out["analysis"] = dict(runs=len(exps["run"]), columns=cols)
+        finally:
+            os.chdir(old)
+    json_s = {k: ev[k]["seconds_by_part"].get("json") for k in ("ct", "lca")}
+    print(f"sweep JSONs through the native writer (eval phase, run_sweep timing): CT "
+          f"{json_s['ct']:.2f} s, LCA {json_s['lca']:.2f} s")
+    out["eval_json_s"] = json_s
+    report["cli"] = out
+    return out
+
+
 def eval_rows(ev: dict, by_path: dict) -> list[dict]:
     """The kernels line's rows for the sweeps' shapes: kernel #1 at the CT
     and LCA batches and the field chunks (random weights; the loaded
     weights' readings under ``loaded_weights``), first-k at the CT batch;
-    ``launches`` the two sweeps' (``launches_by_path`` per sweep)."""
+    ``launches`` the two sweeps' and the evaluate CLI's (``launches_by_path``
+    per sweep)."""
     src = "nerf_for_angiography_tpu_torch/csrc/"
-    paths = ("eval_ct", "eval_lca")
+    paths = ("eval_ct", "eval_lca", "cli_evaluate")
     rows = []
     for label in ("ct", "lca"):
         fwd = ev[f"{label}_kernels"]["fwd"]
@@ -3819,6 +4101,7 @@ def main() -> int:
     try:
         kb = build_kernels(fm, fk, fs, fe)
         report["build"] = kb
+        report["native_build"] = build_native()
         rows = kernel_phase(torch, fm, report)
         ds = make_dataset(torch)
         report["sampling_table_repeats_identical"] = check_sampling_table(torch, ds.rays)
@@ -3832,6 +4115,7 @@ def main() -> int:
         lca_ds, lca, lca_info = lca_phase(torch, fm, fk, fs, report)
         ev = eval_phase(torch, fm, fk, fs, cp["shipped_best"], cp["shipped"]["result"].page_data,
                         lca_ds, lca_info, report)
+        cli = cli_phase(torch, fm, fk, fs, ev, lca_ds, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
@@ -3860,7 +4144,8 @@ def main() -> int:
             "fused_dense": fp["fused_dense"], "fused_shipped_defaults": fp["fused_shipped"],
             "feature_major_dense": fp["feature_major_dense"],
             "fourier_shipped": ep["fourier_shipped"], "barf_anneal": ep["barf_anneal"],
-            "lca": lca, "eval_ct": ev["ct"], "eval_lca": ev["lca"]}
+            "lca": lca, "eval_ct": ev["ct"], "eval_lca": ev["lca"],
+            "cli_train": cli["train"], "cli_evaluate": cli["evaluate"]}
     # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}

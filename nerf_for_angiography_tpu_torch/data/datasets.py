@@ -1,18 +1,22 @@
-"""Dataset synthesis (port of ``generate_dataset`` from
+"""Dataset synthesis and the CSV data contract (port of
 ``nerf_for_angiography_tpu/data/datasets.py``; the reference's
-phantomdata/cttoray.py flow).
+phantomdata/cttoray.py and sdftoray.py flows).
 
-It covers the CT sweep (cttoray.py) and the SDF/LCA sweep (sdftoray.py:
-``angle_mode='sdf'``, ``mode='sdf'`` DRRs, ``per_image_normalize``, and
-``resize_to`` at identity) without pose shifts, and returns rays, images,
-weight maps and angles. The ``proj`` table, the CSV writers and
-``load_data`` arrive with the datagen/CLI slice.
+``generate_dataset`` covers the CT sweep (cttoray.py) and the SDF/LCA sweep
+(sdftoray.py: ``angle_mode='sdf'``, ``mode='sdf'`` DRRs,
+``per_image_normalize``, and ``resize_to`` at identity) without pose shifts.
+The two CSV artifacts are written without pandas, byte for byte as the JAX
+package's ``to_csv`` writes them (utils/csvtable.py), and ``load_data``
+reads them back: the per-ray table through the native loader
+(``native/csv_loader.cpp``), or with ``use_native=False`` through the
+``csv`` module.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+from ast import literal_eval
 from typing import NamedTuple
 
 import numpy as np
@@ -22,6 +26,7 @@ from ..device import resolve_device
 from ..geometry import get_ray_values, linspace_depths, stratify_depths
 from ..ops.interpolation import RegularGrid
 from ..ops.sampling import RayDataset
+from ..utils.csvtable import read_csv_table, write_csv_table
 from .drr import render_drr
 from .weights import get_weighted_img
 
@@ -126,6 +131,9 @@ def sdf_datagen_config(**kw) -> DatagenConfig:
 
 
 class GeneratedDataset(NamedTuple):
+    """Everything the datagen produces, before the CSVs."""
+
+    proj: dict  # the cttoproj column table (one row a view, JAX's columns in order)
     rays: RayDataset  # dense per-ray arrays on the device
     images: np.ndarray  # (V, H, W) jointly normalized DRRs
     weight_maps: np.ndarray  # (V, H, W) sampling weights
@@ -166,13 +174,13 @@ def generate_dataset(
     depth_base = linspace_depths(
         config.near_thresh, config.far_thresh, config.depth_samples_per_ray, device
     )
-    imgs, wmaps, all_origins, all_dirs = [], [], [], []
+    imgs, wmaps, mats, all_origins, all_dirs = [], [], [], [], []
     for theta, phi in angles:
         if config.stratified_depths:
             depth_values = stratify_depths(depth_base, generator)
         else:
             depth_values = depth_base
-        origins, directions, _ = get_ray_values(
+        origins, directions, c2w = get_ray_values(
             float(theta), float(phi), config.larm, config.src_pt, W, H,
             config.focal_length, device=device,
         )
@@ -195,6 +203,7 @@ def generate_dataset(
             )
         imgs.append(img_np)
         wmaps.append(np.asarray(wmap))
+        mats.append(c2w.cpu().numpy())
         all_origins.append(origins.reshape(-1, 3))
         all_dirs.append(directions.reshape(-1, 3))
 
@@ -207,6 +216,33 @@ def generate_dataset(
     weight_maps = np.stack(wmaps)
 
     V = len(angles)
+    mats = np.stack(mats)
+    zeros = [0.0] * V
+    proj = {
+        "image_id": [f"{t}-{p}".replace(".", ",") for t, p in angles],
+        "theta": angles[:, 0],
+        "phi": angles[:, 1],
+        "larm": [config.larm] * V,
+        "theta_shift": zeros,
+        "phi_shift": zeros,
+        "larm_shift": zeros,
+        "translation_x": zeros,
+        "translation_y": zeros,
+        "translation_z": zeros,
+        "tform_cam2world": mats,
+        "unshifted_tform_cam2world": mats,  # no pose shifts: the same matrices
+        "image_data": images,
+        "image_distance_data": weight_maps,
+        "org_img_width": [W] * V,
+        "org_img_height": [H] * V,
+        "focal_length": [config.focal_length] * V,
+        "near_thresh": [config.near_thresh] * V,
+        "far_thresh": [config.far_thresh] * V,
+        "depth_sample": [config.depth_samples_per_ray] * V,
+        "grid_scaling_factor": [1.0] * V,
+        "depth_values": np.broadcast_to(depth_base.cpu().numpy(), (V, depth_base.shape[0])),
+        "src_pt_z": [float(config.src_pt[2])] * V,
+    }
     ii = np.broadcast_to(np.arange(W)[None, :], (H, W)).reshape(-1)
     jj = np.broadcast_to(np.arange(H)[:, None], (H, W)).reshape(-1)
 
@@ -222,4 +258,131 @@ def generate_dataset(
         x_positions=dev(np.tile(ii, V), torch.int64),
         y_positions=dev(np.tile(jj, V), torch.int64),
     )
-    return GeneratedDataset(rays=rays, images=images, weight_maps=weight_maps, angles=angles)
+    return GeneratedDataset(proj=proj, rays=rays, images=images, weight_maps=weight_maps,
+                            angles=angles)
+
+
+# ---------------------------------------------------------------------------
+# CSV contract (the reference's schemas, sep=';')
+# ---------------------------------------------------------------------------
+
+
+def write_proj_csv(ds: GeneratedDataset, path: str) -> None:
+    """df-{file_name}-{binary}-cttoproj.csv writer (cttoray.py:271-287)."""
+    write_csv_table(ds.proj, path)
+
+
+def write_rays_csv(ds: GeneratedDataset, path: str) -> None:
+    """df-rays-{file_name}-... writer (cttoray.py:289-308)."""
+    r = ds.rays
+    ids = list(ds.proj["image_id"])
+    o, d = r.origins.cpu().numpy(), r.directions.cpu().numpy()
+    table = {
+        "image_id": np.repeat(np.array(ids, dtype=object), r.num_rays // len(ids)),
+        "pixel_value": r.pixel_values.cpu().numpy(),
+        "distance_pixel_value": r.weights.cpu().numpy(),
+        "x_position": r.x_positions.cpu().numpy(),
+        "y_position": r.y_positions.cpu().numpy(),
+        **{f"ray_origins_{c}": o[:, i] for i, c in enumerate("xyz")},
+        **{f"ray_directions_{c}": d[:, i] for i, c in enumerate("xyz")},
+    }
+    write_csv_table(table, path)
+
+
+def map_column_to_np(table: dict, column_name: str) -> np.ndarray:
+    """Parse a list-valued CSV column (the reference stores images and
+    matrices as stringified python lists; nerf_helpers.py:8-11 /
+    proj_helpers.py:5-7)."""
+    return np.array([literal_eval(v) if isinstance(v, str) else v
+                     for v in table[column_name]])
+
+
+def proj_images_from_csv(proj_csv: str) -> tuple[np.ndarray, np.ndarray]:
+    """(images, weight_maps) arrays from a cttoproj CSV's image_data /
+    image_distance_data columns."""
+    table = read_csv_table(proj_csv)
+    return map_column_to_np(table, "image_data"), map_column_to_np(table, "image_distance_data")
+
+
+class LoadedData(NamedTuple):
+    """What the reference's (missing) load_data returned, reconstructed from
+    its uses at run_nerf_acc.py:82-124; the JAX package's field names, with
+    column tables in place of its DataFrames."""
+
+    proj_df: dict
+    ray_df: dict | None  # None on the native path
+    rays: RayDataset
+    focal_length: float
+    near_thresh: float
+    far_thresh: float
+    depth_samples: int
+    src_pt_z: float
+    num_views: int
+    rays_per_view: int
+
+
+def _plain_rays(table: dict) -> dict:
+    """The per-ray table's arrays as the native loader returns them: f32 by
+    way of the f64 parse, ids in order of first appearance."""
+    ids = [str(v) for v in table["image_id"]]
+    index = {v: i for i, v in enumerate(dict.fromkeys(ids))}
+
+    def f32(c):
+        return np.asarray(table[c], np.float64).astype(np.float32)
+
+    return dict(
+        origins=np.stack([f32(f"ray_origins_{c}") for c in "xyz"], -1),
+        directions=np.stack([f32(f"ray_directions_{c}") for c in "xyz"], -1),
+        pixel_values=f32("pixel_value"),
+        weights=f32("distance_pixel_value"),
+        x_positions=np.asarray(table["x_position"], np.int64),
+        y_positions=np.asarray(table["y_position"], np.int64),
+        image_ids=np.array([index[v] for v in ids], np.int64),
+        num_views=len(index),
+    )
+
+
+def load_data(proj_csv: str, rays_csv: str, use_native: bool = True,
+              device: str | torch.device = "cuda") -> LoadedData:
+    """Read the two CSVs back, the rays onto ``device``.
+
+    Reconstruction of the stripped ``load_data`` (run_nerf_acc.py:82): proj
+    columns used at :120-124 (focal_length, near_thresh, far_thresh,
+    depth_sample, src_pt_z); ray columns at :86-117. The per-ray table
+    loads through the native parser, or with ``use_native=False`` through
+    the ``csv`` module; both give the same arrays."""
+    device = resolve_device(device)
+    proj = read_csv_table(proj_csv)
+    if use_native:
+        from ..native import load_rays_csv
+
+        ray_df, arrays = None, load_rays_csv(rays_csv)
+    else:
+        ray_df = read_csv_table(rays_csv)
+        arrays = _plain_rays(ray_df)
+
+    def dev(name, dtype):
+        return torch.as_tensor(arrays[name], device=device).to(dtype)
+
+    rays = RayDataset(
+        origins=dev("origins", torch.float32),
+        directions=dev("directions", torch.float32),
+        pixel_values=dev("pixel_values", torch.float32),
+        weights=dev("weights", torch.float32),
+        image_ids=dev("image_ids", torch.int64),
+        x_positions=dev("x_positions", torch.int64),
+        y_positions=dev("y_positions", torch.int64),
+    )
+    num_views = arrays["num_views"]
+    return LoadedData(
+        proj_df=proj,
+        ray_df=ray_df,
+        rays=rays,
+        focal_length=float(proj["focal_length"][0]),
+        near_thresh=float(proj["near_thresh"][0]),
+        far_thresh=float(proj["far_thresh"][0]),
+        depth_samples=int(proj["depth_sample"][0]),
+        src_pt_z=float(proj["src_pt_z"][0]),
+        num_views=num_views,
+        rays_per_view=rays.num_rays // num_views,
+    )

@@ -12,9 +12,11 @@ two JSON products the web app reads (ReactHeatmap.js:79-118,245-363):
 
 The sweep's results are a column table: a dict from column name to a numpy
 array with one row a view (``pred_img`` / ``org_img`` as (N, H*W) arrays).
-The JSONs are written with the standard ``json`` module, whose floats are
-the shortest round-trip form, so ``json.load`` gives the values the JAX
-package's native writer gives.
+The JSONs are written by the native writer (``native/json_export.cpp``, as
+the JAX package writes them), whose floats are the shortest round-trip form,
+so ``json.load`` gives the values ``json.dumps`` would have written; a
+heatmap JSON that carries extra keys (``json_extra``) is written with
+``json``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import json
 import os
 
 import numpy as np
+
+from ..native import write_angle_json, write_heatmap_json
 
 
 def get_spherical_coordinates(thetas, phis):
@@ -173,13 +177,15 @@ def _get_2d_heatmap(table, store_folder_name, experiment_folder, name, x_axis, y
         "angles": ang.reshape(-1, 2)[order].tolist(),
         "vals": vals.reshape(-1)[order].tolist(),
     }
-    if json_extra:
-        json_obj.update(json_extra)
-
     os.makedirs(experiment_folder, exist_ok=True)
     metric_path = os.path.join(experiment_folder, f"{metric}-{name}-{x_axis}-{y_axis}.json")
-    with open(metric_path, "w") as f:
-        f.write(json.dumps(json_obj))
+    if json_extra:
+        json_obj.update(json_extra)
+        with open(metric_path, "w") as f:
+            f.write(json.dumps(json_obj))
+    else:
+        write_heatmap_json(metric_path, json_obj["rad"], json_obj["theta"], json_obj["angles"],
+                           json_obj["vals"])
 
     # per-angle image JSONs ({theta}{phi}.json, helpers.py:255-259)
     preds = table["pred_img"]
@@ -198,12 +204,7 @@ def _get_2d_heatmap(table, store_folder_name, experiment_folder, name, x_axis, y
             angles_written.add(fname)
         pred = np.asarray(preds[rows[k]], float)
         org = np.asarray(orgs[rows[k]], float)
-        diff = np.abs(pred - org)
-        # one dumps and one write: json.dump writes the encoder's chunks one
-        # by one, twice the time of the float formatting itself
-        text = json.dumps({"pred": pred.tolist(), "org": org.tolist(), "diff": diff.tolist()})
-        with open(os.path.join(experiment_folder, fname), "w") as f:
-            f.write(text)
+        write_angle_json(os.path.join(experiment_folder, fname), pred, org, np.abs(pred - org))
     return json_obj
 
 

@@ -27,7 +27,6 @@ with ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
-import csv
 import dataclasses
 import itertools
 import os
@@ -44,7 +43,8 @@ from ..ops.interpolation import RegularGrid
 from ..ops.occupancy import OccupancyGrid
 from ..training.config import TrainConfig
 from ..training.train import density_raw, render_rays_with_binary
-from ..utils.png import write_png_gray
+from ..utils.csvtable import write_csv_table
+from ..utils.png import write_png_unit
 from ..utils.vtk import write_structured_grid
 from .heatmap import _get_2d_heatmap, experiment_naming, normalize_cam_poses
 from .metrics import (
@@ -372,30 +372,10 @@ class _PartClock:
         self.timing[part] = self.timing.get(part, 0.0) + time.perf_counter() - t0
 
 
-def _csv_cell(v) -> str:
-    """A cell as pandas' to_csv writes it: float32 in its shortest float32
-    form, float64 as repr, bools as True/False."""
-    if isinstance(v, (bool, np.bool_)):
-        return str(bool(v))
-    if isinstance(v, np.float32):
-        return str(v)
-    if isinstance(v, (float, np.floating)):
-        return repr(float(v))
-    return str(v)
-
-
 def write_metrics_csv(table: dict, path: str) -> list[str]:
     """df-metrics.csv: every column but the image rows, ``;``-separated,
     behind the unnamed index column pandas writes. Returns the header."""
-    cols = [c for c in table if c not in _IMAGE_COLUMNS]
-    n = len(table[cols[0]]) if cols else 0
-    header = [""] + cols
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, delimiter=";", lineterminator="\n")
-        w.writerow(header)
-        for i in range(n):
-            w.writerow([str(i)] + [_csv_cell(table[c][i]) for c in cols])
-    return header
+    return write_csv_table(table, path, [c for c in table if c not in _IMAGE_COLUMNS])
 
 
 def export_heatmaps(
@@ -470,10 +450,6 @@ def run_sweep(
     if perceptual is not None:
         perceptual = perceptual.to(dev)
 
-    def imsave_gray(path, img):
-        # content-equivalent to imsave(cmap='gray', vmin=0, vmax=1)
-        write_png_gray(path, (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
-
     angles = sweep_angles(cfg)
     n, H, W = len(angles), cfg.img_height, cfg.img_width
     t360, p360 = _angles_360(angles)
@@ -528,8 +504,8 @@ def run_sweep(
             org_img[idx] = target.reshape(-1, H * W)
             for k, (theta, phi) in enumerate(angles[idx]):
                 file_image_id = f"image-{theta}-{phi}-0"
-                imsave_gray(f"{proj_dir}/{file_image_id}.png", pred[k].reshape(H, W))
-                imsave_gray(f"{proj_dir}/{file_image_id}-binary.png", bpred[k].reshape(H, W))
+                write_png_unit(f"{proj_dir}/{file_image_id}.png", pred[k].reshape(H, W))
+                write_png_unit(f"{proj_dir}/{file_image_id}-binary.png", bpred[k].reshape(H, W))
         if verbose and (idx.stop // 100) > (idx.start // 100):
             print(f"  sweep {idx.stop}/{n}")
 

@@ -1,14 +1,18 @@
 """Training configuration (port of ``nerf_for_angiography_tpu/training/
-config.py``): every field and default of ``TrainConfig``, and
-``REFERENCE_STRICT_OVERRIDES``. ``parse_train_args`` arrives with the CLI
-slice.
+config.py``): every field and default of ``TrainConfig``,
+``REFERENCE_STRICT_OVERRIDES``, and ``parse_train_args``, the train CLI's
+flags with the reference's names and defaults (run_nerf_acc.py:25-47) plus
+``--device``.
 
 Configurations the port has not reached yet raise ``NotImplementedError``
-at the entry points (training/train.py::check_ported).
+at the entry points (training/train.py::check_ported) and in
+``parse_train_args``.
 """
 
 from __future__ import annotations
 
+import argparse
+import ast
 import dataclasses
 
 import torch
@@ -177,6 +181,130 @@ def lca_protocol(**kw) -> tuple[TrainConfig, float]:
     src_z_offset, z = 4000)."""
     base = dict(compact_engage_max=192, display_every=1000, data_name="LCA")
     return TrainConfig(**{**base, **kw}), float(sdf_datagen_config().src_pt[2])
+
+
+def train_arg_parser() -> argparse.ArgumentParser:
+    """The train CLI's flags: the JAX package's (its run_nerf_acc.py:25-47
+    surface and the protocol knobs) and ``--device``."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--limited_size", help="Angle range to sample the projections in")
+    p.add_argument("--number_angles", help="Number of projections to sample per axis")
+    p.add_argument("--center_point", help="Center point for the angle sampling")
+    p.add_argument("--binary", help="Whether images are binary or not")
+    p.add_argument(
+        "--sampling_strategy",
+        help="What sampling strategy to use, options: frangi, segmentation or random",
+    )
+    p.add_argument("--data_name", help="Either CT data or LCA data")
+    p.add_argument("--num_layers", help="Number of layers for MLP")
+    p.add_argument("--num_hidden_units", help="Number of hidden units for MLP")
+    p.add_argument("--data_dir", default="data", help="dataset root directory")
+    p.add_argument("--n_iters", default=None, help="override max iterations")
+    p.add_argument("--grid_resolution", default=None, help="occupancy grid resolution")
+    p.add_argument("--depth_samples", default=None, help="samples per ray")
+    p.add_argument("--display_every", default=None, help="eval cadence")
+    p.add_argument("--pose_refine", action="store_true",
+                   help="learn a per-view camera translation jointly with the field "
+                        "(arrives with the pose-refinement slice)")
+    p.add_argument("--pose_lr", default=None, help="pose-shift Adam lr")
+    p.add_argument("--march_mode", default=None, choices=["window", "hybrid", "lattice"],
+                   help="compacted-march strategy")
+    p.add_argument("--mlp_backend", default=None, choices=["auto", "xla", "pallas"],
+                   help="density-MLP backend: auto/pallas = the fused kernels, xla = the "
+                        "plain module forward (the JAX package's names)")
+    p.add_argument("--feature_major_mlp", default=None, action="store_true",
+                   help="feed the fused MLP feature-major (3, P) positions")
+    p.add_argument("--fused_train_step", default=None, choices=["auto", "on", "off"],
+                   help="the whole-train-step kernel (MLP forward + composite + loss "
+                        "gradient + MLP backward in one call)")
+    p.add_argument("--sampling_impl", default=None, choices=["overdraw", "gumbel"],
+                   help="weighted ray sampler (overdraw = table sampler; gumbel = exact "
+                        "successive-draw semantics)")
+    p.add_argument("--carve_init", default=None, choices=["True", "False"],
+                   help="space-carving occupancy-grid init from unattenuated training rays. "
+                        "Default True (production protocol)")
+    p.add_argument("--compact_engage_max", default=None,
+                   help="interim compaction ladder cap (0 = wait for compact_samples fit). "
+                        "Default 192 (production protocol)")
+    p.add_argument("--hybrid_split", default=None,
+                   help="two-bucket hybrid march: fraction of the batch marched at the "
+                        "smaller window (0 = off). Default 0.75")
+    p.add_argument("--hybrid_bucket_k", default=None, choices=["True", "False"],
+                   help="per-bucket compaction width for the two-bucket march. Default True")
+    p.add_argument("--reference-strict", action="store_true", dest="reference_strict",
+                   help="restore the reference-parity training protocol: no carve init, no "
+                        "interim compaction engagement, single-bucket march "
+                        "(run_nerf_acc.py:196-198 semantics). Explicit per-knob flags still "
+                        "override on top")
+    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    return p
+
+
+def config_from_args(a: argparse.Namespace) -> tuple[TrainConfig, str]:
+    """(TrainConfig, data_dir) from parsed train CLI flags, as the JAX
+    package's parse_train_args builds them; refuses what the port has not
+    reached (check_ported)."""
+    from .train import check_ported
+
+    kw = {}
+    if a.limited_size is not None:
+        kw["limited_size"] = float(a.limited_size)
+    if a.number_angles is not None:
+        kw["number_angles"] = float(a.number_angles)
+    if a.center_point is not None:
+        kw["center_point"] = tuple(ast.literal_eval(a.center_point))
+    if a.binary is not None:
+        kw["binary"] = a.binary == "True"
+    if a.sampling_strategy is not None:
+        kw["sampling_strategy"] = a.sampling_strategy
+    if a.data_name:
+        kw["data_name"] = a.data_name
+    if a.num_layers:
+        kw["num_layers"] = int(a.num_layers)
+    if a.num_hidden_units:
+        kw["num_hidden_units"] = int(a.num_hidden_units)
+    if a.n_iters:
+        kw["n_iters"] = int(a.n_iters)
+    if a.grid_resolution:
+        kw["grid_resolution"] = int(a.grid_resolution)
+    if a.depth_samples:
+        kw["depth_samples_per_ray"] = int(a.depth_samples)
+    if a.display_every:
+        kw["display_every"] = int(a.display_every)
+    if a.pose_refine:
+        kw["pose_refine"] = True
+    if a.pose_lr:
+        kw["pose_lr"] = float(a.pose_lr)
+    if a.march_mode:
+        kw["march_mode"] = a.march_mode
+    if a.mlp_backend:
+        kw["mlp_backend"] = a.mlp_backend
+    if a.feature_major_mlp:
+        kw["feature_major_mlp"] = True
+    if a.fused_train_step:
+        kw["fused_train_step"] = a.fused_train_step
+    if a.sampling_impl:
+        kw["sampling_impl"] = a.sampling_impl
+    if a.reference_strict:
+        kw.update(REFERENCE_STRICT_OVERRIDES)
+    if a.carve_init is not None:
+        kw["carve_init"] = a.carve_init == "True"
+    if a.compact_engage_max is not None:
+        kw["compact_engage_max"] = int(a.compact_engage_max)
+    if a.hybrid_split is not None:
+        kw["hybrid_split"] = float(a.hybrid_split)
+    if a.hybrid_bucket_k is not None:
+        kw["hybrid_bucket_k"] = a.hybrid_bucket_k == "True"
+    cfg = TrainConfig(**kw)
+    check_ported(cfg)
+    return cfg, a.data_dir
+
+
+def parse_train_args(argv=None) -> tuple[TrainConfig, str]:
+    """The train CLI's flags -> (TrainConfig, data_dir), as the JAX
+    package's parse_train_args; ``--device`` is read by the CLI
+    (``train_arg_parser``)."""
+    return config_from_args(train_arg_parser().parse_args(argv))
 
 
 def categories_for(cfg: TrainConfig) -> list[str]:

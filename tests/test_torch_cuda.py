@@ -1452,3 +1452,61 @@ def test_reconstruction_on_the_card(dev, tmp_path):
     np.testing.assert_allclose(img, cpu.render_view(-30.0, 45.0), atol=2e-2)
     np.testing.assert_allclose(rec.density_field(resolution=17),
                                cpu.density_field(resolution=17), atol=2e-2)
+
+
+@pytest.mark.parametrize("native_loader", [True, False], ids=["native", "csv"])
+def test_csv_round_trip_of_a_card_dataset(dev, tmp_path, native_loader):
+    """A dataset generated on the card, written to the two CSVs and read back
+    by load_data onto the card: every ray array equal bit for bit."""
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, load_data, make_vessel_volume, write_proj_csv,
+        write_rays_csv,
+    )
+
+    ds = generate_dataset(make_vessel_volume(res=32, device=dev),
+                          DatagenConfig(limited_size=90.0, number_angles=2.0, img_width=24,
+                                        img_height=20, sample_outside=40.0))
+    write_proj_csv(ds, str(tmp_path / "proj.csv"))
+    write_rays_csv(ds, str(tmp_path / "rays.csv"))
+    got = load_data(str(tmp_path / "proj.csv"), str(tmp_path / "rays.csv"),
+                    use_native=native_loader)
+    assert got.rays_per_view == 24 * 20 and got.num_views == 10
+    for f in ("origins", "directions", "pixel_values", "weights", "image_ids", "x_positions",
+              "y_positions"):
+        a, b = getattr(got.rays, f), getattr(ds.rays, f)
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def test_cli_pipeline_on_the_card(dev, tmp_path, monkeypatch):
+    """datagen -> train -> evaluate through the entry points at their default
+    device, at the CPU test's tiny sizes: the run directory, df-metrics.csv
+    and the cag-vis JSONs written, kernels #1 and #2 launched by the
+    training, #1 by the sweep; load_experiments reads the run back."""
+    import importlib.util
+    import os
+
+    from nerf_for_angiography_tpu_torch.analysis import load_experiments
+    from nerf_for_angiography_tpu_torch.cli import datagen, evaluate, train
+
+    monkeypatch.chdir(tmp_path)
+    datagen.main(["--limited_size", "90", "--number_angles", "2", "--img_size", "16",
+                  "--volume", "phantom:sphere", "--out", "data"])
+    fm.reset_counts()
+    res = train.main(["--n_iters", "30", "--grid_resolution", "8", "--depth_samples", "32",
+                      "--display_every", "15"])
+    torch.cuda.synchronize()
+    assert fm.fwd_launches > 0 and fm.bwd_launches == 31 and np.isfinite(res.last_psnr)
+    fm.reset_counts()
+    extra = [] if importlib.util.find_spec("matplotlib") else ["--no_heatmap_png"]
+    tables = evaluate.main(["--data_name", "ct", "--volume", "phantom:sphere",
+                            "--number_angles_vis", "2", "--img_size", "16", "--depth_samples",
+                            "32", "--field_resolution", "9", "--no_videos", "--no_perceptual"]
+                           + extra)
+    torch.cuda.synchronize()
+    (rd, table), = tables.items()
+    assert fm.fwd_launches > 0 and fm.bwd_launches == 0
+    assert np.isfinite(table["PSNR"]).all() and len(table["PSNR"]) == 9
+    assert os.path.exists(os.path.join(rd, "df-metrics.csv"))
+    assert any(f.endswith(".json") for _, _, fs in os.walk(os.path.join(rd, "jsonData"))
+               for f in fs)
+    assert load_experiments("cases")["run"] == [os.path.basename(rd)]
