@@ -144,7 +144,35 @@ Phases:
      the evaluate CLI's full 37x37 sweep of that run (#1 343 + 31, #5 343;
      1,369 metric rows, 703 per-angle JSONs held to the sweep's images,
      every other artifact read back); load_experiments reading the run;
-  12. one JSON line with the kernel table, the card's name/power line, and the
+  12. pose refinement (``pose_phase``): the vessel phantom with every view
+     but the test view translated by up to 0.05 of its largest |coordinate|
+     and the rays from the nominal cameras; 600 steps of the shipped
+     ``TrainConfig()`` with ``pose_refine`` and pose_start 200 through
+     train() (#1 launched, #2 on every step, #6 never; the view shifts
+     exactly 0 before step 200 and moved by it; best held-out PSNR and
+     steady rays/s beside the shipped split run's); one pose step of the
+     trained pose model on the shipped run's trained grid at the lattice
+     k = 160 and two-bucket Tunings, and one fourier lattice pose step with
+     the fourier run's weights, each through the kernels and through their
+     plain versions on the card: #5 (and #3/#4) launched, the view shifts'
+     gradients within GRAD_NORM_MAX, the backward kernel's dx at the step's
+     own g within check_bwd's limits, exactly 0 on the skipped tiles, its
+     time beside the bound over the active tiles; 40 replayed lattice pose
+     steps equal to 40 eager ones bit for bit (both AdamW groups among the
+     state); the JAX recovery test at its sizes and translations (900
+     steps, seeds 0-7; its two thresholds on the in-plane residuals
+     averaged over the seeds, and at least as many seeds as the JAX
+     package's 6 of 8 meeting both alone; each failing seed run again
+     through the plain versions and with its weights one ulp off); the
+     train CLI with --pose_refine on the CSVs the port writes of the pose
+     dataset;
+  13. the classic coarse-to-fine path (``classic_phase``) at full width
+     (4x128, 75^2 rays, 300 coarse + 64 fine samples, TrainConfig()'s lr):
+     400 steps with a shared and with a separate fine model (the fine loss
+     halves and ends below 0.8 of an empty field's, every launch counter
+     stays 0, ms a step), then 40 steps of the view branch with BARF (both
+     alphas reach their basis);
+  14. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -986,7 +1014,8 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
         first_k_expected=expected_fk, fused_step_expected=expected_fs if fused else 0,
         first_k_shapes=sorted(fk_shapes), tuning_final=t["tuning_final"],
         steady_rays_per_sec=t["steady_rays_per_sec"], step_compact_s=t["step_compact"],
-        step_dense_s=t["step_dense"], choose_s=t["choose"], compile_s=t["compile"],
+        step_dense_s=t["step_dense"], dense_rays=t["dense_rays"], choose_s=t["choose"],
+        compile_s=t["compile"],
         total_s=t["total"], pressure_fired=t["pressure_fired"],
         pressure_muted=t["pressure_muted"], decay_bounces=t["decay_bounces"],
         phases=[{**p, "first_k_per_step": n, "marches_per_step": m}
@@ -1770,49 +1799,57 @@ def scratch_floor_ms(points: int, f: int, nh: int, ke: int = 0) -> float:
     return 1e3 * 4 * ((nh + 1) * f * 2 + ke) * points / PEAK_BYTES_PER_S
 
 
-def trained_state_rows(torch, fm, packed, pbytes, raw_fn, blocks: dict, kw: dict,
-                       enc=None) -> tuple[dict, dict]:
+def trained_row(torch, fm, packed, pbytes, x, g, label: str, enc=None) -> dict:
     """The MLP backward, kernel #2 (or with ``enc`` = (fe, a, w) the encoded
-    kernel #4), on the gradient the split composite really hands it at a
-    trained state (``raw_fn``: the forward of that model), on each march
-    block: the share of active 16-point tiles and points, the kernel against
-    its plain version (check_bwd's limits, two launches bit-identical), dx
-    exactly 0 on every skipped tile, its time beside the bound and the
-    scratch traffic floor over the active tiles. Returns (the rows, the (x,
-    g) of each block) under the blocks' names."""
+    kernel #4), on a gradient ``g`` a step really hands it at ``x``: the
+    share of active 16-point tiles and points, the kernel against its plain
+    version (check_bwd's limits, two launches bit-identical), dx exactly 0
+    on every skipped tile, its time beside the bound and the scratch traffic
+    floor over the active tiles (the work the kernel does: it skips the
+    rest)."""
     ops = mlp_pair(fm, packed, enc)
     f, nh, n_in = packed.width, packed.n_hidden, ops["n_in"]
     grad_bytes = 4 * (n_in * f + nh * f * f + (nh + 1) * f + f + 1)
+    p = x.shape[0]
+    act = g != 0
+    tiles = torch.nn.functional.pad(act, (0, (-p) % 16)).reshape(-1, 16).any(dim=1)
+    skipped = ~tiles.repeat_interleave(16)[:p]
+    n_tiles, n_act = tiles.numel(), int(tiles.sum())
+    r = check_bwd(torch, fm, packed, p, None, pbytes, label, enc=enc, xg=(x, g))
+    _, dx = ops["bwd"](x, g)
+    dx_zero = bool((dx[skipped] == 0).all())
+    pt = 16 * n_act
+    b_ms, b_by = bound_ms(mlp_flops(pt, f, nh, n_in)[1],
+                          p * 4 + pt * 12 + p * 12 + pbytes + grad_bytes)
+    floor = scratch_floor_ms(pt, f, nh, packed.w_in.shape[1] if enc else 0)
+    row = dict(P=p, tiles=n_tiles, active_tiles=n_act, active_tile_share=n_act / n_tiles,
+               active_points=int(act.sum()), active_point_share=float(act.float().mean()),
+               ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+               floor_ms=floor, max_abs_err=r["max_abs_err"],
+               grad_norm_err=max(r["norm_errs"][:-1]), deterministic=r["deterministic"],
+               dx_zero_on_skipped=dx_zero, dx_bad_share=r["dx_bad_share"],
+               dx_rel_l2=r["dx_rel_l2"])
+    print(f"{ops['name']}_bwd at {label}: P={p}, active tiles {n_act} of "
+          f"{n_tiles} ({row['active_tile_share']:.4f}), active points "
+          f"{row['active_points']} ({row['active_point_share']:.4f}); kernel_ms "
+          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f}; over the active tiles bound_ms "
+          f"{b_ms:.4f} ({b_by}) and scratch traffic floor {floor:.4f} ms; dx exactly 0 on "
+          f"the {int(skipped.sum())} points of skipped tiles {dx_zero}")
+    check(dx_zero, f"{ops['name']}_bwd's dx is not 0 on the skipped tiles ({label})")
+    return row
+
+
+def trained_state_rows(torch, fm, packed, pbytes, raw_fn, blocks: dict, kw: dict,
+                       enc=None) -> tuple[dict, dict]:
+    """trained_row on the gradient the split composite hands the MLP
+    backward at a trained state (``raw_fn``: the forward of that model), on
+    each march block. Returns (the rows, the (x, g) of each block) under the
+    blocks' names."""
     out, inputs = {}, {}
     for name, blk in blocks.items():
         x, g = split_raw_grad(torch, raw_fn, *blk, kw)
-        p = x.shape[0]
-        act = g != 0
-        tiles = torch.nn.functional.pad(act, (0, (-p) % 16)).reshape(-1, 16).any(dim=1)
-        skipped = ~tiles.repeat_interleave(16)[:p]
-        n_tiles, n_act = tiles.numel(), int(tiles.sum())
-        r = check_bwd(torch, fm, packed, p, None, pbytes, f"trained state, {name}", enc=enc,
-                      xg=(x, g))
-        _, dx = ops["bwd"](x, g)
-        dx_zero = bool((dx[skipped] == 0).all())
-        pt = 16 * n_act
-        b_ms, b_by = bound_ms(mlp_flops(pt, f, nh, n_in)[1],
-                              p * 4 + pt * 12 + p * 12 + pbytes + grad_bytes)
-        floor = scratch_floor_ms(pt, f, nh, packed.w_in.shape[1] if enc else 0)
-        row = dict(P=p, tiles=n_tiles, active_tiles=n_act, active_tile_share=n_act / n_tiles,
-                   active_points=int(act.sum()), active_point_share=float(act.float().mean()),
-                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                   floor_ms=floor, max_abs_err=r["max_abs_err"],
-                   grad_norm_err=max(r["norm_errs"][:-1]), deterministic=r["deterministic"],
-                   dx_zero_on_skipped=dx_zero)
-        print(f"{ops['name']}_bwd at the trained state, {name}: P={p}, active tiles {n_act} of "
-              f"{n_tiles} ({row['active_tile_share']:.4f}), active points "
-              f"{row['active_points']} ({row['active_point_share']:.4f}); kernel_ms "
-              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f}; over the active tiles bound_ms "
-              f"{b_ms:.4f} ({b_by}) and scratch traffic floor {floor:.4f} ms; dx exactly 0 on "
-              f"the {int(skipped.sum())} points of skipped tiles {dx_zero}")
-        check(dx_zero, f"{ops['name']}_bwd's dx is not 0 on the skipped tiles ({name})")
-        out[name] = row
+        out[name] = trained_row(torch, fm, packed, pbytes, x, g, f"the trained state, {name}",
+                                enc=enc)
         inputs[name] = (x, g)
     return out, inputs
 
@@ -2610,12 +2647,18 @@ GRAPH_START, GRAPH_STEPS = 208, 144
 
 def state_tensors_of(state) -> dict:
     """Every tensor a step writes: parameters, both Adam moments and its
-    step, the lr, both grids, the generator's state and the step counter."""
+    step, the lr, both grids, the generator's state and the step counter;
+    with pose refinement also the view shifts' AdamW group (its state and
+    lr)."""
     out = {f"param/{n}": p for n, p in state.model.named_parameters()}
     opt = state.optimizer
     for i, p in enumerate(opt.param_groups[0]["params"]):
         out.update({f"adam/{i}/{k}": v for k, v in opt.state[p].items()})
     out["lr"] = opt.param_groups[0]["lr"]
+    for j, group in enumerate(opt.param_groups[1:], 1):
+        for i, p in enumerate(group["params"]):
+            out.update({f"group{j}/{i}/{k}": v for k, v in opt.state[p].items()})
+        out[f"group{j}/lr"] = group["lr"]
     for name in ("grid", "vessel_grid"):
         out.update({f"{name}/{k}": v for k, v in getattr(state, name)._asdict().items()
                     if v is not None})
@@ -4012,6 +4055,613 @@ def cli_phase(torch, fm, fk, fs, ev: dict, lca_ds, report: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# pose refinement (pose_phase) and the classic coarse-to-fine path
+# (classic_phase)
+# ---------------------------------------------------------------------------
+
+# the shipped pose run: TrainConfig() with pose_refine, the shifts learned
+# from step POSE_START on, on the phantom's views shifted by up to
+# POSE_SHIFT of its largest |coordinate| and rays from the nominal cameras
+POSE_ITERS, POSE_START, POSE_SHIFT = 600, 200, 0.05
+POSE_STEP = 601  # the compacted / fourier pose steps' step: no grid update (601 % 16)
+POSE_REPLAY_STEPS = 40  # replayed against eager pose steps, across the grid update at 608
+# the JAX recovery test's setup (tests/test_training.py:352-425): a vessel of
+# res 48, 24x24 views, 576-ray batches, 900 steps from a fresh state, the
+# shifts learned from step 200, its thresholds on the in-plane residuals.
+# One run meets them or not by its draws (the JAX package meets both on
+# RECOVERY_JAX_MET of its keys 0-7, tools/jax_pose_recovery_seeds.py), so
+# the card holds them to the residuals averaged over RECOVERY_SEEDS runs,
+# seeds 0 to 7, and at least as many seeds as JAX's to meet both alone
+RECOVERY_ITERS, RECOVERY_MEAN, RECOVERY_VIEW, RECOVERY_SEEDS = 900, 0.4, (0.8, 0.05), 8
+RECOVERY_JAX_MET = 6
+# that test's translations (mm, view by view, the test view last): its
+# datagen's draws from PRNGKey(5), recorded here (the card has no JAX) and
+# put in place of the port's draw (data/datasets.py::pose_shifts)
+RECOVERY_SHIFTS = ((3.4225661754608154, 1.93932044506073, -2.1914472579956055),
+                   (-3.021977424621582, 1.4659167528152466, -0.8585572838783264),
+                   (-0.8368690013885498, -0.33050182461738586, 0.25691184401512146),
+                   (-0.48897212743759155, 2.492156982421875, -3.2596986293792725),
+                   (0.0, 0.0, 0.0))
+CLI_POSE_ARGV = ["--pose_refine", "--n_iters", "300", "--display_every", "100"]
+# the classic path at full width: TrainConfig()'s 4x128 CPPN and lr, 75^2
+# rays, 300 coarse + 64 fine samples a ray. The field first sheds its
+# initial opacity (about 120 steps) and then learns the vessels: the last
+# CLASSIC_WINDOW steps' mean fine loss must be below CLASSIC_LEARNED of an
+# empty field's (read 0.61 at 300 steps and 0.20 at 1,500; a field that
+# learned only the transparent background reads 0.95-0.98: at the JAX
+# classic tests' lr 5e-3, and at 1e-3, this width collapses to that,
+# chip_smoke.py --classic-probe)
+CLASSIC_ITERS, CLASSIC_FINE, CLASSIC_VIEWS_ITERS = 400, 64, 40
+CLASSIC_WINDOW, CLASSIC_LEARNED = 20, 0.8
+CLASSIC_PROBE_LRS = (5e-3, 1e-3, 1e-4)  # the JAX classic tests', a middle one, TrainConfig()'s
+
+
+def make_pose_dataset(torch):
+    """The smoke's vessel phantom (make_dataset: 26 views of 100x100) with a
+    random translation of up to POSE_SHIFT of the phantom's largest
+    |coordinate| on every view but the test view, the rays from the nominal
+    cameras (the mis-calibration pose refinement must undo); the shifts
+    drawn from a generator seeded with 0."""
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_vessel_volume,
+    )
+
+    cfg = DatagenConfig(limited_size=180.0, number_angles=4.0, img_width=100, img_height=100,
+                        sample_outside=100.0, stratified_depths=False,
+                        max_shift_translation=POSE_SHIFT, rays_from_nominal=True)
+    t0 = time.perf_counter()
+    ds = generate_dataset(make_vessel_volume(res=96), cfg,
+                          generator=torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    torch.cuda.synchronize()
+    tr = [ds.proj[f"translation_{c}"] for c in "xyz"]
+    print(f"pose datagen: {ds.rays.num_rays} rays, {ds.images.shape[0]} views, max |translation| "
+          f"{max(max(abs(v) for v in col) for col in tr):.3f}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cfg, ds
+
+
+@contextlib.contextmanager
+def recorded_shifts(at: int):
+    """Within the block, the view shifts of train()'s chunks just before and
+    just after the step that starts with ``state.step == at`` (the first
+    step whose pose lr is not 0), copied on the device in stream order."""
+    graph = importlib.import_module("nerf_for_angiography_tpu_torch.training.graph")
+    step = graph.TrainChunk.step
+    seen: dict = {}
+
+    def recording(self, state, rays):
+        if state.step != at:
+            return step(self, state, rays)
+        seen["before"] = state.model.view_shifts.detach().clone()
+        out = step(self, state, rays)
+        seen["after"] = state.model.view_shifts.detach().clone()
+        return out
+
+    graph.TrainChunk.step = recording
+    try:
+        yield seen
+    finally:
+        graph.TrainChunk.step = step
+
+
+@contextlib.contextmanager
+def mlp_dispatch(fm, fe, plain: bool, record: list):
+    """Within the block the MLP backward wrappers append what a step hands
+    them ((packed, x, g), and for the encoded pair (packed, a, w, x, g)) to
+    ``record``; with ``plain`` the fused-MLP pairs and first-k dispatch to
+    their plain versions on the card (a yardstick, outside every counted
+    run)."""
+    occ = importlib.import_module("nerf_for_angiography_tpu_torch.ops.occupancy")
+    fk = importlib.import_module("nerf_for_angiography_tpu_torch.ops.kernels.first_k")
+    saved = {(fm, "fused_mlp_fwd"): fm.fused_mlp_fwd, (fm, "fused_mlp_bwd"): fm.fused_mlp_bwd,
+             (fe, "fused_mlp_enc_fwd"): fe.fused_mlp_enc_fwd,
+             (fe, "fused_mlp_enc_bwd"): fe.fused_mlp_enc_bwd,
+             (occ, "first_k_active"): occ.first_k_active}
+    bwd, enc_bwd = saved[(fm, "fused_mlp_bwd")], saved[(fe, "fused_mlp_enc_bwd")]
+    if plain:
+        bwd, enc_bwd = fm.fused_mlp_bwd_reference, fe.fused_mlp_enc_bwd_reference
+        fm.fused_mlp_fwd = fm.fused_mlp_fwd_reference
+        fe.fused_mlp_enc_fwd = fe.fused_mlp_enc_fwd_reference
+        occ.first_k_active = fk.first_k_active_reference
+
+    def recording_bwd(packed, x, g, feature_major=False):
+        record.append((packed, x, g))
+        return bwd(packed, x, g, feature_major)
+
+    def recording_enc_bwd(packed, a, w, x, g):
+        record.append((packed, a, w, x, g))
+        return enc_bwd(packed, a, w, x, g)
+
+    fm.fused_mlp_bwd, fe.fused_mlp_enc_bwd = recording_bwd, recording_enc_bwd
+    try:
+        yield record
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def pose_state_from(torch, src, cfg, shifts):
+    """A pose state of ``cfg`` holding the weights of the state ``src``,
+    the view shifts ``shifts`` and clones of its grids, at POSE_STEP."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import OccupancyGrid
+    from nerf_for_angiography_tpu_torch.training import create_train_state
+
+    model, state = create_train_state(cfg, num_views=shifts.shape[0], device=DEVICE)
+    sd = {k: v for k, v in src.model.state_dict().items() if k != "view_shifts"}
+    model.load_state_dict({**sd, "view_shifts": shifts})
+    state.grid, state.vessel_grid = (
+        OccupancyGrid(*(None if t is None else t.clone() for t in g))
+        for g in (src.grid, src.vessel_grid))
+    state.step = POSE_STEP
+    return state
+
+
+def pose_step_check(torch, fm, fk, fs, fe, state, cfg, batch, label: str) -> dict:
+    """One eager pose step (step_core on ``batch``) from two copies of
+    ``state``: through the kernels (launch counts read around it) and
+    through their plain versions on the card. The view shifts' gradients
+    of the two, normalised by the plain one's max, within GRAD_NORM_MAX; the
+    MLP backward kernel's dx (#2, or #4 for an encoded model) against its
+    plain version at the x and g the kernel step handed it (check_bwd's
+    limits: DX_BAD_SHARE(_ENC) and relu ties) and its time beside the bound
+    over the active tiles (trained_row)."""
+    from nerf_for_angiography_tpu_torch.training import copy_state, make_train_step
+
+    near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    grads, recs = {}, {}
+    for plain in (False, True):
+        st = copy_state(state)
+        step = make_train_step(st.model, cfg, near, far)
+        rec: list = []
+        reset_all(fm, fk, fs)
+        with mlp_dispatch(fm, fe, plain, rec):
+            step.step_core(st, batch)
+        torch.cuda.synchronize()
+        if not plain:
+            counts = read_counts(fm, fk, fs)
+        grads[plain], recs[plain] = st.model.view_shifts.grad.detach().clone(), rec
+    gk, gp = grads[False], grads[True]
+    err = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+    check(float(gp.abs().max()) > 0, f"{label}: the view shifts' gradient is 0")
+    check(err <= GRAD_NORM_MAX, f"{label}: view_shifts.grad of the kernels differs from the "
+                                f"plain versions' by {err:.3e} normalised")
+    (args,) = recs[False]
+    enc = None
+    if len(args) == 5:
+        packed, a, w, x, g = args
+        enc = (fe, a, w)
+    else:
+        packed, x, g = args
+    pbytes = sum(t.numel() * t.element_size() for t in packed)
+    r = trained_row(torch, fm, packed, pbytes, x, g, f"the pose step, {label}", enc=enc)
+    out = dict(label=label, **counts, view_shifts_grad_norm_err=err,
+               view_shifts_grad_max=float(gp.abs().max()), **r)
+    print(f"pose step, {label}: launches {counts}; view_shifts.grad kernels against plain "
+          f"{err:.3e} normalised (limit {GRAD_NORM_MAX}); the backward's g active on "
+          f"{out['active_tile_share']:.4f} of the 16-point tiles; dx beyond the limit on "
+          f"{r['dx_bad_share']:.2e} of the points, relative L2 {r['dx_rel_l2']:.3e}")
+    return out
+
+
+@contextlib.contextmanager
+def injected_shifts(translations):
+    """Within the block the port's datagen takes ``translations`` (V, 3) as
+    its pose shifts (no rotation) in place of its own draw."""
+    import numpy as np
+
+    dst = importlib.import_module("nerf_for_angiography_tpu_torch.data.datasets")
+    draw = dst.pose_shifts
+    tr = np.asarray(translations, np.float32)
+    dst.pose_shifts = lambda config, n_views, generator, grid_dim: (np.zeros_like(tr), tr)
+    try:
+        yield
+    finally:
+        dst.pose_shifts = draw
+
+
+def pose_recovery(torch, fm, fk, fs, fe) -> dict:
+    """The JAX slow test test_pose_refinement_recovers_translation on the
+    card: the port's datagen at that test's sizes with that test's
+    translations (RECOVERY_SHIFTS), 900 steps of a fresh pose state through
+    make_train_chunk (replayed graphs) for each of RECOVERY_SEEDS seeds, the
+    learned shifts' in-plane residuals after the best global gauge
+    translation against the uncorrected ones. Each seed's are printed; the
+    JAX test's two thresholds are held on their mean over the seeds, and
+    the number of seeds meeting both alone to at least the JAX package's
+    own (RECOVERY_JAX_MET). Each seed that fails alone is run again, not
+    held to anything, three ways: eager steps through the kernels' plain
+    versions, and its initial weights moved one ulp up and one ulp down (a
+    failure the kernels cause follows the kernels; one the draws cause
+    moves with any rounding)."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_vessel_volume,
+    )
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, create_train_state, make_train_chunk, make_train_step,
+    )
+
+    w = h = 24
+    with injected_shifts(RECOVERY_SHIFTS):
+        ds = generate_dataset(
+            make_vessel_volume(res=48),
+            DatagenConfig(limited_size=90.0, number_angles=1.0, img_width=w, img_height=h,
+                          sample_outside=100.0, stratified_depths=False,
+                          max_shift_translation=POSE_SHIFT, rays_from_nominal=True),
+            device=DEVICE)
+    gt = np.stack([np.asarray(ds.proj[f"translation_{c}"], np.float64) for c in "xyz"], -1)
+    n_views = gt.shape[0]
+    check(np.abs(gt[:-1]).max() > 1.0, "recovery: the shifts were not injected")
+    dirs = ds.rays.directions.cpu().numpy().reshape(n_views, w * h, 3)
+    d_c = dirs[:, (h // 2) * w + w // 2]
+    d_c = d_c / np.linalg.norm(d_c, axis=-1, keepdims=True)
+    proj = np.eye(3)[None] - d_c[:, :, None] * d_c[:, None, :]
+
+    def inplane(learned):
+        r = learned - gt
+        rhs = np.einsum("vij,vj->vi", proj, r)
+        gauge, *_ = np.linalg.lstsq(proj.reshape(-1, 3), rhs.reshape(-1), rcond=None)
+        return np.linalg.norm(np.einsum("vij,vj->vi", proj, r - gauge[None]), axis=-1)
+
+    e0 = inplane(np.zeros_like(gt))
+
+    def run(seed: int, how: str = "kernels") -> dict:
+        """900 steps from seed ``seed``: through the kernels in replayed
+        graphs, ``plain`` eager through the plain versions, or ``ulp +1`` /
+        ``ulp -1`` with every initial weight moved one ulp."""
+        cfg = TrainConfig(depth_samples_per_ray=32, sample_size=24, grid_resolution=8,
+                          display_every=50, n_iters=RECOVERY_ITERS, early_stop_iters=10_000,
+                          coarse_lr=2e-3, pose_refine=True, pose_lr=3e-2,
+                          pose_start=POSE_START, grid_update_every=100_000, seed=seed)
+        model, state = create_train_state(cfg, num_views=n_views, device=DEVICE)
+        if how.startswith("ulp"):
+            to = math.inf if how == "ulp +1" else -math.inf
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name != "view_shifts":
+                        p.copy_(torch.nextafter(p, torch.full_like(p, to)))
+        reset_all(fm, fk, fs)
+        t0 = time.perf_counter()
+        if how == "plain":
+            step, rec = make_train_step(model, cfg, 1400.0, 1600.0), []
+            with mlp_dispatch(fm, fe, True, rec):
+                for _ in range(RECOVERY_ITERS):
+                    _, metrics, _, _ = step(state, ds.rays)
+                    rec.clear()
+            graphs = 0
+        else:
+            chunk = make_train_chunk(model, cfg, 1400.0, 1600.0, RECOVERY_ITERS)
+            _, metrics, _, _ = chunk(state, ds.rays)
+            graphs = chunk.captures
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(fm, fk, fs)
+        e = inplane(model.view_shifts.detach().cpu().numpy().astype(np.float64))
+        r = dict(seed=seed, how=how, wall_s=wall, graphs=graphs, **counts, e=e.tolist(),
+                 mean_ratio=float(e.mean() / e0.mean()),
+                 views_ok=bool((e < RECOVERY_VIEW[0] * e0 + RECOVERY_VIEW[1]).all()),
+                 loss=float(metrics["loss/train-pixel-coarse"]))
+        r["meets_both"] = r["mean_ratio"] < RECOVERY_MEAN and r["views_ok"]
+        print(f"pose recovery seed {seed} ({how}): {RECOVERY_ITERS} steps in {wall:.2f} s "
+              f"({graphs} graphs), launches fwd {counts['fwd_launches']} bwd "
+              f"{counts['bwd_launches']}; in-plane residual mean ratio {r['mean_ratio']:.4f} "
+              f"(the JAX test's limit {RECOVERY_MEAN}), every view below "
+              f"{RECOVERY_VIEW[0]} e0 + {RECOVERY_VIEW[1]}: {r['views_ok']}; loss {r['loss']:.3e}")
+        check(math.isfinite(r["loss"]), f"recovery seed {seed} ({how}): the loss is not finite")
+        want_bwd = 0 if how == "plain" else RECOVERY_ITERS
+        check((counts["fwd_launches"] > 0) == (how != "plain")
+              and counts["bwd_launches"] == want_bwd,
+              f"recovery seed {seed} ({how}): launches {counts}")
+        return r
+
+    runs = [run(seed) for seed in range(RECOVERY_SEEDS)]
+    totals = {k: sum(r[k] for r in runs) for k in read_counts(fm, fk, fs)}
+    e = np.mean([r["e"] for r in runs], axis=0)
+    met = sum(r["meets_both"] for r in runs)
+    reruns = [run(r["seed"], how) for r in runs if not r["meets_both"]
+              for how in ("plain", "ulp +1", "ulp -1")]
+    out = dict(**totals, e0=e0.tolist(), e_mean=e.tolist(),
+               mean_ratio=float(e.mean() / e0.mean()), seeds_meeting_both=met, runs=runs,
+               reruns=reruns)
+    print(f"pose recovery over seeds 0-{RECOVERY_SEEDS - 1}: mean in-plane residual "
+          f"{np.round(e, 4).tolist()} against {np.round(e0, 4).tolist()} uncorrected (ratio "
+          f"{out['mean_ratio']:.4f}, limit {RECOVERY_MEAN}); {met} of {RECOVERY_SEEDS} seeds "
+          f"meet both of the JAX test's thresholds alone (the JAX package: "
+          f"{RECOVERY_JAX_MET}); the failing seeds run again: "
+          + ", ".join(f"seed {r['seed']} {r['how']} {r['mean_ratio']:.4f} "
+                      f"(both met {r['meets_both']})" for r in reruns))
+    check(e.mean() < RECOVERY_MEAN * e0.mean(),
+          f"recovery: the seeds' mean in-plane residual {e.mean():.4f} is not below "
+          f"{RECOVERY_MEAN} x {e0.mean():.4f}")
+    check(bool((e < RECOVERY_VIEW[0] * e0 + RECOVERY_VIEW[1]).all()),
+          f"recovery: a view's mean residual is not below {RECOVERY_VIEW[0]} e0 + "
+          f"{RECOVERY_VIEW[1]}: {e} against {e0}")
+    check(met >= RECOVERY_JAX_MET,
+          f"recovery: {met} of {RECOVERY_SEEDS} seeds meet both thresholds alone, fewer than "
+          f"the JAX package's {RECOVERY_JAX_MET}")
+    return out
+
+
+def pose_cli(torch, fm, fk, fs, dcfg, ds) -> dict:
+    """The train CLI with --pose_refine on the CSVs the port writes of the
+    pose-shift dataset (read back by load_data equal to it), in a
+    temporary workspace: #1 and #2 launched, #6 never, the shifts moved and
+    stored in the run's highmodel.npz."""
+    import tempfile
+
+    from nerf_for_angiography_tpu_torch.cli import train as train_cli
+    from nerf_for_angiography_tpu_torch.cli.datagen import csv_file_names
+    from nerf_for_angiography_tpu_torch.data import load_data, write_proj_csv, write_rays_csv
+    from nerf_for_angiography_tpu_torch.training import load_model
+
+    old = os.getcwd()
+    os.makedirs(os.path.join(HERE, "smoke_out"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "smoke_out")) as ws:
+        os.chdir(ws)
+        try:
+            os.makedirs(os.path.join("data", "ct"))
+            proj, rays = (os.path.join("data", "ct", n) for n in csv_file_names(dcfg, False))
+            write_proj_csv(ds, proj)
+            write_rays_csv(ds, rays)
+            check_rays_equal(torch, load_data(proj, rays, device=DEVICE), ds, "pose CSVs")
+            reset_all(fm, fk, fs)
+            res = train_cli.main(CLI_POSE_ARGV)
+            torch.cuda.synchronize()
+            counts = read_counts(fm, fk, fs)
+            (rd,) = [os.path.join("cases", "ct", "runs", d)
+                     for d in os.listdir(os.path.join("cases", "ct", "runs"))]
+            _, params = load_model(os.path.join(rd, "highmodel.npz"))
+        finally:
+            os.chdir(old)
+    shifts = res.state.model.view_shifts.detach()
+    out = dict(**counts, steps=res.iters_run + 1, best_heldout_psnr=res.best_heldout_psnr,
+               steady_rays_per_sec=res.timing["steady_rays_per_sec"],
+               max_shift=float(shifts.abs().max()),
+               bundle_view_shifts=list(params["params"]["view_shifts"].shape))
+    print(f"train CLI {' '.join(CLI_POSE_ARGV)}: {out['steps']} steps, launches {counts}, "
+          f"best held-out PSNR {res.best_heldout_psnr:.3f} dB, steady "
+          f"{out['steady_rays_per_sec']:.0f} rays/s, max |view shift| {out['max_shift']:.4f}, "
+          f"highmodel.npz view_shifts {out['bundle_view_shifts']}")
+    check(counts["fwd_launches"] > 0 and counts["bwd_launches"] == out["steps"]
+          and counts["fused_step_launches"] == 0, f"pose train CLI: launches {counts}")
+    check_no_enc(counts, "pose train CLI")
+    check(out["max_shift"] > 0 and out["bundle_view_shifts"] == list(shifts.shape),
+          "pose train CLI: the shifts did not move or are missing from the bundle")
+    return out
+
+
+def pose_phase(torch, fm, fk, fs, fe, cp: dict, ep: dict, report: dict) -> dict:
+    """Pose refinement on the card: the shipped TrainConfig() with
+    pose_refine and pose_start POSE_START on the pose-shift phantom, 600
+    steps through train() (#1 launched, #2 on every step, #6 never; the
+    shifts exactly 0 before step POSE_START and moved by it; best held-out
+    PSNR and steady rays/s beside the shipped split run's); pose steps of
+    the trained pose model on the shipped run's trained grid at the lattice
+    and two-bucket Tunings and, with the fourier run's weights, one fourier
+    lattice step (pose_step_check: #5 (and #3/#4) launched, the view shifts'
+    gradient and the backward kernel's dx against the plain versions);
+    POSE_REPLAY_STEPS replayed lattice pose steps against eager ones bit for
+    bit; the JAX recovery test (pose_recovery); the train CLI with
+    --pose_refine (pose_cli)."""
+    from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, copy_state, drop_test_view, make_train_chunk, make_train_step,
+    )
+
+    dcfg, ds = make_pose_dataset(torch)
+    cfg = TrainConfig(n_iters=POSE_ITERS, pose_refine=True, pose_start=POSE_START)
+    with recorded_shifts(POSE_START) as seen:
+        run = compacted_run(torch, fm, fk, fs, ds, cfg, "pose shipped")
+    res = run.pop("result")
+    steps = run["steps"]
+    check(run["fwd_launches"] > 0 and run["bwd_launches"] == steps
+          and run["fused_step_launches"] == 0,
+          f"pose shipped: launches fwd {run['fwd_launches']} bwd {run['bwd_launches']} "
+          f"fused_step {run['fused_step_launches']}: #1 > 0, #2 every step and #6 never")
+    before, after = seen["before"], seen["after"]
+    shifts = res.state.model.view_shifts.detach()
+    run.update(shifts_zero_before_pose_start=bool((before == 0).all()),
+               shifts_max_after_pose_start=float(after.abs().max()),
+               shifts_max_final=float(shifts.abs().max()))
+    shipped = cp["shipped"]
+
+    def rates(r):
+        dense = r["dense_rays"] / r["step_dense_s"] if r["step_dense_s"] > 0 else 0.0
+        return (f"steady compacted {r['steady_rays_per_sec']:.0f}, dense {dense:.0f}, end to "
+                f"end {r['rays_per_s_incl_first']:.0f} rays/s")
+
+    print(f"pose shipped: view shifts all 0 after step {POSE_START - 1} "
+          f"{run['shifts_zero_before_pose_start']}, max |shift| after step {POSE_START} "
+          f"{run['shifts_max_after_pose_start']:.3e}, final {run['shifts_max_final']:.4f}; "
+          f"best held-out PSNR {run['best_heldout_psnr']:.3f} dB, {rates(run)}; the shipped "
+          f"split run: {shipped['best_heldout_psnr']:.3f} dB, {rates(shipped)} (another "
+          f"dataset: the views shifted, the rays nominal; no carve under pose_refine)")
+    check(run["shifts_zero_before_pose_start"],
+          f"pose shipped: the shifts moved before step {POSE_START}")
+    check(run["shifts_max_after_pose_start"] > 0,
+          f"pose shipped: the shifts did not move at step {POSE_START}")
+
+    n_views = shifts.shape[0]
+    rpv = ds.rays.num_rays // n_views
+    train_rays = drop_test_view(ds.rays, n_views - 1, rpv)
+    batch = sample_pixel_rays(torch.Generator(device=DEVICE).manual_seed(3), train_rays,
+                              cfg.img_sample_size, impl="gumbel")
+    grid_src = cp["shipped"]["result"].state
+    base = copy_state(res.state)
+    base.grid, base.vessel_grid = grid_src.grid, grid_src.vessel_grid
+    steps_out = {}
+    for name, tun in (("lattice k=160", LATTICE), ("two-bucket", TWO_BUCKET)):
+        st = pose_state_from(torch, base, cfg, shifts)
+        steps_out[name] = pose_step_check(torch, fm, fk, fs, fe, st, tuning_cfg(cfg, tun), batch,
+                                          name)
+        want_fk = 1 if tun is LATTICE else 2
+        c = steps_out[name]
+        check(c["first_k_launches"] == want_fk and c["bwd_launches"] == 1
+              and c["fwd_launches"] >= 1 and c["fused_step_launches"] == 0,
+              f"pose step, {name}: launches {c}")
+    fcfg = TrainConfig(pos_enc="fourier", pose_refine=True, pose_start=POSE_START)
+    st = pose_state_from(torch, ep["states"]["fourier"], fcfg, shifts)
+    name = "fourier lattice k=160"
+    steps_out[name] = pose_step_check(torch, fm, fk, fs, fe, st, tuning_cfg(fcfg, LATTICE),
+                                      batch, name)
+    c = steps_out[name]
+    check(c["enc_fwd_launches"] >= 1 and c["enc_bwd_launches"] == 1
+          and c["first_k_launches"] == 1 and c["fwd_launches"] == 0 and c["bwd_launches"] == 0,
+          f"pose step, {name}: launches {c}")
+
+    # the replayed pose step against the eager one, across the grid update at 608
+    lcfg = tuning_cfg(cfg, LATTICE)
+    near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    src = pose_state_from(torch, base, cfg, shifts)
+    ways = {}
+    for way in ("graph", "eager"):
+        st = copy_state(src)
+        reset_all(fm, fk, fs)
+        if way == "graph":
+            chunk = make_train_chunk(st.model, lcfg, near, far, POSE_REPLAY_STEPS)
+            _, metrics, pix, _ = chunk(st, train_rays)
+        else:
+            step = make_train_step(st.model, lcfg, near, far)
+            for _ in range(POSE_REPLAY_STEPS):
+                _, metrics, pix, _ = step(st, train_rays)
+        torch.cuda.synchronize()
+        ways[way] = dict(state=st, metrics=metrics, pix=pix, counts=read_counts(fm, fk, fs))
+    g, e = ways["graph"], ways["eager"]
+    got, want = state_tensors_of(g["state"]), state_tensors_of(e["state"])
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    unequal += [f"metric {k}" for k in e["metrics"]
+                if not torch.equal(g["metrics"][k], e["metrics"][k])]
+    if not torch.equal(g["pix"], e["pix"]):
+        unequal.append("pixels")
+    replay = dict(steps=POSE_REPLAY_STEPS, graphs=chunk.captures, counts=g["counts"],
+                  unequal=unequal, tensors=len(want))
+    print(f"pose replay: {POSE_REPLAY_STEPS} lattice pose steps from step {POSE_STEP}, "
+          f"{chunk.captures} graphs; {len(want)} state tensors (both AdamW groups among them), "
+          f"the metrics and pixels equal to the eager steps' bit for bit: {not unequal}; "
+          f"launches {g['counts']} (eager {e['counts']})")
+    check(not unequal, f"pose replay: replayed and eager steps differ in {unequal}")
+    check(g["counts"] == e["counts"] and chunk.captures >= 1 and g["counts"]["first_k_launches"]
+          == POSE_REPLAY_STEPS, f"pose replay: launches {g['counts']} / {e['counts']}")
+
+    # where a replayed pose step's time goes (the graph phase profiles the
+    # split steps at these Tunings in the same call)
+    profiles = {}
+    for name, pcfg in (("dense", dataclasses.replace(cfg, compact_samples=0)),
+                       ("lattice k=160", lcfg)):
+        print(f"pose step profile, {name}:")
+        profiles[name] = step_profile(torch, copy_state(src), train_rays, pcfg, graph=True)
+    recovery = pose_recovery(torch, fm, fk, fs, fe)
+    cli = pose_cli(torch, fm, fk, fs, dcfg, ds)
+    out = dict(shipped=run, steps=steps_out, replay=replay, profiles=profiles,
+               recovery=recovery, cli=cli)
+    report["pose"] = out
+    return out
+
+
+def classic_run(torch, fm, fk, fs, ds, cfg, label: str, iters: int, separate: bool) -> dict:
+    """``iters`` classic steps (make_classic_train_step, eager) of a fresh
+    model, with a separate fine model when ``separate``, on every view of
+    ``ds`` as the JAX test feeds it; all six launch counters 0 around the
+    run (the classic path runs the module's own forward, as JAX runs
+    model.apply), the fine loss's first and last values, seconds a step."""
+    from nerf_for_angiography_tpu_torch.models import CPPN
+    from nerf_for_angiography_tpu_torch.training import (
+        create_classic_state, create_train_state, make_classic_train_step,
+    )
+
+    model, _ = create_train_state(cfg, device=DEVICE)
+    fine = (CPPN(cfg.model_config(), generator=torch.Generator().manual_seed(7)).to(DEVICE)
+            if separate else None)
+    state = create_classic_state(model, cfg, fine_model=fine, device=DEVICE)
+    near, far = SRC_Z - cfg.outside, SRC_Z + cfg.outside
+    step = make_classic_train_step(model, cfg, near, far, n_fine=CLASSIC_FINE, fine_model=fine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(fm, fk, fs)
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = step(state, ds.rays)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(fm, fk, fs)
+    fine_losses = [float(m["loss/train-pixel-fine"]) for m in metrics]
+    # an all-transparent field renders every pixel 1: its loss on batches
+    # drawn by the sampling weights
+    px, w = ds.rays.pixel_values, ds.rays.weights
+    empty = float(((1.0 - px) ** 2 * w).sum() / w.sum())
+    # the fine loss of each CLASSIC_WINDOW steps, averaged (one batch's is
+    # noisy), over the empty field's
+    windows = [statistics.fmean(fine_losses[i:i + CLASSIC_WINDOW]) / empty
+               for i in range(0, iters - CLASSIC_WINDOW + 1, CLASSIC_WINDOW)]
+    out = dict(label=label, steps=iters, **counts, s_per_step=wall / iters,
+               empty_field_loss=empty, window_over_empty=windows,
+               loss_fine_first=fine_losses[0], loss_fine_last=fine_losses[-1],
+               loss_coarse_last=float(metrics[-1]["loss/train-pixel-coarse"]),
+               barf_alphas=[float(metrics[i]["barf-coarse"]) for i in (0, -1)],
+               barf_views_alphas=[float(metrics[i]["barf-views-coarse"]) for i in (0, -1)],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"classic {label}: {iters} steps of {cfg.img_sample_size} rays x "
+          f"{cfg.depth_samples_per_ray} + {CLASSIC_FINE} samples, {out['s_per_step'] * 1e3:.2f} "
+          f"ms/step, peak {out['peak_gib']:.2f} GiB; fine loss {fine_losses[0]:.6f} -> "
+          f"{fine_losses[-1]:.6f} (an empty field's: {empty:.6f}); the mean fine loss of "
+          f"each {CLASSIC_WINDOW} steps over the empty field's "
+          f"{[round(v, 4) for v in windows]}; launches {counts}")
+    check(all(v == 0 for v in counts.values()), f"classic {label}: a kernel launched: {counts}")
+    check(all(math.isfinite(v) for v in fine_losses), f"classic {label}: a loss is not finite")
+    return out
+
+
+def classic_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
+    """The classic coarse-to-fine path at full width on the phantom, at
+    TrainConfig()'s lr: CLASSIC_ITERS steps with a shared and then a
+    separate fine model (the fine loss halves, as the JAX test asserts, and
+    its last window is below CLASSIC_LEARNED of an empty field's: the
+    vessels, not only the background), then CLASSIC_VIEWS_ITERS steps of
+    the view branch with BARF (barf_stop 30): both alphas reach their
+    basis."""
+    from nerf_for_angiography_tpu_torch.training import TrainConfig
+
+    out = {}
+    for name, separate in (("shared", False), ("separate fine", True)):
+        r = classic_run(torch, fm, fk, fs, ds, TrainConfig(), name, CLASSIC_ITERS, separate)
+        check(r["loss_fine_last"] < 0.5 * r["loss_fine_first"],
+              f"classic {name}: the fine loss {r['loss_fine_first']} -> {r['loss_fine_last']} "
+              "did not halve")
+        check(r["window_over_empty"][-1] < CLASSIC_LEARNED,
+              f"classic {name}: the last {CLASSIC_WINDOW} steps' fine loss is "
+              f"{r['window_over_empty'][-1]:.4f} of an empty field's, not below "
+              f"{CLASSIC_LEARNED}: the field learned no more than the background")
+        out[name] = r
+    vcfg = TrainConfig(num_input_channels_views=3, pos_enc="barf", pos_enc_basis=4, barf_start=0,
+                       barf_stop=30)
+    r = classic_run(torch, fm, fk, fs, ds, vcfg, "views + BARF", CLASSIC_VIEWS_ITERS, False)
+    check(r["barf_alphas"][0] < 1.0 and r["barf_alphas"][-1] == vcfg.pos_enc_basis
+          and r["barf_views_alphas"][0] < 1.0
+          and r["barf_views_alphas"][-1] == vcfg.pos_enc_basis_views,
+          f"classic views + BARF: the alphas {r['barf_alphas']} / {r['barf_views_alphas']} did "
+          "not anneal to their basis")
+    out["views + BARF"] = r
+    report["classic"] = out
+    return out
+
+
+def classic_probe(torch, fm, fk, fs, ds, iters: int, report: dict) -> None:
+    """The classic path with a shared fine model for ``iters`` steps at
+    each of CLASSIC_PROBE_LRS (classic_run's windows of the fine loss over
+    an empty field's): how far, and at which lr, it learns more than the
+    transparent background."""
+    from nerf_for_angiography_tpu_torch.training import TrainConfig
+
+    report["classic_probe"] = {
+        lr: classic_run(torch, fm, fk, fs, ds, TrainConfig(coarse_lr=lr), f"probe lr {lr}",
+                        iters, False)
+        for lr in CLASSIC_PROBE_LRS}
+
+
 def eval_rows(ev: dict, by_path: dict) -> list[dict]:
     """The kernels line's rows for the sweeps' shapes: kernel #1 at the CT
     and LCA batches and the field chunks (random weights; the loaded
@@ -4058,6 +4708,9 @@ def main() -> int:
     ap.add_argument("--lca-protocol", type=int, default=0,
                     help="also run the LCA anchor's protocol (compact_engage_max 192, "
                          "display_every 1000, log_dir) for this many steps")
+    ap.add_argument("--classic-probe", type=int, default=0,
+                    help="also run the classic path at three lrs for this many steps each, "
+                         "printing its fine loss against an empty field's")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: also time its kernels #1, #2, #3, "
                          "#4 and #6 and split pairs on this run's inputs, hold #1's, #3's, #4's "
@@ -4116,6 +4769,10 @@ def main() -> int:
         ev = eval_phase(torch, fm, fk, fs, cp["shipped_best"], cp["shipped"]["result"].page_data,
                         lca_ds, lca_info, report)
         cli = cli_phase(torch, fm, fk, fs, ev, lca_ds, report)
+        pp = pose_phase(torch, fm, fk, fs, fe, cp, ep, report)
+        cl = classic_phase(torch, fm, fk, fs, ds, report)
+        if args.classic_probe:
+            classic_probe(torch, fm, fk, fs, ds, args.classic_probe, report)
         if args.determinism:
             determinism_phase(torch, fm, ds, report)
         if args.protocol:
@@ -4145,7 +4802,11 @@ def main() -> int:
             "feature_major_dense": fp["feature_major_dense"],
             "fourier_shipped": ep["fourier_shipped"], "barf_anneal": ep["barf_anneal"],
             "lca": lca, "eval_ct": ev["ct"], "eval_lca": ev["lca"],
-            "cli_train": cli["train"], "cli_evaluate": cli["evaluate"]}
+            "cli_train": cli["train"], "cli_evaluate": cli["evaluate"],
+            "pose_shipped": pp["shipped"],
+            **{f"pose_step {k}": v for k, v in pp["steps"].items()},
+            "pose_replay": pp["replay"]["counts"], "pose_recovery": pp["recovery"],
+            "pose_cli": pp["cli"], **{f"classic {k}": v for k, v in cl.items()}}
     # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}
@@ -4269,6 +4930,14 @@ def main() -> int:
             f"{phase}: R={r['R']} w={r['w']} k={r['k']}": {
                 k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
             for r in lk["first_k"]})
+    # kernels #2 and #4 at the pose steps' own g (pose_step_check; bound over the active tiles)
+    pose_keys = ("P", "active_tile_share", "dx_bad_share", "dx_rel_l2", "dx_zero_on_skipped",
+                 "grad_norm_err", "view_shifts_grad_norm_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "floor_ms")
+    rows[1]["pose"] = {k: {q: v[q] for q in pose_keys} for k, v in pp["steps"].items()
+                       if not k.startswith("fourier")}
+    enc_row["pose"] = {k: {q: v[q] for q in pose_keys} for k, v in pp["steps"].items()
+                       if k.startswith("fourier")}
     rows += eval_rows(ev, by_path)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

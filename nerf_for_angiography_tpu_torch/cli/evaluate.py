@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from ..convert import cppn_params_from_jax
+from ..convert import cppn_params_from_jax, field_params
 from ..evaluation import EvalConfig, PerceptualMetrics, gt_from_volume, lca_eval_config, run_sweep
 from ..evaluation.sweep import export_heatmaps
 from ..models import CPPN, CPPNConfig
@@ -133,7 +133,7 @@ def main(argv=None) -> dict:
             input_scale=1.0 / cfg.outside,
             dtype=torch.bfloat16,
         ), device=device)
-        model.load_state_dict(cppn_params_from_jax(params))
+        model.load_state_dict(field_params(cppn_params_from_jax(params)))
         model.requires_grad_(False)
         aabb = np.array([-cfg.outside] * 3 + [cfg.outside] * 3, np.float32)
         grid = load_grid_vtk(os.path.join(rd, "coarsegrid.vtk"), aabb, device=device)

@@ -14,16 +14,26 @@ import torch
 
 
 def cppn_params_from_jax(flax_params_as_numpy: dict) -> dict[str, torch.Tensor]:
-    """flax CPPN params (as numpy) -> the port CPPN's ``state_dict``."""
+    """flax CPPN params (as numpy) -> the port CPPN's ``state_dict``; a
+    pose-refined run's ``view_shifts`` leaf maps to the parameter of that
+    name (``CPPN.add_view_shifts``)."""
     p = flax_params_as_numpy.get("params", flax_params_as_numpy)
     out: dict[str, torch.Tensor] = {}
     for name, leaf in p.items():
         if isinstance(leaf, dict):
             out[f"{name}.weight"] = torch.from_numpy(np.array(leaf["kernel"], np.float32).T.copy())
-            out[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
+            if "bias" in leaf:  # a Dense with use_bias=False has none
+                out[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
         else:
             out[name] = torch.from_numpy(np.array(leaf, np.float32))
     return out
+
+
+def field_params(state_dict: dict) -> dict:
+    """A CPPN ``state_dict`` without a pose-refined run's ``view_shifts``:
+    the per-view camera translations of its training, which rendering and
+    evaluation do not read (the JAX package's flax apply ignores them)."""
+    return {k: v for k, v in state_dict.items() if k != "view_shifts"}
 
 
 def cppn_params_to_jax(state_dict) -> dict:

@@ -2,9 +2,12 @@
 ``nerf_for_angiography_tpu/data/datasets.py``; the reference's
 phantomdata/cttoray.py and sdftoray.py flows).
 
-``generate_dataset`` covers the CT sweep (cttoray.py) and the SDF/LCA sweep
+``generate_dataset`` covers the CT sweep (cttoray.py), the SDF/LCA sweep
 (sdftoray.py: ``angle_mode='sdf'``, ``mode='sdf'`` DRRs,
-``per_image_normalize``, and ``resize_to`` at identity) without pose shifts.
+``per_image_normalize``, and ``resize_to`` at identity) and the pose-shift
+augmentation (cttoray.py:194-206: a random rotation and translation a view
+but the test view, with ``rays_from_nominal`` the rays of the unshifted
+camera).
 The two CSV artifacts are written without pandas, byte for byte as the JAX
 package's ``to_csv`` writes them (utils/csvtable.py), and ``load_data``
 reads them back: the per-ray table through the native loader
@@ -51,8 +54,13 @@ class DatagenConfig:
     frangi_beta: float = 0.5
     stratified_depths: bool = True
     mode: str = "ct"  # 'ct' | 'sdf' (DRR compositing, helpers.py:208-213)
+    # camera-optimization data augmentation (cttoray.py:38-43,194-206):
+    # random angular shift in degrees and translation as a fraction of the
+    # max grid dimension, applied to every view except the custom test one
     max_shift_rotation: float = 0.0
     max_shift_translation: float = 0.0
+    # pose-refinement scenario: rays from the NOMINAL (unshifted) camera,
+    # pixels from the shifted (true) render (TrainConfig.pose_refine)
     rays_from_nominal: bool = False
     # sdftoray.py differences (SURVEY.md section 2.7):
     angle_mode: str = "ct"  # 'ct': centered grid; 'sdf': arange(0, limited+1)
@@ -140,9 +148,31 @@ class GeneratedDataset(NamedTuple):
     angles: np.ndarray  # (V, 2) theta, phi
 
 
-def _check_ported(config: DatagenConfig) -> None:
+def max_grid_dim(volume: RegularGrid) -> float:
+    """The largest |coordinate| of the volume's bounds, the scale of the
+    translation shifts (cttoray.py:150-151)."""
+    origin = volume.origin.cpu().numpy().astype(np.float64)
+    spacing = volume.spacing.cpu().numpy().astype(np.float64)
+    far = origin + spacing * (np.array(volume.values.shape) - 1)
+    return float(np.abs(np.concatenate([origin, far])).max())
+
+
+def pose_shifts(config: DatagenConfig, n_views: int, generator: torch.Generator,
+                grid_dim: float) -> tuple[np.ndarray, np.ndarray]:
+    """The random pose shifts, (n_views, 3) f32 each: a rotation (degrees,
+    theta / phi / larm) uniform in +-max_shift_rotation and a translation
+    uniform in +-max_shift_translation times ``grid_dim``; zero for the last
+    (test) view and when both maxima are 0 (cttoray.py:194-206). The only
+    draw of the pose shifts: the tests put JAX's in its place."""
+    rot = np.zeros((n_views, 3), np.float32)
+    tr = np.zeros((n_views, 3), np.float32)
     if config.max_shift_rotation > 0 or config.max_shift_translation > 0:
-        raise NotImplementedError("pose-shift datagen arrives with the pose-refinement slice")
+        u = torch.rand((2, n_views - 1, 3), generator=generator, dtype=torch.float32,
+                       device=generator.device).cpu().numpy()
+        r, t = np.float32(config.max_shift_rotation), np.float32(config.max_shift_translation)
+        rot[:-1] = -r + u[0] * (2 * r)
+        tr[:-1] = (-t + u[1] * (2 * t)) * np.float32(grid_dim)
+    return rot, tr
 
 
 def generate_dataset(
@@ -153,8 +183,8 @@ def generate_dataset(
     on the device, the weight map on the host. The stratified depths draw
     from ``generator``; without one, from a generator seeded with 0, so
     that a sweep is the same in every process, as the JAX package's
-    default key PRNGKey(0) makes it."""
-    _check_ported(config)
+    default key PRNGKey(0) makes it. The pose shifts (pose_shifts) draw
+    from the same generator after the depths."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -174,16 +204,24 @@ def generate_dataset(
     depth_base = linspace_depths(
         config.near_thresh, config.far_thresh, config.depth_samples_per_ray, device
     )
-    imgs, wmaps, mats, all_origins, all_dirs = [], [], [], [], []
-    for theta, phi in angles:
-        if config.stratified_depths:
-            depth_values = stratify_depths(depth_base, generator)
-        else:
-            depth_values = depth_base
+    depths = [stratify_depths(depth_base, generator) if config.stratified_depths
+              else depth_base for _ in angles]
+    shifts_rot, shifts_tr = pose_shifts(config, len(angles), generator, max_grid_dim(volume))
+    imgs, wmaps, mats, unshifted_mats, all_origins, all_dirs = [], [], [], [], [], []
+    for (theta, phi), depth_values, rot, tr in zip(angles, depths, shifts_rot, shifts_tr):
+        # the angles in f32 arithmetic, as the JAX package adds its f32 draws
         origins, directions, c2w = get_ray_values(
-            float(theta), float(phi), config.larm, config.src_pt, W, H,
-            config.focal_length, device=device,
+            np.float32(theta) + rot[0], np.float32(phi) + rot[1],
+            np.float32(config.larm) + rot[2], config.src_pt, W, H,
+            config.focal_length, tuple(tr), device=device,
         )
+        if rot.any() or tr.any():
+            nom_origins, nom_dirs, unshifted_c2w = get_ray_values(
+                float(theta), float(phi), config.larm, config.src_pt, W, H,
+                config.focal_length, device=device,
+            )
+        else:
+            nom_origins, nom_dirs, unshifted_c2w = origins, directions, c2w
         img_np = render_drr(volume, origins, directions, depth_values, config.mode).cpu().numpy()
         if config.per_image_normalize:  # sdftoray.py:125-127
             img_np = img_np - img_np.min()
@@ -204,8 +242,11 @@ def generate_dataset(
         imgs.append(img_np)
         wmaps.append(np.asarray(wmap))
         mats.append(c2w.cpu().numpy())
-        all_origins.append(origins.reshape(-1, 3))
-        all_dirs.append(directions.reshape(-1, 3))
+        unshifted_mats.append(unshifted_c2w.cpu().numpy())
+        ray_o, ray_d = ((nom_origins, nom_dirs) if config.rays_from_nominal
+                        else (origins, directions))
+        all_origins.append(ray_o.reshape(-1, 3))
+        all_dirs.append(ray_d.reshape(-1, 3))
 
     images = np.stack(imgs)
     # joint normalization over all views (cttoray.py:265-267)
@@ -217,20 +258,19 @@ def generate_dataset(
 
     V = len(angles)
     mats = np.stack(mats)
-    zeros = [0.0] * V
     proj = {
         "image_id": [f"{t}-{p}".replace(".", ",") for t, p in angles],
         "theta": angles[:, 0],
         "phi": angles[:, 1],
         "larm": [config.larm] * V,
-        "theta_shift": zeros,
-        "phi_shift": zeros,
-        "larm_shift": zeros,
-        "translation_x": zeros,
-        "translation_y": zeros,
-        "translation_z": zeros,
+        "theta_shift": [float(r[0]) for r in shifts_rot],
+        "phi_shift": [float(r[1]) for r in shifts_rot],
+        "larm_shift": [float(r[2]) for r in shifts_rot],
+        "translation_x": [float(t[0]) for t in shifts_tr],
+        "translation_y": [float(t[1]) for t in shifts_tr],
+        "translation_z": [float(t[2]) for t in shifts_tr],
         "tform_cam2world": mats,
-        "unshifted_tform_cam2world": mats,  # no pose shifts: the same matrices
+        "unshifted_tform_cam2world": np.stack(unshifted_mats),
         "image_data": images,
         "image_distance_data": weight_maps,
         "org_img_width": [W] * V,

@@ -79,3 +79,25 @@ def query_points(
     ~1e-5."""
     return torch.addcmul(origins[..., None, :], directions[..., None, :],
                          depth_values[..., :, None])
+
+
+def get_depth_values(near: float, far: float, n: int, generator: torch.Generator | None = None,
+                     stratified: bool = True, device=None) -> torch.Tensor:
+    """Depth samples for one ray bundle, stratified from ``generator``
+    unless ``stratified`` is False (helpers.py:177-190). The JAX function
+    raises without a key; here a stratified draw needs a generator too."""
+    z = linspace_depths(near, far, n, device)
+    if stratified:
+        if generator is None:
+            raise ValueError("stratified depth sampling requires a generator")
+        z = stratify_depths(z, generator)
+    return z
+
+
+def segment_lengths(depth_values: torch.Tensor, infinite_last: bool = True) -> torch.Tensor:
+    """Per-sample segment lengths; the last is 1e10 like the reference's
+    (helpers.py:200-201 / nerf_helpers.py:60-61), or with ``infinite_last``
+    False a copy of the one before it."""
+    d = depth_values[..., 1:] - depth_values[..., :-1]
+    last = torch.full_like(depth_values[..., :1], 1e10) if infinite_last else d[..., -1:]
+    return torch.cat([d, last], dim=-1)

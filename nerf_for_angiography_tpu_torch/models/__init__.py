@@ -6,6 +6,7 @@ from .cppn import (
     barf_k_values,
     barf_weights,
     lecun_normal_,
+    sine,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "barf_k_values",
     "barf_weights",
     "lecun_normal_",
+    "sine",
 ]

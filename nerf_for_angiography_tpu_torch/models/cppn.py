@@ -1,15 +1,21 @@
 """CPPN coordinate field as a torch ``nn.Module`` (port of
 ``nerf_for_angiography_tpu/models/cppn.py``).
 
-The port covers the density stack with ``act_func='relu'``, no view branch
-and no late layers, with ``pos_enc`` 'none', 'fourier' (learnable Gaussian
-coefficients) or 'barf' (fixed 2^k pi frequencies under a coarse-to-fine
-window that is a pure function of ``barf_alpha``; ref CPPN.py:62-94,207-259).
-Parameter names follow the flax module (``input_layer``, ``early_i``,
-``output_linear``, ``fourier_coefficients_pts``, ``img1``, ``img2``) so
-weights carry across one to one (``convert.py``). Initialisation matches
-flax in distribution (lecun_normal kernels — a truncated normal of variance
-1/fan_in — zero biases, N(0, fourier_sigma^2) coefficients), not in bits.
+The whole module: the early block, the skip connection and late layers
+(``num_late_layers``), the activations relu, sine (SIREN, ``sine_w0`` on the
+first layer) and tanh, ``use_bias``, the view branch
+(``num_input_channels_views > 0``: alpha and rgb heads, the views through
+their own encoding at ``barf_alpha_views``), and ``pos_enc`` 'none',
+'fourier' (learnable Gaussian coefficients) or 'barf' (fixed 2^k pi
+frequencies under a coarse-to-fine window that is a pure function of the
+alpha; ref CPPN.py:52-135,166-259). Parameter names follow the flax module
+(``input_layer``, ``early_i``, ``skip_connection``, ``late_i``,
+``alpha_linear``, ``feature_linear``, ``views_layer``, ``rgb_linear``,
+``output_linear``, ``fourier_coefficients_pts`` / ``_views``, ``img1``,
+``img2``) so weights carry across one to one (``convert.py``).
+Initialisation matches flax in distribution (lecun_normal kernels — a
+truncated normal of variance 1/fan_in — zero biases, N(0, fourier_sigma^2)
+coefficients), not in bits.
 """
 
 from __future__ import annotations
@@ -59,6 +65,13 @@ class CPPNConfig:
         c = self.num_input_channels
         if self.pos_enc != "none" and self.pos_enc_basis > 0:
             return c + c * 2 * self.pos_enc_basis
+        return c
+
+    @property
+    def encoded_views_features(self) -> int:
+        c = self.num_input_channels_views
+        if self.pos_enc != "none" and self.pos_enc_basis_views > 0:
+            return c + c * 2 * self.pos_enc_basis_views
         return c
 
     def to_model_definition(self) -> dict:
@@ -121,21 +134,6 @@ def barf_alpha_device(step: torch.Tensor, pos_enc_basis: int, barf_start: int = 
     return torch.clamp(alpha, 0.0, float(pos_enc_basis))
 
 
-def _check_ported(cfg: CPPNConfig) -> None:
-    if cfg.pos_enc not in ("none", "fourier", "barf"):
-        raise ValueError(f"unknown pos_enc: {cfg.pos_enc!r}")
-    if cfg.act_func != "relu":
-        raise NotImplementedError(
-            f"act_func={cfg.act_func!r} arrives with the classic-path slice"
-        )
-    if cfg.use_viewdirs or cfg.num_late_layers > 0:
-        raise NotImplementedError(
-            "view branch / late layers arrive with the classic-path slice"
-        )
-    if not cfg.use_bias:
-        raise NotImplementedError("use_bias=False is not ported")
-
-
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
     """flax's lecun_normal: truncated normal (+-2 std) with variance
     1/fan_in; ``weight`` is (out, in)."""
@@ -148,36 +146,82 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
         )
 
 
+def sine(w0: float = 1.0):
+    """SIREN activation act(x) = sin(w0 * x). Ref: CPPN.py:278-294."""
+
+    def act(x):
+        return torch.sin(w0 * x)
+
+    return act
+
+
+def _activation(name: str, first: bool, w0: float):
+    if name == "sine":
+        return sine(w0 if first else 1.0)
+    if name == "tanh":
+        return torch.tanh
+    return torch.relu
+
+
+def _dense(lin: nn.Linear, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """flax Dense with ``dtype``: input, kernel and bias cast to the compute
+    dtype, the result in it."""
+    bias = None if lin.bias is None else lin.bias.to(dt)
+    return nn.functional.linear(h.to(dt), lin.weight.to(dt), bias)
+
+
 class CPPN(nn.Module):
-    """Coordinate MLP: (x, y, z) -> 1-channel raw density, the coordinates
+    """Coordinate MLP: (x, y, z)[+ view direction] -> 1-channel raw density,
+    or [rgb, alpha] with the view branch; the coordinates (and views)
     optionally through the fourier or BARF positional encoding."""
 
     def __init__(self, config: CPPNConfig, generator: torch.Generator | None = None,
                  device: torch.device | str | None = None):
         super().__init__()
-        _check_ported(config)
+        if config.pos_enc not in ("none", "fourier", "barf"):
+            raise ValueError(f"unknown pos_enc: {config.pos_enc!r}")
         self.config = config
         f = config.num_filters
         kw = dict(device=device, dtype=torch.float32)
-        self.input_layer = nn.Linear(config.encoded_pts_features, f, **kw)
+        bias = config.use_bias
+        self.input_layer = nn.Linear(config.encoded_pts_features, f, bias=bias, **kw)
         for i in range(config.num_early_layers):
-            setattr(self, f"early_{i}", nn.Linear(f, f, **kw))
-        self.output_linear = nn.Linear(f, config.num_output_channels, **kw)
+            setattr(self, f"early_{i}", nn.Linear(f, f, bias=bias, **kw))
+        if config.num_late_layers > 0:
+            self.skip_connection = nn.Linear(config.encoded_pts_features + f, f, bias=bias, **kw)
+            for i in range(config.num_late_layers - 1):
+                setattr(self, f"late_{i}", nn.Linear(f, f, bias=bias, **kw))
+        if config.use_viewdirs:
+            n_out = config.num_output_channels - 1
+            self.alpha_linear = nn.Linear(f, n_out, bias=bias, **kw)
+            # flax's feature_linear is a Dense without use_bias: always biased
+            self.feature_linear = nn.Linear(f, f, **kw)
+            self.views_layer = nn.Linear(f + config.encoded_views_features, f // 2, bias=bias,
+                                         **kw)
+            self.rgb_linear = nn.Linear(f // 2, n_out, bias=bias, **kw)
+        else:
+            self.output_linear = nn.Linear(f, config.num_output_channels, bias=bias, **kw)
         # per-image learnable translations, parity with CPPN.py:133-135
         self.img1 = nn.Parameter(torch.zeros(2, **kw))
         self.img2 = nn.Parameter(torch.zeros(2, **kw))
-        for lin in self.linears():
-            lecun_normal_(lin.weight, generator)
-            nn.init.zeros_(lin.bias)
-        if config.pos_enc == "fourier" and config.pos_enc_basis > 0:
+        for lin in self.modules():
+            if isinstance(lin, nn.Linear):
+                lecun_normal_(lin.weight, generator)
+                if lin.bias is not None:
+                    nn.init.zeros_(lin.bias)
+        if config.pos_enc == "fourier":
             # learnable Gaussian coefficients ~ N(0, sigma^2) (CPPN.py:70-80)
-            n = config.num_input_channels * config.pos_enc_basis
-            coeff = torch.randn((n,), generator=generator, dtype=torch.float32)
-            self.fourier_coefficients_pts = nn.Parameter(
-                (coeff * config.fourier_sigma).to(device)
-            )
+            for kind, c, basis in (("pts", config.num_input_channels, config.pos_enc_basis),
+                                   ("views", config.num_input_channels_views,
+                                    config.pos_enc_basis_views)):
+                if basis > 0 and (kind == "pts" or config.use_viewdirs):
+                    coeff = torch.randn((c * basis,), generator=generator, dtype=torch.float32)
+                    setattr(self, f"fourier_coefficients_{kind}",
+                            nn.Parameter((coeff * config.fourier_sigma).to(device)))
 
     def linears(self) -> list[nn.Linear]:
+        """The density stack in kernel order: input_layer, early_i and
+        output_linear (the layers of a model the fused kernels take)."""
         n = self.config.num_early_layers
         return (
             [self.input_layer]
@@ -185,32 +229,61 @@ class CPPN(nn.Module):
             + [self.output_linear]
         )
 
-    def forward(self, x: torch.Tensor, barf_alpha=0.0) -> torch.Tensor:
-        """x (..., 3) world coords -> (..., num_output_channels) float32: the
-        encode in f32, then the layers in the compute dtype of the config
-        (flax Dense with ``dtype``: inputs, weights and biases cast, result
-        rounded to that dtype per layer). ``barf_alpha`` sets the BARF
-        window."""
-        dt = self.config.dtype
-        pts = x[..., : self.config.num_input_channels] * self.config.input_scale
-        h = self._pos_enc(pts, barf_alpha).to(dt)
-        *hidden, out = self.linears()
-        for lin in hidden:
-            h = torch.relu(nn.functional.linear(h, lin.weight.to(dt), lin.bias.to(dt)))
-        h = nn.functional.linear(h, out.weight.to(dt), out.bias.to(dt))
-        return h.to(torch.float32)
+    def add_view_shifts(self, num_views: int) -> None:
+        """Register the pose-refinement parameter ``view_shifts``, a (V, 3)
+        f32 world translation per view, zero at the start (the JAX package
+        keeps it in the params collection under the same name)."""
+        ref = self.img1
+        self.view_shifts = nn.Parameter(
+            torch.zeros((num_views, 3), dtype=torch.float32, device=ref.device))
 
-    def _pos_enc(self, values: torch.Tensor, alpha) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, barf_alpha=0.0, barf_alpha_views=0.0) -> torch.Tensor:
+        """x (..., num_input_channels + num_input_channels_views) -> (...,
+        num_output_channels) float32: the coordinates scaled by
+        ``input_scale``, the encodings in f32, then every layer in the
+        compute dtype of the config (flax Dense with ``dtype``: inputs,
+        weights and biases cast, result rounded to that dtype per layer).
+        ``barf_alpha`` / ``barf_alpha_views`` set the BARF windows."""
+        cfg = self.config
+        dt = cfg.dtype
+        n_in = cfg.num_input_channels + cfg.num_input_channels_views
+        if x.shape[-1] != n_in:
+            raise ValueError(
+                f"the CPPN takes {cfg.num_input_channels} coordinate + "
+                f"{cfg.num_input_channels_views} view channels, got x of width {x.shape[-1]}")
+        act = _activation(cfg.act_func, False, cfg.sine_w0)
+        first_act = _activation(cfg.act_func, True, cfg.sine_w0)
+        pts = x[..., : cfg.num_input_channels] * cfg.input_scale
+        pts_encoded = self._pos_enc(pts, cfg.pos_enc_basis, "pts", barf_alpha)
+        h = first_act(_dense(self.input_layer, pts_encoded, dt))
+        for i in range(cfg.num_early_layers):
+            h = act(_dense(getattr(self, f"early_{i}"), h, dt))
+        if cfg.num_late_layers > 0:
+            h = act(_dense(self.skip_connection, torch.cat([pts_encoded, h.float()], -1), dt))
+            for i in range(cfg.num_late_layers - 1):
+                h = act(_dense(getattr(self, f"late_{i}"), h, dt))
+        if cfg.use_viewdirs:
+            views_encoded = self._pos_enc(x[..., cfg.num_input_channels:],
+                                          cfg.pos_enc_basis_views, "views", barf_alpha_views)
+            alpha_out = _dense(self.alpha_linear, h, dt)
+            feature = _dense(self.feature_linear, h, dt)
+            v = act(_dense(self.views_layer, torch.cat([feature.float(), views_encoded], -1), dt))
+            rgb = _dense(self.rgb_linear, v, dt)
+            out = torch.cat([rgb, alpha_out], dim=-1)
+        else:
+            out = _dense(self.output_linear, h, dt)
+        return out.to(torch.float32)
+
+    def _pos_enc(self, values: torch.Tensor, basis: int, kind: str, alpha) -> torch.Tensor:
         """concat([x, enc(tile(x, L))]) in f32, as flax's _pos_enc (ref
         CPPN.py:207-234): feature order [x, sin rows, cos rows], row j
-        encoding coordinate j % 3 at band j // 3."""
+        encoding channel j % C at band j // C."""
         cfg = self.config
-        basis = cfg.pos_enc_basis
         if cfg.pos_enc == "none" or basis <= 0:
             return values
         tiled = torch.cat([values] * basis, dim=-1)
         if cfg.pos_enc == "fourier":
-            v = 2.0 * math.pi * tiled * self.fourier_coefficients_pts
+            v = 2.0 * math.pi * tiled * getattr(self, f"fourier_coefficients_{kind}")
             enc = torch.cat([torch.sin(v), torch.cos(v)], dim=-1)
         else:
             k = barf_k_values(basis, values.shape[-1], device=values.device)

@@ -427,5 +427,8 @@ def fused_mlp_raw_fm(plist, x_fm: torch.Tensor) -> torch.Tensor:
 
 def cppn_params_to_list(model) -> list:
     """The fused-kernel parameter list of a port CPPN module (its linears()
-    in kernel order), weights as (in, out) views."""
-    return [(lin.weight.T, lin.bias) for lin in model.linears()]
+    in kernel order), weights as (in, out) views; a layer without a bias
+    (``use_bias=False``) takes a zero one."""
+    return [(lin.weight.T, lin.bias if lin.bias is not None
+             else torch.zeros(lin.out_features, device=lin.weight.device))
+            for lin in model.linears()]

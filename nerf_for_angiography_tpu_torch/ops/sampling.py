@@ -134,3 +134,55 @@ def sample_pixel_rays(
         pixel_values=data.pixel_values[idx],
         image_ids=data.image_ids[idx],
     )
+
+
+def image_ray_draws(
+    generator: torch.Generator, n: int, num_images: int, rays_per_image: int, device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The random part of sample_image_rays: a view index (a 0-dim int64
+    tensor in [0, num_images)) and n distinct pixel offsets in [0,
+    rays_per_image), the n largest of one uniform a pixel (a uniform subset
+    without replacement, as ``jax.random.choice(replace=False)``). Both stay
+    on the device."""
+    img = torch.randint(0, num_images, (), generator=generator, device=device)
+    u = torch.rand((rays_per_image,), generator=generator, device=device)
+    return img, torch.topk(u, n).indices
+
+
+def image_ray_select(data: RayDataset, img: torch.Tensor, offs: torch.Tensor,
+                     rays_per_image: int) -> RayBatch:
+    """The deterministic part: the rays at ``offs`` of view ``img`` of a
+    view-major dataset with a fixed ``rays_per_image`` stride."""
+    idx = img * rays_per_image + offs
+    return RayBatch(
+        origins=data.origins[idx],
+        directions=data.directions[idx],
+        pixel_values=data.pixel_values[idx],
+        image_ids=data.image_ids[idx],
+    )
+
+
+def sample_image_rays(
+    generator: torch.Generator, data: RayDataset, n: int, num_images: int,
+    rays_per_image: int,
+) -> RayBatch:
+    """Sample n rays from ONE randomly chosen training view, without
+    replacement (nerf_helpers.py:152-176, the random=True branch). Assumes
+    the dataset is stored view-major with a fixed ``rays_per_image``
+    stride (the datagen CSV layout, cttoray.py:247-262)."""
+    img, offs = image_ray_draws(generator, n, num_images, rays_per_image,
+                                data.origins.device)
+    return image_ray_select(data, img, offs, rays_per_image)
+
+
+def whole_image_rays(data: RayDataset, image_index, rays_per_image: int) -> RayBatch:
+    """All rays of one view, in stored (pixel) order (nerf_helpers.py:152-166,
+    the random=False branch); ``image_index`` an int or a 0-dim tensor."""
+    idx = (torch.as_tensor(image_index, device=data.origins.device) * rays_per_image
+           + torch.arange(rays_per_image, device=data.origins.device))
+    return RayBatch(
+        origins=data.origins[idx],
+        directions=data.directions[idx],
+        pixel_values=data.pixel_values[idx],
+        image_ids=data.image_ids[idx],
+    )

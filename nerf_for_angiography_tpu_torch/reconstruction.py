@@ -18,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from .convert import cppn_params_from_jax
+from .convert import cppn_params_from_jax, field_params
 from .device import resolve_device
 from .evaluation.sweep import EvalConfig, lca_eval_config, make_view_renderer
 from .models import CPPN, CPPNConfig
@@ -65,7 +65,7 @@ class Reconstruction:
             dtype=torch.bfloat16,
         )
         model = CPPN(mcfg, device=dev)
-        model.load_state_dict(cppn_params_from_jax(params))
+        model.load_state_dict(field_params(cppn_params_from_jax(params)))
         model.requires_grad_(False)
         aabb = np.array(
             [-eval_config.outside] * 3 + [eval_config.outside] * 3, np.float32

@@ -4,9 +4,7 @@ config.py``): every field and default of ``TrainConfig``,
 flags with the reference's names and defaults (run_nerf_acc.py:25-47) plus
 ``--device``.
 
-Configurations the port has not reached yet raise ``NotImplementedError``
-at the entry points (training/train.py::check_ported) and in
-``parse_train_args``.
+Every configuration the JAX package takes, the port takes too.
 """
 
 from __future__ import annotations
@@ -204,8 +202,7 @@ def train_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth_samples", default=None, help="samples per ray")
     p.add_argument("--display_every", default=None, help="eval cadence")
     p.add_argument("--pose_refine", action="store_true",
-                   help="learn a per-view camera translation jointly with the field "
-                        "(arrives with the pose-refinement slice)")
+                   help="learn a per-view camera translation jointly with the field")
     p.add_argument("--pose_lr", default=None, help="pose-shift Adam lr")
     p.add_argument("--march_mode", default=None, choices=["window", "hybrid", "lattice"],
                    help="compacted-march strategy")
@@ -242,10 +239,7 @@ def train_arg_parser() -> argparse.ArgumentParser:
 
 def config_from_args(a: argparse.Namespace) -> tuple[TrainConfig, str]:
     """(TrainConfig, data_dir) from parsed train CLI flags, as the JAX
-    package's parse_train_args builds them; refuses what the port has not
-    reached (check_ported)."""
-    from .train import check_ported
-
+    package's parse_train_args builds them."""
     kw = {}
     if a.limited_size is not None:
         kw["limited_size"] = float(a.limited_size)
@@ -295,9 +289,7 @@ def config_from_args(a: argparse.Namespace) -> tuple[TrainConfig, str]:
         kw["hybrid_split"] = float(a.hybrid_split)
     if a.hybrid_bucket_k is not None:
         kw["hybrid_bucket_k"] = a.hybrid_bucket_k == "True"
-    cfg = TrainConfig(**kw)
-    check_ported(cfg)
-    return cfg, a.data_dir
+    return TrainConfig(**kw), a.data_dir
 
 
 def parse_train_args(argv=None) -> tuple[TrainConfig, str]:

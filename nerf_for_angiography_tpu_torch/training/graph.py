@@ -168,6 +168,10 @@ class TrainChunk:
         out = None
         for _ in range(self.steps_per_call if steps is None else steps):
             out = self.step(state, rays)
+        if dev.type == "cuda":
+            # the graphs hold the tensors there are now: a fresh state's
+            # first call creates the Adam state in its warm-up steps
+            self._signature = state_signature(state, rays)
         return out
 
     def step(self, state, rays):

@@ -68,7 +68,6 @@ from .logging import ExperimentLogger
 from .pressure import PressureTuner, Tuning
 from .train import (
     TestView,
-    check_ported,
     choose_compact_mode,
     create_train_state,
     drop_test_view,
@@ -223,7 +222,6 @@ def train(
     near/far = src_pt_z -+ outside (run_nerf_acc.py:131-134).
     ``initial_state`` (a ``TrainState`` of this configuration) replaces the
     fresh state: a warm start, never carved."""
-    check_ported(cfg)
     device = resolve_device(device)
     rays = rays.to(device)
     near = src_pt_z - cfg.outside
@@ -313,8 +311,9 @@ def train(
                 cfg, march_mode=tuning.mode, compact_samples=tuning.k,
                 hybrid_w_cap=tuning.w_cap, hybrid_w_lo=tuning.w_lo, hybrid_k_lo=tuning.k_lo,
             ) if using_compact else dense_cfg
-            run = chunkers[key] = make_train_chunk(model, step_cfg, near, far, chunk_c,
-                                                   pool=pool, pressure=pressure)
+            run = chunkers[key] = make_train_chunk(
+                model, step_cfg, near, far, chunk_c, pool=pool, pressure=pressure,
+                num_images=n_views - 1, rays_per_image=rays_per_view)
         return run
 
     # compaction-readiness cadence, rounded up to a chunk boundary so the

@@ -14,7 +14,10 @@ compacted step also reports its truncation pressure (march_pressure). With
 ``fused_train_step`` the MLP forward, composite, loss gradient and MLP
 backward of each rectangular march are one call of the whole-step kernel
 (ops/kernels/fused_step.py); with ``feature_major_mlp`` the fused-MLP
-kernels take the march's positions as one (3, P) block.
+kernels take the march's positions as one (3, P) block. With
+``pose_refine`` each ray's origin takes its view's learnable translation
+(shifted_origins) before the march, and the MLP kernels' position gradient
+carries the loss back to the translations.
 
 The compact-mode chooser (choose_compact_mode and its sizers) probes the
 held-out view with one device pass reduced to five int32 values, read with
@@ -61,7 +64,7 @@ from ..ops.occupancy import (
     safe_occ_stride,
 )
 from ..ops.rendering import psnr_from_mse
-from ..ops.sampling import RayBatch, RayDataset, sample_pixel_rays
+from ..ops.sampling import RayBatch, RayDataset, sample_image_rays, sample_pixel_rays
 from .config import TrainConfig
 from .graph import TrainChunk
 
@@ -71,16 +74,6 @@ PRESSURE_KEYS = (
     "march/over_k", "march/over_k_lo", "march/edge_rays",
     "march/ac", "march/ac_lo",
 )
-
-
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for configurations later slices bring."""
-    if cfg.pose_refine:
-        raise NotImplementedError("pose_refine arrives with the pose-refinement slice")
-    if cfg.num_input_channels_views > 0:
-        raise NotImplementedError("the view branch arrives with the classic-path slice")
-    if cfg.sample_mode != "pixel":
-        raise NotImplementedError("sample_mode='image' arrives with the classic-path slice")
 
 
 @dataclasses.dataclass
@@ -206,16 +199,42 @@ class ExponentialDecayLR:
         self.transition_steps = int(state["transition_steps"])
 
 
-def make_optimizer(cfg: TrainConfig, params):
+def make_optimizer(cfg: TrainConfig, params, pose_params=None):
     """Adam (eps 1e-8) and its lr schedule (ExponentialDecayLR). The lr is
     an f32 tensor on the parameters' device that the schedule rewrites
-    before each step. ``fused`` updates every parameter in one launch and
-    ``capturable`` lets the step be captured into a CUDA graph."""
+    before each step. ``fused`` updates every parameter of a group in one
+    launch and ``capturable`` lets the step be captured into a CUDA graph.
+
+    With ``pose_params`` (the view shifts of pose refinement) the optimizer
+    is AdamW with two groups, as the JAX package's optax.multi_transform:
+    the model's parameters without weight decay (Adam, at the decaying lr)
+    and the view shifts with ``pose_weight_decay``, whose lr tensor the step
+    sets to pose_lr_at after the schedule. torch's AdamW decays the
+    parameter by p (1 - lr wd) where optax adds wd p to the update before
+    the lr scales it: the same update up to rounding, and none while the
+    lr is 0."""
     params = list(params)
-    lr = torch.full((), cfg.coarse_lr, dtype=torch.float32, device=params[0].device)
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, fused=True,
-                           capturable=True)
+    dev = params[0].device
+    lr = torch.full((), cfg.coarse_lr, dtype=torch.float32, device=dev)
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, fused=True, capturable=True)
+    if pose_params is None:
+        opt = torch.optim.Adam(params, lr=lr, **kw)
+    else:
+        pose_lr = torch.zeros((), dtype=torch.float32, device=dev)
+        opt = torch.optim.AdamW(
+            [{"params": params, "lr": lr, "weight_decay": 0.0},
+             {"params": list(pose_params), "lr": pose_lr,
+              "weight_decay": cfg.pose_weight_decay}],
+            lr=lr, **kw)
     return opt, ExponentialDecayLR(opt, cfg.coarse_lr, cfg.decay_rate, cfg.decay_steps)
+
+
+def pose_lr_at(cfg: TrainConfig, count: torch.Tensor) -> torch.Tensor:
+    """The view shifts' lr at step ``count`` (an integer tensor), the JAX
+    package's pose schedule where(step < pose_start, 0, pose_lr), f32 on the
+    count's device."""
+    zero = torch.zeros((), dtype=torch.float32, device=count.device)
+    return torch.where(count < cfg.pose_start, zero, torch.full_like(zero, cfg.pose_lr))
 
 
 def create_train_state(
@@ -223,13 +242,21 @@ def create_train_state(
     device: str | torch.device = "cuda",
 ) -> tuple[CPPN, TrainState]:
     """Model, optimizer and the two fresh grids. Weights are drawn on the CPU
-    from ``seed`` (default cfg.seed) so they do not depend on the device."""
-    check_ported(cfg)
+    from ``seed`` (default cfg.seed) so they do not depend on the device.
+    With ``pose_refine`` the module also holds ``view_shifts``, (num_views,
+    3) zeros (CPPN.add_view_shifts), under its own AdamW group."""
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
     init_gen = torch.Generator().manual_seed(seed)
     model = CPPN(cfg.model_config(), generator=init_gen).to(device)
-    opt, sched = make_optimizer(cfg, model.parameters())
+    if cfg.pose_refine:
+        if not num_views:
+            raise ValueError("pose_refine needs num_views")
+        model.add_view_shifts(num_views)
+        field = [p for n, p in model.named_parameters() if n != "view_shifts"]
+        opt, sched = make_optimizer(cfg, field, [model.view_shifts])
+    else:
+        opt, sched = make_optimizer(cfg, model.parameters())
     aabb = [-cfg.outside] * 3 + [cfg.outside] * 3
     grid = create_grid(aabb, cfg.grid_resolution, device=device)
     vessel_grid = create_grid(aabb, cfg.grid_resolution, device=device)
@@ -244,11 +271,9 @@ def copy_state(state: TrainState) -> TrainState:
     """A copy of a train state that shares no tensor with it: the module,
     the optimizer (Adam state and lr), the schedule, both grids, the
     generator's state and the step."""
-    model = copy.deepcopy(state.model)
-    opt = type(state.optimizer)(model.parameters(), **state.optimizer.defaults)
-    opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
-    sched = copy.copy(state.scheduler)
-    sched.optimizer = opt
+    # one deepcopy: the copied optimizer and schedule refer to the copied
+    # parameters and optimizer
+    model, opt, sched = copy.deepcopy((state.model, state.optimizer, state.scheduler))
     gen = torch.Generator(device=state.generator.device)
     gen.set_state(state.generator.get_state())
 
@@ -357,7 +382,6 @@ def _march_for(cfg, grid, origins, directions, near, far):
     with hybrid_split and hybrid_w_lo, and a k per bucket with
     hybrid_bucket_k and hybrid_k_lo) or 'lattice' (first-k of the whole
     lattice) per cfg.march_mode."""
-    check_ported(cfg)
     n = cfg.depth_samples_per_ray
     compacting = 0 < cfg.compact_samples < n
     if compacting and cfg.march_mode == "window":
@@ -775,7 +799,8 @@ def _set_grads(model: CPPN, grads) -> None:
     (out, in), the plist (in, out))."""
     for lin, (dw, db) in zip(model.linears(), grads):
         lin.weight.grad = dw.T.contiguous()
-        lin.bias.grad = db.reshape(lin.bias.shape).contiguous()
+        if lin.bias is not None:
+            lin.bias.grad = db.reshape(lin.bias.shape).contiguous()
 
 
 def march_pressure(m) -> dict[str, torch.Tensor]:
@@ -811,18 +836,55 @@ def march_pressure(m) -> dict[str, torch.Tensor]:
     }
 
 
-def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
+class _RowGather(torch.autograd.Function):
+    """table[ids] for a (V, 3) table, whose backward sums each row's
+    gradients in a fixed order: a one-hot (V, B) @ (B, 3) product in f64.
+    (Indexing's own backward is an atomic scatter-add on the card, whose sum
+    order changes from run to run.)"""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ids.device)
+        onehot = (rows[:, None] == ids[None, :]).to(torch.float64)
+        return (onehot @ g.to(torch.float64)).to(g.dtype), None
+
+
+def shifted_origins(model: CPPN, batch: RayBatch) -> torch.Tensor:
+    """Pose refinement's ray origins: each ray's origin plus its view's
+    learnable translation ``view_shifts[image_ids]`` (the gradient flows
+    loss -> sigma -> MLP input -> positions -> origins -> shifts)."""
+    return batch.origins + _RowGather.apply(model.view_shifts, batch.image_ids)
+
+
+def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
+                      num_images: int | None = None, rays_per_image: int | None = None):
     """Train-step body (run_nerf_acc.py:263-328). Returns
     ``train_step(state, rays) -> (state, metrics, pred_pixels,
     target_pixels)``; ``train_step.step_core(state, batch)`` runs one step
     on a given batch. Parameter gradients stay in ``.grad`` after the
     step. The grids are updated in place, and the lr and BARF alpha are
-    computed on the device from ``state.step_dev``."""
+    computed on the device from ``state.step_dev``.
+
+    ``sample_mode='image'`` (run_nerf_acc.py:279-280) draws the batch from
+    one random view and needs num_images / rays_per_image; ``pose_refine``
+    adds the view shifts to the batch's origins."""
+    if cfg.sample_mode == "image" and not (num_images and rays_per_image):
+        raise ValueError("sample_mode='image' needs num_images and rays_per_image")
     use_fused_step = _fused_step_eligible(model, cfg)
-    check_ported(cfg)
     compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
 
     def sample_batch(state: TrainState, rays: RayDataset) -> RayBatch:
+        # ray sampling on the device (run_nerf_acc.py:275-280)
+        if cfg.sample_mode == "image":
+            return sample_image_rays(state.generator, rays, cfg.img_sample_size, num_images,
+                                     rays_per_image)
         return sample_pixel_rays(
             state.generator, rays, cfg.img_sample_size,
             weighted=cfg.sampling_strategy != "random", impl=cfg.sampling_impl,
@@ -850,8 +912,9 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
             )
             _set_grads(model, grads)
         else:
+            origins = shifted_origins(model, batch) if cfg.pose_refine else batch.origins
             pixels, _, _, march = render_rays(
-                model, grid, batch.origins, batch.directions, cfg, near, far, barf_alpha,
+                model, grid, origins, batch.directions, cfg, near, far, barf_alpha,
                 return_march=True,
             )
             loss = torch.mean((pixels - batch.pixel_values) ** 2)
@@ -860,6 +923,8 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
         # it at the chunk boundary (training/loop.py)
         pressure = march_pressure(march) if compacting else {}
         state.scheduler.apply(state.step_dev)
+        if cfg.pose_refine:  # the view shifts' group (make_optimizer)
+            state.optimizer.param_groups[1]["lr"].copy_(pose_lr_at(cfg, state.step_dev))
         state.optimizer.step()
         loss = loss.detach()
         pixels = pixels.detach()
@@ -881,9 +946,10 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
     return train_step
 
 
-def make_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float):
+def make_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
+                    num_images: int | None = None, rays_per_image: int | None = None):
     """The single train step (eager; see _build_train_step)."""
-    return _build_train_step(model, cfg, near, far)
+    return _build_train_step(model, cfg, near, far, num_images, rays_per_image)
 
 
 def accumulate_pressure(acc: torch.Tensor, metrics: dict) -> None:
@@ -896,7 +962,8 @@ def accumulate_pressure(acc: torch.Tensor, metrics: dict) -> None:
 
 
 def make_train_chunk(model: CPPN, cfg: TrainConfig, near: float, far: float,
-                     steps_per_call: int, pool=None, pressure: torch.Tensor | None = None):
+                     steps_per_call: int, pool=None, pressure: torch.Tensor | None = None,
+                     num_images: int | None = None, rays_per_image: int | None = None):
     """``steps_per_call`` train steps in one call (the JAX package's
     make_train_chunk, a jitted lax.scan): ``chunk(state, rays) -> (state,
     metrics, pred, target)`` of the last step (the JAX loop reads the last
@@ -905,8 +972,9 @@ def make_train_chunk(model: CPPN, cfg: TrainConfig, near: float, far: float,
     CUDA graph captured for its grid-update kind; on the CPU it is the eager
     step (training/graph.py). ``pool``: a CUDA graph memory pool shared
     with other chunks; ``pressure``: the (5,) int32 buffer to reduce into
-    (default: the chunk's own)."""
-    step = _build_train_step(model, cfg, near, far)
+    (default: the chunk's own); ``num_images`` / ``rays_per_image``: as
+    make_train_step."""
+    step = _build_train_step(model, cfg, near, far, num_images, rays_per_image)
 
     def body(state, rays, acc):
         out = step(state, rays)

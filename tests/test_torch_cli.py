@@ -56,13 +56,15 @@ def test_parse_train_args_matches_jax(argv):
 
 
 def test_parse_train_args_device_and_pose_refine():
-    """--device defaults to the card; --pose_refine, which the JAX package
-    takes, reaches check_ported and is refused."""
+    """--device defaults to the card; --pose_refine (with --pose_lr) gives
+    the JAX package's config, now that the port takes it."""
     assert train_arg_parser().parse_args([]).device == "cuda"
     assert train_arg_parser().parse_args(["--device", "cpu"]).device == "cpu"
-    assert parse_train_args_j(["--pose_refine"])[0].pose_refine
-    with pytest.raises(NotImplementedError, match="pose-refinement slice"):
-        parse_train_args(["--pose_refine"])
+    argv = ["--pose_refine", "--pose_lr", "0.05"]
+    cfg, data_dir = parse_train_args(argv)
+    cfg_j, data_dir_j = parse_train_args_j(argv)
+    assert cfg.pose_refine and cfg.pose_lr == 0.05
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j) and data_dir == data_dir_j
 
 
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch):

@@ -482,7 +482,8 @@ def _drive_torch(monkeypatch, width, fires, issued, observed):
             issued[0] += n
             return state, mets, None, None
 
-    def make_chunk(model, c, near, far, n, pool=None, pressure=None):
+    def make_chunk(model, c, near, far, n, pool=None, pressure=None, num_images=None,
+                   rays_per_image=None):
         return Chunk(c, n, pressure)
 
     evals = {"psnr/test-coarse": 20.0, "psnr/vessel-test-coarse": 20.0,

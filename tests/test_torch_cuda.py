@@ -1510,3 +1510,127 @@ def test_cli_pipeline_on_the_card(dev, tmp_path, monkeypatch):
     assert any(f.endswith(".json") for _, _, fs in os.walk(os.path.join(rd, "jsonData"))
                for f in fs)
     assert load_experiments("cases")["run"] == [os.path.basename(rd)]
+
+
+def _trained_pose_state(dev, **cfg_kw):
+    """A small pose-refined state after 121 train() steps (pose_start 20)
+    on shifted views of the vessel phantom with rays from the nominal
+    cameras; its rays without the test view."""
+    from nerf_for_angiography_tpu_torch.data import (
+        DatagenConfig, generate_dataset, make_vessel_volume,
+    )
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, drop_test_view, train
+
+    ds = generate_dataset(make_vessel_volume(res=32), DatagenConfig(
+        limited_size=90.0, number_angles=1.0, img_width=24, img_height=24, sample_outside=100.0,
+        stratified_depths=False, max_shift_translation=0.05, rays_from_nominal=True), device=dev)
+    cfg = TrainConfig(**{**dict(sample_size=24, depth_samples_per_ray=64, grid_resolution=32,
+                                grid_update_every=4, pose_refine=True, pose_start=20,
+                                n_iters=120, display_every=40), **cfg_kw})
+    res = train(cfg, ds.rays, 1500.0, verbose=False, device=dev)
+    return cfg, res.state, drop_test_view(ds.rays, 4, 576)
+
+
+@pytest.mark.parametrize("pos_enc", ["none", "fourier"])
+def test_pose_step_dx_at_its_own_g_matches_plain(dev, pos_enc):
+    """At a trained pose state, on the upstream gradient g a pose step hands
+    the MLP backward: the kernel's (#2, or #4 for fourier) dx against its
+    plain version's (beyond 3e-2 of the plain max on at most 2e-5 of the
+    points: relu ties), and the kernel leaves dx 0 on tiles of zero g."""
+    import importlib
+
+    tt = importlib.import_module("nerf_for_angiography_tpu_torch.training.train")
+    from nerf_for_angiography_tpu_torch.ops.sampling import sample_pixel_rays
+
+    cfg, state, rays = _trained_pose_state(dev, pos_enc=pos_enc)
+    model = state.model
+    batch = sample_pixel_rays(state.generator, rays, cfg.img_sample_size)
+    origins = tt.shifted_origins(model, batch).detach()
+    m = tt._march_for(cfg, state.grid, origins, batch.directions, _NEAR, _FAR)
+    pts = (tt._flat_positions(m) * model.config.input_scale).detach().contiguous()
+    plist = fm.cppn_params_to_list(model)
+    x = pts.clone().requires_grad_(True)
+    if pos_enc == "none":
+        raw = fm.fused_mlp_raw(plist, x)
+    else:
+        raw = fe.fused_mlp_enc_raw(("fourier", 5), plist,
+                                   {"coeff": model.fourier_coefficients_pts}, x)
+    sig = torch.sigmoid(raw).reshape(m.mask.shape)
+    dists, keep = tt._keep_mask(m, sig, cfg)
+    pix = torch.exp(-(sig * keep * dists).sum(-1))
+    loss = torch.mean((pix - batch.pixel_values) ** 2)
+    g = torch.autograd.grad(loss, raw)[0].contiguous()
+    if pos_enc == "none":
+        packed = fm.pack_params(plist)
+        _, dx_k = fm.fused_mlp_bwd_cuda(packed, pts, g)
+        _, dx_p = fm.fused_mlp_bwd_reference(packed, pts, g)
+    else:
+        packed = fe.pack_enc_params(plist, 5)
+        a, w = (t.contiguous() for t in fe.enc_arrays("fourier", 5,
+                                                       model.fourier_coefficients_pts.detach()))
+        _, _, dx_k = fe.fused_mlp_enc_bwd_cuda(packed, a, w, pts, g)
+        _, _, dx_p = fe.fused_mlp_enc_bwd_reference(packed, a, w, pts, g)
+    assert float(g.abs().max()) > 0 and float(dx_p.abs().max()) > 0
+    bad = ((dx_k - dx_p).abs() > 3e-2 * dx_p.abs().max()).any(-1)
+    assert float(bad.float().mean()) <= 2e-5
+    zero_tiles = ~torch.nn.functional.pad(g != 0, (0, (-g.numel()) % 16)).reshape(-1, 16).any(1)
+    skipped = zero_tiles.repeat_interleave(16)[: g.numel()]
+    assert bool((dx_k[skipped] == 0).all())
+
+
+def test_replayed_pose_steps_equal_eager_steps(dev):
+    """A trained pose state: 24 steps of make_train_chunk (replays, across
+    grid updates) and 24 eager steps from a copy: every parameter (the view
+    shifts among them), both AdamW groups' state and lr, the grids, the
+    generator, the last metrics and pixels bit for bit."""
+    from nerf_for_angiography_tpu_torch.training import (
+        copy_state, make_train_chunk, make_train_step,
+    )
+
+    cfg, state, rays = _trained_pose_state(dev)
+    eager = copy_state(state)
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 24)
+    _, m_g, p_g, _ = chunk(state, rays)
+    step = make_train_step(eager.model, cfg, _NEAR, _FAR)
+    for _ in range(24):
+        _, m_e, p_e, _ = step(eager, rays)
+    torch.cuda.synchronize()
+    assert chunk.captures >= 1
+    for (n, a), b in zip(state.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(a, b), n
+    assert len(state.optimizer.param_groups) == 2
+    for ga, gb in zip(state.optimizer.param_groups, eager.optimizer.param_groups):
+        assert torch.equal(ga["lr"], gb["lr"])
+        for pa, pb in zip(ga["params"], gb["params"]):
+            for k, v in eager.optimizer.state[pb].items():
+                assert torch.equal(state.optimizer.state[pa][k], v), k
+    for name in ("grid", "vessel_grid"):
+        for a, b in zip(getattr(state, name), getattr(eager, name)):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(state.generator.get_state(), eager.generator.get_state())
+    assert torch.equal(p_g, p_e)
+    for k in m_g:
+        assert torch.equal(m_g[k], m_e[k]), k
+
+
+def test_a_fresh_state_keeps_its_graphs_across_calls(dev):
+    """make_train_chunk called again and again from a fresh state (the
+    JAX-style loop of chunk calls): the first call's warm-up steps create
+    the Adam state, and the graphs captured after them stay valid, so the
+    next calls replay them. (Before, the second call compared the state's
+    tensors with the ones the first call began with, dropped its graphs and
+    captured again into the same memory pool while the caller held the last
+    replay's metrics: the allocator's capture_begin asserted.)"""
+    from nerf_for_angiography_tpu_torch.training import (
+        TrainConfig, create_train_state, make_train_chunk,
+    )
+
+    rays = _sphere_rays(dev)
+    cfg = TrainConfig(sample_size=16, depth_samples_per_ray=64, grid_resolution=32,
+                      grid_update_every=100_000)
+    model, state = create_train_state(cfg, device=dev)
+    chunk = make_train_chunk(model, cfg, _NEAR, _FAR, 10)
+    held = [chunk(state, rays)[1] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert chunk.captures == 1 and state.step == 30
+    assert all(torch.isfinite(m["loss/train-pixel-coarse"]) for m in held)

@@ -8,6 +8,7 @@ import torch
 
 from nerf_for_angiography_tpu.data import DatagenConfig as DatagenConfigJ
 from nerf_for_angiography_tpu.data import generate_dataset as generate_dataset_j
+from nerf_for_angiography_tpu.data import make_sphere_volume as make_sphere_volume_j
 from nerf_for_angiography_tpu.data import make_vessel_volume as make_vessel_volume_j
 from nerf_for_angiography_tpu.data.drr import render_drr as render_drr_j
 from nerf_for_angiography_tpu.data.drr import render_view as render_view_j
@@ -100,14 +101,37 @@ def test_angle_grid_and_sphere():
     assert float(vol.values.max()) == pytest.approx(0.02)
 
 
-# the SDF options (angle_mode 'sdf', per_image_normalize) are ported; the
-# pose shifts stay refused, and a non-identity resize_to is a ValueError
+# the SDF options (angle_mode 'sdf', per_image_normalize) and the pose
+# shifts are ported; a non-identity resize_to is a ValueError
 # (test_resize_to_must_be_identity)
 @pytest.mark.parametrize("kw", [dict(max_shift_rotation=1.0), dict(max_shift_translation=0.1),
                                 dict(max_shift_rotation=1.0, max_shift_translation=0.1)])
 def test_unported_datagen_raises(kw):
-    with pytest.raises(NotImplementedError):
-        generate_dataset(make_sphere_volume(res=8), DatagenConfig(**kw), device="cpu")
+    """Once refused, the pose shifts are ported: the port's own draws (no
+    injection; tests/test_torch_pose.py holds the sweep against JAX's on
+    injected shifts) shift every view but the test view within the maxima,
+    the rendered view follows the shifted camera and the proj table carries
+    the shifts and both matrices, as the JAX datagen's does."""
+    vol = make_sphere_volume(res=8)
+    cfg = DatagenConfig(**{"number_angles": 1.0, "img_width": 6, "img_height": 6,
+                           "stratified_depths": False, **kw})
+    ds = generate_dataset(vol, cfg, device="cpu")
+    ds_j = generate_dataset_j(make_sphere_volume_j(res=8), DatagenConfigJ(**{
+        "number_angles": 1.0, "img_width": 6, "img_height": 6, "stratified_depths": False, **kw}))
+    assert list(ds.proj) == list(ds_j.proj.columns)
+    rot = np.stack([ds.proj[c] for c in ("theta_shift", "phi_shift", "larm_shift")], -1)
+    tr = np.stack([ds.proj[c] for c in ("translation_x", "translation_y", "translation_z")], -1)
+    assert not rot[-1].any() and not tr[-1].any()
+    dim = float(np.abs(np.concatenate([vol.origin.numpy(), vol.origin.numpy()
+                                       + vol.spacing.numpy() * 7])).max())
+    assert np.abs(rot).max() <= kw.get("max_shift_rotation", 0.0)
+    assert np.abs(tr).max() <= kw.get("max_shift_translation", 0.0) * dim + 1e-4
+    assert np.abs(rot).max() + np.abs(tr).max() > 0
+    shifted = np.stack(ds.proj["tform_cam2world"])
+    nominal = np.stack(ds.proj["unshifted_tform_cam2world"])
+    if not rot.any():  # a pure translation: T(translation) @ R @ T(src)
+        np.testing.assert_allclose(shifted[:, :3, 3] - nominal[:, :3, 3], tr, atol=1e-3)
+    np.testing.assert_array_equal(shifted[-1], nominal[-1])
 
 
 def test_resize_to_must_be_identity():

@@ -70,5 +70,24 @@ def test_init_matches_flax_in_distribution():
                                 dict(act_func="sine"), dict(num_late_layers=1),
                                 dict(num_input_channels_views=3)])
 def test_unported_model_configs_raise(kw):
-    with pytest.raises(NotImplementedError):
-        CPPN(TorchCPPNConfig(**kw))
+    """Once refused, these CPPN branches are ported: each matches flax's
+    CPPN.apply on the same weights (f32 compute; the view branch with a
+    2-channel [rgb, alpha] output, BARF at alpha 2.5 for points and 1.5 for
+    views), and its state_dict names are flax's."""
+    kw = {"num_early_layers": 2, "num_filters": 32, "input_scale": 0.01, **kw}
+    if kw.get("num_input_channels_views"):
+        kw["num_output_channels"] = 2
+    model_j, params = init_cppn(CPPNConfig(**kw), jax.random.PRNGKey(4))
+    params = jax.tree.map(np.asarray, params)
+    model_t = CPPN(TorchCPPNConfig(**kw))
+    model_t.load_state_dict(cppn_params_from_jax(params))
+    n_in = 3 + kw.get("num_input_channels_views", 0)
+    x = np.random.default_rng(5).uniform(-100, 100, (300, n_in)).astype(np.float32)
+    if n_in > 3:
+        x[:, 3:] /= np.linalg.norm(x[:, 3:], axis=-1, keepdims=True)
+    want = np.asarray(model_j.apply(params, jnp.asarray(x), barf_alpha=2.5,
+                                    barf_alpha_views=1.5))
+    with torch.no_grad():
+        got = model_t(torch.from_numpy(x), 2.5, 1.5).numpy()
+    assert got.shape == want.shape == (300, kw.get("num_output_channels", 1))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

@@ -130,9 +130,36 @@ def test_tiny_train_runs_on_cpu():
     dict(pos_enc="barf", sample_mode="image"), dict(sample_mode="image"), dict(pose_refine=True),
 ])
 def test_unported_train_configs_raise(kw):
+    """Once refused, these configurations are ported: the port's state
+    holds the JAX state's parameters (names and shapes; with pose_refine
+    the zero (num_views, 3) view_shifts under their own optimizer group),
+    and both packages raise the same ValueError where the JAX one does:
+    pose_refine without num_views, sample_mode='image' without num_images
+    and rays_per_image."""
+    from nerf_for_angiography_tpu.training.train import make_train_step as make_step_j
+
     cfg = TrainConfig(**{**SMALL, **kw})
-    with pytest.raises(NotImplementedError):
-        create_train_state(cfg, device="cpu")
+    cfg_j = TrainConfigJ(**{**SMALL, **kw})
+    if cfg.pose_refine:
+        for create in (lambda: create_train_state(cfg, device="cpu"),
+                       lambda: create_train_state_j(cfg_j, jax.random.PRNGKey(0))):
+            with pytest.raises(ValueError, match="pose_refine needs num_views"):
+                create()
+    model_t, _ = create_train_state(cfg, num_views=3, device="cpu")
+    model_j, state_j = create_train_state_j(cfg_j, jax.random.PRNGKey(0), num_views=3)
+    want = cppn_params_from_jax(jax.tree.map(np.asarray, state_j.params))
+    assert {k: tuple(v.shape) for k, v in want.items()} == {
+        k: tuple(v.shape) for k, v in model_t.state_dict().items()}
+    if cfg.pose_refine:
+        assert not model_t.view_shifts.detach().any()
+        groups = create_train_state(cfg, num_views=3, device="cpu")[1].optimizer.param_groups
+        assert [len(g["params"]) for g in groups][1] == 1
+    if cfg.sample_mode == "image":
+        for build in (lambda: make_train_step(model_t, cfg, NEAR, FAR),
+                      lambda: make_step_j(model_j, cfg_j, NEAR, FAR)):
+            with pytest.raises(ValueError, match="needs num_images and rays_per_image"):
+                build()
+        make_train_step(model_t, cfg, NEAR, FAR, num_images=2, rays_per_image=64)
 
 
 @pytest.mark.parametrize("kw", [dict(pose_refine=True), dict(train_alpha_prune=True),
