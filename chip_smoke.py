@@ -172,7 +172,21 @@ Phases:
      halves and ends below 0.8 of an empty field's, every launch counter
      stays 0, ms a step), then 40 steps of the view branch with BARF (both
      alphas reach their basis);
-  14. one JSON line with the kernel table, the card's name/power line, and the
+  14. data parallelism (``parallel_phase``), each world in child processes
+     of this script: (a) the shipped 600-step run of phase 4 again through
+     ``train(mesh=create_mesh())`` over a one-rank NCCL world, bit for bit
+     the unsharded run (final parameters, Tuning sequence, best held-out
+     PSNR), its graphs captured with the gradient all-reduce and the
+     pressure max inside (counted as the captures make them),
+     steady rays/s beside the unsharded run's; (b) two processes sharing
+     the card over gloo, eager: 20 sharded steps each of the dense, lattice
+     k = 160, two-bucket and fused lattice steps from the shipped run's
+     state within 1e-4 of the unsharded steps' losses, the ranks'
+     parameters, grids and chooser Tunings equal, a sharded 3x3 CT sweep
+     whose df-metrics.csv and pixels equal the unsharded sweep's, eight
+     sharded DRRs equal to the unsharded renders, only rank 0 writing; the
+     launch counters read around each world's runs;
+  15. one JSON line with the kernel table, the card's name/power line, and the
      final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the final line. Without CUDA, or
@@ -192,6 +206,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -990,6 +1005,7 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
         res = train(cfg, ds.rays, src_pt_z=src_z, verbose=True, device=DEVICE, **train_kw)
     graphs = sum(c.captures for c in chunks)
     torch.cuda.synchronize()
+    params_sha1 = tensors_sha1(res.state.model.parameters())  # before any later step
     memory = dict(before_gib=mem0 / 2**30, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                   peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
     counts, fk_shapes = read_counts(fm, fk, fs), set(fk.shapes)
@@ -1023,7 +1039,7 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
         train_loss=loss, heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
         rays_per_s_incl_first=res.rays_per_sec, grid_updates=grid_updates, evals=evals,
         barf_coarse_first=float(barf_alphas[0]), barf_coarse_last=float(barf_alphas[-1]),
-        graphs=graphs, memory=memory,
+        graphs=graphs, memory=memory, final_params_sha1=params_sha1,
     )
     print(f"{label}: final Tuning {t['tuning_final']}, steady_rays_per_sec "
           f"{t['steady_rays_per_sec']:.0f}, step_compact {t['step_compact']:.3f} s, "
@@ -1071,6 +1087,15 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
     check(fwd_n >= (0 if fused else steps) + grid_updates + evals,
           f"{label}: fwd launches {fwd_n} < steps + grid updates + evals")
     return out
+
+
+def tensors_sha1(tensors) -> str:
+    """SHA-1 of the tensors' bytes, in order (equal digests: equal bit for
+    bit)."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 @contextlib.contextmanager
@@ -4662,6 +4687,377 @@ def classic_probe(torch, fm, fk, fs, ds, iters: int, report: dict) -> None:
         for lr in CLASSIC_PROBE_LRS}
 
 
+# the parallel phase: (a) one rank over NCCL, the shipped 600-step run; (b)
+# two processes sharing the one card over gloo, PARALLEL_STEPS eager steps
+# of each PARALLEL_CASES step kind, one sharded CT sweep and one
+# render_views_sharded call. Each world runs in child processes of this
+# script (--parallel-worker), so this process never holds a process group.
+PARALLEL_DIR = os.path.join(HERE, "smoke_out", "parallel")
+PARALLEL_STEPS = 20
+PARALLEL_RTOL = 1e-4  # the JAX tests' sharded-vs-single tolerance (tests/test_parallel.py)
+LATTICE_160 = dict(mode="lattice", k=160, w_cap=0, w_lo=0, k_lo=0)
+PARALLEL_CASES = {"dense": None, "lattice k=160": LATTICE_160, "two-bucket": TWO_BUCKET,
+                  "fused lattice k=160": LATTICE_160}
+PARALLEL_THETAS = (0.0, 30.0, 60.0, 90.0, 120.0, 150.0, 180.0, 45.0)
+PARALLEL_TIMEOUT_S = 300
+
+
+def tuning_key(phases: list) -> list:
+    """A run's Tuning sequence: (mode, k, w_cap, w_lo, k_lo, steps) of each
+    steady phase, in order."""
+    return [[p[k] for k in ("mode", "k", "w_cap", "w_lo", "k_lo", "steps")] for p in phases]
+
+
+def counts_since(before: dict, fm, fk, fs) -> dict:
+    now = read_counts(fm, fk, fs)
+    return {k: now[k] - before[k] for k in now}
+
+
+def gloo_on_card(torch) -> list:
+    """This harness's own route for the port's collectives over gloo on CUDA
+    tensors (the port itself runs them over NCCL on the card and refuses
+    gloo there): the backend check is lifted, and a collective gloo refuses
+    on CUDA tensors is staged through host copies and reported. Returns the
+    list the staged collectives are appended to."""
+    from nerf_for_angiography_tpu_torch.parallel import collectives
+
+    dist = torch.distributed
+    staged: list = []
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "broadcast")}
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        try:
+            return real["all_reduce"](t, op=op, group=group)
+        except RuntimeError as e:
+            staged.append(f"all_reduce: {e}")
+            h = t.cpu()
+            real["all_reduce"](h, op=op, group=group)
+            t.copy_(h)
+
+    def all_gather(parts, t, group=None, async_op=False):
+        try:
+            return real["all_gather"](parts, t, group=group)
+        except RuntimeError as e:
+            staged.append(f"all_gather: {e}")
+            hp = [p.cpu() for p in parts]
+            real["all_gather"](hp, t.cpu(), group=group)
+            for p, h in zip(parts, hp):
+                p.copy_(h)
+
+    def broadcast(t, src, group=None, async_op=False):
+        try:
+            return real["broadcast"](t, src=src, group=group)
+        except RuntimeError as e:
+            staged.append(f"broadcast: {e}")
+            h = t.cpu()
+            real["broadcast"](h, src=src, group=group)
+            t.copy_(h)
+
+    collectives.check_backend = lambda device, mesh: None
+    collectives.dist = types.SimpleNamespace(
+        ReduceOp=dist.ReduceOp, get_backend=dist.get_backend,
+        get_global_rank=dist.get_global_rank, all_reduce=all_reduce, all_gather=all_gather,
+        broadcast=broadcast)
+    return staged
+
+
+def parallel_nccl_worker(torch, fm, fk, fs, out_path: str) -> None:
+    """World (a): one rank over NCCL. train() at TrainConfig(n_iters=600)
+    with mesh=create_mesh(), the launch counters read around it, and the
+    all-reduces the steps make inside CUDA-graph captures counted (NCCL's
+    in-place all-reduce on one rank launches no kernel, so the replays'
+    device trace cannot show them)."""
+    from nerf_for_angiography_tpu_torch.parallel import collectives, create_mesh
+    from nerf_for_angiography_tpu_torch.parallel import initialize_multihost
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+
+    store = os.path.join(PARALLEL_DIR, "store_nccl")
+    if os.path.exists(store):
+        os.remove(store)
+    initialize_multihost(f"file://{store}", 1, 0, device=DEVICE)
+    mesh = create_mesh()
+    ds = make_dataset(torch)
+    cfg = TrainConfig(n_iters=COMPACT_ITERS)
+    real = collectives.all_reduce_
+    in_capture = []
+
+    def counting(t, mesh_, op="sum"):
+        if torch.cuda.is_current_stream_capturing():
+            in_capture.append(op)
+        return real(t, mesh_, op)
+
+    collectives.all_reduce_ = counting
+    reset_all(fm, fk, fs)
+    with recorded_chunks() as chunks:
+        res = train(cfg, ds.rays, src_pt_z=SRC_Z, verbose=True, device=DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = read_counts(fm, fk, fs)
+    collectives.all_reduce_ = real
+    out = dict(**counts, graphs=sum(c.captures for c in chunks),
+               final_params_sha1=tensors_sha1(res.state.model.parameters()),
+               phases=tuning_key(res.timing["steady_phases"]),
+               tuning_final=res.timing["tuning_final"], best_iter=res.best_iter,
+               best_heldout_psnr=res.best_heldout_psnr,
+               steady_rays_per_sec=res.timing["steady_rays_per_sec"],
+               backend=torch.distributed.get_backend(), world=mesh.size(),
+               captured_all_reduces={op: in_capture.count(op) for op in ("sum", "max")})
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_gloo_worker(torch, fm, fk, fs, rank: int, out_path: str) -> None:
+    """World (b), rank ``rank`` of two processes on the one card over gloo
+    (eager steps: gloo cannot be captured). From the shipped run's state
+    (the checkpoint parallel_phase saved): PARALLEL_STEPS sharded steps of
+    each PARALLEL_CASES kind, then the chooser's Tuning on the stepped grid;
+    one sharded CT sweep (3x3 views of EvalConfig(), no perceptual metrics,
+    videos or heatmaps) and one render_views_sharded call. Rank 0 also runs
+    every one unsharded. Launch counters read around the sharded work."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.data import make_vessel_volume, render_views_sharded
+    from nerf_for_angiography_tpu_torch.evaluation import EvalConfig, gt_from_volume, run_sweep
+    from nerf_for_angiography_tpu_torch.ops.interpolation import trilinear
+    from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
+    from nerf_for_angiography_tpu_torch.parallel import create_mesh, initialize_multihost
+    from nerf_for_angiography_tpu_torch.training import (
+        CheckpointManager, TrainConfig, create_train_state, make_train_step,
+    )
+    from nerf_for_angiography_tpu_torch.training.pressure import PressureTuner
+    from nerf_for_angiography_tpu_torch.training.train import choose_compact_mode, make_test_view
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    initialize_multihost(f"file://{os.path.join(PARALLEL_DIR, 'store_gloo')}", 2, rank,
+                         device="cpu")
+    mesh = create_mesh()
+    staged = gloo_on_card(torch)
+    ds = make_dataset(torch)
+    rays = ds.rays._replace(sampling_table=build_sampling_table(ds.rays.weights))
+    test = make_test_view(ds.rays, ds.images.shape[0] - 1, ds.rays.num_rays // ds.images.shape[0])
+    base = TrainConfig()
+    near, far = SRC_Z - base.outside, SRC_Z + base.outside
+    ckpt = CheckpointManager(os.path.join(PARALLEL_DIR, "state"), create=False)
+
+    def restored(cfg):
+        _, st = create_train_state(cfg, device=DEVICE)
+        return ckpt.restore(st)
+
+    def steps(cfg, m):
+        st = restored(cfg)
+        step = make_train_step(st.model, cfg, near, far, mesh=m)
+        losses = [float(step(st, rays)[1]["loss/train-pixel-coarse"])
+                  for _ in range(PARALLEL_STEPS)]
+        return st, losses
+
+    counts = read_counts(fm, fk, fs)
+    sharded = {k: 0 for k in counts}
+
+    def add_since(before):
+        for k, v in counts_since(before, fm, fk, fs).items():
+            sharded[k] += v
+
+    out: dict = {"rank": rank, "cases": {}}
+    t0 = time.perf_counter()
+    for name, t in PARALLEL_CASES.items():
+        cfg = dataclasses.replace(base, compact_samples=0) if t is None else tuning_cfg(base, t)
+        if name.startswith("fused"):
+            cfg = dataclasses.replace(cfg, fused_train_step="on")
+        before = read_counts(fm, fk, fs)
+        st, losses = steps(cfg, mesh)
+        torch.cuda.synchronize()
+        add_since(before)
+        choice = choose_compact_mode(base, st.grid, test.origins, test.directions, near, far)
+        tuning = (dataclasses.asdict(PressureTuner(display_every=base.display_every)
+                                     .engage(choice, base)) if choice else None)
+        out["cases"][name] = dict(
+            losses=losses, tuning=tuning, params_sha1=tensors_sha1(st.model.parameters()),
+            grids_sha1=tensors_sha1([t for g in (st.grid, st.vessel_grid) for t in g
+                                     if t is not None]),
+            single=steps(cfg, None)[1] if rank == 0 else None)
+    out["steps_s"] = time.perf_counter() - t0
+
+    vol = make_vessel_volume(res=96, device=DEVICE)
+    ecfg = EvalConfig(number_angles_vis=2.0, save_videos=False, save_heatmap=False)
+    st = restored(base)
+
+    def sweep(tag, m):
+        d = os.path.join(PARALLEL_DIR, f"sweep_{tag}_rank{rank}")
+        table = run_sweep(st.model, st.grid, ecfg, gt_from_volume(vol, ecfg), d, verbose=False,
+                          gt_volume_sampler=lambda pts: trilinear(vol, pts), mesh=m,
+                          device=DEVICE)
+        csv = os.path.join(d, "df-metrics.csv")
+        return d, table, (open(csv, "rb").read() if os.path.exists(csv) else None)
+
+    t0 = time.perf_counter()
+    before = read_counts(fm, fk, fs)
+    d_sh, t_sh, csv_sh = sweep("sharded", mesh)
+    depths = torch.linspace(near, far, 300, device=DEVICE)
+    drr_args = (vol, PARALLEL_THETAS, [0.0, 10.0] * 4, [0.0, 0.0, SRC_Z], 100, 100, 1300.0,
+                depths)
+    drr = render_views_sharded(*drr_args, mesh=mesh)
+    torch.cuda.synchronize()
+    add_since(before)
+    out["sweep_drr_s"] = time.perf_counter() - t0
+    out["files"] = sorted(os.path.relpath(os.path.join(r, f), d_sh)
+                          for r, _, fs_ in os.walk(d_sh) for f in fs_)
+    out["sweep_dir_exists"] = os.path.exists(d_sh)
+    out["drr_equal"] = bool(torch.equal(drr, render_views_sharded(*drr_args)))
+    out["drr_shape"] = list(drr.shape)
+    out["sweep_views"] = int(len(t_sh["PSNR"]))
+    if rank == 0:
+        _, t_1, csv_1 = sweep("single", None)
+        out["csv_equal"] = csv_sh is not None and csv_sh == csv_1
+        out["pixels_equal"] = bool(np.array_equal(t_sh["pred_img"], t_1["pred_img"])
+                                   and np.array_equal(t_sh["binary_pred_img"],
+                                                      t_1["binary_pred_img"]))
+        out["sweep_psnr_mean"] = float(np.mean(t_sh["PSNR"]))
+    out.update(counts=sharded, staged=staged, backend=torch.distributed.get_backend())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_parallel_workers(world: str, n: int) -> list[dict]:
+    """Run ``n`` worker processes of this script for ``world`` ('nccl' or
+    'gloo') at once; their JSON results in rank order. A worker that fails
+    or outlives PARALLEL_TIMEOUT_S fails the phase (every one is stopped)."""
+    outs = [os.path.join(PARALLEL_DIR, f"{world}_rank{r}.json") for r in range(n)]
+    for p in outs:
+        if os.path.exists(p):
+            os.remove(p)
+    logs = [open(os.path.join(PARALLEL_DIR, f"{world}_rank{r}.log"), "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--root", HERE,
+                               "--parallel-worker", world, "--rank", str(r), "--out", outs[r]],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=HERE)
+             for r in range(n)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(PARALLEL_DIR, f"{world}_rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"  [{world} rank {r}, exit {p.returncode}] ..." + tail.replace("\n", "\n    "))
+        check(p.returncode == 0 and os.path.exists(outs[r]),
+              f"parallel {world} rank {r} failed (exit {p.returncode})")
+    results = []
+    for p in outs:
+        with open(p) as f:
+            results.append(json.load(f))
+    return results
+
+
+def parallel_phase(torch, fm, fk, fs, ds, cp: dict, report: dict) -> dict:
+    """(a) the shipped 600-step run over a one-rank NCCL mesh: bit for bit
+    the unsharded shipped run of phase 4 (final parameters, Tuning
+    sequence, best held-out PSNR), its graphs captured with the all-reduces
+    inside, steady rays/s beside the unsharded run's; (b) two processes on
+    the one card over gloo: each step kind's loss trajectory within
+    PARALLEL_RTOL of the unsharded eager steps, the ranks' parameters,
+    grids and Tunings equal, the sharded sweep's CSV and pixels and the
+    sharded DRRs equal to the unsharded ones, and only rank 0 writing."""
+    import numpy as np
+
+    from nerf_for_angiography_tpu_torch.training import CheckpointManager
+
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    for name in os.listdir(PARALLEL_DIR):  # an earlier run's stores, sweeps and state
+        path = os.path.join(PARALLEL_DIR, name)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+    shipped = cp["shipped"]
+    CheckpointManager(os.path.join(PARALLEL_DIR, "state")).save(
+        shipped["result"].state.step, shipped["result"].state)
+    smi = nvidia_smi_line()
+
+    t0 = time.perf_counter()
+    (a,) = run_parallel_workers("nccl", 1)
+    a["wall_s"] = time.perf_counter() - t0
+    same = dict(params=a["final_params_sha1"] == shipped["final_params_sha1"],
+                tunings=a["phases"] == tuning_key(shipped["phases"]),
+                best_heldout_psnr=a["best_heldout_psnr"] == shipped["best_heldout_psnr"],
+                best_iter=a["best_iter"] == shipped["result"].best_iter)
+    cap = a["captured_all_reduces"]
+    print(f"parallel (a) one rank over {a['backend']}: {a['graphs']} CUDA graphs captured with "
+          f"the all-reduces inside ({cap['sum']} gradient sums and {cap['max']} pressure maxima "
+          f"made inside the captures); equal to the unsharded shipped run: {same}; "
+          f"Tunings {a['phases']}; best held-out PSNR {a['best_heldout_psnr']!r} dB (unsharded "
+          f"{shipped['best_heldout_psnr']!r}); steady {a['steady_rays_per_sec']:.0f} rays/s "
+          f"over the mesh, unsharded {shipped['steady_rays_per_sec']:.0f} rays/s ({smi}); "
+          f"{a['wall_s']:.1f} s")
+    check(a["backend"] == "nccl" and a["world"] == 1, "parallel (a) did not run over NCCL")
+    check(all(same.values()), f"parallel (a): the one-rank NCCL run differs from the unsharded "
+                              f"shipped run: {same}")
+    check(a["graphs"] >= 4, f"parallel (a): only {a['graphs']} CUDA graphs captured")
+    check(cap["sum"] == a["graphs"] and 0 < cap["max"] <= cap["sum"],
+          f"parallel (a): {cap} all-reduces made inside {a['graphs']} captures (one gradient "
+          "sum each, one pressure max each compacted one)")
+
+    t0 = time.perf_counter()
+    b = run_parallel_workers("gloo", 2)
+    wall_b = time.perf_counter() - t0
+    rows = {}
+    for name in PARALLEL_CASES:
+        r0, r1 = (w["cases"][name] for w in b)
+        single = np.asarray(r0["single"])
+        rel = float(np.max(np.abs(np.asarray(r0["losses"]) - single) / np.abs(single)))
+        rows[name] = dict(max_rel=rel, ranks_equal=r0["losses"] == r1["losses"],
+                          params_equal=r0["params_sha1"] == r1["params_sha1"],
+                          grids_equal=r0["grids_sha1"] == r1["grids_sha1"],
+                          tunings_equal=r0["tuning"] == r1["tuning"], tuning=r0["tuning"],
+                          loss_first=r0["losses"][0], loss_last=r0["losses"][-1])
+        print(f"parallel (b) {name}: {PARALLEL_STEPS} sharded steps over 2 gloo ranks, loss "
+              f"{r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}, max relative difference from "
+              f"the unsharded steps {rel:.3e}; ranks' losses / parameters / grids / Tuning "
+              f"equal: {rows[name]['ranks_equal']} / {rows[name]['params_equal']} / "
+              f"{rows[name]['grids_equal']} / {rows[name]['tunings_equal']} ({r0['tuning']})")
+        check(rel <= PARALLEL_RTOL, f"parallel (b) {name}: loss {rel:.3e} from the unsharded "
+                                    f"steps, above {PARALLEL_RTOL}")
+        check(all(rows[name][k] for k in ("ranks_equal", "params_equal", "grids_equal",
+                                          "tunings_equal")),
+              f"parallel (b) {name}: the ranks part: {rows[name]}")
+    b0, b1 = b
+    print(f"parallel (b) sweep: {b0['sweep_views']} views sharded over 2 ranks, df-metrics.csv "
+          f"byte-equal {b0['csv_equal']}, pixels equal {b0['pixels_equal']} (mean PSNR "
+          f"{b0['sweep_psnr_mean']:.3f} dB); render_views_sharded {b0['drr_shape']} equal "
+          f"{b0['drr_equal']} / {b1['drr_equal']}; rank 0 wrote {len(b0['files'])} files, rank "
+          f"1 {len(b1['files'])}; collectives staged through the host: "
+          f"{b0['staged'] + b1['staged'] or 'none (gloo took every one on CUDA tensors)'}; "
+          f"steps {b0['steps_s']:.1f} s, sweep + DRR {b0['sweep_drr_s']:.1f} s, {wall_b:.1f} s")
+    check(b0["csv_equal"] and b0["pixels_equal"],
+          "parallel (b): the sharded sweep differs from the unsharded one")
+    check(b0["drr_equal"] and b1["drr_equal"],
+          "parallel (b): render_views_sharded differs from the unsharded renders")
+    check("df-metrics.csv" in b0["files"] and not b1["files"] and not b1["sweep_dir_exists"],
+          "parallel (b): rank 1 wrote files, or rank 0 none")
+    check(b0["backend"] == b1["backend"] == "gloo", "parallel (b) did not run over gloo")
+    gloo_counts = {k: b0["counts"][k] + b1["counts"][k] for k in b0["counts"]}
+    nccl_counts = {k: a[k] for k in gloo_counts}
+    print(f"parallel launches: (a) {nccl_counts}; (b) both ranks {gloo_counts}")
+    out = dict(nccl={**nccl_counts, **{k: a[k] for k in (
+        "graphs", "captured_all_reduces", "phases", "best_heldout_psnr", "steady_rays_per_sec",
+        "wall_s")}, "same_as_unsharded": same,
+        "unsharded_steady_rays_per_sec": shipped["steady_rays_per_sec"], "nvidia_smi": smi},
+        gloo={**gloo_counts, "cases": rows, "csv_equal": b0["csv_equal"],
+              "drr_equal": b0["drr_equal"] and b1["drr_equal"],
+              "staged": b0["staged"] + b1["staged"], "wall_s": wall_b})
+    report["parallel"] = out
+    return out
+
+
 def eval_rows(ev: dict, by_path: dict) -> list[dict]:
     """The kernels line's rows for the sweeps' shapes: kernel #1 at the CT
     and LCA batches and the field chunks (random weights; the loaded
@@ -4717,6 +5113,10 @@ def main() -> int:
                          "and #6's outputs and the ptxas report to it and its dense runs equal "
                          "to this one's")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-worker", default=None, choices=("nccl", "gloo"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4743,6 +5143,12 @@ def main() -> int:
     if args.time_saved:
         print(json.dumps(time_saved(torch, fm, args.time_saved,
                                     mods=(fk, fs, fe) if args.ptxas else None)))
+        return 0
+    if args.parallel_worker == "nccl":
+        parallel_nccl_worker(torch, fm, fk, fs, args.out)
+        return 0
+    if args.parallel_worker == "gloo":
+        parallel_gloo_worker(torch, fm, fk, fs, args.rank, args.out)
         return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4771,6 +5177,7 @@ def main() -> int:
         cli = cli_phase(torch, fm, fk, fs, ev, lca_ds, report)
         pp = pose_phase(torch, fm, fk, fs, fe, cp, ep, report)
         cl = classic_phase(torch, fm, fk, fs, ds, report)
+        par = parallel_phase(torch, fm, fk, fs, ds, cp, report)
         if args.classic_probe:
             classic_probe(torch, fm, fk, fs, ds, args.classic_probe, report)
         if args.determinism:
@@ -4806,7 +5213,8 @@ def main() -> int:
             "pose_shipped": pp["shipped"],
             **{f"pose_step {k}": v for k, v in pp["steps"].items()},
             "pose_replay": pp["replay"]["counts"], "pose_recovery": pp["recovery"],
-            "pose_cli": pp["cli"], **{f"classic {k}": v for k, v in cl.items()}}
+            "pose_cli": pp["cli"], **{f"classic {k}": v for k, v in cl.items()},
+            "parallel_nccl": par["nccl"], "parallel_gloo": par["gloo"]}
     # every count was read around its run: a run without one is a KeyError
     by_path = {
         name: {k: r[key] for k, r in runs.items()}

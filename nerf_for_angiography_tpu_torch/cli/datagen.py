@@ -22,6 +22,7 @@ from ..data import DatagenConfig, generate_dataset, write_proj_csv, write_rays_c
 from ..data.datasets import sdf_datagen_config
 from ..data.volumes import export_ground_truth_vtk, export_transferfunc_vtk
 from ..utils.png import write_png_colormap, write_png_unit
+from ..parallel import is_coordinator
 from .common import cli_device, load_volume
 
 
@@ -40,7 +41,9 @@ def csv_file_names(cfg: DatagenConfig, is_sdf: bool) -> tuple[str, str]:
 
 
 def main(argv=None) -> dict:
-    """Run the datagen; returns the folder and the two CSV paths."""
+    """Run the datagen; returns the folder and the two CSV paths (None on
+    the other ranks of a torchrun launch: rank 0 alone renders and
+    writes)."""
     p = argparse.ArgumentParser()
     p.add_argument("--limited_size", help="Angle range to sample the projections in")
     p.add_argument("--number_angles", help="Number of projections to sample per axis")
@@ -56,6 +59,8 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     a = p.parse_args(argv)
     device = cli_device(a.device)
+    if not is_coordinator():  # under torchrun: one process renders and writes
+        return None
 
     is_sdf = a.data_name.upper() == "LCA"
     kw = {}

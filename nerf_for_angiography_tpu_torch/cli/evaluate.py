@@ -9,6 +9,9 @@ the cag-vis JSONs under ``jsonData/``. ``--no_heatmap_png`` writes the JSONs
 without the polar heatmap PNGs, which need matplotlib.
 
     python -m nerf_for_angiography_tpu_torch.cli.evaluate --data_name ct
+
+Under ``torchrun --nproc_per_node=N`` the sweep's views are sharded over the
+N processes and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from ..evaluation import EvalConfig, PerceptualMetrics, gt_from_volume, lca_eval
 from ..evaluation.sweep import export_heatmaps
 from ..models import CPPN, CPPNConfig
 from ..ops.interpolation import trilinear
+from ..parallel import is_coordinator
 from ..training import load_grid_vtk, load_model
-from .common import cli_device, load_volume
+from .common import cli_device, cli_mesh, load_volume
 
 
 def read_page_data(run_dir: str) -> dict | None:
@@ -96,6 +100,7 @@ def main(argv=None) -> dict:
     cfg = lca_eval_config(**kw) if is_lca else EvalConfig(**kw)
     sweep_cfg = dataclasses.replace(cfg, save_heatmap=False) if a.no_heatmap_png else cfg
     volume = load_volume(a.volume, is_lca, binary, device)
+    mesh = cli_mesh()  # under torchrun: the sweep's views sharded over the ranks
 
     # pretrained weights if given, else the fixed-random uncalibrated VGG
     # (the reference evaluates DISTS/LPIPS by default, visualization.py:38-39;
@@ -140,8 +145,9 @@ def main(argv=None) -> dict:
         page_data = read_page_data(rd)
         table = run_sweep(model, grid, sweep_cfg, gt_from_volume(volume, cfg), rd,
                           page_data=page_data, perceptual=perceptual,
-                          gt_volume_sampler=lambda pts: trilinear(volume, pts), device=device)
-        if a.no_heatmap_png and cfg.save_heatmap:
+                          gt_volume_sampler=lambda pts: trilinear(volume, pts), device=device,
+                          mesh=mesh)
+        if a.no_heatmap_png and cfg.save_heatmap and is_coordinator():
             export_heatmaps(table, cfg, rd, page_data, perceptual, save_png=False)
         tables[rd] = table
         print(f"  wrote df-metrics.csv + exports under {rd}")

@@ -8,6 +8,10 @@ the CPPN and writes the run under ``cases/<data_name>/runs/<YYYY-MM-DD-HHMM>/``
 checkpoints every ``save_every`` iterations).
 
     python -m nerf_for_angiography_tpu_torch.cli.train --n_iters 20000
+    torchrun --standalone --nproc_per_node=N -m nerf_for_angiography_tpu_torch.cli.train ...
+
+Under torchrun each step's ray batch is sharded over the N processes (one
+card each, NCCL) and only rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -16,10 +20,13 @@ import glob
 import os
 from datetime import datetime
 
+import torch.distributed as dist
+
 from ..data import load_data
+from ..parallel import is_coordinator
 from ..training import train
 from ..training.config import config_from_args, train_arg_parser
-from .common import cli_device
+from .common import cli_device, cli_mesh
 
 
 def main(argv=None):
@@ -37,13 +44,18 @@ def main(argv=None):
     print(f"loading {proj_csvs[-1]} + {ray_csvs[-1]}")
     data = load_data(proj_csvs[-1], ray_csvs[-1], device=device)
 
-    exp_name = datetime.now().astimezone().strftime("%Y-%m-%d-%H%M")
-    log_dir = os.path.join("cases", cfg.data_name, "runs", exp_name)
-    os.makedirs(log_dir, exist_ok=True)
-    print(f"training on {device}, logs -> {log_dir}")
+    mesh = cli_mesh()  # under torchrun: each step's batch sharded over the ranks
+    exp_name = [datetime.now().astimezone().strftime("%Y-%m-%d-%H%M")]
+    if mesh is not None:  # rank 0's name, on every rank
+        dist.broadcast_object_list(exp_name, src=0)
+    log_dir = os.path.join("cases", cfg.data_name, "runs", exp_name[0])
+    if is_coordinator():
+        os.makedirs(log_dir, exist_ok=True)
+    print(f"training on {device}, logs -> {log_dir}"
+          + (f" (rank {dist.get_rank()} of {dist.get_world_size()})" if mesh is not None else ""))
     result = train(cfg, data.rays, src_pt_z=data.src_pt_z, log_dir=log_dir,
                    rays_per_view=data.rays_per_view, checkpoint_every=cfg.save_every,
-                   device=device)
+                   device=device, mesh=mesh)
     print(f"done: best PSNR {result.best_psnr:.3f} at iter {result.best_iter}, "
           f"{result.rays_per_sec:.0f} rays/s")
     return result

@@ -8,7 +8,7 @@ from .datasets import (
     write_proj_csv,
     write_rays_csv,
 )
-from .drr import render_drr, render_view
+from .drr import render_drr, render_view, render_views_sharded
 from .phantoms import (
     make_lca_sdf_volume,
     make_sphere_volume,
@@ -32,6 +32,7 @@ __all__ = [
     "make_vessel_volume",
     "render_drr",
     "render_view",
+    "render_views_sharded",
     "rev_sigmoid",
     "sphere_line_integral",
     "transfer_func_ct",

@@ -1,6 +1,8 @@
 """DRR (digitally reconstructed radiograph) rendering in torch (port of
 ``nerf_for_angiography_tpu/data/drr.py``; the reference's ray_tracing,
-phantomdata/helpers.py:192-224)."""
+phantomdata/helpers.py:192-224). A sweep of views is embarrassingly
+parallel and can be sharded over the ranks of a mesh
+(``render_views_sharded``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import torch
 
 from ..geometry import get_ray_values, query_points
 from ..ops.interpolation import RegularGrid, trilinear
+from ..parallel import collectives
+from ..parallel.mesh import mesh_coords
 
 
 def render_drr(
@@ -44,3 +48,35 @@ def render_view(
     )
     img = render_drr(volume, origins, directions, depth_values, mode)
     return img, origins, directions, c2w
+
+
+def render_views_sharded(
+    volume: RegularGrid, thetas, phis, src_pt, img_width: int, img_height: int,
+    focal_length: float, depth_values: torch.Tensor, mode: str = "ct", mesh=None,
+) -> torch.Tensor:
+    """(B, H, W) DRRs of the views (thetas[i], phis[i]) at larm 0, rendered
+    one view at a time. With ``mesh`` (a 1-D ``DeviceMesh``) the angle list
+    is padded with (0, 0) views to a multiple of the mesh's size, each rank
+    renders its contiguous slice, the volume being replicated, and every
+    rank gets all B (all-gathered): each view's image is the one an
+    unsharded call renders."""
+    dev = volume.values.device
+
+    def render(ts, ps) -> torch.Tensor:
+        imgs = []
+        for t, p in zip(ts, ps):
+            o, d, _ = get_ray_values(float(t), float(p), 0.0, src_pt, img_width, img_height,
+                                     focal_length, device=dev)
+            imgs.append(render_drr(volume, o, d, depth_values, mode))
+        return (torch.stack(imgs) if imgs
+                else torch.zeros((0, img_height, img_width), dtype=torch.float32, device=dev))
+
+    thetas, phis = [float(t) for t in thetas], [float(p) for p in phis]
+    if mesh is None:
+        return render(thetas, phis)
+    rank, world = mesh_coords(mesh)
+    n = len(thetas)
+    per = -(-n // world)
+    pad = [0.0] * (per * world - n)
+    mine = slice(rank * per, (rank + 1) * per)
+    return collectives.all_gather_cat(render((thetas + pad)[mine], (phis + pad)[mine]), mesh)[:n]

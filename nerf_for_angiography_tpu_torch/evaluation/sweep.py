@@ -22,6 +22,14 @@ march and one MLP call (kernel #1 on the card, with first-k, kernel #5, in
 the CT branch's compacted lattice march), and each batch is scored on the
 device in one call per metric. The sweep runs on the card unless called
 with ``device="cpu"``.
+
+With ``mesh`` (a 1-D ``DeviceMesh``) the views are padded to a multiple of
+``chunk_views`` times the mesh's size, and each rank renders and scores
+``chunk_views`` of each such batch: the same groups of views one process
+renders, so every view's pixels and scores are the ones one process
+computes. The pixels and the per-view metric rows are gathered to every
+rank, each rank computes the field, and only the coordinator (rank 0)
+writes the CSV, PNGs, VTK, videos and JSONs.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from ..geometry import get_ray_values, linspace_depths, query_points
 from ..models import CPPN
 from ..ops.interpolation import RegularGrid
 from ..ops.occupancy import OccupancyGrid
+from ..parallel import collectives, is_coordinator
+from ..parallel.mesh import mesh_coords
 from ..training.config import TrainConfig
 from ..training.train import density_raw, render_rays_with_binary
 from ..utils.csvtable import write_csv_table
@@ -248,13 +258,23 @@ def make_view_renderer(model: CPPN, grid_template: OccupancyGrid, cfg: EvalConfi
 def make_batch_view_renderer(model: CPPN, grid_template: OccupancyGrid, cfg: EvalConfig,
                              mesh=None):
     """Batched sweep renderer: (grid, thetas, phis) (B,) -> stacked images
-    (see _view_render_fn). Sharding the views over a device mesh is not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sweep sharded over a device mesh arrives with the DDP slice "
-            "(ROADMAP Queue 1 item 5)")
-    return _view_render_fn(model, grid_template, cfg)
+    (see _view_render_fn). With ``mesh`` B must divide over its ranks: each
+    renders its contiguous B / size views and every rank gets all B
+    (all-gathered)."""
+    render = _view_render_fn(model, grid_template, cfg)
+    if mesh is None:
+        return render
+    rank, world = mesh_coords(mesh)
+
+    def sharded(grid, thetas, phis):
+        if len(thetas) % world:
+            raise ValueError(f"{len(thetas)} views do not divide over {world} ranks")
+        per = len(thetas) // world
+        mine = slice(rank * per, (rank + 1) * per)
+        return tuple(collectives.all_gather_cat(t, mesh)
+                     for t in render(grid, thetas[mine], phis[mine]))
+
+    return sharded
 
 
 def render_view_pair(
@@ -280,17 +300,25 @@ def render_view_pair(
     return _host(pixels).reshape(H, W), _host(bpixels).reshape(H, W), _host(c2w)
 
 
-def _render_batches(renderer, grid: OccupancyGrid, angles: np.ndarray, batch: int):
-    """Yield (first view, pixels, binary pixels, cam2world) of each batch of
-    ``angles`` in input order, the tensors on the device. The view list is
-    padded to a full final batch with copies of the last view, which are
-    rendered and dropped (as the JAX sweep does)."""
+def _padded_angles(angles: np.ndarray, batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """(theta_360, phi_360) padded to a multiple of ``batch`` views with
+    copies of the last view, which are rendered and dropped (as the JAX
+    sweep does)."""
     t360, p360 = _angles_360(angles)
     n = len(angles)
     n_pad = (-n) % batch
     t360 = np.concatenate([t360, np.full(n_pad, t360[-1] if n else 0.0)])
     p360 = np.concatenate([p360, np.full(n_pad, p360[-1] if n else 0.0)])
-    for s in range(0, n + n_pad, batch):
+    return t360, p360
+
+
+def _render_batches(renderer, grid: OccupancyGrid, angles: np.ndarray, batch: int):
+    """Yield (first view, pixels, binary pixels, cam2world) of each batch of
+    ``angles`` in input order, the tensors on the device (the padding views
+    dropped, ``_padded_angles``)."""
+    t360, p360 = _padded_angles(angles, batch)
+    n = len(angles)
+    for s in range(0, len(t360), batch):
         px, bpx, c2w = renderer(grid, t360[s:s + batch], p360[s:s + batch])
         k = min(batch, n - s)
         yield s, px[:k], bpx[:k], c2w[:k]
@@ -305,12 +333,15 @@ def render_sweep_views(
     device="cuda",
 ) -> list:
     """Render every (theta, phi) in ``angles`` with the batched renderer;
-    returns [(pred HxW, bpred HxW, c2w 4x4), ...] as numpy in input order."""
+    returns [(pred HxW, bpred HxW, c2w 4x4), ...] as numpy in input order.
+    With ``mesh`` each rank renders ``chunk_views`` of every batch of
+    chunk_views x size views, and every rank returns all of them."""
     _check_device(device, model, grid)
     H, W = cfg.img_height, cfg.img_width
     renderer = make_batch_view_renderer(model, grid, cfg, mesh=mesh)
+    batch = max(1, cfg.chunk_views) * mesh_coords(mesh)[1]
     out = []
-    for _, px, bpx, c2w in _render_batches(renderer, grid, angles, max(1, cfg.chunk_views)):
+    for _, px, bpx, c2w in _render_batches(renderer, grid, angles, batch):
         px, bpx, c2w = _host(px), _host(bpx), _host(c2w)
         out += [(px[k].reshape(H, W), bpx[k].reshape(H, W), c2w[k]) for k in range(len(px))]
     return out
@@ -324,12 +355,13 @@ def _field_lattice(cfg: EvalConfig) -> tuple[np.ndarray, ...]:
 
 
 def export_field_vtk(
-    model: CPPN, cfg: EvalConfig, path: str, chunk: int = 262144, device="cuda"
+    model: CPPN, cfg: EvalConfig, path: str | None, chunk: int = 262144, device="cuda"
 ) -> np.ndarray:
     """Dense 3D field export: query a field_resolution^3 lattice through the
     model in chunks of ``chunk`` points (kernel #1 on the card), write a
     binary StructuredGrid VTK in VTK x-fastest order (visualization.py:
-    203-238). Returns the field in the meshgrid's layout."""
+    203-238; nothing is written when ``path`` is None). Returns the field in
+    the meshgrid's layout."""
     dev = _check_device(device, model)
     gx, gy, gz = _field_lattice(cfg)
     pts = torch.from_numpy(np.stack([gx, gy, gz], -1).reshape(-1, 3)).to(dev)
@@ -337,6 +369,8 @@ def export_field_vtk(
     with torch.no_grad():
         for s in range(0, pts.shape[0], chunk):
             out[s:s + chunk] = _host(torch.sigmoid(density_raw(model, pts[s:s + chunk])))
+    if path is None:
+        return out.reshape(gx.shape)
 
     # VTK x-fastest ordering over the meshgrid layout
     vtk_pts = np.stack(
@@ -440,12 +474,16 @@ def run_sweep(
     (also written as df-metrics.csv). ``gt_volume_sampler`` takes (P, 3)
     points on the device; ``timing``, when given, is filled with the
     seconds of each part (render, gt, metrics, perceptual, png, vtk, csv,
-    video, json)."""
+    video, json; with ``mesh`` also gather, the collectives). With
+    ``mesh`` every rank returns the table and only the coordinator writes
+    (see the module docstring)."""
     dev = _check_device(device, model, grid)
-    renderer = make_batch_view_renderer(model, grid, cfg, mesh=mesh)
-    os.makedirs(store_folder_name, exist_ok=True)
+    rank, world = mesh_coords(mesh)
+    writes = mesh is None or is_coordinator()  # the one writer of a sharded sweep
+    renderer = make_batch_view_renderer(model, grid, cfg)  # this rank's views
     proj_dir = os.path.join(store_folder_name, "projections")
-    os.makedirs(proj_dir, exist_ok=True)
+    if writes:
+        os.makedirs(proj_dir, exist_ok=True)
     clock = _PartClock(dev, timing)
     if perceptual is not None:
         perceptual = perceptual.to(dev)
@@ -463,50 +501,64 @@ def run_sweep(
     org_img = np.empty((n, H * W), np.float32)
     cam = np.empty((n, 3), np.float32)
 
-    batches = _render_batches(renderer, grid, angles, max(1, cfg.chunk_views))
-    while True:
+    cv = max(1, cfg.chunk_views)
+    t_pad, p_pad = _padded_angles(angles, cv * world)
+    for s0 in range(0, len(t_pad), cv * world):
+        # this rank's chunk_views views of the batch, and the real ones among them
+        s = s0 + rank * cv
+        k = min(max(n - s, 0), cv)
         with clock("render"):
-            item = next(batches, None)
-        if item is None:
-            break
-        s, px, bpx, c2w = item
-        idx = slice(s, s + px.shape[0])
+            px, bpx, c2w = renderer(grid, t_pad[s:s + cv], p_pad[s:s + cv])
         with clock("gt"):
-            target = np.stack([np.asarray(gt_fn(t360[i], p360[i]), np.float32).reshape(H, W)
-                               for i in range(idx.start, idx.stop)])
-            tgt = torch.from_numpy(target).to(dev)
-        p3, b3 = px.reshape(-1, H, W), bpx.reshape(-1, H, W)
+            target = np.zeros((cv, H, W), np.float32)
+            for i in range(k):
+                target[i] = np.asarray(gt_fn(t360[s + i], p360[s + i]), np.float32).reshape(H, W)
+            tgt = torch.from_numpy(target[:k]).to(dev)
+        p3, b3 = px[:k].reshape(-1, H, W), bpx[:k].reshape(-1, H, W)
+        got = {}  # a rank whose views in the last batch are all padding scores none
         with clock("metrics"):
-            got = {}
-            if "PSNR" in scores:
+            if k and "PSNR" in scores:
                 got["PSNR"] = psnr_views(p3, tgt)
-            if "SSIM" in scores:
+            if k and "SSIM" in scores:
                 got["SSIM"] = ssim(p3, tgt)
-            if "DICE 2D" in scores:
+            if k and "DICE 2D" in scores:
                 got["DICE 2D"] = dice_micro_views(binarize(b3), binarize(tgt))
-            if "DOT 2D" in scores:
+            if k and "DOT 2D" in scores:
                 got["DOT 2D"] = dot_score_views(p3, tgt)
-            for m, v in got.items():
-                scores[m][idx] = _host(v)
         with clock("perceptual"):
-            got = {}
-            if "LPIPS" in scores:
+            if k and "LPIPS" in scores:
                 got["LPIPS"] = perceptual.lpips(p3, tgt)
-            if "DISTS" in scores:
+            if k and "DISTS" in scores:
                 got["DISTS"] = perceptual.dists(p3, tgt)
-            for m, v in got.items():
-                scores[m][idx] = _host(v)
+        # this rank's views: the images and cam2world (f32) and the metric
+        # rows (f64, the table's type); with a mesh, every rank's, in view
+        # order
+        rows = torch.zeros((cv, len(names)), dtype=torch.float64, device=dev)
+        for j, m in enumerate(names):
+            if m in got:
+                rows[:k, j] = got[m].to(torch.float64)
+        img = torch.cat([px.reshape(cv, -1), bpx.reshape(cv, -1),
+                         torch.from_numpy(target.reshape(cv, -1)).to(dev),
+                         c2w.reshape(cv, 16)], dim=1)
+        if mesh is not None:
+            with clock("gather"):
+                img, rows = (collectives.all_gather_cat(t, mesh) for t in (img, rows))
+        idx = slice(s0, min(s0 + cv * world, n))
+        real = idx.stop - idx.start
         with clock("png"):
-            pred, bpred = _host(px), _host(bpx)
-            cam[idx] = _host(c2w)[:, :3, -1]
+            img, rows = _host(img), _host(rows)
+            for j, m in enumerate(names):
+                scores[m][idx] = rows[:real, j]
+            pred, bpred, org = (img[:real, q * H * W:(q + 1) * H * W] for q in range(3))
+            cam[idx] = img[:real, 3 * H * W:].reshape(-1, 4, 4)[:, :3, -1]
             pred_img[idx] = np.round(pred, 10)
             bpred_img[idx] = np.round(bpred, 10)
-            org_img[idx] = target.reshape(-1, H * W)
-            for k, (theta, phi) in enumerate(angles[idx]):
+            org_img[idx] = org
+            for j, (theta, phi) in enumerate(angles[idx] if writes else ()):
                 file_image_id = f"image-{theta}-{phi}-0"
-                write_png_unit(f"{proj_dir}/{file_image_id}.png", pred[k].reshape(H, W))
-                write_png_unit(f"{proj_dir}/{file_image_id}-binary.png", bpred[k].reshape(H, W))
-        if verbose and (idx.stop // 100) > (idx.start // 100):
+                write_png_unit(f"{proj_dir}/{file_image_id}.png", pred[j].reshape(H, W))
+                write_png_unit(f"{proj_dir}/{file_image_id}-binary.png", bpred[j].reshape(H, W))
+        if verbose and writes and (idx.stop // 100) > (idx.start // 100):
             print(f"  sweep {idx.stop}/{n}")
 
     table = {
@@ -529,8 +581,8 @@ def run_sweep(
     if cfg.save_vtk or "DICE 3D" in want or "DOT 3D" in want:
         with clock("vtk"):
             field = export_field_vtk(
-                model, cfg, os.path.join(store_folder_name, "coarse-field.vtk"), device=dev
-            )
+                model, cfg, os.path.join(store_folder_name, "coarse-field.vtk") if writes
+                else None, device=dev)
         if gt_volume_sampler is not None:
             with clock("metrics"):
                 gx, gy, gz = _field_lattice(cfg)
@@ -551,6 +603,8 @@ def run_sweep(
     # random-VGG backend; values are self-consistent but not piq-comparable)
     if perceptual is not None and ("LPIPS" in table or "DISTS" in table):
         table["perceptual_calibrated"] = np.full(n, bool(perceptual.calibrated))
+    if not writes:
+        return table
     with clock("csv"):
         write_metrics_csv(table, os.path.join(store_folder_name, "df-metrics.csv"))
 

@@ -9,9 +9,11 @@ Two C++ sources under the repository's ``native/`` belong to both packages:
   shortest round-trip form, so ``json.load`` reads back the values given)
   behind the sweep's per-angle and heatmap JSONs.
 
-The host C++ compiler builds each on first use into the port's ``build/``
-directory (listed in ``.gitignore``), keyed by a hash of the source, written
-to a temporary name and renamed, so several processes can build at once. The
+The host C++ compiler builds each on first use into the port's build
+directory (``ops/kernels/build.py``: the package's ``build/``, listed in
+``.gitignore``, or ``$NERF_ANGIO_BUILD_DIR``), keyed by a hash of the
+source, the compiler's flags and its ``--version`` output, written to a
+temporary name and renamed, so several processes can build at once. The
 JAX package's own builds (``native/*.so``) are never read or written. A build
 that fails, a file that does not parse and a write that fails raise: no
 caller falls back to another path.
@@ -28,10 +30,11 @@ from pathlib import Path
 
 import numpy as np
 
-from ..ops.kernels.build import BUILD_DIR, source_tag
+from ..ops.kernels.build import BUILD_DIR, build_tag, compiler_version
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SOURCES = {"csvloader": "csv_loader.cpp", "jsonexport": "json_export.cpp"}
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,12 +51,12 @@ def _compiler() -> str:
 
 def _build(name: str) -> ctypes.CDLL:
     source = NATIVE_DIR / _SOURCES[name]
+    compiler = _compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"lib{name}_{source_tag(source)}.so"
+    so = BUILD_DIR / f"lib{name}_{build_tag(source, CXX_FLAGS, compiler_version(compiler))}.so"
     if not so.exists():
         tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.{threading.get_ident()}.so"
-        cmd = [_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-               str(source), "-o", str(tmp)]
+        cmd = [compiler, *CXX_FLAGS, str(source), "-o", str(tmp)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"building {source} failed:\n{proc.stdout}{proc.stderr}")

@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_bounds
 from .kernels.first_k import first_k_active
 
 
@@ -616,16 +617,43 @@ def _span_sorted(grid, origins, directions, n_samples, near, far, coarse_factor,
     )
 
 
+def share_march(march, grid, origins, directions, shard, **kw):
+    """(``march(grid, o, d, **kw)`` of this rank's contiguous share (o, d)
+    of the rays, their rows in the batch); ``shard`` = (rank, world). For
+    the marches that work ray by ray."""
+    a, b = shard_bounds(origins.shape[0], *shard)
+    if a == b:
+        raise ValueError(f"{origins.shape[0]} rays leave rank {shard[0]} of {shard[1]} none")
+    rows = torch.arange(a, b, device=origins.device)
+    return march(grid, origins[a:b], directions[a:b], **kw), rows
+
+
+def _bucket_shares(n_rays: int, cut: int, shard) -> tuple[slice, slice]:
+    """This rank's contiguous slices of the span-sorted lo bucket [0, cut)
+    and hi bucket [cut, n_rays)."""
+    la, lb = shard_bounds(cut, *shard)
+    ha, hb = shard_bounds(n_rays - cut, *shard)
+    if la == lb or ha == hb:
+        raise ValueError(f"a bucket of {n_rays} rays split at {cut} leaves rank {shard[0]} of "
+                         f"{shard[1]} no ray")
+    return slice(la, lb), slice(cut + ha, cut + hb)
+
+
 def march_rays_hybrid2(
     grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor, n_samples: int,
     near: float, far: float, k: int, w_lo: int, w_cap: int | None = None,
     split: float = 0.75, occ_stride: int = 1, coarse_factor: int | None = None,
-    aabb_extent: float | None = None, fka: str = "xla",
-) -> MarchedRays:
+    aabb_extent: float | None = None, fka: str = "xla", shard: tuple[int, int] | None = None,
+):
     """Two-bucket hybrid march: rays sorted by coarse-window span, the
     narrow ``split`` share marched at w_lo, the rest at w_cap, both at k.
     Rows come back in the INPUT ray order. Degenerate configurations (too
-    few rays, w_lo >= w_cap) fall back to march_rays_hybrid."""
+    few rays, w_lo >= w_cap) fall back to march_rays_hybrid.
+
+    With ``shard=(rank, world)`` the sort and the cut run on the whole
+    batch, as one process would run them, and only this rank's contiguous
+    slice of each bucket is marched: returns (march, rows), the march's
+    rows being the batch rows ``rows``, in increasing order."""
     n_rays = origins.shape[0]
     if w_cap is None:
         w_cap = hybrid_w_cap(k, n_samples)
@@ -633,24 +661,29 @@ def march_rays_hybrid2(
     w_lo = min(max(w_lo, 16), w_cap)
     cut = int(n_rays * split)
     if n_rays < 2 or cut < 1 or cut >= n_rays or w_lo >= w_cap:
-        return march_rays_hybrid(
-            grid, origins, directions, n_samples, near, far, k,
-            w_cap=w_cap, occ_stride=occ_stride,
-            coarse_factor=coarse_factor, aabb_extent=aabb_extent, fka=fka,
-        )
+        kw = dict(n_samples=n_samples, near=near, far=far, k=k, w_cap=w_cap,
+                  occ_stride=occ_stride, coarse_factor=coarse_factor, aabb_extent=aabb_extent,
+                  fka=fka)
+        if shard is not None:
+            return share_march(march_rays_hybrid, grid, origins, directions, shard, **kw)
+        return march_rays_hybrid(grid, origins, directions, **kw)
     perm, st_s, ah_s, o_s, d_s = _span_sorted(
         grid, origins, directions, n_samples, near, far, coarse_factor, aabb_extent
     )
-    m_lo = _hybrid_fine(grid, o_s[:cut], d_s[:cut], st_s[:cut], ah_s[:cut],
+    lo, hi = (slice(0, cut), slice(cut, n_rays)) if shard is None else _bucket_shares(
+        n_rays, cut, shard)
+    m_lo = _hybrid_fine(grid, o_s[lo], d_s[lo], st_s[lo], ah_s[lo],
                         n_samples, near, far, k, w_lo, occ_stride, fka)
-    m_hi = _hybrid_fine(grid, o_s[cut:], d_s[cut:], st_s[cut:], ah_s[cut:],
+    m_hi = _hybrid_fine(grid, o_s[hi], d_s[hi], st_s[hi], ah_s[hi],
                         n_samples, near, far, k, w_cap, occ_stride, fka)
-    inv = torch.argsort(perm)
+    rows = perm if shard is None else torch.cat([perm[lo], perm[hi]])
+    inv = torch.argsort(rows)
 
     def cat(a, b):
         return torch.cat([a, b], dim=0).index_select(0, inv)
 
-    return MarchedRays(*(cat(a, b) for a, b in zip(m_lo, m_hi)))
+    m = MarchedRays(*(cat(a, b) for a, b in zip(m_lo, m_hi)))
+    return m if shard is None else (m, rows.index_select(0, inv))
 
 
 class BucketedRays(NamedTuple):
@@ -672,13 +705,19 @@ def march_rays_hybrid2k(
     grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor, n_samples: int,
     near: float, far: float, k: int, k_lo: int, w_lo: int, w_cap: int | None = None,
     split: float = 0.75, occ_stride: int = 1, coarse_factor: int | None = None,
-    aabb_extent: float | None = None, fka: str = "xla",
-) -> BucketedRays | MarchedRays:
+    aabb_extent: float | None = None, fka: str = "xla", shard: tuple[int, int] | None = None,
+):
     """Two-bucket hybrid march with a k for each bucket: the lo bucket emits
     k_lo samples per ray, the hi bucket k. Each bucket runs the exact
     _hybrid_fine march at its own (window, k). Degenerate configurations
     (k_lo >= k, w_lo >= w_cap, too few rays) fall back to the single-k
-    marches, so callers branch on the return type."""
+    marches, so callers branch on the return type.
+
+    With ``shard=(rank, world)`` the sort and the cut run on the whole
+    batch and only this rank's contiguous slice of each bucket is marched:
+    returns (march, rows), ``rows`` the batch rows of the march's rows (lo
+    slice first; a BucketedRays then takes its rays in that order, its
+    ``perm`` and ``inv`` the identity)."""
     n_rays = origins.shape[0]
     if w_cap is None:
         w_cap = hybrid_w_cap(k, n_samples)
@@ -690,22 +729,29 @@ def march_rays_hybrid2k(
         return march_rays_hybrid2(
             grid, origins, directions, n_samples, near, far, k,
             w_lo=w_lo, w_cap=w_cap, split=split, occ_stride=occ_stride,
-            coarse_factor=coarse_factor, aabb_extent=aabb_extent, fka=fka,
+            coarse_factor=coarse_factor, aabb_extent=aabb_extent, fka=fka, shard=shard,
         )
     if n_rays < 2 or cut < 1 or cut >= n_rays or w_lo >= w_cap:
-        return march_rays_hybrid(
-            grid, origins, directions, n_samples, near, far, k,
-            w_cap=w_cap, occ_stride=occ_stride,
-            coarse_factor=coarse_factor, aabb_extent=aabb_extent, fka=fka,
-        )
+        kw = dict(n_samples=n_samples, near=near, far=far, k=k, w_cap=w_cap,
+                  occ_stride=occ_stride, coarse_factor=coarse_factor, aabb_extent=aabb_extent,
+                  fka=fka)
+        if shard is not None:
+            return share_march(march_rays_hybrid, grid, origins, directions, shard, **kw)
+        return march_rays_hybrid(grid, origins, directions, **kw)
     perm, st_s, ah_s, o_s, d_s = _span_sorted(
         grid, origins, directions, n_samples, near, far, coarse_factor, aabb_extent
     )
-    m_lo = _hybrid_fine(grid, o_s[:cut], d_s[:cut], st_s[:cut], ah_s[:cut],
+    lo, hi = (slice(0, cut), slice(cut, n_rays)) if shard is None else _bucket_shares(
+        n_rays, cut, shard)
+    m_lo = _hybrid_fine(grid, o_s[lo], d_s[lo], st_s[lo], ah_s[lo],
                         n_samples, near, far, k_lo, w_lo, occ_stride, fka)
-    m_hi = _hybrid_fine(grid, o_s[cut:], d_s[cut:], st_s[cut:], ah_s[cut:],
+    m_hi = _hybrid_fine(grid, o_s[hi], d_s[hi], st_s[hi], ah_s[hi],
                         n_samples, near, far, k, w_cap, occ_stride, fka)
-    return BucketedRays(lo=m_lo, hi=m_hi, inv=torch.argsort(perm), perm=perm)
+    if shard is None:
+        return BucketedRays(lo=m_lo, hi=m_hi, inv=torch.argsort(perm), perm=perm)
+    rows = torch.cat([perm[lo], perm[hi]])
+    ident = torch.arange(rows.shape[0], device=rows.device)
+    return BucketedRays(lo=m_lo, hi=m_hi, inv=ident, perm=ident), rows
 
 
 def prune_mask(

@@ -120,15 +120,20 @@ class CheckpointManager:
     """Periodic full-state checkpointing for resume-on-preemption: the
     newest ``max_to_keep`` steps are kept, one ``ckpt_<step>.pt`` each."""
 
-    def __init__(self, directory: str, max_to_keep: int = 2):
+    def __init__(self, directory: str, max_to_keep: int = 2, create: bool = True):
+        """``create=False``: a reader that makes no directory (a sharded
+        run's other ranks, which resume but never save)."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
 
     def all_steps(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for f in os.listdir(self.directory)
                       if (m := _CKPT.match(f)))
 

@@ -29,6 +29,12 @@ one graph's scratch may reuse another's. Each graph keeps its outputs (the
 metrics, pixels and gradients of the step it recorded) alive and
 overwrites them on every replay: read them before the next replay.
 
+Under a mesh the step's all-reduces (training/train.py
+``_sharded_loss_and_grads``) are captured with it: NCCL collectives are
+synchronous graph nodes, and the warm-up step of each kind runs them eagerly
+before its capture. Under ``utils.profiling.debug_nans`` every step runs
+eagerly, since a capture cannot check its outputs on the host.
+
 On the CPU a chunk runs the eager step ``steps_per_call`` times.
 """
 
@@ -44,6 +50,7 @@ from typing import Any, Callable
 import torch
 
 from ..ops.kernels import first_k, fused_mlp, fused_mlp_enc, fused_step
+from ..utils.profiling import nan_checks_on
 
 # the wrappers' launch counters (each adds one where it launches its kernel)
 _COUNTERS = (
@@ -176,8 +183,9 @@ class TrainChunk:
 
     def step(self, state, rays):
         """One step: the replay of its kind's graph, or an eager step (every
-        step on the CPU; the warm-up of a kind on the card)."""
-        if state.step_dev.device.type != "cuda":
+        step on the CPU and under debug_nans; the warm-up of a kind on the
+        card)."""
+        if state.step_dev.device.type != "cuda" or nan_checks_on():
             return self._eager(state, rays)
         kind = self.kind_of(state)
         g = self.graphs.get(kind)

@@ -44,6 +44,19 @@ best, ``coarsemodel.npz`` every ``save_every`` and, with
 whose ``log_dir/ckpt`` holds a checkpoint resumes from it at
 ``state.step``. Neither a resumed run nor one given ``initial_state`` is
 carved.
+
+With ``mesh`` (a 1-D ``DeviceMesh``, ``parallel.create_mesh()``) the loop
+runs on every rank of the mesh: each rank holds the whole dataset, the
+sampling table, the parameters and both grids, draws the global batch in
+lockstep and steps its share (training/train.py
+``_sharded_loss_and_grads``). The grid updates, the carve, the chooser's
+probe and the held-out eval run whole on every rank, so every rank makes
+the same host-side decisions; a check at each chunk boundary (one
+all-gather of a hash of the Tuning, the pressure fire, the best checkpoint
+and the stop) raises if they part. Only the coordinator (rank 0) prints and
+writes: checkpoints, grid VTKs, model bundles, readme.txt and TensorBoard
+logs. On the card the mesh's backend is NCCL; a CUDA run under another
+backend raises.
 """
 
 from __future__ import annotations
@@ -62,6 +75,8 @@ import torch
 from ..device import resolve_device
 from ..ops.occupancy import OccupancyGrid, carve_feasible, with_coarse
 from ..ops.sampling import RayDataset, build_sampling_table
+from ..parallel import collectives, is_coordinator
+from ..utils.profiling import nan_checks_on
 from .checkpoint import CheckpointManager, save_grid_vtk, save_model
 from .config import TrainConfig, categories_for
 from .logging import ExperimentLogger
@@ -216,13 +231,20 @@ def train(
     checkpoint_every: int | None = None,
     initial_state=None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> TrainResult:
     """Train one reconstruction. ``rays`` holds every view's pixels; the
     test view (default: the last) is held out (run_nerf_acc.py:84-86).
     near/far = src_pt_z -+ outside (run_nerf_acc.py:131-134).
     ``initial_state`` (a ``TrainState`` of this configuration) replaces the
-    fresh state: a warm start, never carved."""
+    fresh state: a warm start, never carved. ``mesh``: shard each step's
+    batch over the mesh's ranks (see the module docstring)."""
+    if mesh is not None:
+        collectives.check_backend(device, mesh)  # NCCL on the card, gloo on the CPU
     device = resolve_device(device)
+    # the one writer (and printer) of a sharded run
+    writes = mesh is None or is_coordinator()
+    verbose = verbose and writes
     rays = rays.to(device)
     near = src_pt_z - cfg.outside
     far = src_pt_z + cfg.outside
@@ -251,9 +273,10 @@ def train(
         train_rays = train_rays._replace(sampling_table=build_sampling_table(train_rays.weights))
 
     model, state = create_train_state(cfg, num_views=n_views, device=device)
-    if log_dir:
+    if log_dir and writes:
         os.makedirs(log_dir, exist_ok=True)
-    ckpt_mgr = (CheckpointManager(os.path.join(log_dir, "ckpt"))
+    # every rank reads a checkpoint to resume from; only the writer saves
+    ckpt_mgr = (CheckpointManager(os.path.join(log_dir, "ckpt"), create=writes)
                 if log_dir and checkpoint_every else None)
     # resume-on-preemption: the restored state replaces the carved one in
     # the JAX loop, so a run that resumes does not carve
@@ -313,7 +336,7 @@ def train(
             ) if using_compact else dense_cfg
             run = chunkers[key] = make_train_chunk(
                 model, step_cfg, near, far, chunk_c, pool=pool, pressure=pressure,
-                num_images=n_views - 1, rays_per_image=rays_per_view)
+                num_images=n_views - 1, rays_per_image=rays_per_view, mesh=mesh)
         return run
 
     # compaction-readiness cadence, rounded up to a chunk boundary so the
@@ -323,9 +346,10 @@ def train(
     else:
         check_every = max(1, cfg.compact_check_every)
 
-    writer = _AsyncWriter() if log_dir else None
+    log_dir_w = log_dir if writes else None  # where this rank writes
+    writer = _AsyncWriter() if log_dir_w else None
     page_data = build_page_data(cfg, datetime.now().astimezone().strftime("%Y-%m-%d-%H%M"))
-    logger = ExperimentLogger(log_dir) if log_dir else None
+    logger = ExperimentLogger(log_dir_w) if log_dir_w else None
     start_iter = 0
     if resume:
         state = ckpt_mgr.restore(state)
@@ -366,6 +390,9 @@ def train(
             tuner.observe(pending[0], *pending[1].tolist())
             pending = None
 
+    if verbose and nan_checks_on():
+        print("debug_nans: every step runs eagerly, each operation's output checked for "
+              "NaN (no CUDA graph is captured)")
     t_start = time.perf_counter()
 
     n_iter = start_iter
@@ -428,7 +455,7 @@ def train(
         ):
             drain()
 
-        if logger and n_iter % 100 == 0:
+        if logger and n_iter % 100 == 0:  # the writer's logs (a sharded run's rank 0)
             t0 = time.perf_counter()
             logger.scalars({k: v for k, v in metrics.items() if k != "barf-coarse"}, n_iter)
             side = (cfg.sample_size, cfg.sample_size)
@@ -501,29 +528,35 @@ def train(
                 timing["log"] += time.perf_counter() - t0
 
             t_exp = time.perf_counter()
-            if log_dir and cfg.grid_export:
-                _export_grids(writer, log_dir, "coarse", state)
+            if log_dir_w and cfg.grid_export:
+                _export_grids(writer, log_dir_w, "coarse", state)
             if check >= highest_psnr and n_iter > 0:
                 highest_psnr = check
                 highest_iter = n_iter
                 best_heldout = psnr
-                if log_dir:
-                    save_model(os.path.join(log_dir, "highmodel.npz"), model_definition,
+                if log_dir_w:
+                    save_model(os.path.join(log_dir_w, "highmodel.npz"), model_definition,
                                state.model,
                                {"step": n_iter, "psnr": psnr, "vessel_psnr": vessel_psnr})
-                    _export_grids(writer, log_dir, "high", state)
-                    _write_readme(log_dir, page_data, psnr, vessel_psnr)
-            if log_dir and n_iter % cfg.save_every == 0:
-                save_model(os.path.join(log_dir, "coarsemodel.npz"), model_definition,
+                    _export_grids(writer, log_dir_w, "high", state)
+                    _write_readme(log_dir_w, page_data, psnr, vessel_psnr)
+            if log_dir_w and n_iter % cfg.save_every == 0:
+                save_model(os.path.join(log_dir_w, "coarsemodel.npz"), model_definition,
                            state.model, {"step": n_iter})
-            if ckpt_mgr and n_iter % checkpoint_every == 0 and n_iter > 0:
+            if ckpt_mgr and writes and n_iter % checkpoint_every == 0 and n_iter > 0:
                 ckpt_mgr.save(n_iter, state)
             timing["export"] += time.perf_counter() - t_exp
 
-            if n_iter - highest_iter >= cfg.early_stop_iters:
-                if verbose:
-                    print(f"Early stop = {n_iter}")
-                break
+        stop = n_iter % cfg.display_every == 0 and n_iter - highest_iter >= cfg.early_stop_iters
+        if mesh is not None:
+            collectives.agree(mesh, dict(
+                iteration=n_iter, compact=using_compact, tuning=tuning, fire=tuner.fire,
+                best=(highest_iter, highest_psnr), stop=stop,
+            ), f"iteration {n_iter}")
+        if stop:
+            if verbose:
+                print(f"Early stop = {n_iter}")
+            break
         n_iter += 1
 
     elapsed = time.perf_counter() - t_start

@@ -62,9 +62,12 @@ from ..ops.occupancy import (
     march_rays_window,
     prune_mask,
     safe_occ_stride,
+    share_march,
 )
 from ..ops.rendering import psnr_from_mse
 from ..ops.sampling import RayBatch, RayDataset, sample_image_rays, sample_pixel_rays
+from ..parallel import collectives
+from ..parallel.mesh import mesh_coords
 from .config import TrainConfig
 from .graph import TrainChunk
 
@@ -375,37 +378,51 @@ def _stride_for(cfg: TrainConfig, near: float, far: float) -> int:
     )
 
 
-def _march_for(cfg, grid, origins, directions, near, far):
+def _march_for(cfg, grid, origins, directions, near, far, shard=None):
     """Marching strategy dispatch. The dense lattice when compaction is off;
     with compaction, 'window' (contiguous lattice window via the dilated
     coarse grid), 'hybrid' (first-k inside a span-sized window; two buckets
     with hybrid_split and hybrid_w_lo, and a k per bucket with
     hybrid_bucket_k and hybrid_k_lo) or 'lattice' (first-k of the whole
-    lattice) per cfg.march_mode."""
+    lattice) per cfg.march_mode.
+
+    With ``shard=(rank, world)`` the rays are the whole batch and only this
+    rank's share is marched: returns (march, rows), the batch rows the
+    march's rows hold. The two-bucket marches sort and cut the whole batch
+    and march this rank's slice of each bucket; every other march works
+    ray by ray and takes this rank's contiguous slice."""
     n = cfg.depth_samples_per_ray
     compacting = 0 < cfg.compact_samples < n
+
+    def hybrid_kw():
+        return dict(
+            w_cap=cfg.hybrid_w_cap or None, aabb_extent=2 * cfg.outside,
+            occ_stride=_stride_for(cfg, near, far), fka=cfg.march_fka,
+        )
+
+    if (compacting and cfg.march_mode == "hybrid" and cfg.hybrid_split > 0.0
+            and cfg.hybrid_w_lo > 0):
+        if cfg.hybrid_bucket_k and cfg.hybrid_k_lo > 0:
+            return march_rays_hybrid2k(
+                grid, origins, directions, n, near, far, k=cfg.compact_samples,
+                k_lo=cfg.hybrid_k_lo, w_lo=cfg.hybrid_w_lo, split=cfg.hybrid_split,
+                shard=shard, **hybrid_kw(),
+            )
+        return march_rays_hybrid2(
+            grid, origins, directions, n, near, far, k=cfg.compact_samples,
+            w_lo=cfg.hybrid_w_lo, split=cfg.hybrid_split, shard=shard, **hybrid_kw(),
+        )
+    if shard is not None:
+        return share_march(lambda g, o, d: _march_for(cfg, g, o, d, near, far),
+                           grid, origins, directions, shard)
     if compacting and cfg.march_mode == "window":
         return march_rays_window(
             grid, origins, directions, n, near, far,
             k=cfg.compact_samples, aabb_extent=2 * cfg.outside,
         )
     if compacting and cfg.march_mode == "hybrid":
-        kw = dict(
-            w_cap=cfg.hybrid_w_cap or None, aabb_extent=2 * cfg.outside,
-            occ_stride=_stride_for(cfg, near, far), fka=cfg.march_fka,
-        )
-        if cfg.hybrid_split > 0.0 and cfg.hybrid_w_lo > 0:
-            if cfg.hybrid_bucket_k and cfg.hybrid_k_lo > 0:
-                return march_rays_hybrid2k(
-                    grid, origins, directions, n, near, far, k=cfg.compact_samples,
-                    k_lo=cfg.hybrid_k_lo, w_lo=cfg.hybrid_w_lo, split=cfg.hybrid_split, **kw,
-                )
-            return march_rays_hybrid2(
-                grid, origins, directions, n, near, far, k=cfg.compact_samples,
-                w_lo=cfg.hybrid_w_lo, split=cfg.hybrid_split, **kw,
-            )
         return march_rays_hybrid(
-            grid, origins, directions, n, near, far, k=cfg.compact_samples, **kw
+            grid, origins, directions, n, near, far, k=cfg.compact_samples, **hybrid_kw()
         )
     return march_rays(
         grid, origins, directions, n, near, far,
@@ -686,15 +703,17 @@ def _keep_mask(m: MarchedRays, sigma: torch.Tensor, cfg: TrainConfig):
 def render_rays(
     model: CPPN, grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor,
     cfg: TrainConfig, near: float, far: float, barf_alpha=0.0,
-    binary_thresh: float | None = None, return_march: bool = False,
+    binary_thresh: float | None = None, return_march: bool = False, march=None,
 ):
     """Grid-pruned masked render of a ray batch, differentiable in the model
     parameters (run_nerf_acc.py:287-296), the BARF window at ``barf_alpha``.
     Returns (pixels, sigma, keep),
     plus the march result with ``return_march`` (for march_pressure).
     pixels are in input ray order; under the per-bucket-k march
-    (BucketedRays) sigma and keep are flat (P,) tensors in bucket order."""
-    m = _march_for(cfg, grid, origins, directions, near, far)
+    (BucketedRays) sigma and keep are flat (P,) tensors in bucket order.
+    ``march``: the march of these rays, made already (a rank's share of a
+    sharded batch, ``_march_for(shard=)``)."""
+    m = _march_for(cfg, grid, origins, directions, near, far) if march is None else march
     raw = _raw_for(model, m, origins, directions, cfg, barf_alpha)
     parts, sigmas, keeps = [], [], []
     for mb, sb in _bucket_sigmas(m, raw):
@@ -767,20 +786,24 @@ def _fused_step_eligible(model: CPPN, cfg: TrainConfig) -> bool:
     return ok and next(model.parameters()).device.type == "cuda"
 
 
-def _fused_loss_and_grads(model: CPPN, grid, origins, directions, targets, cfg, near, far):
+def _fused_loss_and_grads(model: CPPN, grid, origins, directions, targets, cfg, near, far,
+                          march=None, n_rays_loss: int | None = None):
     """March, then one fused_step_grads per rectangular march (one per
     bucket of BucketedRays: every ray lives in exactly one bucket, so the
     buckets' gradients sum, and both take the whole batch as the loss
     divisor). Returns (loss, pixels in input ray order, the march, grads in
-    the plist layout)."""
+    the plist layout). A rank's share of a sharded batch passes its
+    ``march`` and the GLOBAL batch size as ``n_rays_loss``, the gradients'
+    divisor (the returned loss stays the mean over these rays)."""
     plist = cppn_params_to_list(model)
+    n_loss = origins.shape[0] if n_rays_loss is None else n_rays_loss
     kw = dict(
         step=(far - near) / cfg.depth_samples_per_ray,
         early_stop_eps=cfg.early_stop_eps,
-        n_rays_loss=origins.shape[0],
+        n_rays_loss=n_loss,
         input_scale=model.config.input_scale,
     )
-    m = _march_for(cfg, grid, origins, directions, near, far)
+    m = _march_for(cfg, grid, origins, directions, near, far) if march is None else march
     parts, grads = [], None
     for mm, (o, d, t) in _rect_marches(m, origins, directions, targets):
         t_mid = ((mm.t_starts + mm.t_ends) * 0.5).contiguous()
@@ -863,8 +886,73 @@ def shifted_origins(model: CPPN, batch: RayBatch) -> torch.Tensor:
     return batch.origins + _RowGather.apply(model.view_shifts, batch.image_ids)
 
 
+def _sharded_loss_and_grads(model: CPPN, grid, batch: RayBatch, cfg: TrainConfig, near: float,
+                            far: float, barf_alpha, use_fused_step: bool, mesh):
+    """This rank's share of one step over a 1-D mesh (the JAX step under a
+    sharded batch, where XLA inserts the reductions).
+
+    Every rank holds the whole batch (drawn in lockstep from generators that
+    started equal) and marches its share (``_march_for(shard=)``: the
+    two-bucket marches sort and cut the whole batch). Its gradient is that
+    of the global mean: its pixels scattered into a zero vector of the
+    global batch before the mean (split step), or the global batch size as
+    the fused kernel's divisor. Then ONE all-reduce SUM of a flat buffer
+    holding every parameter's gradient (the view shifts' among them), that
+    pixel vector (each batch row is one rank's, so the sum assembles the
+    global pixels) and the edge-ray count, and in a compacted step one MAX
+    of the other pressure scalars. Returns (loss, pixels, pressure) of the
+    global batch; the gradients in ``.grad`` are the global ones.
+
+    With one rank both collectives are identities, the share is the whole
+    batch in the order one process marches it, and the step is the
+    unsharded step bit for bit."""
+    shard = mesh_coords(mesh)
+    n = batch.origins.shape[0]
+    if use_fused_step:
+        m, rows = _march_for(cfg, grid, batch.origins, batch.directions, near, far, shard=shard)
+        o, d, t = (a.index_select(0, rows) for a in (batch.origins, batch.directions,
+                                                     batch.pixel_values))
+        _, px, march, grads = _fused_loss_and_grads(model, grid, o, d, t, cfg, near, far,
+                                                    march=m, n_rays_loss=n)
+        _set_grads(model, grads)
+        share = px.new_zeros(n).index_copy(0, rows, px)
+    else:
+        origins = shifted_origins(model, batch) if cfg.pose_refine else batch.origins
+        m, rows = _march_for(cfg, grid, origins, batch.directions, near, far, shard=shard)
+        px, _, _, march = render_rays(
+            model, grid, origins.index_select(0, rows), batch.directions.index_select(0, rows),
+            cfg, near, far, barf_alpha, return_march=True, march=m,
+        )
+        # the rows of other ranks hold 0; index_copy's backward passes only
+        # this rank's rows on, so their terms change no gradient
+        share = px.new_zeros(n).index_copy(0, rows, px)
+        torch.mean((share - batch.pixel_values) ** 2).backward()
+        share = share.detach()
+    compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
+    pressure = march_pressure(march) if compacting else {}
+    # the pixels first: the reductions over them (the loss, their mean)
+    # then read an aligned block, as one process's do
+    params = [p for p in model.parameters() if p.grad is not None]
+    parts = [share] + [p.grad.reshape(-1) for p in params]
+    if compacting:
+        parts.append(pressure["march/edge_rays"].to(torch.float32).reshape(1))
+    flat = collectives.all_reduce_(torch.cat(parts), mesh, "sum")
+    pixels = flat[:n]
+    off = n
+    for p in params:
+        p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+        off += p.numel()
+    if compacting:
+        keys = ("march/over_k", "march/over_k_lo", "march/ac", "march/ac_lo")
+        top = collectives.all_reduce_(torch.stack([pressure[k] for k in keys]), mesh, "max")
+        reduced = {**dict(zip(keys, top.unbind())), "march/edge_rays": flat[off].to(torch.int32)}
+        pressure = {k: reduced[k] for k in pressure}
+    return torch.mean((pixels - batch.pixel_values) ** 2), pixels, pressure
+
+
 def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
-                      num_images: int | None = None, rays_per_image: int | None = None):
+                      num_images: int | None = None, rays_per_image: int | None = None,
+                      mesh=None):
     """Train-step body (run_nerf_acc.py:263-328). Returns
     ``train_step(state, rays) -> (state, metrics, pred_pixels,
     target_pixels)``; ``train_step.step_core(state, batch)`` runs one step
@@ -874,7 +962,10 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
 
     ``sample_mode='image'`` (run_nerf_acc.py:279-280) draws the batch from
     one random view and needs num_images / rays_per_image; ``pose_refine``
-    adds the view shifts to the batch's origins."""
+    adds the view shifts to the batch's origins. With ``mesh`` (a 1-D
+    ``DeviceMesh``) each rank steps its share of the batch and the
+    gradients are reduced over the mesh (``_sharded_loss_and_grads``); the
+    grid update, the draws and the Adam step run whole on every rank."""
     if cfg.sample_mode == "image" and not (num_images and rays_per_image):
         raise ValueError("sample_mode='image' needs num_images and rays_per_image")
     use_fused_step = _fused_step_eligible(model, cfg)
@@ -905,7 +996,10 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
             slabs=cfg.grid_update_slabs,
         )
         state.optimizer.zero_grad(set_to_none=True)
-        if use_fused_step:
+        if mesh is not None:
+            loss, pixels, pressure = _sharded_loss_and_grads(
+                model, grid, batch, cfg, near, far, barf_alpha, use_fused_step, mesh)
+        elif use_fused_step:
             loss, pixels, march, grads = _fused_loss_and_grads(
                 model, grid, batch.origins, batch.directions, batch.pixel_values, cfg,
                 near, far,
@@ -919,9 +1013,10 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
             )
             loss = torch.mean((pixels - batch.pixel_values) ** 2)
             loss.backward()
-        # a compacted step reports its truncation pressure; the loop reads
-        # it at the chunk boundary (training/loop.py)
-        pressure = march_pressure(march) if compacting else {}
+        if mesh is None:
+            # a compacted step reports its truncation pressure; the loop
+            # reads it at the chunk boundary (training/loop.py)
+            pressure = march_pressure(march) if compacting else {}
         state.scheduler.apply(state.step_dev)
         if cfg.pose_refine:  # the view shifts' group (make_optimizer)
             state.optimizer.param_groups[1]["lr"].copy_(pose_lr_at(cfg, state.step_dev))
@@ -947,9 +1042,10 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
 
 
 def make_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
-                    num_images: int | None = None, rays_per_image: int | None = None):
+                    num_images: int | None = None, rays_per_image: int | None = None,
+                    mesh=None):
     """The single train step (eager; see _build_train_step)."""
-    return _build_train_step(model, cfg, near, far, num_images, rays_per_image)
+    return _build_train_step(model, cfg, near, far, num_images, rays_per_image, mesh)
 
 
 def accumulate_pressure(acc: torch.Tensor, metrics: dict) -> None:
@@ -963,7 +1059,8 @@ def accumulate_pressure(acc: torch.Tensor, metrics: dict) -> None:
 
 def make_train_chunk(model: CPPN, cfg: TrainConfig, near: float, far: float,
                      steps_per_call: int, pool=None, pressure: torch.Tensor | None = None,
-                     num_images: int | None = None, rays_per_image: int | None = None):
+                     num_images: int | None = None, rays_per_image: int | None = None,
+                     mesh=None):
     """``steps_per_call`` train steps in one call (the JAX package's
     make_train_chunk, a jitted lax.scan): ``chunk(state, rays) -> (state,
     metrics, pred, target)`` of the last step (the JAX loop reads the last
@@ -972,9 +1069,11 @@ def make_train_chunk(model: CPPN, cfg: TrainConfig, near: float, far: float,
     CUDA graph captured for its grid-update kind; on the CPU it is the eager
     step (training/graph.py). ``pool``: a CUDA graph memory pool shared
     with other chunks; ``pressure``: the (5,) int32 buffer to reduce into
-    (default: the chunk's own); ``num_images`` / ``rays_per_image``: as
-    make_train_step."""
-    step = _build_train_step(model, cfg, near, far, num_images, rays_per_image)
+    (default: the chunk's own); ``num_images`` / ``rays_per_image`` and
+    ``mesh``: as make_train_step. Under an NCCL mesh each captured step
+    holds its all-reduces (the warm-up step of each kind runs them eagerly
+    first); a gloo mesh runs on the CPU, whose steps are eager."""
+    step = _build_train_step(model, cfg, near, far, num_images, rays_per_image, mesh)
 
     def body(state, rays, acc):
         out = step(state, rays)

@@ -1634,3 +1634,69 @@ def test_a_fresh_state_keeps_its_graphs_across_calls(dev):
     torch.cuda.synchronize()
     assert chunk.captures == 1 and state.step == 30
     assert all(torch.isfinite(m["loss/train-pixel-coarse"]) for m in held)
+
+
+@pytest.fixture
+def one_rank_mesh(dev, tmp_path):
+    """A one-rank NCCL world on the card (file store) and its mesh."""
+    import torch.distributed as dist
+
+    from nerf_for_angiography_tpu_torch.parallel import create_mesh, initialize_multihost
+
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0, device="cuda")
+    try:
+        yield create_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["dense", "two_bucket", "fused", "fourier"])
+def test_one_rank_nccl_chunk_equals_unsharded_eager_steps(dev, one_rank_mesh, kind):
+    """36 sharded steps over a one-rank NCCL mesh as make_train_chunk
+    replays (the gradient all-reduce and the pressure max captured inside
+    each graph), 36 sharded eager steps and 36 unsharded eager steps from
+    copies of one state: every state tensor, the last metrics and pixels
+    bit for bit (with one rank the collectives and the share are
+    identities)."""
+    from nerf_for_angiography_tpu_torch.training import (
+        copy_state, make_train_chunk, make_train_step,
+    )
+
+    cfg, state, rays = _graph_state(dev, kind)
+    eager, plain = copy_state(state), copy_state(state)
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 36, mesh=one_rank_mesh)
+    _, m_g, p_g, _ = chunk(state, rays)
+    outs = []
+    for st, mesh in ((eager, one_rank_mesh), (plain, None)):
+        step = make_train_step(st.model, cfg, _NEAR, _FAR, mesh=mesh)
+        for _ in range(36):
+            _, m, p, _ = step(st, rays)
+        outs.append((m, p))
+    torch.cuda.synchronize()
+    assert chunk.captures == 4
+    got = _state_tensors(state)
+    for other, (m, p) in zip((eager, plain), outs):
+        want = _state_tensors(other)
+        assert got.keys() == want.keys()
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+        assert m_g.keys() == m.keys()
+        for k in m_g:
+            assert torch.equal(m_g[k], m[k]), k
+        assert torch.equal(p_g, p)
+
+
+def test_render_views_sharded_on_the_card(dev, one_rank_mesh):
+    """render_views_sharded over a one-rank mesh equals the unsharded renders
+    bit for bit (5 views), and both the CPU's within 1e-5."""
+    from nerf_for_angiography_tpu_torch.data import make_sphere_volume, render_views_sharded
+
+    thetas, phis = [0.0, 30.0, 60.0, 90.0, 45.0], [0.0, 10.0, 0.0, 350.0, 20.0]
+    out = {}
+    for where in ("cuda", "cpu"):
+        args = (make_sphere_volume(res=32, device=where), thetas, phis, [0.0, 0.0, 1500.0],
+                16, 16, 1300.0, torch.linspace(_NEAR, _FAR, 64, device=where))
+        out[where] = render_views_sharded(*args)
+        if where == "cuda":
+            assert torch.equal(render_views_sharded(*args, mesh=one_rank_mesh), out[where])
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=1e-5, rtol=0)

@@ -396,11 +396,23 @@ def test_batch_of_four_views_equals_four_single_views(branch):
         np.testing.assert_array_equal(p, px[k].numpy().reshape(10, -1))
 
 
+class _TwoRankMesh:
+    """A mesh's shape as the sweep reads it: rank 0 of 2."""
+
+    def get_local_rank(self):
+        return 0
+
+    def size(self):
+        return 2
+
+
 def test_mesh_and_device_are_refused():
     _, _, model = _model_pair()
     _, grid = _grid_pair()
-    with pytest.raises(NotImplementedError, match="DDP"):
-        et.make_batch_view_renderer(model, grid, _ct_cfg(), mesh=object())
+    # a batch of views that does not divide over the mesh's ranks
+    renderer = et.make_batch_view_renderer(model, grid, _ct_cfg(), mesh=_TwoRankMesh())
+    with pytest.raises(ValueError, match="do not divide"):
+        renderer(grid, [0.0, 10.0, 20.0], [0.0, 0.0, 0.0])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             et.run_sweep(model, grid, _ct_cfg(), None, "unused")
