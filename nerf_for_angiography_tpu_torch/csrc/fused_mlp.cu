@@ -63,12 +63,13 @@ long long fused_mlp_scratch_rows(long long P) { return scratch_rows<GatedX>(P); 
 // x and dx through the strides (sp, sc), dx zeroed by the caller (a tile
 // whose g is all zero is skipped); acts, dzs: (nh + 1, scratch_rows, F) bf16
 // scratch; masks: fused_mlp_mask_slots 8-byte slots; partials: n_chunks x
-// stride f32; grads: the flat gradient (grad_size floats)
+// stride f32; grads: the flat gradient (grad_size floats); tiles: a device
+// int64 the chain adds the active 16-point tiles it processed into
 int fused_mlp_bwd(const float* x, long long sp, long long sc, const float* g, long long P,
                   const void* w_in, const void* w_hid, const float* bias, const float* w_out,
                   const float* b_out, int F, int nh, void* acts, void* dzs, void* masks,
                   float* partials, int n_chunks, long long chunk, int n_sms, float* grads,
-                  float* dx, void* stream) {
+                  float* dx, void* tiles, void* stream) {
   const BwdScratch s{static_cast<bf16*>(acts), static_cast<bf16*>(dzs),
                      static_cast<uint2*>(masks), partials, n_chunks, chunk};
   if (!dims_ok(F, nh) || !scratch_ok(s, P, n_sms)) return (int)cudaErrorInvalidValue;
@@ -77,7 +78,9 @@ int fused_mlp_bwd(const float* x, long long sp, long long sc, const float* g, lo
   const DxOut dxo{dx, sp, sc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GatedX xin{{x, sp, sc}, g};
-  MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX>(xin, g, P, prm, nh, dxo, s, n_sms, grads, st))
+  unsigned long long* done = static_cast<unsigned long long*>(tiles);
+  MLP_CHAIN_DISPATCH_F(F, launch_bwd<FF, GatedX>(xin, g, P, prm, nh, dxo, s, n_sms, grads, st,
+                                                 done))
 }
 
 }  // extern "C"

@@ -65,7 +65,9 @@
 //    active tiles only (#4's chain stores those tiles' encoded features for
 //    them).  Such points add exact zeros to every gradient, so the
 //    result equals the unskipped one bit for bit but for the sign of a
-//    zero.  Their chain stores its scratch in
+//    zero.  Given a counter (kernel #2 passes one; #4 and #6 pass null),
+//    the chain adds the active tiles it processed into it, one atomicAdd a
+//    block after a block reduction.  Their chain stores its scratch in
 //    the tile-fragment layout (scratch_rows): a warp writes a tile's layer
 //    block with 4 F / 16 stores of 128 contiguous bytes (a whole-sector
 //    store each, where row-major fragment stores cover half sectors), and
@@ -631,7 +633,7 @@ template <int F, class X>
 __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int nh,
                  bf16* __restrict__ acts, bf16* __restrict__ dzs, DxOut dx,
-                 uint2* __restrict__ mask_slots) {
+                 uint2* __restrict__ mask_slots, unsigned long long* __restrict__ tiles_done) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WLayout L = weight_layout(F, nh, X::KI);
   stage_weights<X::KI>(smem, L, prm, F, nh);
@@ -647,10 +649,12 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint2* masks = mask_slots + (size_t(blockIdx.x) * BWD_WARPS + warp) * (nh + 1) * 32 + lane;
   const long long n_tiles = (P + TILE - 1) / TILE;
+  unsigned int n_active = 0;  // the warp's active tiles (the same in every lane)
   for (long long tile = (long long)blockIdx.x * BWD_WARPS + warp; tile < n_tiles;
        tile += (long long)gridDim.x * BWD_WARPS) {
     const long long p0 = tile * TILE;
     if (!tile_active(x, p0, P)) continue;  // the weight gradients skip it too
+    ++n_active;
     const long long r0 = p0 + g, r1 = r0 + 8;
     uint32_t a[F / 16][4];
     warp_forward<F>(a, x, p0, P, smem, L, nh, acts, masks);
@@ -756,6 +760,19 @@ bwd_chain_kernel(X x, const float* __restrict__ gr, long long P, Params prm, int
         slot[2 * (4 * nt + t)] = da[nt][0];
         slot[2 * (4 * nt + t) + 1] = da[nt][1];
       }
+    }
+  }
+  if (tiles_done) {
+    // the block's sum of its warps' counts, in the weights' shared memory
+    // (every warp is past its last read of them)
+    unsigned int* warp_tiles = reinterpret_cast<unsigned int*>(smem);
+    __syncthreads();
+    if (lane == 0) warp_tiles[warp] = n_active;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long sum = 0;
+      for (int w = 0; w < BWD_WARPS; ++w) sum += warp_tiles[w];
+      atomicAdd(tiles_done, sum);
     }
   }
 }
@@ -1036,7 +1053,8 @@ inline bool scratch_ok(const BwdScratch& s, long long P, int n_sms) {
 
 template <int F, class X>
 int launch_bwd(const X& x, const float* g, long long P, const Params& prm, int nh,
-               const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st) {
+               const DxOut& dx, const BwdScratch& s, int n_sms, float* grads, cudaStream_t st,
+               unsigned long long* tiles_done = nullptr) {
   const GradLayout GL = grad_layout(F, nh, X::KI);
   if (P > 0) {
     const int grid = bwd_grid(P, n_sms);
@@ -1045,7 +1063,7 @@ int launch_bwd(const X& x, const float* g, long long P, const Params& prm, int n
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     bwd_chain_kernel<F, X><<<grid, BWD_WARPS * 32, smem, st>>>(x, g, P, prm, nh, s.acts, s.dzs,
-                                                               dx, s.masks);
+                                                               dx, s.masks, tiles_done);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const size_t wsmem = wgrad_smem<X>(F, s.chunk);

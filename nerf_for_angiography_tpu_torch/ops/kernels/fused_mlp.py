@@ -41,12 +41,19 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import annotate
 from .build import load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
-# launch and nowhere else)
+# launch and nowhere else), and the backward's launched 16-point tiles
+# (ceil(P / 16) a launch) and points
 fwd_launches = 0
 bwd_launches = 0
+bwd_tiles = 0
+bwd_points = 0
+# a device int64 per card: the active tiles the backward's chain processed
+# (it adds into it on the card, launch after launch and replay after replay)
+_active_tiles: dict = {}
 
 _KIN = 16  # input features (3 coords) padded to one mma k-step
 _lib = None
@@ -56,9 +63,28 @@ build_log = ""
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, bwd_launches, bwd_tiles, bwd_points
     fwd_launches = 0
     bwd_launches = 0
+    bwd_tiles = 0
+    bwd_points = 0
+
+
+def active_tiles(device: torch.device) -> torch.Tensor:
+    """The card's (1,) int64 count of the active tiles kernel #2's chain has
+    processed (it never resets: read it before and after). Made on first
+    use, which must come before any CUDA graph capture (the loop reads it
+    as a job starts; a chunk's eager warm-up step launches the kernel
+    before its capture)."""
+    key = torch.device(device).index
+    key = torch.cuda.current_device() if key is None else key
+    t = _active_tiles.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("kernel #2's tile counter must exist before a CUDA graph capture")
+        t = _active_tiles[key] = torch.zeros((1,), dtype=torch.int64,
+                                             device=torch.device("cuda", key))
+    return t
 
 
 class PackedMLP(NamedTuple):
@@ -204,7 +230,7 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_chunk_quantum.restype = i32
         lib.fused_mlp_bwd.argtypes = [
             vp, ll, ll, vp, ll, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll, i32, vp, vp,
-            vp,
+            vp, vp,
         ]
         lib.fused_mlp_bwd.restype = i32
         lib.fused_mlp_scratch_rows.argtypes = [ll]
@@ -311,8 +337,9 @@ def fused_mlp_bwd_cuda(
     packed: PackedMLP, x: torch.Tensor, g: torch.Tensor, feature_major: bool = False
 ):
     """Launch the backward kernel (+ its fixed-order partial reduction); dx
-    comes back in the layout of x."""
-    global bwd_launches
+    comes back in the layout of x. Counts the launch, its tiles and points,
+    and the chain adds the active tiles into ``active_tiles(x.device)``."""
+    global bwd_launches, bwd_tiles, bwd_points
     lib = _load_lib()
     p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
@@ -332,10 +359,13 @@ def fused_mlp_bwd_cuda(
     code = lib.fused_mlp_bwd(
         x.data_ptr(), sp, sc, g.data_ptr(), p, packed.w_in.data_ptr(), packed.w_hid.data_ptr(),
         packed.bias.data_ptr(), packed.w_out.data_ptr(), packed.b_out.data_ptr(),
-        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), stream,
+        f, nh, *s.args(), n_sms, flat.data_ptr(), dx.data_ptr(), active_tiles(dev).data_ptr(),
+        stream,
     )
     raise_on(code, "fused_mlp backward")
     bwd_launches += 1
+    bwd_tiles += -(-p // 16)
+    bwd_points += p
     return _unflatten_grads(flat, f, nh), dx
 
 
@@ -402,9 +432,10 @@ class FusedMLPRaw(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        grads, dx = fused_mlp_bwd(
-            ctx.packed, x, g.to(torch.float32).contiguous(), ctx.feature_major
-        )
+        with annotate("step/mlp_bwd"):
+            grads, dx = fused_mlp_bwd(
+                ctx.packed, x, g.to(torch.float32).contiguous(), ctx.feature_major
+            )
         flat = [t for pair in grads for t in pair]
         out = [t.reshape(s).to(dt) for t, (s, dt) in zip(flat, ctx.shapes)]
         return (dx, None, *out)

@@ -29,18 +29,27 @@ one graph's scratch may reuse another's. Each graph keeps its outputs (the
 metrics, pixels and gradients of the step it recorded) alive and
 overwrites them on every replay: read them before the next replay.
 
+Each capture runs under a ``utils.profiling.SpanRecorder``: the step's
+``annotate`` spans (training/train.py) become timestamp nodes of its graph,
+which every replay writes again. The chunk counts its replays by kind and
+times each call from the host with a pair of CUDA events; ``read_spans``,
+after a call's boundary synchronize, reads each replayed kind's last replay
+and the call's device span into a ``SpanTotals``.
+
 Under a mesh the step's all-reduces (training/train.py
 ``_sharded_loss_and_grads``) are captured with it: NCCL collectives are
 synchronous graph nodes, and the warm-up step of each kind runs them eagerly
 before its capture. Under ``utils.profiling.debug_nans`` every step runs
 eagerly, since a capture cannot check its outputs on the host.
 
-On the CPU a chunk runs the eager step ``steps_per_call`` times.
+On the CPU a chunk runs the eager step ``steps_per_call`` times, each
+under a recorder that reads the host clock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import os
 import time
@@ -50,13 +59,15 @@ from typing import Any, Callable
 import torch
 
 from ..ops.kernels import first_k, fused_mlp, fused_mlp_enc, fused_step
-from ..utils.profiling import nan_checks_on
+from ..utils.profiling import SpanRecorder, annotate, nan_checks_on
 
 # the wrappers' launch counters (each adds one where it launches its kernel)
+# and kernel #2's launched tiles and points
 _COUNTERS = (
     (fused_mlp, "fwd_launches"), (fused_mlp, "bwd_launches"),
     (fused_mlp_enc, "enc_fwd_launches"), (fused_mlp_enc, "enc_bwd_launches"),
     (first_k, "launches"), (fused_step, "fused_step_launches"),
+    (fused_mlp, "bwd_tiles"), (fused_mlp, "bwd_points"),
 )
 
 
@@ -121,14 +132,32 @@ def state_signature(state, rays) -> tuple:
     return (id(state.generator), tuple(t.data_ptr() for t in tensors))
 
 
-class _Captured:
-    """One captured step: the graph, the launches it makes and the outputs
-    of the step it recorded."""
+@dataclasses.dataclass
+class SpanTotals:
+    """A job's step spans and chunk device spans (``TrainChunk.read_spans``
+    adds into it). ``step_ms``: span name -> device ms summed over
+    ``span_steps`` replayed steps ("step": the first mark to the last);
+    ``chunk_device_s`` / ``chunk_replays``: the device span of the chunk
+    calls that only replayed and their steps; ``chunks_left_out``: the
+    calls that warmed a kind up or captured one."""
 
-    def __init__(self, graph, tally: dict, out: tuple):
+    step_ms: dict = dataclasses.field(default_factory=dict)
+    span_steps: int = 0
+    chunk_device_s: float = 0.0
+    chunk_replays: int = 0
+    chunks_left_out: int = 0
+
+
+class _Captured:
+    """One captured step: the graph, the launches it makes, the outputs of
+    the step it recorded and the recorder its spans' marks write into (it
+    owns the buffer the graph's timestamp nodes write)."""
+
+    def __init__(self, graph, tally: dict, out: tuple, spans: SpanRecorder):
         self.graph = graph
         self.tally = tally
         self.metrics, self.pred, self.target = out[1], out[2], out[3]
+        self.spans = spans
 
     def replay(self, state):
         self.graph.replay()
@@ -145,7 +174,8 @@ class TrainChunk:
     running elementwise max of the steps' truncation pressure (reset at the
     start of each call). ``compile_s`` accumulates the host seconds of the
     first step and of every capture (the loop charges them to "compile");
-    ``captures`` counts the graphs captured."""
+    ``captures`` counts the graphs captured. ``read_spans`` reads the
+    spans of the last call."""
 
     def __init__(self, body: Callable, kind_of: Callable, steps_per_call: int,
                  pool: Any = None, pressure: torch.Tensor | None = None):
@@ -161,6 +191,11 @@ class TrainChunk:
         self._signature = None
         self._side = None
         self._first = True
+        self._replays: dict = {}  # kind -> steps since the last read_spans
+        self._spans_of: dict = {}  # kind -> the recorder of its last step
+        self._edges = None  # the timing events around a call on the card
+        self._call = None  # (start, end, steps, cold) of the last call
+        self._cold = False  # the call warmed a kind up or captured one
 
     def __call__(self, state, rays, steps: int | None = None):
         dev = state.step_dev.device
@@ -172,30 +207,76 @@ class TrainChunk:
             if sig != self._signature:
                 self.release()  # graphs of other tensors
                 self._signature = sig
+        n = self.steps_per_call if steps is None else steps
+        self._cold = False
+        if dev.type == "cuda":
+            if self._edges is None:
+                self._edges = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+            self._edges[0].record()
+        else:
+            t0 = time.perf_counter_ns()
         out = None
-        for _ in range(self.steps_per_call if steps is None else steps):
+        for _ in range(n):
             out = self.step(state, rays)
         if dev.type == "cuda":
+            self._edges[1].record()
+            self._call = (*self._edges, n, self._cold)
             # the graphs hold the tensors there are now: a fresh state's
             # first call creates the Adam state in its warm-up steps
             self._signature = state_signature(state, rays)
+        else:
+            self._call = (t0, time.perf_counter_ns(), n, False)
         return out
+
+    def read_spans(self, totals: SpanTotals) -> None:
+        """Add the last call's spans into ``totals``; call once the call's
+        work is done (after the boundary synchronize). Each kind that
+        stepped since the last read contributes its last step's spans (a
+        replay's on the card) times its step count; the call's device span
+        counts if it only replayed."""
+        for kind, n in self._replays.items():
+            for name, ms in self._spans_of[kind].read().items():
+                totals.step_ms[name] = totals.step_ms.get(name, 0.0) + ms * n
+            totals.span_steps += n
+        self._replays.clear()
+        call, self._call = self._call, None
+        if call is None:
+            return
+        start, end, n, cold = call
+        if cold:
+            totals.chunks_left_out += 1
+            return
+        on_card = isinstance(start, torch.cuda.Event)
+        totals.chunk_device_s += start.elapsed_time(end) / 1e3 if on_card else (end - start) / 1e9
+        totals.chunk_replays += n
 
     def step(self, state, rays):
         """One step: the replay of its kind's graph, or an eager step (every
         step on the CPU and under debug_nans; the warm-up of a kind on the
         card)."""
-        if state.step_dev.device.type != "cuda" or nan_checks_on():
+        if state.step_dev.device.type != "cuda":
+            kind = self.kind_of(state)
+            self._replays[kind] = self._replays.get(kind, 0) + 1
+            rec = self._spans_of[kind] = SpanRecorder()
+            with rec:
+                return self._eager(state, rays)
+        if nan_checks_on():
+            self._cold = True
             return self._eager(state, rays)
         kind = self.kind_of(state)
         g = self.graphs.get(kind)
-        if g is not None:
+        if g is None:
+            self._cold = True
+            if kind not in self.warm:
+                self.warm.add(kind)
+                with annotate("chunk/warmup"):
+                    return self._eager(state, rays)
+            with annotate("chunk/capture"):
+                g = self.graphs[kind] = self._capture(kind, state, rays)
+        self._replays[kind] = self._replays.get(kind, 0) + 1
+        with annotate("chunk/replay"):
             return g.replay(state)
-        if kind not in self.warm:
-            self.warm.add(kind)
-            return self._eager(state, rays)
-        g = self.graphs[kind] = self._capture(kind, state, rays)
-        return g.replay(state)
 
     def release(self) -> None:
         """Drop every graph (and its outputs); the next step of each kind
@@ -240,6 +321,7 @@ class TrainChunk:
         gen_state = gen.get_state()
         graph.register_generator_state(gen)
         step0 = state.step
+        spans = SpanRecorder(state.step_dev.device)
         # the replays queued so far are steps: they finish before the
         # capture's own time starts (entering the capture synchronizes)
         torch.cuda.synchronize()
@@ -250,7 +332,7 @@ class TrainChunk:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with captured_launches() as tally, torch.cuda.graph(graph, pool=self.pool):
+            with captured_launches() as tally, torch.cuda.graph(graph, pool=self.pool), spans:
                 try:
                     out = self.body(state, rays, self.pressure)
                 except BaseException as e:
@@ -271,4 +353,5 @@ class TrainChunk:
             state.__dict__["step"] = step0  # the capture ran no step
         self.captures += 1
         self.compile_s += time.perf_counter() - t0
-        return _Captured(graph, tally, out)
+        self._spans_of[kind] = spans
+        return _Captured(graph, tally, out, spans)

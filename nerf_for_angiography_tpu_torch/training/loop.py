@@ -73,12 +73,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.kernels import fused_mlp
 from ..ops.occupancy import OccupancyGrid, carve_feasible, with_coarse
 from ..ops.sampling import RayDataset, build_sampling_table
 from ..parallel import collectives, is_coordinator
-from ..utils.profiling import nan_checks_on
+from ..utils.profiling import annotate, nan_checks_on
 from .checkpoint import CheckpointManager, save_grid_vtk, save_model
 from .config import TrainConfig, categories_for
+from .graph import SpanTotals
 from .logging import ExperimentLogger
 from .pressure import PressureTuner, Tuning
 from .train import (
@@ -213,6 +215,24 @@ def _write_readme(log_dir: str, page_data: dict, psnr: float, vessel_psnr: float
         for k, v in page_data.items():
             f.write(f"{k}={v}\n")
         f.write(f"PSNR={psnr} end={datetime.now().astimezone().strftime('%Y-%m-%d-%H%M')}")
+
+
+def _span_line(spans: SpanTotals) -> str:
+    """The verbose report of the step spans: each stage's ms a replayed step,
+    and the share of the replay-only chunk calls' device span outside the
+    steps' spans (the card idle between replays)."""
+    n = spans.span_steps
+    if not n:
+        return "step spans: no step replayed"
+    per = {k.removeprefix("step/"): v / n for k, v in spans.step_ms.items()}
+    gap = "n/a"
+    if spans.chunk_device_s > 0:
+        busy = per["step"] * spans.chunk_replays / (1e3 * spans.chunk_device_s)
+        gap = f"{100.0 * (1.0 - busy):.1f}%"
+    return (f"step spans (ms a step, {n} steps): "
+            + "  ".join(f"{k}={v:.3f}" for k, v in per.items())
+            + f"  replay gap {gap} ({spans.chunk_replays} steps in chunks, "
+              f"{spans.chunks_left_out} chunks left out)")
 
 
 def _sync(device: torch.device) -> None:
@@ -387,12 +407,19 @@ def train(
     def drain() -> None:
         nonlocal pending
         if pending is not None:
-            tuner.observe(pending[0], *pending[1].tolist())
+            with annotate("loop/drain"):
+                tuner.observe(pending[0], *pending[1].tolist())
             pending = None
 
     if verbose and nan_checks_on():
         print("debug_nans: every step runs eagerly, each operation's output checked for "
               "NaN (no CUDA graph is captured)")
+    # the step spans and chunk device spans (training/graph.py), and kernel
+    # #2's counts: launches, launched tiles and points on the host, active
+    # tiles on the card (before any capture, so no graph makes the counter)
+    spans = SpanTotals()
+    bwd0 = (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points)
+    tiles0 = fused_mlp.active_tiles(device).clone() if device.type == "cuda" else None
     t_start = time.perf_counter()
 
     n_iter = start_iter
@@ -409,13 +436,16 @@ def train(
         seen_chunks.add(id(chunk))
         t0 = time.perf_counter()
         compiled = chunk.compile_s
-        state, metrics, pred_pix, target_pix = chunk(state, train_rays, count)
-        # one device-to-host copy per chunk (a copy on the CPU too: the next
-        # chunk reuses the buffer), complete after the boundary's synchronize
-        stats = (pressure.to("cpu", non_blocking=True, copy=True)
-                 if "march/over_k" in metrics else None)  # a compacted step (k < depth)
-        _sync(device)
+        with annotate("loop/chunk"):
+            state, metrics, pred_pix, target_pix = chunk(state, train_rays, count)
+            # one device-to-host copy per chunk (a copy on the CPU too: the
+            # next chunk reuses the buffer), complete after the boundary's
+            # synchronize
+            stats = (pressure.to("cpu", non_blocking=True, copy=True)
+                     if "march/over_k" in metrics else None)  # a compacted step (k < depth)
+            _sync(device)
         dt = time.perf_counter() - t0
+        chunk.read_spans(spans)
         compiled = chunk.compile_s - compiled  # its first step and its captures
         timing["compile"] += compiled
         dt -= compiled
@@ -457,17 +487,20 @@ def train(
 
         if logger and n_iter % 100 == 0:  # the writer's logs (a sharded run's rank 0)
             t0 = time.perf_counter()
-            logger.scalars({k: v for k, v in metrics.items() if k != "barf-coarse"}, n_iter)
-            side = (cfg.sample_size, cfg.sample_size)
-            logger.train_images(pred_pix.cpu().numpy().reshape(side),
-                                target_pix.cpu().numpy().reshape(side), n_iter)
+            with annotate("loop/log"):
+                logger.scalars({k: v for k, v in metrics.items() if k != "barf-coarse"}, n_iter)
+                side = (cfg.sample_size, cfg.sample_size)
+                logger.train_images(pred_pix.cpu().numpy().reshape(side),
+                                    target_pix.cpu().numpy().reshape(side), n_iter)
             timing["log"] += time.perf_counter() - t0
 
         # compaction-readiness check at its own cadence (iteration 0
         # included: with carve_init the grid can fit at once)
         if want_compact and not using_compact and n_iter % check_every == 0:
             t0 = time.perf_counter()
-            choice = choose_compact_mode(cfg, state.grid, test.origins, test.directions, near, far)
+            with annotate("loop/choose"):
+                choice = choose_compact_mode(cfg, state.grid, test.origins, test.directions,
+                                             near, far)
             timing["choose"] += time.perf_counter() - t0
             if choice is not None:
                 tuning = tuner.engage(choice, cfg)
@@ -483,7 +516,9 @@ def train(
         if want_compact and using_compact and (n_iter % recheck == 0 or tuner.fire):
             before = (tuning, using_compact)
             t0 = time.perf_counter()
-            choice = choose_compact_mode(cfg, state.grid, test.origins, test.directions, near, far)
+            with annotate("loop/choose"):
+                choice = choose_compact_mode(cfg, state.grid, test.origins, test.directions,
+                                             near, far)
             timing["choose"] += time.perf_counter() - t0
             if choice is None:
                 using_compact = False
@@ -505,9 +540,10 @@ def train(
             if using_compact:
                 tuner.decay_if_quiet(n_iter)
             t0 = time.perf_counter()
-            test_metrics, test_pixels = eval_step(state, test)
-            psnr = float(test_metrics["psnr/test-coarse"])
-            vessel_psnr = float(test_metrics["psnr/vessel-test-coarse"])
+            with annotate("loop/eval"):
+                test_metrics, test_pixels = eval_step(state, test)
+                psnr = float(test_metrics["psnr/test-coarse"])
+                vessel_psnr = float(test_metrics["psnr/vessel-test-coarse"])
             timing["compile" if first_eval else "eval"] += time.perf_counter() - t0
             first_eval = False
             last_psnr = psnr
@@ -522,29 +558,31 @@ def train(
                 )
             if logger and n_iter % (cfg.display_every * 2) == 0:
                 t0 = time.perf_counter()
-                logger.scalars(test_metrics, n_iter)
-                logger.test_images(_assemble_image(test, test_pixels),
-                                   _assemble_image(test, test.pixel_values), n_iter)
+                with annotate("loop/log"):
+                    logger.scalars(test_metrics, n_iter)
+                    logger.test_images(_assemble_image(test, test_pixels),
+                                       _assemble_image(test, test.pixel_values), n_iter)
                 timing["log"] += time.perf_counter() - t0
 
             t_exp = time.perf_counter()
-            if log_dir_w and cfg.grid_export:
-                _export_grids(writer, log_dir_w, "coarse", state)
-            if check >= highest_psnr and n_iter > 0:
-                highest_psnr = check
-                highest_iter = n_iter
-                best_heldout = psnr
-                if log_dir_w:
-                    save_model(os.path.join(log_dir_w, "highmodel.npz"), model_definition,
-                               state.model,
-                               {"step": n_iter, "psnr": psnr, "vessel_psnr": vessel_psnr})
-                    _export_grids(writer, log_dir_w, "high", state)
-                    _write_readme(log_dir_w, page_data, psnr, vessel_psnr)
-            if log_dir_w and n_iter % cfg.save_every == 0:
-                save_model(os.path.join(log_dir_w, "coarsemodel.npz"), model_definition,
-                           state.model, {"step": n_iter})
-            if ckpt_mgr and writes and n_iter % checkpoint_every == 0 and n_iter > 0:
-                ckpt_mgr.save(n_iter, state)
+            with annotate("loop/export"):
+                if log_dir_w and cfg.grid_export:
+                    _export_grids(writer, log_dir_w, "coarse", state)
+                if check >= highest_psnr and n_iter > 0:
+                    highest_psnr = check
+                    highest_iter = n_iter
+                    best_heldout = psnr
+                    if log_dir_w:
+                        save_model(os.path.join(log_dir_w, "highmodel.npz"), model_definition,
+                                   state.model,
+                                   {"step": n_iter, "psnr": psnr, "vessel_psnr": vessel_psnr})
+                        _export_grids(writer, log_dir_w, "high", state)
+                        _write_readme(log_dir_w, page_data, psnr, vessel_psnr)
+                if log_dir_w and n_iter % cfg.save_every == 0:
+                    save_model(os.path.join(log_dir_w, "coarsemodel.npz"), model_definition,
+                               state.model, {"step": n_iter})
+                if ckpt_mgr and writes and n_iter % checkpoint_every == 0 and n_iter > 0:
+                    ckpt_mgr.save(n_iter, state)
             timing["export"] += time.perf_counter() - t_exp
 
         stop = n_iter % cfg.display_every == 0 and n_iter - highest_iter >= cfg.early_stop_iters
@@ -561,6 +599,19 @@ def train(
 
     elapsed = time.perf_counter() - t_start
     timing["total"] = elapsed
+    # the step spans (device ms summed over span_steps replayed steps), the
+    # replay-only chunk calls' device span and steps, and kernel #2's counts
+    timing["step_spans_ms"] = dict(spans.step_ms)
+    timing["span_steps"] = spans.span_steps
+    timing["chunk_device_s"] = spans.chunk_device_s
+    timing["chunk_replays"] = spans.chunk_replays
+    timing["chunks_left_out"] = spans.chunks_left_out
+    launches, tiles, points = (a - b for a, b in zip(
+        (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points), bwd0))
+    active = (int((fused_mlp.active_tiles(device) - tiles0).item())
+              if tiles0 is not None else 0)
+    timing["mlp_bwd_tiles"] = {"active": active, "launched": tiles, "points": points,
+                               "launches": launches}
     timing["other"] = max(0.0, elapsed - sum(
         timing[k] for k in ("step_dense", "step_compact", "compile", "eval", "choose",
                             "log", "export")
@@ -588,6 +639,7 @@ def train(
             )
             + f"  steady={timing['steady_rays_per_sec']:.0f} rays/s"
         )
+        print(_span_line(spans))
     if writer:
         writer.close()  # flush pending VTK exports before reporting done
     if logger:

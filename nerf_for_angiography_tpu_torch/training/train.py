@@ -68,6 +68,7 @@ from ..ops.rendering import psnr_from_mse
 from ..ops.sampling import RayBatch, RayDataset, sample_image_rays, sample_pixel_rays
 from ..parallel import collectives
 from ..parallel.mesh import mesh_coords
+from ..utils.profiling import annotate
 from .config import TrainConfig
 from .graph import TrainChunk
 
@@ -713,22 +714,27 @@ def render_rays(
     (BucketedRays) sigma and keep are flat (P,) tensors in bucket order.
     ``march``: the march of these rays, made already (a rank's share of a
     sharded batch, ``_march_for(shard=)``)."""
-    m = _march_for(cfg, grid, origins, directions, near, far) if march is None else march
-    raw = _raw_for(model, m, origins, directions, cfg, barf_alpha)
-    parts, sigmas, keeps = [], [], []
-    for mb, sb in _bucket_sigmas(m, raw):
-        dists, keep = _keep_mask(mb, sb, cfg)
-        if binary_thresh is not None:
-            sb = torch.where(sb < binary_thresh, torch.zeros_like(sb), sb)
-        parts.append(torch.exp(-(sb * keep * dists).sum(dim=-1)))
-        sigmas.append(sb)
-        keeps.append(keep)
-    if isinstance(m, BucketedRays):
-        pixels = torch.cat(parts).index_select(0, m.inv)
-        sigma = torch.cat([s.reshape(-1) for s in sigmas])
-        keep = torch.cat([k.reshape(-1) for k in keeps])
-    else:
-        pixels, sigma, keep = parts[0], sigmas[0], keeps[0]
+    m = march
+    if m is None:
+        with annotate("step/march"):
+            m = _march_for(cfg, grid, origins, directions, near, far)
+    with annotate("step/mlp_fwd"):
+        raw = _raw_for(model, m, origins, directions, cfg, barf_alpha)
+    with annotate("step/composite"):
+        parts, sigmas, keeps = [], [], []
+        for mb, sb in _bucket_sigmas(m, raw):
+            dists, keep = _keep_mask(mb, sb, cfg)
+            if binary_thresh is not None:
+                sb = torch.where(sb < binary_thresh, torch.zeros_like(sb), sb)
+            parts.append(torch.exp(-(sb * keep * dists).sum(dim=-1)))
+            sigmas.append(sb)
+            keeps.append(keep)
+        if isinstance(m, BucketedRays):
+            pixels = torch.cat(parts).index_select(0, m.inv)
+            sigma = torch.cat([s.reshape(-1) for s in sigmas])
+            keep = torch.cat([k.reshape(-1) for k in keeps])
+        else:
+            pixels, sigma, keep = parts[0], sigmas[0], keeps[0]
     if return_march:
         return pixels, sigma, keep, m
     return pixels, sigma, keep
@@ -909,45 +915,57 @@ def _sharded_loss_and_grads(model: CPPN, grid, batch: RayBatch, cfg: TrainConfig
     shard = mesh_coords(mesh)
     n = batch.origins.shape[0]
     if use_fused_step:
-        m, rows = _march_for(cfg, grid, batch.origins, batch.directions, near, far, shard=shard)
-        o, d, t = (a.index_select(0, rows) for a in (batch.origins, batch.directions,
-                                                     batch.pixel_values))
-        _, px, march, grads = _fused_loss_and_grads(model, grid, o, d, t, cfg, near, far,
-                                                    march=m, n_rays_loss=n)
-        _set_grads(model, grads)
-        share = px.new_zeros(n).index_copy(0, rows, px)
+        with annotate("step/fused"):
+            m, rows = _march_for(cfg, grid, batch.origins, batch.directions, near, far,
+                                 shard=shard)
+            o, d, t = (a.index_select(0, rows) for a in (batch.origins, batch.directions,
+                                                         batch.pixel_values))
+            _, px, march, grads = _fused_loss_and_grads(model, grid, o, d, t, cfg, near, far,
+                                                        march=m, n_rays_loss=n)
+            _set_grads(model, grads)
+            share = px.new_zeros(n).index_copy(0, rows, px)
     else:
-        origins = shifted_origins(model, batch) if cfg.pose_refine else batch.origins
-        m, rows = _march_for(cfg, grid, origins, batch.directions, near, far, shard=shard)
+        if cfg.pose_refine:
+            with annotate("step/sample"):
+                origins = shifted_origins(model, batch)
+        else:
+            origins = batch.origins
+        with annotate("step/march"):
+            m, rows = _march_for(cfg, grid, origins, batch.directions, near, far, shard=shard)
         px, _, _, march = render_rays(
             model, grid, origins.index_select(0, rows), batch.directions.index_select(0, rows),
             cfg, near, far, barf_alpha, return_march=True, march=m,
         )
-        # the rows of other ranks hold 0; index_copy's backward passes only
-        # this rank's rows on, so their terms change no gradient
-        share = px.new_zeros(n).index_copy(0, rows, px)
-        torch.mean((share - batch.pixel_values) ** 2).backward()
+        with annotate("step/composite"):
+            # the rows of other ranks hold 0; index_copy's backward passes
+            # only this rank's rows on, so their terms change no gradient
+            share = px.new_zeros(n).index_copy(0, rows, px)
+            loss = torch.mean((share - batch.pixel_values) ** 2)
+        with annotate("step/backward"):
+            loss.backward()
         share = share.detach()
-    compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
-    pressure = march_pressure(march) if compacting else {}
-    # the pixels first: the reductions over them (the loss, their mean)
-    # then read an aligned block, as one process's do
-    params = [p for p in model.parameters() if p.grad is not None]
-    parts = [share] + [p.grad.reshape(-1) for p in params]
-    if compacting:
-        parts.append(pressure["march/edge_rays"].to(torch.float32).reshape(1))
-    flat = collectives.all_reduce_(torch.cat(parts), mesh, "sum")
-    pixels = flat[:n]
-    off = n
-    for p in params:
-        p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
-        off += p.numel()
-    if compacting:
-        keys = ("march/over_k", "march/over_k_lo", "march/ac", "march/ac_lo")
-        top = collectives.all_reduce_(torch.stack([pressure[k] for k in keys]), mesh, "max")
-        reduced = {**dict(zip(keys, top.unbind())), "march/edge_rays": flat[off].to(torch.int32)}
-        pressure = {k: reduced[k] for k in pressure}
-    return torch.mean((pixels - batch.pixel_values) ** 2), pixels, pressure
+    with annotate("step/allreduce"):
+        compacting = 0 < cfg.compact_samples < cfg.depth_samples_per_ray
+        pressure = march_pressure(march) if compacting else {}
+        # the pixels first: the reductions over them (the loss, their mean)
+        # then read an aligned block, as one process's do
+        params = [p for p in model.parameters() if p.grad is not None]
+        parts = [share] + [p.grad.reshape(-1) for p in params]
+        if compacting:
+            parts.append(pressure["march/edge_rays"].to(torch.float32).reshape(1))
+        flat = collectives.all_reduce_(torch.cat(parts), mesh, "sum")
+        pixels = flat[:n]
+        off = n
+        for p in params:
+            p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+            off += p.numel()
+        if compacting:
+            keys = ("march/over_k", "march/over_k_lo", "march/ac", "march/ac_lo")
+            top = collectives.all_reduce_(torch.stack([pressure[k] for k in keys]), mesh, "max")
+            reduced = {**dict(zip(keys, top.unbind())),
+                       "march/edge_rays": flat[off].to(torch.int32)}
+            pressure = {k: reduced[k] for k in pressure}
+        return torch.mean((pixels - batch.pixel_values) ** 2), pixels, pressure
 
 
 def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
@@ -982,60 +1000,78 @@ def _build_train_step(model: CPPN, cfg: TrainConfig, near: float, far: float,
         )
 
     def step_core(state: TrainState, batch: RayBatch):
-        # BARF alpha anneal (run_nerf_acc.py:268-272), from the device step
-        # counter at every call
-        barf_alpha = barf_alpha_of(cfg, state.step_dev)
-        # occupancy EMA updates every n steps (run_nerf_acc.py:285-286), one
-        # shared sigma pass for both grids, written into the state's grids
-        grid, vessel_grid = every_n_step_pair(
-            state.grid, state.vessel_grid, state.step,
-            _sigma_fn(model, barf_alpha, cfg.mlp_backend),
-            cfg.alpha_thre, cfg.vessel_alpha_thre,
-            cfg.grid_update_every, cfg.grid_ema_decay,
-            generator=state.generator if cfg.grid_jitter else None,
-            slabs=cfg.grid_update_slabs,
-        )
+        # the step's stages, each an annotate span (a CUDA graph of the step
+        # times them on every replay, training/graph.py): step/sample,
+        # step/grid, step/march, step/mlp_fwd, step/composite, step/backward
+        # (step/mlp_bwd inside it), step/optimizer; the fused step's
+        # march-and-gradient step/fused, the sharded step's step/allreduce
+        with annotate("step/grid"):
+            # BARF alpha anneal (run_nerf_acc.py:268-272), from the device
+            # step counter at every call
+            barf_alpha = barf_alpha_of(cfg, state.step_dev)
+            # occupancy EMA updates every n steps (run_nerf_acc.py:285-286),
+            # one shared sigma pass for both grids, written into the state's
+            # grids
+            grid, vessel_grid = every_n_step_pair(
+                state.grid, state.vessel_grid, state.step,
+                _sigma_fn(model, barf_alpha, cfg.mlp_backend),
+                cfg.alpha_thre, cfg.vessel_alpha_thre,
+                cfg.grid_update_every, cfg.grid_ema_decay,
+                generator=state.generator if cfg.grid_jitter else None,
+                slabs=cfg.grid_update_slabs,
+            )
         state.optimizer.zero_grad(set_to_none=True)
         if mesh is not None:
             loss, pixels, pressure = _sharded_loss_and_grads(
                 model, grid, batch, cfg, near, far, barf_alpha, use_fused_step, mesh)
         elif use_fused_step:
-            loss, pixels, march, grads = _fused_loss_and_grads(
-                model, grid, batch.origins, batch.directions, batch.pixel_values, cfg,
-                near, far,
-            )
-            _set_grads(model, grads)
+            with annotate("step/fused"):
+                loss, pixels, march, grads = _fused_loss_and_grads(
+                    model, grid, batch.origins, batch.directions, batch.pixel_values, cfg,
+                    near, far,
+                )
+                _set_grads(model, grads)
         else:
-            origins = shifted_origins(model, batch) if cfg.pose_refine else batch.origins
+            if cfg.pose_refine:
+                with annotate("step/sample"):
+                    origins = shifted_origins(model, batch)
+            else:
+                origins = batch.origins
             pixels, _, _, march = render_rays(
                 model, grid, origins, batch.directions, cfg, near, far, barf_alpha,
                 return_march=True,
             )
-            loss = torch.mean((pixels - batch.pixel_values) ** 2)
-            loss.backward()
-        if mesh is None:
-            # a compacted step reports its truncation pressure; the loop
-            # reads it at the chunk boundary (training/loop.py)
-            pressure = march_pressure(march) if compacting else {}
-        state.scheduler.apply(state.step_dev)
-        if cfg.pose_refine:  # the view shifts' group (make_optimizer)
-            state.optimizer.param_groups[1]["lr"].copy_(pose_lr_at(cfg, state.step_dev))
-        state.optimizer.step()
-        loss = loss.detach()
-        pixels = pixels.detach()
-        metrics = {
-            "loss/train-pixel-coarse": loss,
-            "psnr/train-coarse": psnr_from_mse(loss),
-            "mean/train-pred-coarse": pixels.mean(),
-            "mean/train": batch.pixel_values.mean(),
-            "barf-coarse": barf_alpha,
-            **pressure,
-        }
-        state.advance()
+            with annotate("step/composite"):
+                loss = torch.mean((pixels - batch.pixel_values) ** 2)
+            with annotate("step/backward"):
+                loss.backward()
+        with annotate("step/composite"):
+            if mesh is None:
+                # a compacted step reports its truncation pressure; the loop
+                # reads it at the chunk boundary (training/loop.py)
+                pressure = march_pressure(march) if compacting else {}
+            loss = loss.detach()
+            pixels = pixels.detach()
+            metrics = {
+                "loss/train-pixel-coarse": loss,
+                "psnr/train-coarse": psnr_from_mse(loss),
+                "mean/train-pred-coarse": pixels.mean(),
+                "mean/train": batch.pixel_values.mean(),
+                "barf-coarse": barf_alpha,
+                **pressure,
+            }
+        with annotate("step/optimizer"):
+            state.scheduler.apply(state.step_dev)
+            if cfg.pose_refine:  # the view shifts' group (make_optimizer)
+                state.optimizer.param_groups[1]["lr"].copy_(pose_lr_at(cfg, state.step_dev))
+            state.optimizer.step()
+            state.advance()
         return state, metrics, pixels, batch.pixel_values
 
     def train_step(state: TrainState, rays: RayDataset):
-        return step_core(state, sample_batch(state, rays))
+        with annotate("step/sample"):
+            batch = sample_batch(state, rays)
+        return step_core(state, batch)
 
     train_step.step_core = step_core
     return train_step
@@ -1077,7 +1113,8 @@ def make_train_chunk(model: CPPN, cfg: TrainConfig, near: float, far: float,
 
     def body(state, rays, acc):
         out = step(state, rays)
-        accumulate_pressure(acc, out[1])
+        with annotate("step/composite"):
+            accumulate_pressure(acc, out[1])
         return out
 
     def kind_of(state) -> int | str | None:

@@ -1267,7 +1267,12 @@ def test_kernel_launches_inside_a_capture(dev):
         _reset_counts()
         with captured_launches() as tally, torch.cuda.graph(graph):
             out = launch()
-        assert _all_counts() == (0,) * 6 and sum(tally.values()) == 1, name
+        counted = {attr: n for (_, attr), n in tally.items()}
+        # one launch; kernel #2 also tallies its launched tiles and points
+        assert _all_counts() == (0,) * 6, name
+        assert sum(n for attr, n in counted.items() if attr.endswith("launches")) == 1, name
+        if name == "bwd":
+            assert counted["bwd_tiles"] == -(-3001 // 16) and counted["bwd_points"] == 3001
         want = [t.clone() for t in flat(launch())]
         before = _all_counts()
         graph.replay()
@@ -1700,3 +1705,126 @@ def test_render_views_sharded_on_the_card(dev, one_rank_mesh):
         if where == "cuda":
             assert torch.equal(render_views_sharded(*args, mesh=one_rank_mesh), out[where])
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# step spans inside the graphs, kernel #2's active-tile counter
+# ---------------------------------------------------------------------------
+
+_STAGES = ("step/sample", "step/grid", "step/march", "step/mlp_fwd", "step/composite",
+           "step/backward", "step/optimizer")
+
+
+@pytest.mark.parametrize("kind", ["lattice", "two_bucket"])
+def test_captured_step_spans_are_ordered_and_within_the_step(dev, kind):
+    """A replayed step's marks (timestamp nodes of its graph) come in order;
+    every stage's span is positive, #2's lies inside the backward, and the
+    top-level stages sum to at most the step span (they share their
+    boundaries, so exactly to it). read_spans weights the last replay by
+    the steps of the call."""
+    from nerf_for_angiography_tpu_torch.training import make_train_chunk
+    from nerf_for_angiography_tpu_torch.training.graph import SpanTotals
+
+    cfg, state, rays = _graph_state(dev, kind, step=245)  # three steps of no grid update
+    chunk = make_train_chunk(state.model, cfg, _NEAR, _FAR, 3)
+    chunk(state, rays)  # a warm-up, a capture and a replay
+    chunk.read_spans(SpanTotals())
+    state.step = 245
+    chunk(state, rays)  # replays only
+    torch.cuda.synchronize()
+    (rec,) = [g.spans for g in chunk.graphs.values()]
+    t = rec.times_ns()
+    assert len(t) == rec.n >= 12 and all(a <= b for a, b in zip(t, t[1:]))
+    ms = rec.read()
+    assert all(ms[k] > 0 for k in _STAGES) and 0 < ms["step/mlp_bwd"] < ms["step/backward"]
+    assert sum(ms[k] for k in _STAGES) <= ms["step"] * (1 + 1e-9)
+    totals = SpanTotals()
+    chunk.read_spans(totals)
+    assert totals.span_steps == 3 and totals.chunk_replays == 3 and totals.chunks_left_out == 0
+    assert totals.step_ms["step"] == pytest.approx(3 * ms["step"])
+    assert totals.chunk_device_s > 0
+
+
+def test_replayed_chunk_is_the_same_with_and_without_spans(dev, monkeypatch):
+    """36 replayed steps from one state with the timestamp nodes in the
+    graphs and without them: every state tensor, the metrics and the pixels
+    bit for bit."""
+    from nerf_for_angiography_tpu_torch.training import copy_state, graph, make_train_chunk
+    from nerf_for_angiography_tpu_torch.utils.profiling import SpanRecorder
+
+    class Unmarked(SpanRecorder):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    cfg, state, rays = _graph_state(dev, "two_bucket")
+    plain = copy_state(state)
+    outs = []
+    for st, rec in ((state, SpanRecorder), (plain, Unmarked)):
+        monkeypatch.setattr(graph, "SpanRecorder", rec)
+        chunk = make_train_chunk(st.model, cfg, _NEAR, _FAR, 36)
+        outs.append(chunk(st, rays)[1:])
+        torch.cuda.synchronize()
+        assert all((g.spans.n > 0) == (rec is SpanRecorder) for g in chunk.graphs.values())
+    got, want = _state_tensors(state), _state_tensors(plain)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    (m_a, p_a, t_a), (m_b, p_b, t_b) = outs
+    assert all(torch.equal(m_a[k], m_b[k]) for k in m_a)
+    assert torch.equal(p_a, p_b) and torch.equal(t_a, t_b)
+
+
+def test_active_tile_counter_counts_the_tiles_g_leaves_active(dev):
+    """Kernel #2 adds the 16-point tiles holding a g != 0 (-0 counts as
+    zero) into the card's counter, once a launch and once a replay of a
+    graph that holds the launch; the host counts the launched tiles and
+    points."""
+    _, packed = _packed(4, 128, dev)
+    p = 64 * 300 + 5
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    g, _ = _zero_tiled_g(p, 0.5, dev)
+    live = torch.nn.functional.pad(g != 0, (0, (-p) % 16)).reshape(-1, 16).any(dim=1)
+    want = int(live.sum())
+    assert 0.4 < want / live.numel() < 0.6
+    counter = fm.active_tiles(dev)
+    before = int(counter.item())
+    host = (fm.bwd_launches, fm.bwd_tiles, fm.bwd_points)
+    fm.fused_mlp_bwd_cuda(packed, x, g)
+    torch.cuda.synchronize()
+    assert int(counter.item()) - before == want
+    assert (fm.bwd_launches, fm.bwd_tiles, fm.bwd_points) == (
+        host[0] + 1, host[1] + -(-p // 16), host[2] + p)
+    graph_ = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph_):
+        fm.fused_mlp_bwd_cuda(packed, x, g)
+    torch.cuda.synchronize()
+    assert int(counter.item()) - before == want  # a capture runs nothing
+    graph_.replay()
+    graph_.replay()
+    torch.cuda.synchronize()
+    assert int(counter.item()) - before == 3 * want
+
+
+def test_train_reports_spans_and_tiles_on_the_card(dev):
+    """A short train() on the card: the stages over its replayed steps, the
+    replay-only chunks' device span beyond their steps' spans, and #2's
+    active tiles at most its launched ones, one launch a step."""
+    from nerf_for_angiography_tpu_torch.training import TrainConfig, train
+
+    cfg = TrainConfig(sample_size=16, depth_samples_per_ray=64, grid_resolution=32,
+                      compact_samples=24, n_iters=300, display_every=100,
+                      early_stop_iters=10**6)
+    res = train(cfg, _sphere_rays(dev), src_pt_z=1500.0, device=dev, verbose=False)
+    t = res.timing
+    spans, n = t["step_spans_ms"], t["span_steps"]
+    assert 0 < n <= res.iters_run + 1 and 0 < t["chunk_replays"] <= n
+    assert all(spans[k] > 0 for k in _STAGES) and spans["step/mlp_bwd"] < spans["step/backward"]
+    assert sum(spans[k] for k in _STAGES) == pytest.approx(spans["step"], rel=1e-6)
+    gap = 1 - spans["step"] / n * t["chunk_replays"] / (1e3 * t["chunk_device_s"])
+    assert 0 < gap < 1 and t["chunks_left_out"] >= 1
+    tiles = t["mlp_bwd_tiles"]
+    assert tiles["launches"] == res.iters_run + 1
+    assert 0 < tiles["active"] <= tiles["launched"] and tiles["points"] <= 16 * tiles["launched"]
