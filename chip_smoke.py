@@ -231,6 +231,11 @@ FWD1_LABELS = ("train", "grid warmup", "grid slab", "eval", "lattice k=160", "ra
 FWD1_PAIRED = (1_687_500, 900_000, 2_097_152, 524_288)
 # kernel #2 at random g: the dense step's points and the lattice k = 160 step's
 BWD_RANDOM_P = (TRAIN_P, 900_000)
+# kernel #2's inputs held to the parent commit's outputs (bwd_parent_phase),
+# by label: (the packed parameters, x, g) on the host; check_bwd adds every
+# row it is handed a step's (x, g) for (the CT marches, the LCA Tunings, the
+# pose steps) and bwd_compare_phase the random g at TRAIN_P
+BWD_ROWS: dict = {}
 # fused-MLP forward limits relative to the output scale max(1, max |raw|):
 # larger raw outputs (trained weights) scale the bf16 tie flips with them
 FWD_MAX_REL, FWD_MEDIAN_REL, GRAD_NORM_MAX = 2e-2, 1e-3, 3e-2
@@ -396,7 +401,8 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
     for mangled, (n_regs, frame, stores, _) in ptxas_table(log).items():
         short = re.search(
             r"(wgmma_enc_fwd_kernel|wgmma_march_fwd_kernel|wgmma_fwd_kernel|fwd_kernel"
-            r"|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel|tile_list_kernel"
+            r"|onchip_bwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel"
+            r"|tile_list_kernel"
             r"|scan_serial_kernel|scan_kernel)",
             mangled)
         width_arg = re.search(r"ILi(\d+)E", mangled)
@@ -471,6 +477,23 @@ def build_kernels(fm, fk, fs, fe) -> dict:
           f"{sum(hg.values())} over its {len(hg)} widths, {wide[0] if wide else 0} at F=128")
     check(len(hg) == 8 and all(v > 0 for v in hg.values()),
           "the wgmma forward's SASS holds no HGMMA instruction at some width")
+    # kernel #2 on chip (F = 64 and 128): its layer products are wgmma; its
+    # ptxas registers, stack frame and spills are reported (at F = 128 the
+    # warpgroups' register split, setmaxnreg 152 / 152 / 200, spills a few
+    # bytes)
+    hg_oc = {k: v for k, v in sass_hgmma(fm._lib._name).items() if "onchip_bwd_kernel" in k}
+
+    def width(name):
+        return re.search(r"ILi(\d+)E", name).group(1)
+
+    print("HGMMA instructions in the on-chip backward's SASS (fused_mlp library): "
+          + ", ".join(f"{v} at F={width(k)}" for k, v in sorted(hg_oc.items())))
+    check(len(hg_oc) == 2 and all(v > 0 for v in hg_oc.values()),
+          "the on-chip backward's SASS holds no HGMMA instruction at some width")
+    oc_ptxas = {k: v for k, v in ptxas_table(fm.build_log).items() if "onchip_bwd_kernel" in k}
+    if oc_ptxas:
+        print("ptxas onchip_bwd_kernel (registers, stack frame, spill stores, spill loads): "
+              + ", ".join(f"F={width(k)} {v}" for k, v in sorted(oc_ptxas.items())))
     # kernel #3: the encoded library's forward at its 26 (F, KE) instantiations
     hg_enc = {k: v for k, v in sass_hgmma(fe._lib._name).items() if "wgmma_enc_fwd_kernel" in k}
     enc_wide = [v for k, v in hg_enc.items() if "ILi128ELi48E" in k]
@@ -487,6 +510,7 @@ def build_kernels(fm, fk, fs, fe) -> dict:
               "kernel #3 spills at F=128, KE=48")
     return dict(hgmma=hg, hgmma_total=sum(hg.values()), hgmma_enc=hg_enc,
                 hgmma_enc_total=sum(hg_enc.values()), enc_fwd_ptxas=enc_ptxas,
+                hgmma_onchip=hg_oc, onchip_ptxas=oc_ptxas,
                 ptxas={mod.__name__.rsplit(".", 1)[-1]: ptxas_table(mod.build_log)
                        for mod in mods})
 
@@ -590,6 +614,8 @@ def check_bwd(torch, fm, packed, p: int, gen, pbytes: int, label: str, enc=None,
         g = (torch.randn((p,), generator=gen) / p).to(dev)
     else:
         x, g = xg
+        if enc is None:
+            BWD_ROWS[label] = (tuple(t.cpu() for t in packed), x.cpu(), g.cpu())
     grads_k, dx_k = ops["bwd"](x, g)
     grads_p, dx_p = ops["bwd_ref"](x, g)
     grads_k2, dx_k2 = ops["bwd"](x, g)
@@ -1896,7 +1922,8 @@ def bwd_trained_phase(torch, fm, state, fp: dict, report: dict) -> dict:
 # the wrapper zeroes dx, that fill), and the whole-step kernel #6 (an
 # earlier design's forward is mlp_chain.cuh's fwd_kernel, and the scan of
 # either design is scan_kernel)
-BWD_PARTS = (("chain", "bwd_chain_kernel"), ("wgrad", "wgrad_kernel"))
+BWD_PARTS = (("chain", "bwd_chain_kernel"), ("wgrad", "wgrad_kernel"),
+             ("onchip", "onchip_bwd_kernel"))
 FS_PARTS = (("list", "tile_list_kernel"), ("fwd", "fwd_kernel"), ("scan", "scan_kernel"),
             ("chain", "bwd_chain_kernel"), ("wgrad", "wgrad_kernel"),
             ("reduce", "reduce_partials"))
@@ -2240,6 +2267,8 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
                          (torch.randn((p,), generator=gen) / p).to(DEVICE))
     ms = {f"random: {k}": time_ms(torch, lambda x=x, g=g: fm.fused_mlp_bwd_cuda(packed, x, g))
           for k, (x, g) in rnd.items()}
+    x, g = rnd[f"P={TRAIN_P}"]
+    BWD_ROWS[f"random g, P={TRAIN_P}"] = (tuple(t.cpu() for t in packed), x.cpu(), g.cpu())
     ms.update({f"trained: {k}": r["ms"] for k, r in bt["rows"].items()})
     split = {k: v["random"]["split_pair_ms"] for k, v in fp["shapes"].items()}
     floors = {f"random: {k}": scratch_floor_ms(x.shape[0], f, nh) for k, (x, _) in rnd.items()}
@@ -2282,7 +2311,8 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
         if not par:
             return ""
         a, b = own[key][k], par[key][k]
-        return ("; device ms a launch, chain / weight gradients / rest (profiled, fresh): this "
+        return ("; device ms a launch, chain / weight gradients / on chip / rest (profiled, "
+                "fresh): this "
                 + (" / ".join(f"{t:.4f}" for t in a.values()) if a else "not measured")
                 + ", parent commit "
                 + (" / ".join(f"{t:.4f}" for t in b.values()) if b else "not measured"))
@@ -2343,6 +2373,70 @@ def bwd_compare_phase(torch, fm, tr: dict, fp: dict, bt: dict, ep: dict, parent:
     if par and out["fwd_vs_parent"]["equal"]:
         hold_to_parent(same, d, par["dense"], lr_same, "dense split", "#1")
     report["bwd_compare"] = out
+    return out
+
+
+def bwd_saved(torch, fm, path: str) -> dict:
+    """The ``--bwd-saved`` run: kernel #2 of this process's package on every
+    row saved at ``path`` (BWD_ROWS), its gradients and dx (-0 made +0)
+    saved to a file beside ``path``, and its device ms a launch back to
+    back (time_ms_b2b)."""
+    dev = torch.device(DEVICE)
+    rows = torch.load(path)
+    fm.reset_counts()
+    outs, ms = {}, {}
+    for label, (packed, x, g) in rows.items():
+        packed = fm.PackedMLP(*(t.to(dev) for t in packed))
+        x, g = x.to(dev), g.to(dev)
+        grads, dx = fm.fused_mlp_bwd_cuda(packed, x, g)
+        outs[label] = dict(grads=[(t + 0.0).cpu() for pair in grads for t in pair],
+                           dx=(dx + 0.0).cpu())
+        ms[label] = time_ms_b2b(torch, lambda: fm.fused_mlp_bwd_cuda(packed, x, g))
+    out = f"{path}.out.{os.getpid()}.pt"
+    torch.save(outs, out)
+    return dict(out=out, ms=ms, launches=fm.bwd_launches,
+                onchip=getattr(fm, "bwd_onchip", 0))
+
+
+def bwd_parent_phase(torch, fm, parent: str, report: dict) -> dict:
+    """Kernel #2 of this checkout against the parent commit's on BWD_ROWS
+    (the trained CT marches, the LCA Tunings' steps, the pose steps, random
+    g at TRAIN_P), each side in fresh processes in the order parent, this,
+    this, parent (--bwd-saved): the gradients and dx equal bit for bit but
+    for the sign of a zero, and each side's device ms a launch back to back."""
+    path = os.path.join(HERE, "smoke_out", "bwd_rows.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(BWD_ROWS, path)
+    runs = []
+    for root in (parent, HERE, HERE, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--bwd-saved", path,
+                               "--root", os.path.abspath(root)],
+                              capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and lines,
+              f"kernel #2's run of {root} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        runs.append(json.loads(lines[-1]))
+    theirs, mine = torch.load(runs[0]["out"]), torch.load(runs[1]["out"])
+    out = {}
+    for label, b in theirs.items():
+        a = mine[label]
+        grads = all(torch.equal(u, v) for u, v in zip(a["grads"], b["grads"]))
+        dx = torch.equal(a["dx"], b["dx"])
+        par_ms = [runs[0]["ms"][label], runs[3]["ms"][label]]
+        own_ms = [runs[1]["ms"][label], runs[2]["ms"][label]]
+        out[label] = dict(grads=grads, dx=dx, ms=own_ms, parent_ms=par_ms)
+        print(f"fused_mlp_bwd against the parent commit's, {label}: equal bit for bit but for "
+              f"the sign of a zero: gradients {grads}, dx {dx}; device ms a launch back to back "
+              f"(parent, this, this, parent) this {own_ms[0]:.4f} / {own_ms[1]:.4f}, parent "
+              f"{par_ms[0]:.4f} / {par_ms[1]:.4f} (this / parent "
+              f"{sum(own_ms) / sum(par_ms):.3f})")
+    print(f"kernel #2's launches in this checkout's runs: {runs[1]['launches']}, on chip "
+          f"{runs[1]['onchip']}")
+    check(all(r["grads"] and r["dx"] for r in out.values()),
+          "kernel #2's outputs differ from the parent commit's beyond the sign of a zero")
+    check(runs[1]["onchip"] == runs[1]["launches"] > 0,
+          "kernel #2 did not run on chip at every saved row")
+    report["bwd_vs_parent"] = out
     return out
 
 
@@ -5109,10 +5203,11 @@ def main() -> int:
                          "printing its fine loss against an empty field's")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: also time its kernels #1, #2, #3, "
-                         "#4 and #6 and split pairs on this run's inputs, hold #1's, #3's, #4's "
-                         "and #6's outputs and the ptxas report to it and its dense runs equal "
-                         "to this one's")
+                         "#4 and #6 and split pairs on this run's inputs, hold #1's, #2's, "
+                         "#3's, #4's and #6's outputs and the ptxas report to it and its dense "
+                         "runs equal to this one's")
     ap.add_argument("--time-saved", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--bwd-saved", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-worker", default=None, choices=("nccl", "gloo"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
@@ -5143,6 +5238,9 @@ def main() -> int:
     if args.time_saved:
         print(json.dumps(time_saved(torch, fm, args.time_saved,
                                     mods=(fk, fs, fe) if args.ptxas else None)))
+        return 0
+    if args.bwd_saved:
+        print(json.dumps(bwd_saved(torch, fm, args.bwd_saved)))
         return 0
     if args.parallel_worker == "nccl":
         parallel_nccl_worker(torch, fm, fk, fs, args.out)
@@ -5176,6 +5274,8 @@ def main() -> int:
                         lca_ds, lca_info, report)
         cli = cli_phase(torch, fm, fk, fs, ev, lca_ds, report)
         pp = pose_phase(torch, fm, fk, fs, fe, cp, ep, report)
+        if args.parent:
+            bwd_parent_phase(torch, fm, args.parent, report)
         cl = classic_phase(torch, fm, fk, fs, ds, report)
         par = parallel_phase(torch, fm, fk, fs, ds, cp, report)
         if args.classic_probe:

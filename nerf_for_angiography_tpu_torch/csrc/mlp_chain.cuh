@@ -1,7 +1,8 @@
 // The CPPN-MLP layer chain on Hopper (sm_90a) bf16 tensor cores: the pieces
-// shared by csrc/fused_mlp.cu (the MLP backward, and through mlp_wgmma.cuh
-// the forward), csrc/fused_mlp_enc.cu (the same over an encoded input) and
-// csrc/fused_step.cu (the whole-train-step gradient).
+// shared by csrc/fused_mlp.cu (the MLP backward at the widths mlp_onchip.cuh
+// does not take, and through mlp_wgmma.cuh and mlp_onchip.cuh the forward
+// and the on-chip backward), csrc/fused_mlp_enc.cu (the same over an
+// encoded input) and csrc/fused_step.cu (the whole-train-step gradient).
 //
 // The function: a relu MLP 3 -> F -> (n_hidden x F -> F) -> 1 over P points,
 // raw density out; or, with an encoded input (EncX, csrc/fused_mlp_enc.cu),
@@ -13,10 +14,13 @@
 // dh is rounded to bf16, the relu mask comes from the recomputed bf16
 // activations, dW/db accumulate in f32 and dx is f32.
 //
-// Design (of the backward kernels here; every forward -- kernel #1 over a
-// (P, 3) or (3, P) input, #3 over its encoding, #6's over a march -- is an
-// mlp_wgmma.cuh warpgroup-MMA kernel built on these pieces, and the
-// backward chains recompute the forward through warp_forward):
+// Design (of the two-kernel backward here, which serves kernel #4 and #6's
+// backward and kernel #2 at the widths wgmma's 64 rows do not divide, 16-48
+// and 80-112; kernel #2 at F = 64 and 128 is mlp_onchip.cuh's, which keeps
+// this backward's operands, order and cast points on chip; every forward --
+// kernel #1 over a (P, 3) or (3, P) input, #3 over its encoding, #6's over a
+// march -- is an mlp_wgmma.cuh warpgroup-MMA kernel built on these pieces,
+// and the backward chains recompute the forward through warp_forward):
 //  * Every weight of the MLP is staged once per block into shared memory in
 //    (out, in) orientation (148 KB at F = 128, n_hidden = 4) and stays there;
 //    one persistent block per SM, 8 warps in the backward chain.
@@ -56,7 +60,8 @@
 //    2 x (n_hidden + 1) x P x F bf16 of device scratch (4.3 GB at the
 //    training shape), allocated by the caller.
 //  * Kernels #2 and #4 (the split path's MLP backward, inputs GatedX and,
-//    over the encoding, GatedEncX) and #6's backward (GatedMarchX, on the
+//    over the encoding, GatedEncX; mlp_onchip.cuh's kernel #2 gates the same
+//    way) and #6's backward (GatedMarchX, on the
 //    draws its composite scan hands it) work only on tiles that carry a
 //    gradient: a point is active where g != 0, and a 16-point tile with no
 //    active point is skipped by the chain (no recompute, no sincosf, no
@@ -75,17 +80,16 @@
 //    place.  Staging the block in shared memory and writing it with one
 //    bulk asynchronous copy (cp.async.bulk) measured no faster than these
 //    stores straight from registers.
-//  * Bound of kernel #2 at 4 x 128, P = 1,687,500, every point active:
-//    0.6757 ms of bf16 tensor-core work.  Every design that round-trips the
+//  * Bound of this backward at 4 x 128, P = 1,687,500, every point active:
+//    0.6757 ms of bf16 tensor-core work.  A design that round-trips the
 //    activations and dz through device memory also moves 8 (n_hidden + 1)
 //    P F bytes of scratch (written once, read once), 8.64 GB there: a
 //    traffic floor of 2.58 ms at 3.35 TB/s, so such a backward is
-//    bytes-bound.  With the skip both figures scale with the active tiles,
-//    not with P.
+//    bytes-bound (mlp_onchip.cuh keeps them on chip).  With the skip both
+//    figures scale with the active tiles, not with P.
 //  * These kernels read every layer's B operand from shared memory once per
 //    16-point tile (ldmatrix); mlp_wgmma.cuh's forwards read it once per 64
-//    points.  The backward can adopt wgmma the same way; TMA tensor maps and
-//    a warp-specialised pipeline are later work.
+//    points.
 
 #pragma once
 

@@ -7,11 +7,15 @@ source is ``csrc/fused_mlp.cu`` (sm_90a, bf16 tensor cores with f32
 accumulators, the layer chain in registers): the forward is the warpgroup
 MMA kernel of ``csrc/mlp_wgmma.cuh`` (wgmma, 64-point tiles a warpgroup,
 every weight in shared memory in wgmma's layouts), the backward the
-``mma.sync`` chain of ``csrc/mlp_chain.cuh``; the headers state the bound
-and the design. The backward takes 2 x (n_hidden + 1) x P x F bf16 of
-scratch for the activations and dz (P rounded up to whole 16-point tiles).
-It works only on tiles whose upstream gradient g is not all zero: the
-others add exact zeros to every gradient, and their dx stays 0.
+kernel of ``csrc/mlp_onchip.cuh`` at F = 64 and 128 (thread-block
+clusters, one block a hidden layer, every weight gradient of a chunk kept in
+registers, no activation or dz in device memory), at the other widths the
+two-kernel ``mma.sync`` chain of ``csrc/mlp_chain.cuh``, which takes 2 x
+(n_hidden + 1) x P x F bf16 of scratch for the activations and dz (P rounded
+up to whole 16-point tiles); the headers state the bound and the design.
+The library says which a shape takes (``fused_mlp_bwd_onchip``). Both work
+only on tiles whose upstream gradient g is not all zero: the others add
+exact zeros to every gradient, and their dx stays 0.
 
 The kernels read x through its strides: point-major (P, 3) as
 ``fused_mlp_raw`` passes it, or feature-major (3, P) as ``fused_mlp_raw_fm``
@@ -45,10 +49,11 @@ from ...utils.profiling import annotate
 from .build import load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
-# launch and nowhere else), and the backward's launched 16-point tiles
-# (ceil(P / 16) a launch) and points
+# launch and nowhere else), the backward's launches that ran on chip, and
+# its launched 16-point tiles (ceil(P / 16) a launch) and points
 fwd_launches = 0
 bwd_launches = 0
+bwd_onchip = 0
 bwd_tiles = 0
 bwd_points = 0
 # a device int64 per card: the active tiles the backward's chain processed
@@ -63,15 +68,16 @@ build_log = ""
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches, bwd_tiles, bwd_points
+    global fwd_launches, bwd_launches, bwd_onchip, bwd_tiles, bwd_points
     fwd_launches = 0
     bwd_launches = 0
+    bwd_onchip = 0
     bwd_tiles = 0
     bwd_points = 0
 
 
 def active_tiles(device: torch.device) -> torch.Tensor:
-    """The card's (1,) int64 count of the active tiles kernel #2's chain has
+    """The card's (1,) int64 count of the active tiles kernel #2 has
     processed (it never resets: read it before and after). Made on first
     use, which must come before any CUDA graph capture (the loop reads it
     as a job starts; a chunk's eager warm-up step launches the kernel
@@ -235,6 +241,8 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_bwd.restype = i32
         lib.fused_mlp_scratch_rows.argtypes = [ll]
         lib.fused_mlp_scratch_rows.restype = ll
+        lib.fused_mlp_bwd_onchip.argtypes = [i32, i32]
+        lib.fused_mlp_bwd_onchip.restype = i32
         _lib = lib
         return lib
 
@@ -280,7 +288,8 @@ class BwdScratch(NamedTuple):
     """The backward's device scratch: every layer's bf16 activation and dz
     ((n_hidden + 1, P, F) each), the relu-mask slots (8 bytes each) and the
     f32 partials of the weight-gradient chunks (about one chunk per SM, each
-    a multiple of the kernel's pipeline stage)."""
+    a multiple of the kernel's pipeline stage). The on-chip backward takes
+    the partials alone (``scratch=False``: acts, dzs and masks empty)."""
 
     acts: torch.Tensor
     dzs: torch.Tensor
@@ -290,15 +299,16 @@ class BwdScratch(NamedTuple):
     chunk: int
 
     @staticmethod
-    def make(p, f, nh, n_sms, stride, mask_slots, quantum, dev, rows=None) -> "BwdScratch":
+    def make(p, f, nh, n_sms, stride, mask_slots, quantum, dev, rows=None,
+             scratch=True) -> "BwdScratch":
         """``rows``: rows of each layer block of acts/dzs (default p)."""
         chunk = max(1, -(-p // (n_sms * quantum))) * quantum
         n_chunks = -(-p // chunk)
-        rows = p if rows is None else rows
+        rows = (p if rows is None else rows) if scratch else 0
         return BwdScratch(
             acts=torch.empty((nh + 1, rows, f), dtype=torch.bfloat16, device=dev),
             dzs=torch.empty((nh + 1, rows, f), dtype=torch.bfloat16, device=dev),
-            masks=torch.empty((mask_slots,), dtype=torch.int64, device=dev),
+            masks=torch.empty((mask_slots if scratch else 0,), dtype=torch.int64, device=dev),
             partials=torch.empty((max(n_chunks, 1) * stride,), dtype=torch.float32, device=dev),
             n_chunks=n_chunks,
             chunk=chunk,
@@ -337,9 +347,10 @@ def fused_mlp_bwd_cuda(
     packed: PackedMLP, x: torch.Tensor, g: torch.Tensor, feature_major: bool = False
 ):
     """Launch the backward kernel (+ its fixed-order partial reduction); dx
-    comes back in the layout of x. Counts the launch, its tiles and points,
-    and the chain adds the active tiles into ``active_tiles(x.device)``."""
-    global bwd_launches, bwd_tiles, bwd_points
+    comes back in the layout of x. Counts the launch (and, where it ran on
+    chip, ``bwd_onchip``), its tiles and points, and the kernel adds the
+    active tiles into ``active_tiles(x.device)``."""
+    global bwd_launches, bwd_onchip, bwd_tiles, bwd_points
     lib = _load_lib()
     p, sp, sc = _check_kernel_inputs(packed, x, lib, feature_major)
     if g.shape != (p,) or g.dtype != torch.float32 or not g.is_contiguous():
@@ -347,10 +358,11 @@ def fused_mlp_bwd_cuda(
     f, nh = packed.width, packed.n_hidden
     dev = x.device
     n_sms = _num_sms(dev)
+    onchip = bool(lib.fused_mlp_bwd_onchip(f, nh))
     s = BwdScratch.make(
         p, f, nh, n_sms, lib.fused_mlp_partial_stride(f, nh),
         lib.fused_mlp_mask_slots(n_sms, nh), lib.fused_mlp_chunk_quantum(), dev,
-        rows=lib.fused_mlp_scratch_rows(p),
+        rows=lib.fused_mlp_scratch_rows(p), scratch=not onchip,
     )
     flat = torch.empty((lib.fused_mlp_grad_size(f, nh),), dtype=torch.float32, device=dev)
     # the kernel skips 16-point tiles whose g is all zero: their dx stays 0
@@ -364,6 +376,7 @@ def fused_mlp_bwd_cuda(
     )
     raise_on(code, "fused_mlp backward")
     bwd_launches += 1
+    bwd_onchip += onchip
     bwd_tiles += -(-p // 16)
     bwd_points += p
     return _unflatten_grads(flat, f, nh), dx

@@ -418,7 +418,8 @@ def train(
     # #2's counts: launches, launched tiles and points on the host, active
     # tiles on the card (before any capture, so no graph makes the counter)
     spans = SpanTotals()
-    bwd0 = (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points)
+    bwd0 = (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points,
+            fused_mlp.bwd_onchip)
     tiles0 = fused_mlp.active_tiles(device).clone() if device.type == "cuda" else None
     t_start = time.perf_counter()
 
@@ -606,12 +607,13 @@ def train(
     timing["chunk_device_s"] = spans.chunk_device_s
     timing["chunk_replays"] = spans.chunk_replays
     timing["chunks_left_out"] = spans.chunks_left_out
-    launches, tiles, points = (a - b for a, b in zip(
-        (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points), bwd0))
+    launches, tiles, points, onchip = (a - b for a, b in zip(
+        (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points,
+         fused_mlp.bwd_onchip), bwd0))
     active = (int((fused_mlp.active_tiles(device) - tiles0).item())
               if tiles0 is not None else 0)
     timing["mlp_bwd_tiles"] = {"active": active, "launched": tiles, "points": points,
-                               "launches": launches}
+                               "launches": launches, "onchip": onchip}
     timing["other"] = max(0.0, elapsed - sum(
         timing[k] for k in ("step_dense", "step_compact", "compile", "eval", "choose",
                             "log", "export")

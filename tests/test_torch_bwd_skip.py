@@ -169,3 +169,72 @@ def test_backward_wrapper_raises_without_a_build(monkeypatch):
     g, _ = zero_tiled_g(40, 0.5)
     with pytest.raises(RuntimeError, match="nvcc"):
         fm.fused_mlp_bwd_cuda(packed, torch.from_numpy(x), torch.from_numpy(g))
+
+
+class _FakeLib:
+    """The C interface of csrc/fused_mlp.cu, recording the backward's
+    arguments; the on-chip backward runs at F = 128 (as oc_dims_ok says)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_mlp_smem_bytes(self, f, nh):
+        return 1024
+
+    def fused_mlp_partial_stride(self, f, nh):
+        return -(-(16 * f + nh * f * f + (nh + 1) * f + f + 1) // 64) * 64
+
+    def fused_mlp_grad_size(self, f, nh):
+        return 16 * f + nh * f * f + (nh + 1) * f + f + 1
+
+    def fused_mlp_mask_slots(self, n_sms, nh):
+        return n_sms * 8 * (nh + 1) * 32
+
+    def fused_mlp_chunk_quantum(self):
+        return 64
+
+    def fused_mlp_scratch_rows(self, p):
+        return -(-p // TILE) * TILE
+
+    def fused_mlp_bwd_onchip(self, f, nh):
+        return int(f == 128)
+
+    def fused_mlp_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("width,onchip", [(128, True), (96, False)])
+def test_backward_wrapper_allocates_scratch_only_for_the_two_kernel_path(
+        monkeypatch, width, onchip):
+    """The wrapper asks the library which backward a width takes: the
+    on-chip one gets the partials alone (no acts, dz or mask slots) and is
+    counted in ``bwd_onchip``; the two-kernel one gets its full scratch."""
+    _, model, x = _setup(2, width, 1000)
+    packed = fm.pack_params(fm.cppn_params_to_list(model))
+    lib = _FakeLib()
+    made = []
+    make = fm.BwdScratch.make
+
+    def recording(*args, **kwargs):
+        s = make(*args, **kwargs)
+        made.append(s)
+        return s
+
+    monkeypatch.setattr(fm, "_lib", lib)
+    monkeypatch.setattr(fm, "_num_sms", lambda dev: 4)
+    monkeypatch.setattr(fm, "active_tiles", lambda dev: torch.zeros((1,), dtype=torch.int64))
+    monkeypatch.setattr(fm.BwdScratch, "make", staticmethod(recording))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 0}))
+    g, _ = zero_tiled_g(1000, 0.5)
+    fm.reset_counts()
+    fm.fused_mlp_bwd_cuda(packed, torch.from_numpy(x), torch.from_numpy(g))
+    (s,) = made
+    (args,) = lib.calls
+    assert (fm.bwd_launches, fm.bwd_onchip, fm.bwd_points) == (1, int(onchip), 1000)
+    rows = 0 if onchip else 1008
+    assert tuple(s.acts.shape) == tuple(s.dzs.shape) == (3, rows, width)
+    assert s.masks.numel() == (0 if onchip else 4 * 8 * 3 * 32)
+    assert s.n_chunks * s.chunk >= 1000 and s.chunk % 64 == 0
+    assert s.partials.numel() == s.n_chunks * lib.fused_mlp_partial_stride(width, 2)
+    assert args[12:18] == s.args()

@@ -1811,7 +1811,7 @@ def test_active_tile_counter_counts_the_tiles_g_leaves_active(dev):
 def test_train_reports_spans_and_tiles_on_the_card(dev):
     """A short train() on the card: the stages over its replayed steps, the
     replay-only chunks' device span beyond their steps' spans, and #2's
-    active tiles at most its launched ones, one launch a step."""
+    active tiles at most its launched ones, one launch a step, each on chip."""
     from nerf_for_angiography_tpu_torch.training import TrainConfig, train
 
     cfg = TrainConfig(sample_size=16, depth_samples_per_ray=64, grid_resolution=32,
@@ -1827,4 +1827,5 @@ def test_train_reports_spans_and_tiles_on_the_card(dev):
     assert 0 < gap < 1 and t["chunks_left_out"] >= 1
     tiles = t["mlp_bwd_tiles"]
     assert tiles["launches"] == res.iters_run + 1
+    assert tiles["onchip"] == tiles["launches"]  # 4 x 128: every launch on chip
     assert 0 < tiles["active"] <= tiles["launched"] and tiles["points"] <= 16 * tiles["launched"]

@@ -285,7 +285,8 @@ def test_train_reports_its_spans(sphere_rays, capsys):
     assert set(STAGES) | {"step", "step/mlp_bwd"} == set(spans)
     assert sum(spans[k] for k in STAGES) == pytest.approx(spans["step"], rel=1e-9)
     assert spans["step"] > 0 and t["chunk_device_s"] > 0
-    assert t["mlp_bwd_tiles"] == {"active": 0, "launched": 0, "points": 0, "launches": 0}
+    assert t["mlp_bwd_tiles"] == {"active": 0, "launched": 0, "points": 0, "launches": 0,
+                                  "onchip": 0}
     assert f"step spans (ms a step, {t['span_steps']} steps): sample=" in capsys.readouterr().out
 
 
