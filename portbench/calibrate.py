@@ -4,6 +4,10 @@ benchmark's own runs).
     python3 -m portbench.calibrate --workload ct_vessel.train --seeds 101 102 103 \
         --modes program control unchanged half_batch answer
 
+``--root`` takes a cell from a root of its own (a ``BENCHMARK.json`` and
+``portbench/`` directories of configurations, traffic and limits, as
+portbench/tests/tiny.py::make_root builds one) in place of the checkout's.
+
 For each seed and mode, a reconstruction of the cell's settings is run for
 its first three steps alone (``n_iters=2``: the same steps, chunks and
 graphs as a whole job's first three) and held against the plain reference,
@@ -12,8 +16,8 @@ as a benchmark run holds its first job:
 - ``program``: the port as it is (the lower readings);
 - ``control``: the reference in float8 put in the port's place (the upper
   readings);
-- ``unchanged``, ``half_batch``, ``answer``, ``pose_unchanged``: the port
-  with a fault planted (portbench/faults.py).
+- ``unchanged``, ``half_batch``, ``answer``, ``pose_unchanged``,
+  ``coeff_unchanged``: the port with a fault planted (portbench/faults.py).
 
 Prints one JSON line a reading and writes them all to ``--out``.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 
 
@@ -57,13 +62,15 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--modes", nargs="+", default=["program", "control"])
     p.add_argument("--out", default=None)
+    p.add_argument("--root", default=None)
     a = p.parse_args(argv)
     from . import run
 
     run.set_cache_dirs()
     import torch
 
-    spec = run.load_cell(a.workload)
+    spec = (run.load_cell(a.workload, a.root, os.path.join(a.root, "portbench")) if a.root
+            else run.load_cell(a.workload))
     dev = torch.device("cuda")
     out = []
     _, datagen, _ = run.settings(spec["config"], spec["traffic"], 0)

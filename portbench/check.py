@@ -11,7 +11,11 @@ works the same steps out again from each job's seed and the benchmark's
 dataset, and ``compare`` reads the gaps of each job; ``worst`` keeps the
 largest of each over the jobs:
 
-- ``start``: the largest absolute difference of the initial weights (exact);
+Leaves: each linear's weight and bias, then an encoding's learnable leaves
+(the Fourier coefficients), then the view shifts; ``start``, ``grad`` and
+``change`` take every leaf.
+
+- ``start``: the largest absolute difference of the initial leaves (exact);
 - ``rows``: targets of the three batches that differ (exact: the same rays);
 - ``grid``: cells of the grid after step 0 that differ (exact: the carve and
   the step-0 update);
@@ -62,7 +66,9 @@ CHECKS = ("start", "rows", "grid", "pixels", "loss", "grad", "change", "shifts_g
 
 def reference_spec(train: dict, src_pt_z: float) -> dict:
     """The settings the reference follows, from the cell's training
-    settings (the same dict the port's TrainConfig is built from)."""
+    settings (the same dict the port's TrainConfig is built from). The
+    encoding (``pos_enc``) and its settings pass through in ``train``, from
+    which the encoding's module reads them (its bands, sigma, window)."""
     f, nl = train["num_hidden_units"], train["num_layers"]
     n_in = reference.encoding(train["pos_enc"]).in_dim(train)
     return dict(
@@ -87,10 +93,13 @@ def reference_spec(train: dict, src_pt_z: float) -> dict:
 
 def program_leaves(model) -> list[torch.Tensor]:
     """The port's trained leaves in the reference's order: each linear's
-    weight and bias, then the view shifts when the model has them."""
+    weight and bias, then the Fourier coefficients of the positions and
+    the view shifts, each where the model has them."""
     leaves = []
     for lin in model.linears():
         leaves += [lin.weight, lin.bias]
+    if hasattr(model, "fourier_coefficients_pts"):
+        leaves.append(model.fourier_coefficients_pts)
     if hasattr(model, "view_shifts"):
         leaves.append(model.view_shifts)
     return leaves

@@ -5,6 +5,13 @@ The MLP is n_in -> F -> nh x (F -> F) -> 1 (the 4x128 CPPN: 3 -> 128, four
 128 -> 128 layers, 128 -> 1; 66,048 weights). A point's forward takes two
 operations a weight; its training step six (forward, the weight gradient and
 the input gradient).
+
+With a positional encoding of L bands (fourier or BARF) the MLP reads E = 3
++ 6L features a point (the position, a sine and a cosine of each coordinate
+at each band: 33 at L = 5, 69,888 weights). Kernels #3 / #4 read the 3 f32
+coordinates and form the features on chip; their sincos (3L a point) run on
+the CUDA cores and are listed beside the operations (``enc_sincos``), not
+counted in them.
 """
 
 from __future__ import annotations
@@ -23,12 +30,17 @@ def fwd_flops(points: int, n_in: int = 3, f: int = 128, nh: int = 4) -> float:
     return 2.0 * points * mlp_weights(n_in, f, nh)
 
 
+def _weight_bytes(n_in: int, f: int, nh: int) -> int:
+    """The bfloat16 weights and float32 biases of the input and hidden
+    layers, and the float32 output weights and bias."""
+    return 2 * (n_in * f + nh * f * f) + 4 * (nh + 1) * f + 4 * (f + 1)
+
+
 def fwd_bytes(points: int, n_in: int = 3, f: int = 128, nh: int = 4) -> float:
     """Bytes kernel #1 has to move once: the float32 positions in, the
     float32 raw density out, the bfloat16 weights and float32 biases of
     every layer, and the float32 output weights and bias."""
-    weights = 2 * (n_in * f + nh * f * f) + 4 * (nh + 1) * f + 4 * (f + 1)
-    return 4.0 * points * n_in + 4.0 * points + weights
+    return 4.0 * points * n_in + 4.0 * points + _weight_bytes(n_in, f, nh)
 
 
 def bound_s(flops: float, nbytes: float) -> float:
@@ -39,6 +51,79 @@ def bound_s(flops: float, nbytes: float) -> float:
 
 def fwd_bound_s(points: int, n_in: int = 3, f: int = 128, nh: int = 4) -> float:
     return bound_s(fwd_flops(points, n_in, f, nh), fwd_bytes(points, n_in, f, nh))
+
+
+def bwd_flops(points: float, n_in: int, f: int, nh: int) -> float:
+    """Kernel #2's operations over ``points``: the forward recomputed, the
+    weight gradients and the input / hidden gradients."""
+    fwd = 2.0 * points * (n_in * f + nh * f * f + f)
+    dh = 2.0 * points * (nh * f * f + n_in * f)
+    return 2.0 * fwd + dh
+
+
+def bwd_bytes(p: float, active_points: float, n_in: int, f: int, nh: int) -> float:
+    """The bytes kernel #2 has to move once: g (f32) of every point, x (3
+    f32) of the active points, dx (3 f32) of every point, the packed weights
+    (bf16 input layer at n_in rounded up to whole 16-column MMA steps and
+    hidden layers, f32 biases and head) and the f32 gradients."""
+    weights = _weight_bytes(16 * -(-n_in // 16), f, nh)
+    grads = 4 * (n_in * f + nh * f * f + (nh + 1) * f + f + 1)
+    return 4.0 * p + 12.0 * active_points + 12.0 * p + weights + grads
+
+
+def encoding_of(ctx: dict) -> tuple[str, int]:
+    """(name, L) of the cell's positional encoding (``ctx["encoding"]``);
+    ("none", 0) for a context that names none."""
+    enc = ctx.get("encoding") or {}
+    name = enc.get("name", "none")
+    return name, 0 if name == "none" else int(enc["bands"])
+
+
+def mlp_inputs(bands: int, n_in: int = 3) -> int:
+    """E: the MLP's input features a point, the n_in coordinates and a sine
+    and a cosine of each at each of ``bands`` bands."""
+    return n_in * (1 + 2 * bands)
+
+
+def enc_sincos(points: float, bands: int) -> float:
+    """The sincos evaluations (a sine and a cosine each) of #3's forward over
+    ``points``: one a coordinate a band. On the CUDA cores: beside the
+    operations, not in them."""
+    return 3.0 * bands * points
+
+
+def enc_fwd_flops(points: float, bands: int, f: int = 128, nh: int = 4) -> float:
+    """Operations of kernel #3 over ``points``: two a weight of the encoded
+    stack a point."""
+    return fwd_flops(points, mlp_inputs(bands), f, nh)
+
+
+def enc_fwd_bytes(points: float, bands: int, f: int = 128, nh: int = 4) -> float:
+    """Bytes kernel #3 has to move once: the 3 float32 coordinates in and the
+    float32 raw density out a point, the weights with the E-wide bfloat16
+    first layer, and the 3L float32 coefficients (fourier; BARF's window)."""
+    return (4.0 * points * 3 + 4.0 * points + _weight_bytes(mlp_inputs(bands), f, nh)
+            + 4 * 3 * bands)
+
+
+def enc_fwd_bound_s(points: float, bands: int, f: int = 128, nh: int = 4) -> float:
+    return bound_s(enc_fwd_flops(points, bands, f, nh), enc_fwd_bytes(points, bands, f, nh))
+
+
+def enc_bwd_flops(points: float, bands: int, f: int = 128, nh: int = 4) -> float:
+    """Operations of kernel #4 over ``points`` (its active points): #2's at
+    E, and the dcoeff partials: a multiply-add a sine or cosine feature a
+    point (dA += dv x_c)."""
+    return bwd_flops(points, mlp_inputs(bands), f, nh) + 2.0 * 6 * bands * points
+
+
+def enc_bwd_bytes(p: float, active_points: float, bands: int, f: int = 128,
+                  nh: int = 4) -> float:
+    """Bytes kernel #4 has to move once: #2's at E (g, the active points'
+    coordinates, dx, the packed weights, the gradients with dW_in at E),
+    the 3L float32 coefficients in and their gradient out. The kernel's
+    per-warp dA slots are its own choice and not counted."""
+    return bwd_bytes(p, active_points, mlp_inputs(bands), f, nh) + 2 * 4 * 3 * bands
 
 
 def train_flops_per_point(n_in: int = 3, f: int = 128, nh: int = 4) -> float:

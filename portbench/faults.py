@@ -11,7 +11,11 @@ benchmark's own runs never import this module.
   composite renders 0.01 brighter;
 - ``pose_unchanged``: under pose refinement, a step that leaves the view
   shifts unchanged and updates the field: the shifts' lr (``pose_lr_at``)
-  is 0.
+  is 0;
+- ``coeff_unchanged``: under the Fourier encoding, a step that leaves the
+  coefficients unchanged and updates the rest of the field: the
+  coefficients sit in an optimizer group of their own whose lr stays 0
+  (Adam still keeps their moments).
 
 There is one card a cell, so no exchange between chips to leave out.
 """
@@ -65,6 +69,37 @@ def pose_unchanged():
         yield
 
 
+@contextlib.contextmanager
+def coeff_unchanged():
+    tm = _train_module()
+    loop = importlib.import_module("nerf_for_angiography_tpu_torch.training.loop")
+
+    def freeze(orig):
+        def create(*args, **kwargs):
+            model, state = orig(*args, **kwargs)
+            coeff = getattr(model, "fourier_coefficients_pts", None)
+            if coeff is not None:
+                field = state.optimizer.param_groups[0]
+                field["params"] = [p for p in field["params"] if p is not coeff]
+                state.optimizer.add_param_group(
+                    {"params": [coeff], "lr": torch.zeros_like(field["lr"]), "weight_decay": 0.0,
+                     "frozen": True})
+            return model, state
+        return create
+
+    def keep_frozen(orig):
+        def apply(self, count):
+            orig(self, count)
+            for group in self.optimizer.param_groups:
+                if group.get("frozen"):
+                    group["lr"].zero_()
+        return apply
+
+    with _patched(loop, "create_train_state", freeze), \
+            _patched(tm.ExponentialDecayLR, "apply", keep_frozen):
+        yield
+
+
 def _render_wrap(alter):
     def wrap(orig):
         def render(*args, **kwargs):
@@ -113,9 +148,11 @@ def answer():
 
 
 FAULTS = {"unchanged": unchanged, "half_batch": half_batch, "answer": answer,
-          "pose_unchanged": pose_unchanged}
-# the faults a cell can have: the view shifts' only under pose refinement
+          "pose_unchanged": pose_unchanged, "coeff_unchanged": coeff_unchanged}
+# the faults a cell can have: the view shifts' only under pose refinement,
+# the coefficients' only under the Fourier encoding
 POSE_ONLY = frozenset({"pose_unchanged"})
+FOURIER_ONLY = frozenset({"coeff_unchanged"})
 
 
 def observed(ref: dict) -> dict:

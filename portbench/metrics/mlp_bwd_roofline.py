@@ -6,25 +6,8 @@ work the kernel cannot skip. Its time is the ``step/mlp_bwd`` span a
 replayed step (one launch a step). Nothing without the counters, the span
 or a launch."""
 
-from portbench.counts import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
+from portbench.counts import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, bwd_bytes, bwd_flops
 from portbench.spans import totals
-
-
-def bwd_flops(points: float, n_in: int, f: int, nh: int) -> float:
-    """The backward's operations over ``points``: the forward recomputed,
-    the weight gradients and the input / hidden gradients."""
-    fwd = 2.0 * points * (n_in * f + nh * f * f + f)
-    dh = 2.0 * points * (nh * f * f + n_in * f)
-    return 2.0 * fwd + dh
-
-
-def bwd_bytes(p: float, active_points: float, n_in: int, f: int, nh: int) -> float:
-    """The bytes it has to move once: g (f32) of every point, x (3 f32) of
-    the active points, dx (3 f32) of every point, the packed weights (bf16
-    input and hidden layers, f32 biases and head) and the f32 gradients."""
-    weights = 2 * (16 * f + nh * f * f) + 4 * (nh + 1) * f + 4 * (f + 1)
-    grads = 4 * (n_in * f + nh * f * f + (nh + 1) * f + f + 1)
-    return 4.0 * p + 12.0 * active_points + 12.0 * p + weights + grads
 
 
 def read(ctx):

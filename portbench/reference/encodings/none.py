@@ -5,5 +5,9 @@ def in_dim(train: dict) -> int:
     return 3
 
 
-def encode(x, train: dict):
+def leaves(gen, train: dict) -> list:
+    return []
+
+
+def encode(x, leaves, step: int, train: dict):
     return x

@@ -21,8 +21,10 @@ holds the compacted steps to the lossless render.
 below the bfloat16 operands the configuration states.
 
 The positional encoding is a module of its own, picked by the ``pos_enc``
-setting (portbench/reference/encodings/). Settings the reference does not
-follow are listed by ``unmodelled``, and a cell that has one is refused.
+setting (portbench/reference/encodings/); its learnable leaves (the Fourier
+coefficients) are drawn and trained with the MLP's. Settings the reference
+does not follow are listed by ``unmodelled``, and a cell that has one is
+refused.
 """
 
 from __future__ import annotations
@@ -66,11 +68,13 @@ def encoding(name: str):
 # ---------------------------------------------------------------------------
 
 
-def init_weights(seed: int, widths: list[int], device) -> list[torch.Tensor]:
-    """[W_0, b_0, W_1, b_1, ...] (W as (out, in)): flax's lecun_normal, a
-    normal truncated at two standard deviations with variance 1/fan_in,
-    drawn on the CPU from one generator seeded with ``seed``, layer by
-    layer; zero biases."""
+def init_weights(seed: int, widths: list[int], device, enc,
+                 train: dict) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """([W_0, b_0, W_1, b_1, ...] (W as (out, in)), the encoding's leaves):
+    flax's lecun_normal, a normal truncated at two standard deviations with
+    variance 1/fan_in, drawn on the CPU from one generator seeded with
+    ``seed``, layer by layer; zero biases; then the leaves of the encoding
+    module ``enc`` (``enc.leaves``) from the same generator."""
     gen = torch.Generator().manual_seed(int(seed))
     leaves = []
     for fan_in, fan_out in zip(widths[:-1], widths[1:]):
@@ -78,7 +82,7 @@ def init_weights(seed: int, widths: list[int], device) -> list[torch.Tensor]:
         w = torch.empty((fan_out, fan_in), dtype=torch.float32)
         torch.nn.init.trunc_normal_(w, mean=0.0, std=std, a=-2 * std, b=2 * std, generator=gen)
         leaves += [w.to(device), torch.zeros(fan_out, dtype=torch.float32, device=device)]
-    return leaves
+    return leaves, [t.to(device) for t in enc.leaves(gen, train)]
 
 
 def fp8_quant(t: torch.Tensor) -> torch.Tensor:
@@ -302,8 +306,11 @@ def follow(spec: dict, rays: dict, seed: int, n_steps: int = 3, quant=None) -> d
     portbench/check.py::reference_spec). Returns the initial weights, the
     feasible cells, the grid after step 0, and for every step its batch's
     targets, its loss and, after step 0, the gradient; the leaves after the
-    last step, and each step's rendered pixels. Leaves: the MLP's (W, b) in layer order, then the view
-    shifts under pose refinement (``shifts`` True)."""
+    last step, and each step's rendered pixels. Leaves: the MLP's (W, b) in
+    layer order, then the encoding's leaves (portbench/reference/encodings/),
+    then the view shifts under pose refinement (``shifts`` True). The
+    encoding's leaves train in the MLP's Adam group; its grid updates read
+    their current values, detached."""
     dev = rays["origins"].device
     keep_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -326,11 +333,14 @@ def _follow(spec, rays, seed, n_steps, quant, dev) -> dict:
     stride = safe_stride(spec["occ_stride"], n, near, far, 2 * out, res)
     scale = 1.0 / out
     enc = encoding(spec["pos_enc"])
+    mlp, enc_leaves = init_weights(seed, spec["widths"], dev, enc, spec["train"])
+    leaves = [t.requires_grad_(True) for t in mlp + enc_leaves]
+    mlp, enc_leaves = leaves[:len(mlp)], leaves[len(mlp):]
 
-    def encode(x):
-        return enc.encode(x, spec["train"])
+    def encoder(values, step):
+        """The MLP's input at step ``step``, the encoding's leaves at ``values``."""
+        return lambda x: enc.encode(x, values, step, spec["train"])
 
-    leaves = [t.requires_grad_(True) for t in init_weights(seed, spec["widths"], dev)]
     pose = spec["pose_refine"]
     if pose:
         leaves.append(torch.zeros((n_views, 3), dtype=torch.float32, device=dev,
@@ -347,7 +357,6 @@ def _follow(spec, rays, seed, n_steps, quant, dev) -> dict:
     table = sampling_table(train["weights"]) if spec["weighted"] else None
     gen = torch.Generator(device=dev).manual_seed(int(seed) + 1)
     moments = [(torch.zeros_like(p), torch.zeros_like(p)) for p in leaves]
-    mlp = leaves[:-1] if pose else leaves
     targets, losses, pixels, grad0, binary0 = [], [], [], None, None
     for s in range(n_steps):
         if table is None:
@@ -360,13 +369,14 @@ def _follow(spec, rays, seed, n_steps, quant, dev) -> dict:
                 raise ValueError("the reference follows the dense grid updates only")
             occs, binary = dense_grid_update(occs, feasible, [p.detach() for p in mlp], aabb,
                                              res, spec["alpha_thre"], spec["grid_ema_decay"],
-                                             scale, encode, quant)
+                                             scale, encoder([p.detach() for p in enc_leaves], s),
+                                             quant)
         if s == 0:
             binary0 = binary.clone()
         if pose:
             o = o + leaves[-1].index_select(0, train["image_ids"].index_select(0, rows))
         px = render(mlp, binary, aabb, o, d, near, far, n, stride, spec["early_stop_eps"],
-                    scale, encode, quant)
+                    scale, encoder(enc_leaves, s), quant)
         loss = torch.mean((px - t) ** 2)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]

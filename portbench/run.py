@@ -256,6 +256,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
     ctx = dict(
         setup_s=setup_s, window_s=window_s, batch=batch, depth_samples=cfg.depth_samples_per_ray,
         hybrid_split=cfg.hybrid_split, mlp=(3, cfg.num_hidden_units, cfg.num_layers),
+        encoding=dict(name=cfg.pos_enc, bands=0 if cfg.pos_enc == "none" else cfg.pos_enc_basis),
         jobs=[dict(timing=r.timing, iters_run=r.iters_run,
                    heldout_psnr_db=heldout_psnr(torch, tm, r.state, cfg, near, far, test))
               for r in results],

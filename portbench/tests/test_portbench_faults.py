@@ -1,8 +1,8 @@
 """The output check fails what it has to: a run with the timed path broken
 underneath (each fault of portbench/faults.py that the cell can have,
 planted in the port), and the control, the plain reference in float8 put in
-the port's place, both at a tiny size on the CPU, in a training and a pose
-cell, with limits set between their readings there. On a card the control
+the port's place, both at a tiny size on the CPU, in a training, a pose
+and a Fourier cell, with limits set between their readings there. On a card the control
 also runs at the ct_vessel.train cell's own size."""
 
 from __future__ import annotations
@@ -17,7 +17,10 @@ from portbench.reference import steps as reference
 from portbench.tests import tiny
 
 LIMITS = tiny.LIMITS
-KINDS = {"train": (tiny.TRAIN, tiny.LIMITS), "pose": (tiny.POSE, tiny.POSE_LIMITS)}
+KINDS = {"train": (tiny.TRAIN, tiny.LIMITS), "pose": (tiny.POSE, tiny.POSE_LIMITS),
+         "fourier": (tiny.FOURIER, tiny.LIMITS)}
+# the kind whose settings a fault needs: the view shifts', the coefficients'
+NEEDS = {**{f: "pose" for f in faults.POSE_ONLY}, **{f: "fourier" for f in faults.FOURIER_ONLY}}
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +48,7 @@ def test_the_port_as_it_is_passes(cells, kind):
 
 
 @pytest.mark.parametrize("kind,fault", [(k, f) for k in sorted(KINDS) for f in sorted(faults.FAULTS)
-                                        if k == "pose" or f not in faults.POSE_ONLY])
+                                        if NEEDS.get(f, k) == k])
 def test_a_fault_under_the_timed_path_fails(cells, kind, fault):
     with faults.FAULTS[fault]():
         r = _run(cells[kind])

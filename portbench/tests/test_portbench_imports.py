@@ -44,7 +44,8 @@ MODULES = sorted(_modules(BENCH))
 def test_the_scan_sees_every_module():
     rel = {os.path.relpath(p, BENCH) for p in MODULES}
     assert {"run.py", "check.py", "counts.py", "reference/steps.py",
-            "metrics/step_mfu.py", "steps_profile.py", "reference/encodings/none.py"} <= rel
+            "metrics/step_mfu.py", "steps_profile.py", "reference/encodings/none.py",
+            "reference/encodings/fourier.py", "reference/encodings/barf.py"} <= rel
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: os.path.relpath(p, BENCH))

@@ -144,8 +144,28 @@ def test_each_cell_loads_and_the_reference_follows_its_settings(cell):
 def test_a_cell_the_reference_does_not_follow_is_refused(tmp_path):
     from portbench.tests import tiny
 
-    train = tiny.tiny_train(pos_enc="fourier", sample_mode="image")
+    train = tiny.tiny_train(pos_enc="hashgrid", sample_mode="image")
     root, bench = tiny.make_root(str(tmp_path), train=train)
     with pytest.raises(SystemExit) as e:
         run.load_cell(tiny.WORKLOAD, root, bench)
-    assert "pos_enc='fourier'" in str(e.value) and "sample_mode='image'" in str(e.value)
+    assert "pos_enc='hashgrid'" in str(e.value) and "sample_mode='image'" in str(e.value)
+
+
+@pytest.mark.parametrize("pos_enc", ["fourier", "barf"])
+def test_the_reference_follows_the_encodings_at_the_shipped_settings(pos_enc):
+    """Each cell's settings with the encoding switched on, its bands, sigma
+    and window left at the shipped defaults."""
+    for w in MANIFEST["workloads"]:
+        spec = run.load_cell(w["name"])
+        train, _, _ = run.settings(spec["config"], spec["traffic"], 1)
+        assert check.reference.unmodelled({**train, "pos_enc": pos_enc}) == []
+
+
+def test_a_tiny_fourier_cell_loads(tmp_path):
+    from portbench.tests import tiny
+
+    root, bench = tiny.make_root(str(tmp_path), traffic=tiny.FOURIER)
+    spec = run.load_cell(tiny.WORKLOAD, root, bench)
+    train, _, _ = run.settings(spec["config"], spec["traffic"], 1)
+    assert train["pos_enc"] == "fourier" and check.reference.unmodelled(train) == []
+    assert check.reference_spec(train, 1500.0)["widths"][0] == 33

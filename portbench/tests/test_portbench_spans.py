@@ -87,3 +87,32 @@ def test_no_bwd_launch_gives_no_roofline():
 def test_no_replay_only_chunk_gives_no_gap():
     got = _read(_ctx(_timing(chunk_device_s=0.0, chunk_replays=0)))
     assert "replay_gap_share" not in got and "optimizer_ms" in got
+
+
+def _profiled(encoding=None) -> dict:
+    ctx = {"jobs": [], "mlp": (3, 128, 4), "profile": {
+        "device_span_s": 0.1, "train_points": 64 * 900_000, "grid_points": 4 * 524_288,
+        "n_steps": 64, "kernels": {"onchip_bwd_kernel<128, (anonymous namespace)::GatedX>":
+                                   [0.03, 64], "reduce_partials": [0.001, 128]}}}
+    if encoding is not None:
+        ctx["encoding"] = encoding
+    return ctx
+
+
+def _read_profiled(ctx) -> dict:
+    entries = [{"name": n, "unit": "%"} for n in ("step_mfu", "mlp_bwd_ms")]
+    return {k: v["value"] for k, v in run.read_metrics(entries, ctx, BENCH).items()}
+
+
+def test_step_mfu_counts_the_encoded_first_layer():
+    plain = _read_profiled(_profiled())
+    assert plain == _read_profiled(_profiled({"name": "none", "bands": 0}))
+    assert plain["step_mfu"] == pytest.approx(
+        100 * (6 * 66048 * 64 * 900_000 + 2 * 66048 * 4 * 524_288) / (0.1 * PEAK_BF16_FLOPS))
+    enc = _read_profiled(_profiled({"name": "fourier", "bands": 5}))
+    assert enc["step_mfu"] == pytest.approx(plain["step_mfu"] * 69888 / 66048)
+
+
+def test_mlp_bwd_ms_reads_nothing_in_an_encoded_cell():
+    assert _read_profiled(_profiled())["mlp_bwd_ms"] == pytest.approx(1e3 * 0.031 / 64)
+    assert "mlp_bwd_ms" not in _read_profiled(_profiled({"name": "barf", "bands": 5}))
