@@ -90,11 +90,12 @@ using BwdX = GatedEncX<KE, ENC_FRAG_SCRATCH>;
 
 template <int F, class X>
 int enc_bwd(const X& x, const float* g, long long P, const Params& prm, int nh, const DxOut& dx,
-            const BwdScratch& s, int n_sms, float* grads, float* da, cudaStream_t st) {
+            const BwdScratch& s, int n_sms, float* grads, float* da,
+            unsigned long long* tiles_done, cudaStream_t st) {
   if constexpr (X::KI > F) {
     return (int)cudaErrorInvalidValue;
   } else {
-    const int e = launch_bwd<F, X>(x, g, P, prm, nh, dx, s, n_sms, grads, st);
+    const int e = launch_bwd<F, X>(x, g, P, prm, nh, dx, s, n_sms, grads, st, tiles_done);
     if (e != (int)cudaSuccess) return e;
     // dA: the chain's per-warp sums, in slot order
     const int slots = P > 0 ? bwd_grid(P, n_sms) * BWD_WARPS : 0;
@@ -127,9 +128,9 @@ template <int F>
 int dispatch_bwd(int KE, const StridedX& xs, const float* a, const float* w, int n_enc,
                  const float* g, long long P, const Params& prm, int nh, const DxOut& dx,
                  const BwdScratch& s, bf16* feat, int n_sms, float* grads, float* da,
-                 cudaStream_t st) {
+                 unsigned long long* tiles_done, cudaStream_t st) {
   ENC_DISPATCH_KE(KE, enc_bwd<F>(BwdX<KK>{{xs, a, w, n_enc}, g, feat}, g, P, prm, nh, dx, s,
-                                 n_sms, grads, da, st))
+                                 n_sms, grads, da, tiles_done, st))
 }
 
 extern "C" {
@@ -175,13 +176,14 @@ int fused_mlp_enc_fwd(const float* x, long long P, const float* a, const float* 
 // floats of scratch; feat: (fused_mlp_enc_scratch_rows, KE) bf16 scratch
 // for the features of the active tiles; da: (KE,) f32 out, dA per
 // feature in pair order (entries 2m, 2m + 1 of pair m >= 2: the sin and cos
-// rows' sums of dv x_c; the others 0)
+// rows' sums of dv x_c; the others 0); tiles: a device int64 the chain adds
+// the active 16-point tiles it processed into (fused_mlp_bwd's counter)
 int fused_mlp_enc_bwd(const float* x, const float* g, long long P, const float* a,
                       const float* w, int n_enc, int KE, const void* w_in, const void* w_hid,
                       const float* bias, const float* w_out, const float* b_out, int F, int nh,
                       void* acts, void* dzs, void* masks, float* partials, int n_chunks,
                       long long chunk, int n_sms, float* grads, float* dx, float* da_slots,
-                      float* da, void* feat, void* stream) {
+                      float* da, void* feat, void* tiles, void* stream) {
   const BwdScratch s{static_cast<bf16*>(acts), static_cast<bf16*>(dzs),
                      static_cast<uint2*>(masks), partials, n_chunks, chunk};
   if (!enc_dims_ok(F, nh, KE, n_enc) || !scratch_ok(s, P, n_sms) || da_slots == nullptr ||
@@ -193,7 +195,8 @@ int fused_mlp_enc_bwd(const float* x, const float* g, long long P, const float* 
   const DxOut dxo{dx, 3, 1, da_slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MLP_CHAIN_DISPATCH_F(F, dispatch_bwd<FF>(KE, xs, a, w, n_enc, g, P, prm, nh, dxo, s,
-                                           static_cast<bf16*>(feat), n_sms, grads, da, st))
+                                           static_cast<bf16*>(feat), n_sms, grads, da,
+                                           static_cast<unsigned long long*>(tiles), st))
 }
 
 }  // extern "C"

@@ -70,7 +70,7 @@
 //    active tiles only (#4's chain stores those tiles' encoded features for
 //    them).  Such points add exact zeros to every gradient, so the
 //    result equals the unskipped one bit for bit but for the sign of a
-//    zero.  Given a counter (kernel #2 passes one; #4 and #6 pass null),
+//    zero.  Given a counter (kernels #2 and #4 pass one; #6 passes null),
 //    the chain adds the active tiles it processed into it, one atomicAdd a
 //    block after a block reduction.  Their chain stores its scratch in
 //    the tile-fragment layout (scratch_rows): a warp writes a tile's layer

@@ -57,7 +57,8 @@ bwd_onchip = 0
 bwd_tiles = 0
 bwd_points = 0
 # a device int64 per card: the active tiles the backward's chain processed
-# (it adds into it on the card, launch after launch and replay after replay)
+# (it adds into it on the card, launch after launch and replay after replay;
+# the encoded backward, kernel #4, adds into it too)
 _active_tiles: dict = {}
 
 _KIN = 16  # input features (3 coords) padded to one mma k-step
@@ -77,8 +78,8 @@ def reset_counts() -> None:
 
 
 def active_tiles(device: torch.device) -> torch.Tensor:
-    """The card's (1,) int64 count of the active tiles kernel #2 has
-    processed (it never resets: read it before and after). Made on first
+    """The card's (1,) int64 count of the active tiles kernels #2 and #4
+    have processed (it never resets: read it before and after). Made on first
     use, which must come before any CUDA graph capture (the loop reads it
     as a job starts; a chunk's eager warm-up step launches the kernel
     before its capture)."""

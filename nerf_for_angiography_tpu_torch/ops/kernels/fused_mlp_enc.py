@@ -12,7 +12,9 @@ chain of ``csrc/mlp_chain.cuh`` over ``GatedEncX``; its header states the
 bound and the design. A module of its own (not a
 section of ``fused_mlp.py``): its own library builds beside the other three
 in parallel, and its launch counters stay apart from kernels #1/#2's, so a
-run shows which pair it went through.
+run shows which pair it went through. The backward's chain adds its active
+tiles into kernel #2's device counter (``fused_mlp.active_tiles``): a job
+runs one of the two backwards, so the counter reads the one it ran.
 
 The function, at the TPU kernels' cast points: v_j = a_j x_{j%3} (one f32
 product; a_j = 2 pi coeff_j for fourier, 2^{j//3} pi for BARF); the encoded
@@ -51,13 +53,17 @@ import threading
 
 import torch
 
+from ...utils.profiling import annotate
 from . import fused_mlp as fm
 from .build import load_library, raise_on
 
 # launches of each kernel since the last reset (the wrappers add one per
-# launch and nowhere else)
+# launch and nowhere else), and the backward's launched 16-point tiles
+# (ceil(P / 16) a launch) and points
 enc_fwd_launches = 0
 enc_bwd_launches = 0
+enc_bwd_tiles = 0
+enc_bwd_points = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -66,9 +72,11 @@ build_log = ""
 
 
 def reset_counts() -> None:
-    global enc_fwd_launches, enc_bwd_launches
+    global enc_fwd_launches, enc_bwd_launches, enc_bwd_tiles, enc_bwd_points
     enc_fwd_launches = 0
     enc_bwd_launches = 0
+    enc_bwd_tiles = 0
+    enc_bwd_points = 0
 
 
 def enc_width(n_basis: int) -> int:
@@ -178,7 +186,7 @@ def _load_lib() -> ctypes.CDLL:
         lib.fused_mlp_enc_fwd.restype = i32
         lib.fused_mlp_enc_bwd.argtypes = [
             vp, vp, ll, vp, vp, i32, i32, vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, ll,
-            i32, vp, vp, vp, vp, vp, vp,
+            i32, vp, vp, vp, vp, vp, vp, vp,
         ]
         lib.fused_mlp_enc_bwd.restype = i32
         lib.fused_mlp_enc_scratch_rows.argtypes = [ll]
@@ -243,8 +251,10 @@ def fused_mlp_enc_fwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor) -> torch
 def fused_mlp_enc_bwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor, g: torch.Tensor):
     """Launch the backward (the chain with dx and the per-warp dA sums, the
     weight gradients, the fixed-order partial sums) over the tiles whose g
-    is not all zero; returns what fused_mlp_enc_bwd_reference returns."""
-    global enc_bwd_launches
+    is not all zero; returns what fused_mlp_enc_bwd_reference returns.
+    Counts the launch, its tiles and points, and the chain adds the active
+    tiles into ``fused_mlp.active_tiles(x.device)``."""
+    global enc_bwd_launches, enc_bwd_tiles, enc_bwd_points
     lib = _load_lib()
     dev = x.device
     n_sms = _num_sms(dev)
@@ -267,10 +277,12 @@ def fused_mlp_enc_bwd_cuda(packed: fm.PackedMLP, a, w, x: torch.Tensor, g: torch
         packed.w_in.data_ptr(), packed.w_hid.data_ptr(), packed.bias.data_ptr(),
         packed.w_out.data_ptr(), packed.b_out.data_ptr(), f, nh, *s.args(), n_sms,
         flat.data_ptr(), dx.data_ptr(), da_slots.data_ptr(), da.data_ptr(), feat.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        fm.active_tiles(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(code, "fused_mlp_enc backward")
     enc_bwd_launches += 1
+    enc_bwd_tiles += -(-p // 16)
+    enc_bwd_points += p
     return fm._unflatten_grads(flat, f, nh, k_in=ke, rows=ke), da, dx
 
 
@@ -330,9 +342,10 @@ class FusedMLPEncRaw(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         kind, n_basis = ctx.spec
-        grads, da, dx = fused_mlp_enc_bwd(
-            ctx.packed, ctx.a, ctx.w, x, g.to(torch.float32).contiguous()
-        )
+        with annotate("step/mlp_bwd"):
+            grads, da, dx = fused_mlp_enc_bwd(
+                ctx.packed, ctx.a, ctx.w, x, g.to(torch.float32).contiguous()
+            )
         grads, dcoeff = to_plist_grads(grads, da, kind, n_basis)
         flat = [t for pair in grads for t in pair]
         out = [t.reshape(s).to(dt) for t, (s, dt) in zip(flat, ctx.shapes)]

@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.kernels import fused_mlp
+from ..ops.kernels import fused_mlp, fused_mlp_enc
 from ..ops.occupancy import OccupancyGrid, carve_feasible, with_coarse
 from ..ops.sampling import RayDataset, build_sampling_table
 from ..parallel import collectives, is_coordinator
@@ -233,6 +233,16 @@ def _span_line(spans: SpanTotals) -> str:
             + "  ".join(f"{k}={v:.3f}" for k, v in per.items())
             + f"  replay gap {gap} ({spans.chunk_replays} steps in chunks, "
               f"{spans.chunks_left_out} chunks left out)")
+
+
+def _mlp_bwd_counts() -> tuple[int, int, int, int]:
+    """The MLP backward's host counts: the launches, launched 16-point
+    tiles and points of kernels #2 and #4 together (a job runs one of
+    them), and #2's launches on chip."""
+    return (fused_mlp.bwd_launches + fused_mlp_enc.enc_bwd_launches,
+            fused_mlp.bwd_tiles + fused_mlp_enc.enc_bwd_tiles,
+            fused_mlp.bwd_points + fused_mlp_enc.enc_bwd_points,
+            fused_mlp.bwd_onchip)
 
 
 def _sync(device: torch.device) -> None:
@@ -414,12 +424,12 @@ def train(
     if verbose and nan_checks_on():
         print("debug_nans: every step runs eagerly, each operation's output checked for "
               "NaN (no CUDA graph is captured)")
-    # the step spans and chunk device spans (training/graph.py), and kernel
-    # #2's counts: launches, launched tiles and points on the host, active
-    # tiles on the card (before any capture, so no graph makes the counter)
+    # the step spans and chunk device spans (training/graph.py), and the MLP
+    # backward's counts: launches, launched tiles and points on the host,
+    # active tiles on the card (before any capture, so no graph makes the
+    # counter)
     spans = SpanTotals()
-    bwd0 = (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points,
-            fused_mlp.bwd_onchip)
+    bwd0 = _mlp_bwd_counts()
     tiles0 = fused_mlp.active_tiles(device).clone() if device.type == "cuda" else None
     t_start = time.perf_counter()
 
@@ -601,15 +611,14 @@ def train(
     elapsed = time.perf_counter() - t_start
     timing["total"] = elapsed
     # the step spans (device ms summed over span_steps replayed steps), the
-    # replay-only chunk calls' device span and steps, and kernel #2's counts
+    # replay-only chunk calls' device span and steps, and the MLP backward's
+    # counts (kernel #2's, or #4's in an encoded job)
     timing["step_spans_ms"] = dict(spans.step_ms)
     timing["span_steps"] = spans.span_steps
     timing["chunk_device_s"] = spans.chunk_device_s
     timing["chunk_replays"] = spans.chunk_replays
     timing["chunks_left_out"] = spans.chunks_left_out
-    launches, tiles, points, onchip = (a - b for a, b in zip(
-        (fused_mlp.bwd_launches, fused_mlp.bwd_tiles, fused_mlp.bwd_points,
-         fused_mlp.bwd_onchip), bwd0))
+    launches, tiles, points, onchip = (a - b for a, b in zip(_mlp_bwd_counts(), bwd0))
     active = (int((fused_mlp.active_tiles(device) - tiles0).item())
               if tiles0 is not None else 0)
     timing["mlp_bwd_tiles"] = {"active": active, "launched": tiles, "points": points,
