@@ -31,10 +31,13 @@ Phases:
      steps: dense until the chooser engages, then the compacted stepper the
      chooser and the pressure tuner pick), and 300 steps with
      ``march_mode='hybrid'``, each with its launch counters read around it:
-     the first-k kernel must have launched once per step in modes that call
-     it (twice in the two-bucket modes); then the first-k kernel held
+     every compacted step marched once through the march kernels
+     (csrc/march.cu: one launch a step, three in the two-bucket modes; #5 not
+     at all, its first-k fused in); then the first-k kernel held
      bit-for-bit against its plain version on masks of the trained grid at
-     the training path's shapes, the fused-MLP kernels re-timed at the
+     the training path's shapes, the march kernels against the op chain bit
+     for bit at the CT Tunings (check_march: both timed as graph replays,
+     the byte bound beside them), the fused-MLP kernels re-timed at the
      compacted point count, and 16 compacted steps profiled (no host wait
      for the device inside a step);
   5. the whole-step kernel (fused_train_step): held against its plain
@@ -95,8 +98,8 @@ Phases:
      ray, mode='sdf'), one view's DRR on the card against the CPU's, 600
      steps at the shipped defaults with compact_engage_max 192 and the
      source at z = 4000, with log_dir and checkpoint_every (all six launch
-     counters read around the run: #1 and #2 launched, #5 as often as the
-     compacted steps' Tunings make it, #3, #4 and #6 never), then
+     counters read around the run: #1 and #2 launched, the march kernels
+     at every compacted step, #3, #4 and #6 never), then
      highmodel.npz read back bit-equal to the best model and re-rendering
      the reported best held-out PSNR, the grid VTKs read back equal, the
      newest resume checkpoint restored equal to what was saved, and a
@@ -119,8 +122,8 @@ Phases:
      (0.02, 0.98)), kernel #1 at the
      batch's and the field chunks' point counts and first-k (CT) bit for bit
      on the batch's march mask; the six launch counters read around each
-     sweep (#1 once a batch and once a field chunk, #5 once a CT batch, the
-     rest never); the seconds by part and peak device memory; every
+     sweep (#1 once a batch and once a field chunk, the march kernel once a
+     CT batch, the rest never); the seconds by part and peak device memory; every
      artifact read back (the CSV with JAX's header, every PNG, the summary,
      the VTK, every heatmap and per-angle JSON, the rotation videos). Where
      the card lacks PIL
@@ -138,10 +141,11 @@ Phases:
      one's CSVs read back by ``load_data`` equal to the in-memory dataset bit
      for bit (the file's grid equal to transfer_func_ct of its raw values);
      the train CLI for 600 steps at the shipped defaults on the CT CSVs
-     (launch counters read around it: #1, #2 and #5 launched, #3, #4 and #6
-     never; its run directory written), its best held-out PSNR and steady
+     (launch counters read around it: #1, #2 and the march kernels
+     launched, #3, #4 and #6 never; its run directory written), its best held-out PSNR and steady
      rays/s printed beside an in-process train() on the in-memory dataset;
-     the evaluate CLI's full 37x37 sweep of that run (#1 343 + 31, #5 343;
+     the evaluate CLI's full 37x37 sweep of that run (#1 343 + 31, the march
+     kernel 343;
      1,369 metric rows, 703 per-angle JSONs held to the sweep's images,
      every other artifact read back); load_experiments reading the run;
   12. pose refinement (``pose_phase``): the vessel phantom with every view
@@ -154,7 +158,8 @@ Phases:
      trained pose model on the shipped run's trained grid at the lattice
      k = 160 and two-bucket Tunings, and one fourier lattice pose step with
      the fourier run's weights, each through the kernels and through their
-     plain versions on the card: #5 (and #3/#4) launched, the view shifts'
+     plain versions on the card (the march kernels against the op chain):
+     the march kernels (and #3/#4) launched, the view shifts'
      gradients within GRAD_NORM_MAX, the backward kernel's dx at the step's
      own g within check_bwd's limits, exactly 0 on the skipped tiles, its
      time beside the bound over the active tiles; 40 replayed lattice pose
@@ -402,6 +407,7 @@ def ptxas_summary(log: str, width: int, ke: int | None = None) -> str:
         short = re.search(
             r"(wgmma_enc_fwd_kernel|wgmma_march_fwd_kernel|wgmma_fwd_kernel|fwd_kernel"
             r"|onchip_bwd_kernel|bwd_chain_kernel|wgrad_kernel|reduce_partials|first_k_kernel"
+            r"|march_fine_kernel|march_front_kernel|march_sort_kernel"
             r"|tile_list_kernel"
             r"|scan_serial_kernel|scan_kernel)",
             mangled)
@@ -456,8 +462,10 @@ def build_kernels(fm, fk, fs, fe) -> dict:
         load()
         return time.perf_counter() - t0
 
+    from nerf_for_angiography_tpu_torch.ops.kernels import march as mk
+
     t0 = time.perf_counter()
-    mods = (fm, fk, fs, fe)
+    mods = (fm, fk, fs, fe, mk)
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = [(mod, ex.submit(timed, mod._load_lib)) for mod in mods]
         secs = [(mod, f.result()) for mod, f in futs]
@@ -467,6 +475,7 @@ def build_kernels(fm, fk, fs, fe) -> dict:
     print("nvcc ptxas first_k:", ptxas_summary(fk.build_log, 0))
     print("nvcc ptxas fused_step:", ptxas_summary(fs.build_log, 128))
     print("nvcc ptxas fused_mlp_enc:", ptxas_summary(fe.build_log, 128, ke=48))
+    print("nvcc ptxas march:", ptxas_summary(mk.build_log, 0))
     for mod in mods:
         for ln in mod.build_log.splitlines():
             if "Performance Loss" in ln or "wgmma" in ln.lower() and "warning" in ln.lower():
@@ -804,19 +813,24 @@ def train_loss(torch, state, rays, cfg, src_z: float = SRC_Z) -> tuple[float, li
 
 def read_counts(fm, fk, fs) -> dict:
     """Every kernel's launch count since the last reset_counts(), the
-    encoded pair's (#3/#4) among them."""
+    encoded pair's (#3/#4) and the march kernels' among them, and the
+    compacted marches the march kernels and the op chain ran."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+    from nerf_for_angiography_tpu_torch.ops.kernels import march as mk
 
     return dict(fwd_launches=fm.fwd_launches, bwd_launches=fm.bwd_launches,
                 first_k_launches=fk.launches, fused_step_launches=fs.fused_step_launches,
-                enc_fwd_launches=fe.enc_fwd_launches, enc_bwd_launches=fe.enc_bwd_launches)
+                enc_fwd_launches=fe.enc_fwd_launches, enc_bwd_launches=fe.enc_bwd_launches,
+                march_launches=mk.launches, march_fused=mk.march_fused,
+                march_chain=mk.march_chain)
 
 
 def reset_all(fm, fk, fs) -> None:
-    """Set all six launch counters to 0."""
+    """Set every launch counter and march tally to 0."""
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+    from nerf_for_angiography_tpu_torch.ops.kernels import march as mk
 
-    for mod in (fm, fk, fs, fe):
+    for mod in (fm, fk, fs, fe, mk):
         mod.reset_counts()
 
 
@@ -979,15 +993,19 @@ def tuning_cfg(cfg, t: dict):
     )
 
 
-def first_k_calls_per_step(fk, cfg, t: dict, grid, batch, src_z: float = SRC_Z) -> int:
-    """First-k launches one step of Tuning ``t`` makes: read off one march
-    of that Tuning on a training batch (outside every counted run)."""
+def first_k_calls_per_step(fk, cfg, t: dict, grid, batch, src_z: float = SRC_Z) -> dict:
+    """The first-k and march-kernel launches one step of Tuning ``t`` makes
+    ({"first_k", "march"}; #5 launches only in a march the op chain runs,
+    the march kernels 1 a march, 3 on two buckets): read off one march of
+    that Tuning on a training batch (outside every counted run)."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import march as mk
     from nerf_for_angiography_tpu_torch.training.train import _march_for
 
     fk.reset_counts()
+    mk.reset_counts()
     _march_for(tuning_cfg(cfg, t), grid, batch.origins, batch.directions,
                src_z - cfg.outside, src_z + cfg.outside)
-    return fk.launches
+    return dict(first_k=fk.launches, march=mk.launches)
 
 
 def marches_per_step(cfg, t: dict, grid, batch, src_z: float = SRC_Z) -> int:
@@ -1003,9 +1021,12 @@ def marches_per_step(cfg, t: dict, grid, batch, src_z: float = SRC_Z) -> int:
 
 def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
                   **train_kw) -> dict:
-    """One train() run with all six launch counters set to 0 just before it
+    """One train() run with every launch counter set to 0 just before it
     and read just after; the first-k launches must equal the compacted steps
-    times the launches a step of their Tuning makes. With
+    times the launches a step of their Tuning makes (0 where the march
+    kernels march), every compacted step must march once through the march
+    kernels (``timing["march_fused"]``, ``march_chain`` 0) and their
+    launches reach the steps' (the chooser's window marches add theirs). With
     ``cfg.fused_train_step == 'on'`` the fused-step launches must equal the
     rectangular marches of every step and the split backward never runs;
     otherwise the split backward runs once a step: kernel #2, or for an
@@ -1044,7 +1065,8 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
     batch = sample_pixel_rays(res.state.generator, ds.rays, cfg.img_sample_size, impl="gumbel")
     per_step = [first_k_calls_per_step(fk, cfg, p, res.state.grid, batch, src_z)
                 for p in phases]
-    expected_fk = sum(n * p["steps"] for n, p in zip(per_step, phases))
+    expected_fk = sum(n["first_k"] * p["steps"] for n, p in zip(per_step, phases))
+    expected_march = sum(n["march"] * p["steps"] for n, p in zip(per_step, phases))
     compact_steps = sum(p["steps"] for p in phases)
     rect = [marches_per_step(cfg, p, res.state.grid, batch, src_z) for p in phases]
     expected_fs = (steps - compact_steps) + sum(n * p["steps"] for n, p in zip(rect, phases))
@@ -1054,14 +1076,16 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
     out = dict(
         label=label, steps=steps, compact_steps=compact_steps, **counts,
         first_k_expected=expected_fk, fused_step_expected=expected_fs if fused else 0,
+        march_expected=expected_march, march_fused_steps=t["march_fused"],
+        march_chain_steps=t["march_chain"],
         first_k_shapes=sorted(fk_shapes), tuning_final=t["tuning_final"],
         steady_rays_per_sec=t["steady_rays_per_sec"], step_compact_s=t["step_compact"],
         step_dense_s=t["step_dense"], dense_rays=t["dense_rays"], choose_s=t["choose"],
         compile_s=t["compile"],
         total_s=t["total"], pressure_fired=t["pressure_fired"],
         pressure_muted=t["pressure_muted"], decay_bounces=t["decay_bounces"],
-        phases=[{**p, "first_k_per_step": n, "marches_per_step": m}
-                for p, n, m in zip(phases, per_step, rect)],
+        phases=[{**p, "first_k_per_step": n["first_k"], "march_launches_per_step": n["march"],
+                 "marches_per_step": m} for p, n, m in zip(phases, per_step, rect)],
         train_loss=loss, heldout_psnr=res.last_psnr, best_heldout_psnr=res.best_heldout_psnr,
         rays_per_s_incl_first=res.rays_per_sec, grid_updates=grid_updates, evals=evals,
         barf_coarse_first=float(barf_alphas[0]), barf_coarse_last=float(barf_alphas[-1]),
@@ -1079,9 +1103,12 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
     for p, n in zip(phases, per_step):
         print(f"  phase {p['mode']} k={p['k']} w_cap={p['w_cap']} w_lo={p['w_lo']} "
               f"k_lo={p['k_lo']}: {p['steps']} steps ({p['rays']} steady rays in "
-              f"{p['wall_s']:.3f} s), {n} first-k launches per step")
+              f"{p['wall_s']:.3f} s), {n['first_k']} first-k and {n['march']} march-kernel "
+              f"launches per step")
     print(f"{label}: launches fwd {fwd_n} bwd {bwd_n} first_k {fk_n} (expected {expected_fk} "
-          f"from {compact_steps} compacted steps; shapes {sorted(fk_shapes)}) fused_step {fs_n}"
+          f"from {compact_steps} compacted steps; shapes {sorted(fk_shapes)}) march "
+          f"{counts['march_launches']} (the steps' {expected_march}; compacted steps marched "
+          f"by the kernels {t['march_fused']}, by the chain {t['march_chain']}) fused_step {fs_n}"
           + (f" (expected {expected_fs}: the rectangular marches of {steps} steps)" if fused else "")
           + f" enc_fwd {counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}"
           + f"; steps {steps}, grid updates {grid_updates}, evals {evals}; train loss {loss:.6f}, "
@@ -1093,6 +1120,15 @@ def compacted_run(torch, fm, fk, fs, ds, cfg, label: str, src_z: float = SRC_Z,
     out["schedule"] = check_schedule(sched, cfg, label, logged=bool(train_kw.get("log_dir")),
                                      checkpoint_every=train_kw.get("checkpoint_every"))
     check(fk_n == expected_fk, f"{label}: first_k launches {fk_n} != expected {expected_fk}")
+    # the marches the kernels ran off the steps (the chooser's window
+    # marches; the evals march the dense lattice) launch once each
+    expected_march_all = expected_march + counts["march_fused"] - t["march_fused"]
+    check(t["march_fused"] == compact_steps and t["march_chain"] == 0
+          and counts["march_launches"] == expected_march_all,
+          f"{label}: {compact_steps} compacted steps marched {t['march_fused']} times by the "
+          f"kernels and {t['march_chain']} by the chain, {counts['march_launches']} march "
+          f"launches (the steps' {expected_march}, {expected_march_all} with the "
+          f"{counts['march_fused'] - t['march_fused']} marches off the steps)")
     out["result"] = res
     if encoded:
         enc_f, enc_b = counts["enc_fwd_launches"], counts["enc_bwd_launches"]
@@ -1316,6 +1352,106 @@ def fk_kernel_ms(torch, fk, mask, k: int, n: int = 50) -> float:
     return time_ms(torch, launches, reps=10, warmup=2) / n
 
 
+@contextlib.contextmanager
+def chain_marches():
+    """Within the block every compacted march takes the op chain, the march
+    kernels' plain version, on the card too (a yardstick, outside every
+    counted run)."""
+    occ = importlib.import_module("nerf_for_angiography_tpu_torch.ops.occupancy")
+    saved = occ.takes_kernels
+    occ.takes_kernels = lambda device, shard=None: False
+    try:
+        yield
+    finally:
+        occ.takes_kernels = saved
+
+
+def march_fields(m) -> dict:
+    """Every tensor of a march: a MarchedRays' fields, a BucketedRays' lo /
+    hi fields, perm and inv."""
+    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+
+    if isinstance(m, BucketedRays):
+        return {**{f"lo.{k}": v for k, v in march_fields(m.lo).items()},
+                **{f"hi.{k}": v for k, v in march_fields(m.hi).items()},
+                "perm": m.perm, "inv": m.inv}
+    return {k: v for k, v in m._asdict().items() if v is not None}
+
+
+def graph_ms(torch, fn, n: int = 50) -> float:
+    """Device ms of one fn() captured into a CUDA graph (after one eager
+    call), over ``n`` replays back to back: as a step's replay runs it,
+    without the host's issue of each call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+
+    def replays():
+        for _ in range(n):
+            graph.replay()
+
+    return time_ms(torch, replays, reps=5, warmup=1) / n
+
+
+def check_march(torch, grid, cfg, batch, tunings, label: str, src_z: float = SRC_Z) -> list[dict]:
+    """The march kernels (csrc/march.cu) against the op chain on the card at
+    each Tuning: every output bit for bit (floats compared as their bits,
+    perm and inv among the integers), the launches and tallies of one
+    march, the kernels' and the chain's device ms a march (graph replays)
+    and the bound: the written points (rows x k of each bucket) x 24 B
+    (position, t_start, t_end, mask) at 3.35 TB/s."""
+    from nerf_for_angiography_tpu_torch.ops.kernels import march as mk
+    from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
+    from nerf_for_angiography_tpu_torch.training.train import _march_for
+
+    near, far = src_z - cfg.outside, src_z + cfg.outside
+    rows = []
+    for t in tunings:
+        tcfg = tuning_cfg(cfg, t)
+
+        def run():
+            return _march_for(tcfg, grid, batch.origins, batch.directions, near, far)
+
+        mk.reset_counts()
+        got = run()
+        torch.cuda.synchronize()
+        tallies = dict(launches=mk.launches, march_fused=mk.march_fused,
+                       march_chain=mk.march_chain)
+        with chain_marches():
+            want = run()
+            chain_ms = graph_ms(torch, run, n=20)
+        ms = graph_ms(torch, run)
+        g, w = march_fields(got), march_fields(want)
+        unequal = sorted(k for k in w if k not in g or g[k].dtype != w[k].dtype
+                         or g[k].shape != w[k].shape or not torch.equal(
+                             *(x.view(torch.int32) if x.dtype == torch.float32 else x
+                               for x in (g[k], w[k]))))
+        max_err = max((float((g[k] - w[k]).abs().max()) for k in w
+                       if k not in unequal and w[k].dtype == torch.float32 and w[k].numel()),
+                      default=0.0)
+        parts = [got.lo, got.hi] if isinstance(got, BucketedRays) else [got]
+        points = sum(p.mask.numel() for p in parts)
+        bound_ms = points * 24 / 3.35e12 * 1e3
+        name = f"{label} {t['mode']} k={t['k']}" + (
+            f" w_cap={t['w_cap']} w_lo={t['w_lo']} k_lo={t['k_lo']}" if t["w_lo"] else "")
+        row = dict(label=name, tuning=t, rays=int(batch.origins.shape[0]), points=points,
+                   ms=ms, chain_ms=chain_ms, bound_ms=bound_ms, unequal=unequal,
+                   max_abs_err=max_err, **tallies)
+        print(f"march kernels, {name}: {len(g)} outputs bit-identical to the chain "
+              f"{not unequal}{' (' + ', '.join(unequal) + ' differ)' if unequal else ''} "
+              f"(max_abs_err {max_err}); "
+              f"{tallies['launches']} launches; {ms:.4f} ms a march (chain {chain_ms:.4f}, "
+              f"{chain_ms / ms:.1f}x); bound {bound_ms:.4f} ms ({points} points x 24 B)")
+        check(not unequal, f"march kernels, {name}: {unequal} differ from the chain")
+        check(tallies["march_fused"] == 1 and tallies["march_chain"] == 0
+              and tallies["launches"] == (3 if t["w_lo"] else 1),
+              f"march kernels, {name}: tallies {tallies}")
+        rows.append(row)
+    return rows
+
+
 def check_first_k(torch, fk, grid, cfg, batch, shapes, src_z: float = SRC_Z) -> list[dict]:
     """The kernel against its plain version, bit for bit, at each shape, with
     its time, the plain version's, a two-call composite's and the bound."""
@@ -1380,7 +1516,8 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
     check(main["compact_steps"] > 0, "the shipped-default run never engaged the compacted stepper")
     hcfg = TrainConfig(n_iters=HYBRID_ITERS, display_every=100, march_mode="hybrid")
     hyb = compacted_run(torch, fm, fk, fs, ds, hcfg, "forced hybrid")
-    check(hyb["first_k_launches"] > 0, "the forced-hybrid run never launched the first-k kernel")
+    check(hyb["march_launches"] > 0 and hyb["first_k_launches"] == 0,
+          "the forced-hybrid run never launched the march kernels, or launched first-k")
 
     state = main["result"].state
     batch = sample_pixel_rays(state.generator, ds.rays, cfg.img_sample_size, impl="gumbel")
@@ -1389,7 +1526,7 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
                             list(FK_SHAPES) + [s for s in seen if s not in FK_SHAPES])
     # the kernel table's row: the main path's largest shape (else the
     # forced-hybrid run's)
-    path_shapes = main["first_k_shapes"] or hyb["first_k_shapes"]
+    path_shapes = main["first_k_shapes"] or hyb["first_k_shapes"] or FK_SHAPES
     key = max(path_shapes, key=lambda s: s[0] * s[1])
     fk_row = next(r for r in fk_rows if (r["R"], r["w"], r["k"]) == key)
 
@@ -1421,9 +1558,13 @@ def compact_phase(torch, fm, fk, fs, ds, report: dict) -> dict:
           f"backward chain {prof['bwd_kernels_ms']['bwd_chain_kernel']:.4f} ms/step, weight "
           f"gradients {prof['bwd_kernels_ms']['wgrad_kernel']:.4f} ms/step; {profile_row(prof)}")
     two = two_bucket_steps(torch, fm, fk, fs, state, ds.rays, cfg, batch)
+    # the march kernels against the chain at the CT cell's Tunings and the run's final one
+    march = check_march(torch, state.grid, cfg, batch,
+                        [dict(LATTICE, k=96), LATTICE, TWO_BUCKET]
+                        + [t for t in (final,) if t and t not in (LATTICE, TWO_BUCKET)], "ct")
     hyb.pop("result")
     out = dict(shipped=main, hybrid=hyb, first_k=fk_rows, first_k_row=fk_row, mlp=mlp,
-               profile=prof, compact_p=p, two_bucket=two, final=final)
+               profile=prof, compact_p=p, two_bucket=two, final=final, march=march)
     report["compact"] = {**out, "shipped": {k: v for k, v in main.items() if k != "result"}}
     return {**out, "batch": batch, "shipped_best": eval_states[main["result"].best_iter]}
 
@@ -1437,8 +1578,8 @@ TWO_BUCKET_STEPS = 50
 def two_bucket_steps(torch, fm, fk, fs, state, rays, cfg, batch) -> dict:
     """TWO_BUCKET_STEPS steps of the trained state at the fixed two-bucket
     Tuning as one make_train_chunk call (replayed graphs after one eager
-    step of each grid-update kind), launch counts read around them (two
-    first-k launches a step), then that step's profile."""
+    step of each grid-update kind), launch counts read around them (three
+    march-kernel launches a step, no first-k), then that step's profile."""
     from nerf_for_angiography_tpu_torch.ops.occupancy import BucketedRays
     from nerf_for_angiography_tpu_torch.ops.sampling import build_sampling_table
     from nerf_for_angiography_tpu_torch.training import make_train_chunk
@@ -1460,13 +1601,15 @@ def two_bucket_steps(torch, fm, fk, fs, state, rays, cfg, batch) -> dict:
     print(f"two-bucket steps {TWO_BUCKET}: {TWO_BUCKET_STEPS} steps ({chunk.captures} graphs "
           f"captured), launches fwd "
           f"{counts['fwd_launches']} bwd {counts['bwd_launches']} first_k "
-          f"{counts['first_k_launches']} (shapes {sorted(fk.shapes)}) fused_step "
+          f"{counts['first_k_launches']} (shapes {sorted(fk.shapes)}) march "
+          f"{counts['march_launches']} fused_step "
           f"{counts['fused_step_launches']}, last step's pressure {out['pressure']}")
     check(counts["bwd_launches"] == TWO_BUCKET_STEPS
-          and counts["first_k_launches"] == 2 * TWO_BUCKET_STEPS
+          and counts["march_launches"] == 3 * TWO_BUCKET_STEPS
+          and counts["march_fused"] == TWO_BUCKET_STEPS and counts["first_k_launches"] == 0
           and counts["fused_step_launches"] == 0,
-          "the two-bucket steps did not launch one backward, two first-k kernels and no "
-          "whole-step kernel a step")
+          "the two-bucket steps did not launch one backward, the three march kernels, no first-k "
+          "and no whole-step kernel a step")
     check_no_enc(counts, "two-bucket steps")
     print(f"two-bucket step profile at {TWO_BUCKET}:")
     out["profile"] = step_profile(torch, state, rays, tcfg)
@@ -3221,9 +3364,13 @@ def lca_kernel_checks(torch, fm, fk, cfg, src_z: float, state, rays, tunings: li
     for t in distinct:
         name = f"{label} " + (f"{t['mode']} k={t['k']}" if t["k"] else "dense") + (
             f" w_cap={t['w_cap']} w_lo={t['w_lo']} k_lo={t['k_lo']}" if t["w_lo"] else "")
+        # #5's masks: those the op chain hands it at this Tuning (the march
+        # kernels fuse first-k in)
         fk.reset_counts()
-        m = _march_for(tuning_cfg(cfg, t), state.grid, batch.origins, batch.directions, near, far)
+        with chain_marches():
+            _march_for(tuning_cfg(cfg, t), state.grid, batch.origins, batch.directions, near, far)
         fk_shapes += [s for s in sorted(fk.shapes) if s not in fk_shapes]
+        m = _march_for(tuning_cfg(cfg, t), state.grid, batch.origins, batch.directions, near, far)
         xg = [split_raw_grad(torch, lambda x: fm.fused_mlp_raw(plist, x), *b, kw)
               for b in rect_blocks(m, batch.origins, batch.directions, batch.pixel_values)]
         x, g = torch.cat([a for a, _ in xg]), torch.cat([b for _, b in xg])
@@ -3239,11 +3386,14 @@ def lca_kernel_checks(torch, fm, fk, cfg, src_z: float, state, rays, tunings: li
                                f"{name} step, trained state", xg=(x, g)),
                      active_tile_share=share)]
     first_k = check_first_k(torch, fk, state.grid, cfg, batch, fk_shapes, src_z)
+    march = check_march(torch, state.grid, cfg, batch, [t for t in distinct if t["k"]], label,
+                        src_z)
     for r in fwd:
         r.pop("x")
     print(f"{label}: kernel #1 held at {sorted({r['P'] for r in fwd})} points, #2 at "
-          f"{sorted({r['P'] for r in bwd})}, #5 at {fk_shapes}")
-    return dict(eval_p=p_eval, fwd=fwd, bwd=bwd, first_k=first_k)
+          f"{sorted({r['P'] for r in bwd})}, #5 at {fk_shapes}, the march kernels at "
+          f"{[r['label'] for r in march]}")
+    return dict(eval_p=p_eval, fwd=fwd, bwd=bwd, first_k=first_k, march=march)
 
 
 def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
@@ -3267,7 +3417,9 @@ def lca_phase(torch, fm, fk, fs, report: dict) -> tuple:
     res = run.pop("result")
     print(f"lca: the chooser {'engaged' if run['compact_steps'] else 'never engaged'}: "
           f"first-k launched {run['first_k_launches']} times = {run['compact_steps']} compacted "
-          f"steps x their Tunings' launches a step ({run['first_k_expected']} expected)")
+          f"steps x their Tunings' launches a step ({run['first_k_expected']} expected); the "
+          f"march kernels {run['march_launches']} ({run['march_fused_steps']} compacted steps "
+          f"marched by them)")
     check(run["fwd_launches"] > 0 and run["bwd_launches"] > 0,
           "lca: kernel #1 or #2 never launched")
     check(run["fused_step_launches"] == 0 and run["enc_fwd_launches"] == 0
@@ -3741,9 +3893,11 @@ def sweep_run(torch, fm, fk, fs, label: str, model, grid, cfg, volume, gt, out_d
     n_views = len(sweep_angles(cfg))
     batches = math.ceil(n_views / max(1, cfg.chunk_views))
     chunks = math.ceil(cfg.field_resolution ** 3 / EVAL_CHUNK)
-    want = dict(fwd_launches=batches + chunks,
-                first_k_launches=batches if cfg.data_name == "ct" else 0,
-                bwd_launches=0, fused_step_launches=0, enc_fwd_launches=0, enc_bwd_launches=0)
+    # the CT sweep's compacted lattice march: one march-kernel launch a batch
+    marched = batches if cfg.data_name == "ct" else 0
+    want = dict(fwd_launches=batches + chunks, first_k_launches=0,
+                bwd_launches=0, fused_step_launches=0, enc_fwd_launches=0, enc_bwd_launches=0,
+                march_launches=marched, march_fused=marched, march_chain=0)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem0 = torch.cuda.memory_allocated()
@@ -3768,8 +3922,9 @@ def sweep_run(torch, fm, fk, fs, label: str, model, grid, cfg, volume, gt, out_d
     print(f"{label} sweep: {n_views} views of {cfg.img_width}x{cfg.img_height} in {batches} "
           f"batches of {cfg.chunk_views}, {cfg.depth_samples_per_ray} samples a ray, field "
           f"{cfg.field_resolution}^3 in {chunks} chunks: {sweep_s:.2f} s ({parts}); launches "
-          f"fwd {counts['fwd_launches']} (expected {want['fwd_launches']}) first_k "
-          f"{counts['first_k_launches']} (expected {want['first_k_launches']}) bwd "
+          f"fwd {counts['fwd_launches']} (expected {want['fwd_launches']}) march "
+          f"{counts['march_launches']} (expected {want['march_launches']}) first_k "
+          f"{counts['first_k_launches']} bwd "
           f"{counts['bwd_launches']} fused_step {counts['fused_step_launches']} enc_fwd "
           f"{counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}; peak device "
           f"memory {peak:.3f} GiB allocated ({mem0 / 2**30:.3f} GiB before)")
@@ -4094,7 +4249,8 @@ def cli_phase(torch, fm, fk, fs, ev: dict, lca_ds, report: dict) -> dict:
                          device=DEVICE)
             t, ts = res.timing, same.timing
             print(f"train CLI: {res.iters_run + 1} steps at the shipped defaults; launches "
-                  f"fwd {counts['fwd_launches']} bwd {counts['bwd_launches']} first_k "
+                  f"fwd {counts['fwd_launches']} bwd {counts['bwd_launches']} march "
+                  f"{counts['march_launches']} first_k "
                   f"{counts['first_k_launches']} fused_step {counts['fused_step_launches']} "
                   f"enc_fwd {counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}; "
                   f"wrote {', '.join(f for f, ok in written.items() if ok)} under {rd}; best "
@@ -4105,8 +4261,10 @@ def cli_phase(torch, fm, fk, fs, ev: dict, lca_ds, report: dict) -> dict:
                   f"rays/s (final Tuning {ts['tuning_final']}); best PSNR equal "
                   f"{same.best_heldout_psnr == res.best_heldout_psnr} (a record, not a gate)")
             check(counts["fwd_launches"] > 0 and counts["bwd_launches"] > 0
-                  and counts["first_k_launches"] > 0 and counts["fused_step_launches"] == 0,
-                  f"train CLI: launches {counts}: #1, #2 and #5 must launch, #6 never")
+                  and counts["march_launches"] > 0 and counts["march_chain"] == 0
+                  and counts["fused_step_launches"] == 0,
+                  f"train CLI: launches {counts}: #1, #2 and the march kernels must launch, "
+                  f"#6 never")
             check_no_enc(counts, "train CLI")
             check(all(written.values()), f"train CLI: {rd} lacks {written}")
             out["train"] = dict(**counts, run_dir=rd, steps=res.iters_run + 1,
@@ -4123,8 +4281,9 @@ def cli_phase(torch, fm, fk, fs, ev: dict, lca_ds, report: dict) -> dict:
             n_views, n_angle_jsons = CLI_SWEEP
             batches = math.ceil(n_views / ecfg.chunk_views)
             want = dict(fwd_launches=batches + math.ceil(ecfg.field_resolution ** 3 / EVAL_CHUNK),
-                        first_k_launches=batches, bwd_launches=0, fused_step_launches=0,
-                        enc_fwd_launches=0, enc_bwd_launches=0)
+                        first_k_launches=0, bwd_launches=0, fused_step_launches=0,
+                        enc_fwd_launches=0, enc_bwd_launches=0, march_launches=batches,
+                        march_fused=batches, march_chain=0)
             reset_all(fm, fk, fs)
             t0 = time.perf_counter()
             with recorded_field() as fields:
@@ -4134,8 +4293,9 @@ def cli_phase(torch, fm, fk, fs, ev: dict, lca_ds, report: dict) -> dict:
             counts = read_counts(fm, fk, fs)
             table = tables[rd]
             print(f"evaluate CLI: the {n_views}-view sweep of {rd} in {eval_s:.2f} s; launches "
-                  f"fwd {counts['fwd_launches']} (expected {want['fwd_launches']}) first_k "
-                  f"{counts['first_k_launches']} (expected {want['first_k_launches']}) bwd "
+                  f"fwd {counts['fwd_launches']} (expected {want['fwd_launches']}) march "
+                  f"{counts['march_launches']} (expected {want['march_launches']}) first_k "
+                  f"{counts['first_k_launches']} bwd "
                   f"{counts['bwd_launches']} fused_step {counts['fused_step_launches']} enc_fwd "
                   f"{counts['enc_fwd_launches']} enc_bwd {counts['enc_bwd_launches']}")
             check(counts == want, f"evaluate CLI: launches {counts} != {want}")
@@ -4269,20 +4429,22 @@ def mlp_dispatch(fm, fe, plain: bool, record: list):
     """Within the block the MLP backward wrappers append what a step hands
     them ((packed, x, g), and for the encoded pair (packed, a, w, x, g)) to
     ``record``; with ``plain`` the fused-MLP pairs and first-k dispatch to
-    their plain versions on the card (a yardstick, outside every counted
-    run)."""
+    their plain versions on the card, the marches to the op chain (a
+    yardstick, outside every counted run)."""
     occ = importlib.import_module("nerf_for_angiography_tpu_torch.ops.occupancy")
     fk = importlib.import_module("nerf_for_angiography_tpu_torch.ops.kernels.first_k")
     saved = {(fm, "fused_mlp_fwd"): fm.fused_mlp_fwd, (fm, "fused_mlp_bwd"): fm.fused_mlp_bwd,
              (fe, "fused_mlp_enc_fwd"): fe.fused_mlp_enc_fwd,
              (fe, "fused_mlp_enc_bwd"): fe.fused_mlp_enc_bwd,
-             (occ, "first_k_active"): occ.first_k_active}
+             (occ, "first_k_active"): occ.first_k_active,
+             (occ, "takes_kernels"): occ.takes_kernels}
     bwd, enc_bwd = saved[(fm, "fused_mlp_bwd")], saved[(fe, "fused_mlp_enc_bwd")]
     if plain:
         bwd, enc_bwd = fm.fused_mlp_bwd_reference, fe.fused_mlp_enc_bwd_reference
         fm.fused_mlp_fwd = fm.fused_mlp_fwd_reference
         fe.fused_mlp_enc_fwd = fe.fused_mlp_enc_fwd_reference
         occ.first_k_active = fk.first_k_active_reference
+        occ.takes_kernels = lambda device, shard=None: False
 
     def recording_bwd(packed, x, g, feature_major=False):
         record.append((packed, x, g))
@@ -4615,9 +4777,10 @@ def pose_phase(torch, fm, fk, fs, fe, cp: dict, ep: dict, report: dict) -> dict:
         st = pose_state_from(torch, base, cfg, shifts)
         steps_out[name] = pose_step_check(torch, fm, fk, fs, fe, st, tuning_cfg(cfg, tun), batch,
                                           name)
-        want_fk = 1 if tun is LATTICE else 2
+        want_march = 1 if tun is LATTICE else 3
         c = steps_out[name]
-        check(c["first_k_launches"] == want_fk and c["bwd_launches"] == 1
+        check(c["march_launches"] == want_march and c["march_fused"] == 1
+              and c["first_k_launches"] == 0 and c["bwd_launches"] == 1
               and c["fwd_launches"] >= 1 and c["fused_step_launches"] == 0,
               f"pose step, {name}: launches {c}")
     fcfg = TrainConfig(pos_enc="fourier", pose_refine=True, pose_start=POSE_START)
@@ -4627,7 +4790,8 @@ def pose_phase(torch, fm, fk, fs, fe, cp: dict, ep: dict, report: dict) -> dict:
                                       batch, name)
     c = steps_out[name]
     check(c["enc_fwd_launches"] >= 1 and c["enc_bwd_launches"] == 1
-          and c["first_k_launches"] == 1 and c["fwd_launches"] == 0 and c["bwd_launches"] == 0,
+          and c["march_launches"] == 1 and c["first_k_launches"] == 0
+          and c["fwd_launches"] == 0 and c["bwd_launches"] == 0,
           f"pose step, {name}: launches {c}")
 
     # the replayed pose step against the eager one, across the grid update at 608
@@ -4661,7 +4825,7 @@ def pose_phase(torch, fm, fk, fs, fe, cp: dict, ep: dict, report: dict) -> dict:
           f"the metrics and pixels equal to the eager steps' bit for bit: {not unequal}; "
           f"launches {g['counts']} (eager {e['counts']})")
     check(not unequal, f"pose replay: replayed and eager steps differ in {unequal}")
-    check(g["counts"] == e["counts"] and chunk.captures >= 1 and g["counts"]["first_k_launches"]
+    check(g["counts"] == e["counts"] and chunk.captures >= 1 and g["counts"]["march_fused"]
           == POSE_REPLAY_STEPS, f"pose replay: launches {g['counts']} / {e['counts']}")
 
     # where a replayed pose step's time goes (the graph phase profiles the
@@ -5320,6 +5484,7 @@ def main() -> int:
         name: {k: r[key] for k, r in runs.items()}
         for name, key in (("fused_mlp_fwd", "fwd_launches"), ("fused_mlp_bwd", "bwd_launches"),
                           ("first_k_active", "first_k_launches"),
+                          ("march", "march_launches"),
                           ("fused_step", "fused_step_launches"),
                           ("fused_mlp_enc_fwd", "enc_fwd_launches"),
                           ("fused_mlp_enc_bwd", "enc_bwd_launches"))
@@ -5331,6 +5496,17 @@ def main() -> int:
         max_abs_err=fk_row["max_abs_err"], ms=fk_row["ms"], plain_ms=fk_row["plain_ms"],
         bound_ms=fk_row["bound_ms"], bound_by=fk_row["bound_by"], library_ms=None,
         shape=[fk_row["R"], fk_row["w"], fk_row["k"]],
+    ))
+    # the march kernels: the CT two-bucket Tuning's row, every checked Tuning beside it
+    march_keys = ("rays", "points", "launches", "ms", "chain_ms", "bound_ms", "max_abs_err")
+    m_row = next(r for r in cp["march"] if r["tuning"] == TWO_BUCKET)
+    rows.append(dict(
+        name="march", route="cuda", source="nerf_for_angiography_tpu_torch/csrc/march.cu",
+        replaces="none: ops/occupancy.py's compacted marches as an op chain (with #5)",
+        launches=0, max_abs_err=m_row["max_abs_err"], ms=m_row["ms"],
+        plain_ms=m_row["chain_ms"],
+        bound_ms=m_row["bound_ms"], bound_by="bytes", library_ms=None, shape=m_row["label"],
+        shapes={r["label"]: {k: r[k] for k in march_keys} for r in cp["march"]},
     ))
     fs_row = fp["shapes"]["dense"]["random"]
     rows.append(dict(
@@ -5438,6 +5614,8 @@ def main() -> int:
             f"{phase}: R={r['R']} w={r['w']} k={r['k']}": {
                 k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
             for r in lk["first_k"]})
+        next(r for r in rows if r["name"] == "march")["shapes"].update({
+            f"{phase}: {r['label']}": {k: r[k] for k in march_keys} for r in lk["march"]})
     # kernels #2 and #4 at the pose steps' own g (pose_step_check; bound over the active tiles)
     pose_keys = ("P", "active_tile_share", "dx_bad_share", "dx_rel_l2", "dx_zero_on_skipped",
                  "grad_norm_err", "view_shifts_grad_norm_err", "ms", "plain_ms", "bound_ms",

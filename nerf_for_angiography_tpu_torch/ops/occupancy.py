@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import shard_bounds
+from .kernels import march as mk
 from .kernels.first_k import first_k_active
 
 
@@ -358,6 +359,31 @@ class MarchedRays(NamedTuple):
     edge_active: torch.Tensor | None = None
 
 
+def takes_kernels(device, shard: tuple[int, int] | None = None) -> bool:
+    """The dispatch of a compacted march (every mode): the march kernels
+    (ops/kernels/march.py) for rays on the card and an unsharded march, the
+    op chain below, their plain version, otherwise. A chain march counts
+    in ``march_chain``, a kernel march in ``march_fused``; the dense
+    lattice counts in neither."""
+    return torch.device(device).type == "cuda" and shard is None
+
+
+def _origin_grad(positions: torch.Tensor, origins: torch.Tensor) -> torch.Tensor:
+    """The kernels' positions carry no autograd. Where the origins require
+    grad (pose refinement), ``positions + (o - o.detach())``: the same
+    values, and the backward of the chain's ``o[..., None, :] + d * t``,
+    the broadcast sum over the samples."""
+    if not (origins.requires_grad and torch.is_grad_enabled()):
+        return positions
+    return positions + (origins - origins.detach())[..., None, :]
+
+
+def _kernel_rays(out: list, origins: torch.Tensor) -> MarchedRays:
+    """MarchedRays of a kernel's outputs, its rows on ``origins``."""
+    ts, te, pos, mask, count, edge = out
+    return MarchedRays(ts, te, _origin_grad(pos, origins), mask, count, edge)
+
+
 def _occupied(grid: OccupancyGrid, positions: torch.Tensor, occ_stride: int) -> torch.Tensor:
     """Occupancy of every sample of (..., n, 3) positions; with
     ``occ_stride > 1`` the grid is probed every stride-th sample and a
@@ -396,6 +422,14 @@ def march_rays(
     ``compact_k``: emit only the first k active samples per ray
     (_first_k_active); t and positions of the kept samples are recomputed
     from their lattice indices."""
+    compacting = compact_k is not None and compact_k < n_samples
+    if compacting:
+        _check_fka(fka)
+        if takes_kernels(origins.device):
+            return _kernel_rays(mk.march_fine_cuda(
+                origins, directions, grid.aabb, grid.binary, n_samples, near, far, mk.LATTICE,
+                n_samples, compact_k, occ_stride=occ_stride), origins)
+        mk.count_chain()
     step = (far - near) / n_samples
     i = torch.arange(n_samples, dtype=torch.float32, device=origins.device)
     t_starts = (near + i * step).expand(origins.shape[:-1] + (n_samples,))
@@ -406,7 +440,7 @@ def march_rays(
     t_enter, t_exit = ray_aabb_intersect(grid.aabb, origins, directions)
     in_box = (t_mid >= t_enter[..., None]) & (t_mid <= t_exit[..., None])
     mask = (in_box & _occupied(grid, positions, occ_stride)).to(torch.float32)
-    if compact_k is None or compact_k >= n_samples:
+    if not compacting:
         return MarchedRays(t_starts=t_starts, t_ends=t_ends, positions=positions, mask=mask)
 
     sel, mask_k = _first_k_active(mask, compact_k, fka)
@@ -420,14 +454,18 @@ def march_rays(
     )
 
 
+def _check_fka(fka: str) -> None:
+    if fka not in ("xla", "pallas"):
+        raise ValueError(f"unknown first-k implementation fka={fka!r} (use 'xla' or 'pallas')")
+
+
 def _first_k_active(mask: torch.Tensor, k: int, fka: str = "xla"):
     """(sel, mask_k): indices and activity of the first k active samples of
     each row (ops/kernels/first_k.py). The JAX package's two
     implementations, 'xla' (a broadcast compare and count) and 'pallas'
     (the TPU kernel), compute the same function; in the port both names
     mean it: the CUDA kernel on the card, its plain version on the CPU."""
-    if fka not in ("xla", "pallas"):
-        raise ValueError(f"unknown first-k implementation fka={fka!r} (use 'xla' or 'pallas')")
+    _check_fka(fka)
     return first_k_active(mask, k)
 
 
@@ -441,18 +479,11 @@ def window_probe_stride(
     return max(1, min(n_samples, int(2.0 * cell / step) - 1))
 
 
-def coarse_window(
-    grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor, n_samples: int,
-    near: float, far: float, coarse_factor: int | None = None,
-    aabb_extent: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-ray conservative active sample-index window from the dilated
-    coarse grid -> (start_idx, end_idx, any_hit), each (R,), int32/int32/bool.
-
-    Every active fine sample of the exact march lies in [start, end] (the
-    dilation + probe-stride guarantee of coarse_dilated_grid /
-    window_probe_stride). Pass ``aabb_extent`` on a hot path: without it the
-    extent is read from ``grid.aabb`` (a device-to-host copy)."""
+def _window_plan(grid: OccupancyGrid, n_samples: int, near: float, far: float,
+                 coarse_factor: int | None, aabb_extent: float | None):
+    """How coarse_window probes: (table, stride, slack, n_probe), the
+    dilated coarse table (the grid's cached one at its own factor) and the
+    probe stride, the window's tightening per side and the probe count."""
     res = grid.resolution
     if coarse_factor is None:
         coarse_factor = grid.coarse_factor
@@ -470,7 +501,24 @@ def coarse_window(
     # of it, i.e. no active sample within cell/step samples: the window
     # tightens by `slack` per side
     slack = max(int((aabb_extent / cres) / step) - 1, 0)
-    n_probe = -(-n_samples // stride)
+    return table, stride, slack, -(-n_samples // stride)
+
+
+def coarse_window(
+    grid: OccupancyGrid, origins: torch.Tensor, directions: torch.Tensor, n_samples: int,
+    near: float, far: float, coarse_factor: int | None = None,
+    aabb_extent: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-ray conservative active sample-index window from the dilated
+    coarse grid -> (start_idx, end_idx, any_hit), each (R,), int32/int32/bool.
+
+    Every active fine sample of the exact march lies in [start, end] (the
+    dilation + probe-stride guarantee of coarse_dilated_grid /
+    window_probe_stride). Pass ``aabb_extent`` on a hot path: without it the
+    extent is read from ``grid.aabb`` (a device-to-host copy)."""
+    table, stride, slack, n_probe = _window_plan(
+        grid, n_samples, near, far, coarse_factor, aabb_extent)
+    step = (far - near) / n_samples
     dev = origins.device
     probe_idx = torch.clamp(
         torch.arange(n_probe, dtype=torch.int32, device=dev) * stride, max=n_samples - 1
@@ -506,6 +554,12 @@ def march_rays_window(
     occupied segments are kept too and composited with their own density.
     Rays whose active span exceeds k lose their farthest samples; rays with
     no probe hit are fully masked."""
+    if takes_kernels(origins.device):
+        plan = _window_plan(grid, n_samples, near, far, coarse_factor, aabb_extent)
+        return _kernel_rays(mk.march_fine_cuda(
+            origins, directions, grid.aabb, grid.binary, n_samples, near, far, mk.WINDOW, k, k,
+            coarse=plan), origins)
+    mk.count_chain()
     start_idx, end_idx, any_hit = coarse_window(
         grid, origins, directions, n_samples, near, far,
         coarse_factor=coarse_factor, aabb_extent=aabb_extent,
@@ -545,6 +599,13 @@ def march_rays_hybrid(
     if w_cap is None:
         w_cap = hybrid_w_cap(k, n_samples)
     w_cap = min(w_cap, n_samples)
+    if takes_kernels(origins.device):
+        _check_fka(fka)
+        plan = _window_plan(grid, n_samples, near, far, coarse_factor, aabb_extent)
+        return _kernel_rays(mk.march_fine_cuda(
+            origins, directions, grid.aabb, grid.binary, n_samples, near, far, mk.HYBRID, w_cap, k,
+            occ_stride=occ_stride, coarse=plan), origins)
+    mk.count_chain()
     start_idx, _, any_hit = coarse_window(
         grid, origins, directions, n_samples, near, far,
         coarse_factor=coarse_factor, aabb_extent=aabb_extent,
@@ -667,6 +728,14 @@ def march_rays_hybrid2(
         if shard is not None:
             return share_march(march_rays_hybrid, grid, origins, directions, shard, **kw)
         return march_rays_hybrid(grid, origins, directions, **kw)
+    if takes_kernels(origins.device, shard):
+        _check_fka(fka)
+        plan = _window_plan(grid, n_samples, near, far, coarse_factor, aabb_extent)
+        out, _, _, _ = mk.march_buckets_cuda(
+            origins, directions, grid.aabb, grid.binary, n_samples, near, far, cut, (w_lo, k),
+            (w_cap, k), occ_stride=occ_stride, coarse=plan, scatter=True)
+        return _kernel_rays(out, origins)
+    mk.count_chain()
     perm, st_s, ah_s, o_s, d_s = _span_sorted(
         grid, origins, directions, n_samples, near, far, coarse_factor, aabb_extent
     )
@@ -738,6 +807,17 @@ def march_rays_hybrid2k(
         if shard is not None:
             return share_march(march_rays_hybrid, grid, origins, directions, shard, **kw)
         return march_rays_hybrid(grid, origins, directions, **kw)
+    if takes_kernels(origins.device, shard):
+        _check_fka(fka)
+        plan = _window_plan(grid, n_samples, near, far, coarse_factor, aabb_extent)
+        lo, hi, perm, inv = mk.march_buckets_cuda(
+            origins, directions, grid.aabb, grid.binary, n_samples, near, far, cut, (w_lo, k_lo),
+            (w_cap, k), occ_stride=occ_stride, coarse=plan)
+        # the chain's gradient path: the origins taken through perm, then cut
+        o_s = origins.index_select(0, perm) if origins.requires_grad else origins
+        return BucketedRays(lo=_kernel_rays(lo, o_s[:cut]), hi=_kernel_rays(hi, o_s[cut:]),
+                            inv=inv, perm=perm)
+    mk.count_chain()
     perm, st_s, ah_s, o_s, d_s = _span_sorted(
         grid, origins, directions, n_samples, near, far, coarse_factor, aabb_extent
     )

@@ -58,17 +58,19 @@ from typing import Any, Callable
 
 import torch
 
-from ..ops.kernels import first_k, fused_mlp, fused_mlp_enc, fused_step
+from ..ops.kernels import first_k, fused_mlp, fused_mlp_enc, fused_step, march
 from ..utils.profiling import SpanRecorder, annotate, nan_checks_on
 
 # the wrappers' launch counters (each adds one where it launches its kernel),
-# kernel #2's on-chip launches, and #2's and #4's launched tiles and points
+# kernel #2's on-chip launches, #2's and #4's launched tiles and points, and
+# the compacted marches the march kernels and the op chain ran
 _COUNTERS = (
     (fused_mlp, "fwd_launches"), (fused_mlp, "bwd_launches"),
     (fused_mlp_enc, "enc_fwd_launches"), (fused_mlp_enc, "enc_bwd_launches"),
     (first_k, "launches"), (fused_step, "fused_step_launches"),
     (fused_mlp, "bwd_tiles"), (fused_mlp, "bwd_points"), (fused_mlp, "bwd_onchip"),
     (fused_mlp_enc, "enc_bwd_tiles"), (fused_mlp_enc, "enc_bwd_points"),
+    (march, "launches"), (march, "march_fused"), (march, "march_chain"),
 )
 
 

@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.kernels import fused_mlp, fused_mlp_enc
+from ..ops.kernels import fused_mlp, fused_mlp_enc, march
 from ..ops.occupancy import OccupancyGrid, carve_feasible, with_coarse
 from ..ops.sampling import RayDataset, build_sampling_table
 from ..parallel import collectives, is_coordinator
@@ -429,6 +429,8 @@ def train(
     # active tiles on the card (before any capture, so no graph makes the
     # counter)
     spans = SpanTotals()
+    # the compacted marches of the steps: by the march kernels, by the chain
+    step_marches = [0, 0]
     bwd0 = _mlp_bwd_counts()
     tiles0 = fused_mlp.active_tiles(device).clone() if device.type == "cuda" else None
     t_start = time.perf_counter()
@@ -447,6 +449,7 @@ def train(
         seen_chunks.add(id(chunk))
         t0 = time.perf_counter()
         compiled = chunk.compile_s
+        marches0 = (march.march_fused, march.march_chain)
         with annotate("loop/chunk"):
             state, metrics, pred_pix, target_pix = chunk(state, train_rays, count)
             # one device-to-host copy per chunk (a copy on the CPU too: the
@@ -456,6 +459,8 @@ def train(
                      if "march/over_k" in metrics else None)  # a compacted step (k < depth)
             _sync(device)
         dt = time.perf_counter() - t0
+        step_marches[0] += march.march_fused - marches0[0]
+        step_marches[1] += march.march_chain - marches0[1]
         chunk.read_spans(spans)
         compiled = chunk.compile_s - compiled  # its first step and its captures
         timing["compile"] += compiled
@@ -623,6 +628,9 @@ def train(
               if tiles0 is not None else 0)
     timing["mlp_bwd_tiles"] = {"active": active, "launched": tiles, "points": points,
                                "launches": launches, "onchip": onchip}
+    # the steps' compacted marches by the march kernels and by the op chain
+    # (one a compacted step; the dense lattice counts in neither)
+    timing["march_fused"], timing["march_chain"] = step_marches
     timing["other"] = max(0.0, elapsed - sum(
         timing[k] for k in ("step_dense", "step_compact", "compile", "eval", "choose",
                             "log", "export")

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from nerf_for_angiography_tpu_torch.models import CPPN, CPPNConfig
+from nerf_for_angiography_tpu_torch.ops import occupancy as occ
 from nerf_for_angiography_tpu_torch.ops.kernels import first_k as fk
 from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp as fm
 from nerf_for_angiography_tpu_torch.ops.kernels import fused_mlp_enc as fe
+from nerf_for_angiography_tpu_torch.ops.kernels import march as mk
 
 pytestmark = pytest.mark.cuda
 
@@ -222,8 +224,9 @@ def test_first_k_batch_shape_and_rules(dev):
 
 
 def test_compacted_step_on_card_launches_the_kernel(dev, monkeypatch):
-    """A hybrid2k step on the card reaches the first-k kernel twice (one
-    launch per bucket) and never the plain version."""
+    """A hybrid2k step on the card marches through the march kernels (the
+    front, sort and fine launches, #5's first-k fused in) and never reaches
+    the plain first-k version."""
     from nerf_for_angiography_tpu_torch.data import (
         DatagenConfig, generate_dataset, make_sphere_volume,
     )
@@ -250,10 +253,12 @@ def test_compacted_step_on_card_launches_the_kernel(dev, monkeypatch):
                                  ds.rays.directions[:256], 1400.0, 1600.0), BucketedRays)
     step = make_train_step(model, cfg, 1400.0, 1600.0)
     fk.reset_counts()
+    mk.reset_counts()
     state, metrics, _, _ = step(state, ds.rays)
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss/train-pixel-coarse"])
-    assert fk.launches == 2 and int(metrics["march/ac"]) >= 0
+    assert (mk.launches, mk.march_fused, mk.march_chain, fk.launches) == (3, 1, 0, 0)
+    assert int(metrics["march/ac"]) >= 0
 
 
 def _march_inputs(r, k, dev, eps_scale=1.0, masked_rows=5, p_active=0.7, seed=0):
@@ -1084,13 +1089,13 @@ def _all_counts():
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
 
     return (fm.fwd_launches, fm.bwd_launches, fk.launches, fs.fused_step_launches,
-            fe.enc_fwd_launches, fe.enc_bwd_launches)
+            fe.enc_fwd_launches, fe.enc_bwd_launches, mk.launches)
 
 
 def _reset_counts():
     from nerf_for_angiography_tpu_torch.ops.kernels import fused_step as fs
 
-    for mod in (fm, fk, fs, fe):
+    for mod in (fm, fk, fs, fe, mk):
         mod.reset_counts()
 
 
@@ -1248,6 +1253,7 @@ def test_kernel_launches_inside_a_capture(dev):
     mask = (torch.rand((300, 77), generator=gen) < 0.4).to(torch.float32).to(dev)
     o, d, t_mid, m, tgt = _march_inputs(211, 40, dev, eps_scale=1.5)
     kw = dict(step=1.5, early_stop_eps=1e-2, n_rays_loss=211, input_scale=0.9)
+    grid = occ.create_grid([-1.0] * 3 + [1.0] * 3, 32, device=dev)
     launches = {
         "fwd": lambda: fm.fused_mlp_fwd_cuda(packed, x),
         "bwd": lambda: fm.fused_mlp_bwd_cuda(packed, x, g),
@@ -1255,6 +1261,8 @@ def test_kernel_launches_inside_a_capture(dev):
         "enc_bwd": lambda: fe.fused_mlp_enc_bwd_cuda(e_packed, a, w, x, g),
         "first_k": lambda: fk.first_k_active_cuda(mask, 29),
         "fused_step": lambda: fs.fused_step_grads_cuda(packed, o, d, t_mid, m, tgt, **kw),
+        "march": lambda: mk.march_fine_cuda(o, d, grid.aabb, grid.binary, 64, 0.5, 4.5,
+                                            mk.LATTICE, 64, 24, occ_stride=2),
     }
 
     def flat(out):
@@ -1269,7 +1277,7 @@ def test_kernel_launches_inside_a_capture(dev):
             out = launch()
         counted = {attr: n for (_, attr), n in tally.items()}
         # one launch; kernel #2 also tallies its launched tiles and points
-        assert _all_counts() == (0,) * 6, name
+        assert _all_counts() == (0,) * 7, name
         assert sum(n for attr, n in counted.items() if attr.endswith("launches")) == 1, name
         if name == "bwd":
             assert counted["bwd_tiles"] == -(-3001 // 16) and counted["bwd_points"] == 3001
@@ -1360,9 +1368,9 @@ def _eval_model_grid(dev, outside=100.0, bias=-5.0, gain=4.0, res=32):
 
 @pytest.mark.parametrize("branch", ["ct", "lca"])
 def test_sweep_batch_on_the_card_matches_the_cpu(dev, branch):
-    """The batch renderer on the card (kernel #1, first-k in the CT branch's
-    compacted lattice march) against the same batch on the CPU (the plain
-    versions): pixels within the port's render tolerance, 2e-2."""
+    """The batch renderer on the card (kernel #1, the march kernel for the
+    CT branch's compacted lattice march) against the same batch on the CPU
+    (the plain versions): pixels within the port's render tolerance, 2e-2."""
     import copy
 
     from nerf_for_angiography_tpu_torch.evaluation import (
@@ -1378,9 +1386,11 @@ def test_sweep_batch_on_the_card_matches_the_cpu(dev, branch):
     thetas, phis = [30.0, 300.0, 0.0, 180.0], [45.0, 10.0, 0.0, 270.0]
     fk.reset_counts()
     fm.reset_counts()
+    mk.reset_counts()
     px, bpx, c2w = make_batch_view_renderer(model, grid, cfg)(grid, thetas, phis)
     torch.cuda.synchronize()
-    assert fm.fwd_launches == 1 and fk.launches == (1 if branch == "ct" else 0)
+    assert fm.fwd_launches == 1 and fk.launches == 0
+    assert mk.launches == mk.march_fused == (1 if branch == "ct" else 0)
     grid_cpu = type(grid)(*(t.cpu() if t is not None else None for t in grid))
     cpx, cbpx, cc2w = make_batch_view_renderer(copy.deepcopy(model).cpu(), grid_cpu, cfg)(
         grid_cpu, thetas, phis)
@@ -1406,8 +1416,9 @@ def test_first_k_at_the_ct_sweep_shape(dev):
 
 def test_sweep_on_the_card_launch_counts(dev, tmp_path):
     """A small run_sweep on the card: kernel #1 once a batch and once a
-    field chunk, first-k once a CT batch, the other kernels never; every
-    artifact written."""
+    field chunk, the march kernel once a CT batch (its compacted lattice
+    march, first-k fused in), the other kernels never; every artifact
+    written."""
     import os
 
     from nerf_for_angiography_tpu_torch.data import make_sphere_volume
@@ -1420,13 +1431,13 @@ def test_sweep_on_the_card_launch_counts(dev, tmp_path):
                      img_height=32, field_resolution=70, save_videos=False,
                      save_heatmap=False)
     vol = make_sphere_volume(res=24, device=dev)
-    for mod in (fm, fk, fe, fs):
+    for mod in (fm, fk, fe, fs, mk):
         mod.reset_counts()
     table = run_sweep(model, grid, cfg, gt_from_volume(vol, cfg), str(tmp_path), verbose=False,
                       gt_volume_sampler=lambda p: trilinear(vol, p), device=dev)
     torch.cuda.synchronize()
     # 25 views in 7 batches of 4; 70^3 = 343,000 points in 2 chunks
-    assert (fm.fwd_launches, fk.launches) == (7 + 2, 7)
+    assert (fm.fwd_launches, fk.launches, mk.launches, mk.march_fused) == (7 + 2, 0, 7, 7)
     assert (fm.bwd_launches, fe.enc_fwd_launches, fe.enc_bwd_launches,
             fs.fused_step_launches) == (0, 0, 0, 0)
     assert table["pred_img"].shape == (25, 32 * 32) and np.isfinite(table["PSNR"]).all()
@@ -1829,3 +1840,5 @@ def test_train_reports_spans_and_tiles_on_the_card(dev):
     assert tiles["launches"] == res.iters_run + 1
     assert tiles["onchip"] == tiles["launches"]  # 4 x 128: every launch on chip
     assert 0 < tiles["active"] <= tiles["launched"] and tiles["points"] <= 16 * tiles["launched"]
+    # every compacted step marched once, through the march kernels
+    assert t["march_fused"] == sum(p["steps"] for p in t["steady_phases"]) and t["march_chain"] == 0

@@ -275,7 +275,7 @@ def test_train_reports_its_spans(sphere_rays, capsys):
     """A tiny CPU train() gives every new timing key: the stages' ms over
     the stepped steps, their sum the step span, the chunk calls' span,
     kernel #2's counts (0 on the CPU: its plain version
-    launches nothing) and the verbose line."""
+    launches nothing), the steps' compacted marches and the verbose line."""
     res = train(TrainConfig(**_TINY, compact_samples=16), sphere_rays, src_pt_z=1500.0,
                 device="cpu")
     t = res.timing
@@ -287,6 +287,9 @@ def test_train_reports_its_spans(sphere_rays, capsys):
     assert spans["step"] > 0 and t["chunk_device_s"] > 0
     assert t["mlp_bwd_tiles"] == {"active": 0, "launched": 0, "points": 0, "launches": 0,
                                   "onchip": 0}
+    # every compacted step marched once, on the chain (the CPU)
+    assert t["march_fused"] == 0
+    assert t["march_chain"] == sum(p["steps"] for p in t["steady_phases"])
     assert f"step spans (ms a step, {t['span_steps']} steps): sample=" in capsys.readouterr().out
 
 

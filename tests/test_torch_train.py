@@ -119,9 +119,10 @@ def test_tiny_train_runs_on_cpu():
         "step_dense", "step_compact", "compile", "eval", "choose", "log", "export", "total",
         "other", "dense_rays", "pressure_fired", "pressure_muted", "decay_bounces",
         "steady_rays_per_sec", "tuning_final", "steady_phases",
-        # the port's step spans and kernel #2's counts (no JAX counterpart)
+        # the port's step spans, kernel #2's counts and the steps' compacted
+        # marches by the march kernels and the chain (no JAX counterpart)
         "step_spans_ms", "span_steps", "chunk_device_s", "chunk_replays", "chunks_left_out",
-        "mlp_bwd_tiles",
+        "mlp_bwd_tiles", "march_fused", "march_chain",
     }
     assert res.iters_run == 12 and res.state.step == 13
     assert np.isfinite(res.best_heldout_psnr) and np.isfinite(res.last_psnr)
